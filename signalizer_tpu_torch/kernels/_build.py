@@ -1,0 +1,124 @@
+"""Build the port's CUDA kernels from ``signalizer_tpu_torch/csrc`` on first
+use and load them with ``ctypes``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds, not minutes)
+for ``sm_90a``. The library lands in ``build/signalizer_tpu_torch/`` beside
+the package, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads the existing file. Nothing here runs at
+import: :func:`library` builds on its first call, and raises if ``nvcc`` is
+missing or the build fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "signalizer_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (every pointer and the stream as
+# c_void_p, every int as c_int; each returns its cudaError_t as an int)
+SIGNATURES = {
+    # frames, window, twiddles, out, batch, channels, window_size,
+    # log2_n, mode, stream
+    "sig_window_fft_mag": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # mags, interp_indices, interp_weights, interp_mask, single_mask,
+    # single_bin, chunk_lo, chunk_len, slope_map, decay_poles,
+    # display_scalars, valid, state, out, pairs, T, K, rows, P, n_values,
+    # taps, stream
+    "sig_display_map": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+# what the last build in this process printed and how long it took
+build_info = {"seconds": None, "log": "", "path": None}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc``, or ``nvcc``
+    on ``PATH``; raises if none exists."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH): the "
+            "CUDA toolkit is needed to build signalizer_tpu_torch/csrc"
+        )
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = BUILD_DIR / f"libsignalizer_tpu_torch_{_digest()}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path = build()
+    build_info["path"] = str(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sig_error_string.argtypes = (ctypes.c_int,)
+    lib.sig_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().sig_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: cudaError_t {err} ({msg})")

@@ -1,0 +1,257 @@
+"""Spectrum analysis: window -> FFT -> magnitude -> pixel remap -> decay -> dB.
+
+Counterpart of :mod:`signalizer_tpu.kernels.spectrum` (ref:
+Source/Spectrum/TransformDSP.inl — prepareTransform :38-231, doTransform
+:486-502, mapToLinearSpace :504-1135, mapAndTransformDFTFilters
+:1297-1435), with the same shapes and semantics. Two stages carry the
+Spectrum step, each a hand-written CUDA kernel with a plain PyTorch version
+beside it:
+
+* stage 1, :func:`~signalizer_tpu_torch.kernels.window_fft_mag.window_fft_mag`
+  — channel packing, window, FFT, DC/Nyquist halving, ``|.|``;
+* the magnitude tail, :func:`~signalizer_tpu_torch.kernels.display_map.display_map`
+  — ``_remap_mag``, peak decay over T and K, dB map.
+
+A CPU tensor runs the plain versions, a CUDA tensor the kernels. PHASE
+needs complex interpolation, a first-maximum argbin and phase smoothing,
+which no kernel carries (the JAX package ran them as XLA ops too): on
+either device its tail is the plain code below, fed by stage 1's complex
+output. For the magnitude modes, :func:`spectrum_values` and
+:func:`post_process` are the CPU halves of the tail; on a device the
+remapped values exist only inside kernel B, so they raise there and
+:func:`analyze_frames` is the entry point. Only the linear max-decay
+semantics are ported; ``decay_domain`` is accepted for API parity and
+ignored.
+
+The carried :class:`LineGraphState` is updated in place by
+:func:`post_process` and :func:`analyze_frames` (the JAX step donated it).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from signalizer_tpu.core.config import SpectrumChannels
+from signalizer_tpu_torch.core.constant import SpectrumConstant
+from signalizer_tpu_torch.kernels.display_map import (  # noqa: F401 — re-exported
+    _binmax_mag,
+    _db_map,
+    _interp,
+    _interp_mag,
+    _remap_mag,
+    decay_db,
+    display_map,
+)
+from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
+from signalizer_tpu_torch.kernels.window_fft_mag import (  # noqa: F401 — re-exported
+    _half_spectrum,
+    _pack_channels,
+    window_fft_mag,
+)
+
+
+class LineGraphState(NamedTuple):
+    """Per-line-graph peak-decay filter state
+    (ref: TransformPair.h:63-94 LineGraphDesc.states)."""
+
+    magnitude: torch.Tensor  # [..., K, rows, P] decayed peak magnitudes
+    phase: torch.Tensor  # [..., K, P] smoothed phase (Phase mode only)
+
+
+def init_line_graph_state(
+    constant: SpectrumConstant, batch_shape: Tuple[int, ...] = ()
+) -> LineGraphState:
+    k = constant.num_line_graphs
+    rows = constant.state_channels
+    p = constant.axis_points
+    dev = constant.device
+    return LineGraphState(
+        magnitude=torch.zeros(batch_shape + (k, rows, p), dtype=torch.float32, device=dev),
+        phase=torch.zeros(batch_shape + (k, p), dtype=torch.float32, device=dev),
+    )
+
+
+def line_graph_state_from_arrays(magnitude, phase, device) -> LineGraphState:
+    """A :class:`LineGraphState` from carried state given as arrays (e.g. a
+    JAX state read with ``np.asarray``), copied to ``device``."""
+    return LineGraphState(
+        magnitude=torch.tensor(magnitude, dtype=torch.float32, device=device),
+        phase=torch.tensor(phase, dtype=torch.float32, device=device),
+    )
+
+
+def stitch_preliminary(
+    constant: SpectrumConstant,
+    history: torch.Tensor,
+    preliminary: torch.Tensor,
+    num_samples: int = None,
+) -> torch.Tensor:
+    """Stitch an analysis window from retained history plus a raw
+    in-flight block not yet committed to the history (ref: the
+    preliminary-audio prepareTransform overload, TransformDSP.inl:233-484).
+
+    ``history`` [..., C, H >= window - stop] (newest last), ``preliminary``
+    [..., C, S]; ``num_samples`` (defaults to S) = how many leading
+    preliminary samples are valid. Returns the stitched [..., C, window]
+    frame, bit-equal to framing after the block commits.
+    """
+    w = constant.window_size
+    s = preliminary.shape[-1]
+    stop = min(int(num_samples) if num_samples is not None else s, w)
+    hist_n = w - stop
+    parts = []
+    if hist_n:
+        h = history.shape[-1]
+        if h < hist_n:
+            raise ValueError(f"history {h} < required tail {hist_n}")
+        parts.append(history[..., h - hist_n : h])
+    if stop:
+        parts.append(preliminary[..., :stop])
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+
+
+def _binmax_argbin(values: torch.Tensor, constant: SpectrumConstant) -> torch.Tensor:
+    """First bin index achieving the chunk max of ``values`` per pixel
+    (ref: strictly-greater update in TransformDSP.inl:826-838 selects the
+    first maximum). values [..., n_values] -> int64 [..., P]."""
+    g = torch.where(constant.band_mask, values[..., constant.band_idx], -torch.inf)
+    first = constant.band_idx[:, 0] + torch.argmax(g, dim=-1)  # first maximum
+    return torch.where(constant.single_mask, constant.single_bin.long(), first)
+
+
+def _magnitude_modes_on_cpu(constant: SpectrumConstant, x: torch.Tensor, name: str) -> None:
+    if constant.configuration != SpectrumChannels.PHASE and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"{name}: {constant.configuration.name} values on {x.device} exist only inside "
+            "kernel B; call analyze_frames"
+        )
+
+
+def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
+    """Frames [..., C, W] -> display-space linear values [..., rows, P].
+
+    * mono modes / Complex: rows=1, magnitude.
+    * Separate / MidSide: rows=2, (first, second) magnitudes.
+    * Phase: rows=2, (mid magnitude, phase-cancellation in [0, 1]).
+
+    The magnitude modes take CPU tensors only (see the module docstring).
+    """
+    _magnitude_modes_on_cpu(constant, frames, "spectrum_values")
+    inv = constant.inv_size
+    stage1 = window_fft_mag(constant, frames)
+    if constant.configuration != SpectrumChannels.PHASE:
+        # magnitudes for every other mode: the reference abs()'s csf
+        # before its loops (ref: TransformDSP.inl:557-560/866-869/999-1002)
+        return inv * _remap_mag(stage1, constant)
+
+    spec = stage1  # [..., 2, nb+1] complex
+    mags = spec.abs()
+    l, r = spec[..., 0, :], spec[..., 1, :]
+    # interpolation region: complex interp for cancellation, magnitude
+    # interp for mid (ref: TransformDSP.inl:671-803)
+    il = _interp(l, constant)
+    ir = _interp(r, constant)
+    mid_i = inv * (_interp(mags[..., 0, :], constant) + _interp(mags[..., 1, :], constant))
+    cancel_num = inv * (il + ir).abs()
+    mid_for_cancel = inv * (il.abs() + ir.abs())
+    cancel_i = 1.0 - torch.where(
+        mid_for_cancel > 0, cancel_num / torch.clamp(mid_for_cancel, min=1e-30), 0.0
+    )
+    # bin-max region: argmax of max(|L|^2, |R|^2) per chunk
+    # (ref: TransformDSP.inl:813-850)
+    power = torch.maximum(mags[..., 0, :], mags[..., 1, :])
+    maxbin = _binmax_argbin(power, constant)  # [..., P]
+    lm = torch.gather(l, -1, maxbin)
+    rm = torch.gather(r, -1, maxbin)
+    mid_b = inv * (lm.abs() + rm.abs())
+    interference = inv * (lm + rm).abs()
+    cancel_b = 1.0 - torch.where(mid_b > 0, interference / torch.clamp(mid_b, min=1e-30), 0.0)
+    mid = torch.where(constant.interp_mask, mid_i, mid_b)
+    cancel = torch.where(constant.interp_mask, cancel_i, cancel_b)
+    return torch.stack([mid, cancel], dim=-2)
+
+
+class SpectrumResult(NamedTuple):
+    """Post-processed display frames: ``results`` [..., T, K, rows, P]
+    normalized display values; ``state`` the carry for the next call."""
+
+    results: torch.Tensor
+    state: LineGraphState
+
+
+def post_process(
+    constant: SpectrumConstant,
+    state: LineGraphState,
+    vals: torch.Tensor,
+    valid=None,
+    decay_domain: str = "auto",
+) -> SpectrumResult:
+    """Per-line-graph peak decay + dB mapping over a time-sequence.
+
+    ``vals`` [..., T, rows, P] are time-ordered linear display values (from
+    :func:`spectrum_values`); ``state = max(pole * state, new)`` (ref:
+    TransformDSP.inl:1336-1341) runs as a loop over T. ``valid`` (optional
+    [T] bool) marks padded frames that leave every filter state untouched.
+    ``state``'s tensors are updated in place and returned in the result.
+    ``decay_domain`` is accepted for parity with the JAX package and
+    ignored: the port has the linear semantics only. The magnitude modes
+    take CPU tensors only (see the module docstring).
+    """
+    del decay_domain
+    _magnitude_modes_on_cpu(constant, vals, "post_process")
+    if constant.configuration != SpectrumChannels.PHASE:
+        results = decay_db(constant, state.magnitude, vals, valid)
+        return SpectrumResult(results, state)
+
+    poles = constant.decay_poles  # [K]
+    seq = vals[..., :, None, :, :]  # [..., T, 1, rows, P]
+    mag_seq = seq[..., 0:1, :] * 0.5  # ref: consts::half at :1407
+    cancel_seq = seq[..., 1:2, :]
+    decayed, new_mag_state = peak_decay_scan(
+        state.magnitude[..., 0:1, :], mag_seq, poles[:, None, None],
+        time_axis=-4, valid=valid,
+    )
+    # phase smoothing: one-pole toward (cancel * mag) with pole^0.3
+    # (ref: TransformDSP.inl:1395-1419)
+    target = torch.movedim(cancel_seq[..., 0, :] * mag_seq[..., 0, :], -3, 0)  # [T, ..., K, P]
+    phase_pole = poles[:, None] ** 0.3
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=vals.device)
+    carry = state.phase
+    phases = []
+    for t in range(target.shape[0]):
+        out = target[t] + phase_pole * (carry - target[t])
+        carry = out if valid is None else torch.where(valid[t], out, carry)
+        phases.append(carry)
+    phases = torch.stack(phases, dim=-3)  # [..., T, K, P]
+    mag_db = _db_map(constant, decayed[..., 0, :])
+    phase_db = _db_map(constant, phases)
+    results = torch.stack([mag_db, phase_db], dim=-2)  # [..., T, K, rows=2, P]
+    state.magnitude[..., 0:1, :] = new_mag_state
+    state.phase.copy_(carry)
+    return SpectrumResult(results, state)
+
+
+def analyze_frames(
+    constant: SpectrumConstant,
+    state: LineGraphState,
+    frames: torch.Tensor,
+    valid=None,
+    decay_domain: str = "auto",
+) -> SpectrumResult:
+    """Full pipeline: frames [..., T, C, W] -> display results
+    [..., T, K, rows, P] (ref: TransformDSP.inl:1163-1211, :1137-1148).
+
+    Magnitude modes run stage 1 then the display tail (on CUDA: kernel A
+    then kernel B); PHASE runs :func:`spectrum_values` +
+    :func:`post_process`. ``valid`` [T] masks padded frames out of the
+    filter states. ``state`` is updated in place (the JAX step donated it).
+    """
+    if constant.configuration == SpectrumChannels.PHASE:
+        vals = spectrum_values(constant, frames)
+        return post_process(constant, state, vals, valid=valid, decay_domain=decay_domain)
+    mags = window_fft_mag(constant, frames)  # [..., T, rows, nv]
+    results = display_map(constant, mags, state.magnitude, valid)
+    return SpectrumResult(results, state)

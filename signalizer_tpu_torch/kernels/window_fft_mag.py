@@ -1,0 +1,150 @@
+"""Kernel A: channel packing -> window -> FFT -> magnitude, one frame row
+per CUDA block.
+
+Replaces the Pallas kernel
+``signalizer_tpu/kernels/pallas_spectrum.py::fused_window_rfft_mag`` and
+computes stage 1 of the Spectrum step (ref: TransformDSP.inl
+prepareTransform :38-231, doTransform :486-502): the JAX production path
+runs it as ``_pack_channels`` + ``_half_spectrum`` + ``abs``
+(``signalizer_tpu/kernels/spectrum.py:118-200, :362-364``). The CUDA source
+is ``signalizer_tpu_torch/csrc/window_fft_mag.cu``; this module holds its
+wrapper, its plain PyTorch version and the stage-1 helpers the Spectrum
+functions share.
+
+:func:`window_fft_mag` on a CPU tensor runs :func:`window_fft_mag_plain`;
+on a CUDA tensor it launches the kernel or raises. Output per mode:
+
+* real magnitude modes: ``[..., rows, N/2+1]`` f32, DC/Nyquist halved;
+* COMPLEX: ``[..., 1, N]`` f32, the full circle, no halving;
+* PHASE: ``[..., 2, N/2+1]`` complex64 half spectra, DC/Nyquist halved
+  (its tail needs the complex cells).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from signalizer_tpu.core.config import SpectrumChannels
+from signalizer_tpu_torch.core.constant import SpectrumConstant
+from signalizer_tpu_torch.kernels import _build
+
+# the largest transform the kernel holds in shared memory (8*N bytes)
+MAX_TRANSFORM_SIZE = 16384
+
+# kernel launches since the last reset (chip_smoke.py and tests read it)
+launches = 0
+
+
+def _pack_channels(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
+    """frames [..., C, W] -> windowed real rows [..., rows, W] (or complex
+    [..., W] for Complex mode). Ref packing factors: TransformDSP.inl:91-215."""
+    cfg = constant.configuration
+    w = constant.window_kernel
+    left = frames[..., 0, :]
+    if cfg == SpectrumChannels.LEFT:
+        rows = left[..., None, :]
+    elif cfg == SpectrumChannels.RIGHT:
+        rows = frames[..., 1, :][..., None, :]
+    elif cfg == SpectrumChannels.MERGE:
+        rows = ((left + frames[..., 1, :]) * 0.5)[..., None, :]
+    elif cfg == SpectrumChannels.SIDE:
+        rows = ((left - frames[..., 1, :]) * 0.5)[..., None, :]
+    elif cfg == SpectrumChannels.MIDSIDE:
+        right = frames[..., 1, :]
+        rows = torch.stack([(left + right) * 0.5, (left - right) * 0.5], dim=-2)
+    elif cfg in (SpectrumChannels.PHASE, SpectrumChannels.SEPARATE):
+        rows = frames[..., :2, :]
+    elif cfg == SpectrumChannels.COMPLEX:
+        return torch.complex(left * w, frames[..., 1, :] * w)
+    else:  # pragma: no cover
+        raise ValueError(cfg)
+    return rows * w
+
+
+def _half_spectrum(constant: SpectrumConstant, rows: torch.Tensor) -> torch.Tensor:
+    """Windowed rows [..., W] -> rFFT bins [..., N/2+1] complex, zero-padded
+    to transform_size, with DC and Nyquist halved
+    (ref: TransformDSP.inl:551-554 — the one-sided display convention)."""
+    n = constant.transform_size
+    spec = torch.fft.rfft(rows, n=n, dim=-1)
+    nb = n // 2
+    scale = torch.ones(nb + 1, dtype=rows.dtype, device=rows.device)
+    scale[0] = 0.5
+    scale[nb] = 0.5
+    return spec * scale
+
+
+def window_fft_mag_plain(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch stage 1: ``_pack_channels`` -> ``torch.fft`` ->
+    DC/Nyquist halving -> ``abs`` (PHASE: the complex half spectra)."""
+    if constant.configuration == SpectrumChannels.COMPLEX:
+        z = _pack_channels(constant, frames)
+        return torch.fft.fft(z, n=constant.transform_size, dim=-1).abs()[..., None, :]
+    spec = _half_spectrum(constant, _pack_channels(constant, frames))
+    if constant.configuration == SpectrumChannels.PHASE:
+        return spec
+    return spec.abs()
+
+
+def out_shape(constant: SpectrumConstant, lead) -> tuple:
+    """Stage-1 output shape for frames with leading dims ``lead``."""
+    n = constant.transform_size
+    if constant.configuration == SpectrumChannels.COMPLEX:
+        return tuple(lead) + (1, n)
+    return tuple(lead) + (constant.state_channels, n // 2 + 1)
+
+
+def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
+    """Stage 1 of the Spectrum step for frames [..., C, W] f32.
+
+    CPU tensors take :func:`window_fft_mag_plain`; CUDA tensors launch
+    ``csrc/window_fft_mag.cu`` (one block per output row) or raise.
+    """
+    global launches
+    if frames.device.type == "cpu":
+        return window_fft_mag_plain(constant, frames)
+    if frames.device.type != "cuda":
+        raise ValueError(f"window_fft_mag: unsupported device {frames.device}")
+    n = constant.transform_size
+    if n > MAX_TRANSFORM_SIZE:
+        raise NotImplementedError(
+            f"window_fft_mag: transform_size {n} > {MAX_TRANSFORM_SIZE} does not fit "
+            "one block's shared memory (ROADMAP: kernel A above 16384 points)"
+        )
+    w = constant.window_size
+    if frames.dtype != torch.float32:
+        raise TypeError(f"window_fft_mag: frames must be float32, got {frames.dtype}")
+    if frames.ndim < 2 or frames.shape[-1] != w or frames.shape[-2] < 2:
+        raise ValueError(f"window_fft_mag: frames must be [..., C>=2, {w}], got {tuple(frames.shape)}")
+    if not frames.is_contiguous():
+        raise ValueError("window_fft_mag: frames must be contiguous")
+    for name in ("window_kernel", "fft_twiddles"):
+        if getattr(constant, name).device != frames.device:
+            raise ValueError(f"window_fft_mag: constant.{name} is not on {frames.device}")
+    lead = frames.shape[:-2]
+    batch = 1
+    for d in lead:
+        batch *= d
+    phase = constant.configuration == SpectrumChannels.PHASE
+    shape = out_shape(constant, lead) + ((2,) if phase else ())
+    out = torch.empty(shape, dtype=torch.float32, device=frames.device)
+    if batch == 0:
+        return torch.view_as_complex(out) if phase else out
+    lib = _build.library()
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        err = lib.sig_window_fft_mag(
+            frames.data_ptr(),
+            constant.window_kernel.data_ptr(),
+            constant.fft_twiddles.data_ptr(),
+            out.data_ptr(),
+            batch,
+            frames.shape[-2],
+            w,
+            n.bit_length() - 1,
+            int(constant.configuration),
+            stream,
+        )
+    _build.check(err, "window_fft_mag")
+    launches += 1
+    return torch.view_as_complex(out) if phase else out
