@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Spectrum main path once on one CUDA GPU.
+"""Drive the PyTorch port's main paths once on one CUDA GPU: the Spectrum
+view's FFT path and the Oscilloscope view.
 
     python3 chip_smoke.py
 
 Phases, each printing one informational line:
 
 1. device — name, CUDA version, ``nvidia-smi`` name and power limit, TF32 off;
-2. build — both kernels from ``signalizer_tpu_torch/csrc`` with ``nvcc``;
+2. build — the three kernels from ``signalizer_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, all started together);
 3. kernel A (window -> FFT -> |.|) against its plain PyTorch version at the
    headline shape and at small COMPLEX, PHASE and zero-padded shapes;
 4. kernel B (remap -> decay -> dB) against its plain version at the
@@ -16,15 +18,35 @@ Phases, each printing one informational line:
    T=128 calls and three T=1 calls, held against the plain functions on the
    same CUDA tensors, with launch counts, finiteness, sine-peak and silence
    checks;
-6. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
-   slice on device-resident frames gives the device time per kernel; the
-   same 20 calls timed again without the profiler give the host wall time
-   per call, and the device busy share is kernel time over that wall time.
+6. kernel C (banded resample) against its plain version at the
+   oscilloscope's cfg3 shape (Lanczos with the nearest pick, linear,
+   nearest), a 160-pixel tail block, a 16384-sample window over 1024 px
+   (the kernel's global-memory form), positions off both edges, and the
+   colour track's six rows;
+7. the oscilloscope slice: a seeded 96 kHz stereo stream for 16 pairs,
+   advanced 1600 samples (60 fps) per call over a 16384-sample history,
+   through ``OscilloscopeProcessor`` at cfg3 (ZERO_CROSSING), cfg3b
+   (SPECTRAL) and cfg3 with the colour track, three calls each, each call
+   held against the same step with its resamples on kernel C's plain
+   version from the same carried state, with launch counts, finiteness,
+   trigger, fundamental and silence checks; one ENVELOPE_HOLD call is
+   timed as information;
+8. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
+   Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
+   gives the device time per kernel; the same 20 calls timed again without
+   the profiler give the host wall time per call, and the device busy
+   share is kernel time over that wall time.
 
-The headline geometry is the repo's bench cell (bench.py:240-266): a
-4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
-LOGARITHMIC axis of 1024 pixels, 2 line graphs, 16 pairs x 128 frames.
-Times are medians of CUDA-event timings. The last two lines are a JSON
+The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
+a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
+LOGARITHMIC axis of 1024 pixels, 2 line graphs, 16 pairs x 128 frames. The
+oscilloscope's cfg3 is the repo's bench geometry (bench.py:769-822): 16
+SEPARATE stereo pairs at 96 kHz, ZERO_CROSSING at 0.1 over an 8192-sample
+lookahead, LANCZOS (a = 10) of a 1024-sample window upsampled to 8192
+pixels, PEAK_DECAY autogain; cfg3b swaps in the SPECTRAL trigger
+(bench.py:824-879). Kernel times are medians of CUDA-event timings; call
+times are medians of host-clock timings ending in a synchronize. The last
+two lines are a JSON
 object of the kernels and a JSON object ``{"ok": true, "device": ...}``;
 any failed check raises and exits non-zero before them. Without a CUDA
 device the script exits non-zero and prints no result. It imports no jax.
@@ -32,6 +54,7 @@ device the script exits non-zero and prints no result. It imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -60,7 +83,19 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/display_map.cu",
         replaces="tools/pallas_display_map.py:233",
     ),
+    "banded_resample": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/banded_resample.cu",
+        replaces="signalizer_tpu/kernels/pallas_resample.py:185",
+    ),
 }
+# the oscilloscope's cfg3 (bench.py:769-822)
+OSC_FS = 96_000.0
+OSC_HISTORY = 16384
+OSC_PIXELS = 8192
+OSC_WINDOW = 1024.0
+OSC_HOP = 1600  # 96 kHz / 60 fps
+OSC_CALLS = 3
 
 
 def require(ok: bool, what: str) -> None:
@@ -328,43 +363,294 @@ def phase_slice(torch, dev, launches_out):
     return proc, x, tick
 
 
-def phase_profile(torch, proc, x, tick, calls: int = 20):
-    """Device time per kernel and busy share of the slice's step, T=128
-    and T=1: kernel times from ``torch.profiler`` (CUPTI) over ``calls``
-    calls, host wall time from the same calls run without the profiler
-    (which slows the host side)."""
+def osc_kwargs(**overrides) -> dict:
+    """The oscilloscope's cfg3 constant keywords (bench.py:769-822)."""
+    from signalizer_tpu_torch import AutoGain, OscChannels, SubSampleInterpolation, TriggerMode
+
+    kw = dict(
+        sample_rate=OSC_FS,
+        channel_mode=OscChannels.SEPARATE,
+        trigger_mode=TriggerMode.ZERO_CROSSING,
+        interpolation=SubSampleInterpolation.LANCZOS,
+        pixels=OSC_PIXELS,
+        lookahead=8192,
+        trigger_threshold=0.1,
+        autogain=AutoGain.PEAK_DECAY,
+    )
+    kw.update(overrides)
+    return kw
+
+
+# each resample kind's position clip range (kernels/oscilloscope.py), by a and W
+CLIP = {
+    "lanczos": lambda a, w: (-(a + 1.0), w - 1.0 + a),
+    "linear": lambda a, w: (-2.0, float(w)),
+    "nearest": lambda a, w: (-1.0, float(w)),
+}
+
+
+def resample_case(torch, dev, kind, a, rows, p, step, where, seed):
+    """x [16, rows, 16384] and f32 positions start + k * step [16, p],
+    clipped as the callers clip them; ``where`` is "inside" (seeded starts
+    within the history) or "edges" (even pairs start off the left edge,
+    odd pairs run off the right one)."""
+    rng = np.random.default_rng(seed)
+    w = OSC_HISTORY
+    x = (rng.standard_normal((PAIRS, rows, w)) * 0.4).astype(np.float32)
+    lo, hi = CLIP[kind](a, w)
+    span = step * (p - 1)
+    if where == "inside":
+        starts = rng.uniform(0.0, w - 1.0 - span, PAIRS) + 0.3137
+    else:
+        starts = np.where(np.arange(PAIRS) % 2 == 0, lo - 2.7, hi - span / 2 + 0.21)
+    k = np.arange(p, dtype=np.float64)
+    pos = np.float32(starts)[:, None].astype(np.float64) + k * np.float64(np.float32(step))
+    pos = np.clip(pos.astype(np.float32), lo, hi).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(pos).to(dev)
+
+
+def phase_kernel_c(torch, dev, results):
+    from signalizer_tpu_torch.kernels import banded_resample as br
+
+    up = (OSC_WINDOW - 1.0) / (OSC_PIXELS - 1)  # cfg3's 8x upsample step
+    zoom_out = (OSC_HISTORY - 1.0) / 1023  # 16384 samples over 1024 px
+    cases = [  # name, kind, a, with_nearest, rows, P, step, where
+        ("cfg3", "lanczos", 10, True, 2, OSC_PIXELS, up, "inside"),
+        ("cfg3_linear", "linear", 1, False, 2, OSC_PIXELS, up, "inside"),
+        ("cfg3_nearest", "nearest", 1, False, 2, OSC_PIXELS, up, "inside"),
+        ("tail_p160", "lanczos", 10, True, 2, 160, 0.8, "inside"),
+        ("global_step16", "lanczos", 10, True, 2, 1024, zoom_out, "inside"),
+        ("edges", "lanczos", 10, True, 2, OSC_PIXELS, up, "edges"),
+        ("edges_linear", "linear", 1, False, 2, OSC_PIXELS, up, "edges"),
+        ("edges_nearest", "nearest", 1, False, 2, OSC_PIXELS, up, "edges"),
+        ("colour_rows6", "nearest", 1, False, 6, OSC_PIXELS, up, "inside"),
+    ]
+    require(not br.stages_in_shared_memory(2, zoom_out, 10), "step 16 takes the global-memory form")
+    require(br.stages_in_shared_memory(2, up, 10), "cfg3 stages its taps in shared memory")
+    report = {"phase": "kernel_c", "bound": "max|kernel - plain| / max|x|: <= 1e-5 lanczos and linear, 0 nearest",
+              "cases": {}}
+    for i, (name, kind, a, dual, rows, p, step, where) in enumerate(cases):
+        x, pos = resample_case(torch, dev, kind, a, rows, p, step, where, seed=30 + i)
+
+        def kernel():
+            return br.banded_resample(x, pos, a=a, kind=kind, with_nearest=dual)
+
+        def plain():
+            return br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=dual)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        scale = float(x.abs().max())
+        near_err = 0.0
+        if dual:
+            near_err = float((got[1] - want[1]).abs().max())
+            got, want = got[0], want[0]
+        require(got.shape == (PAIRS, rows, p), f"kernel C {name} shape {tuple(got.shape)}")
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / scale
+        bound = 0.0 if kind == "nearest" else 1e-5
+        require(rel <= bound, f"kernel C {name}: error {rel} of max|x| > {bound}")
+        require(near_err == 0.0, f"kernel C {name}: nearest pick differs by {near_err}")
+        ms = median_ms(torch, kernel)
+        plain_ms = median_ms(torch, plain)
+        report["cases"][name] = {
+            "kind": kind, "a": a, "with_nearest": dual, "shape": [PAIRS, rows, OSC_HISTORY], "P": p,
+            "step": step, "where": where, "max_abs_err": abs_err, "err_of_max_x": rel,
+            "nearest_max_abs_err": near_err, "ms": ms, "plain_ms": plain_ms,
+        }
+        if name == "cfg3":
+            results["banded_resample"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    info(report)
+
+
+@contextlib.contextmanager
+def plain_resample():
+    """Route the oscilloscope functions' resamples to kernel C's plain
+    version on the same tensors: the plain path each call is held to."""
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+
+    kernel = tk.banded_resample
+    tk.banded_resample = br.banded_resample_plain
+    try:
+        yield
+    finally:
+        tk.banded_resample = kernel
+
+
+def make_osc_stream():
+    """Seeded stereo stream [16, 2, L] at 96 kHz, L covering OSC_CALLS
+    histories OSC_HOP apart: pair i carries a sine (150 Hz to 4 kHz, the
+    right channel phase-shifted) plus independent noise 40 dB below it; the
+    last pair is silent. Returns the stream and the sounding pairs'
+    frequencies."""
+    rng = np.random.default_rng(2027)
+    length = OSC_HISTORY + OSC_HOP * (OSC_CALLS - 1)
+    n = np.arange(length)
+    freqs = np.geomspace(150.0, 4000.0, PAIRS - 1)
+    amp = 0.5
+    noise_std = amp / np.sqrt(2.0) * 10 ** (-40 / 20)
+    stream = np.zeros((PAIRS, 2, length), np.float32)
+    for i, f in enumerate(freqs):
+        for ch, phase in ((0, 0.0), (1, 0.3)):
+            stream[i, ch] = amp * np.sin(2 * np.pi * f * n / OSC_FS + phase) + rng.standard_normal(length) * noise_std
+    return stream, freqs
+
+
+def call_ms(torch, fn, reps: int = 10) -> float:
+    """Median host-clock ms of ``fn()`` followed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_osc_slice(torch, dev, launches_out):
+    from signalizer_tpu_torch import OscilloscopeProcessor, TriggerMode
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+
+    stream, freqs = make_osc_stream()
+    hist = torch.from_numpy(stream).to(dev)
+    calls = [hist[..., i * OSC_HOP : i * OSC_HOP + OSC_HISTORY].contiguous() for i in range(OSC_CALLS)]
+    scale = float(hist.abs().max())
+    bin_hz = OSC_FS / 8192
+    report = {"phase": "osc_slice", "pairs": PAIRS, "history": OSC_HISTORY, "pixels": OSC_PIXELS,
+              "hop": OSC_HOP, "calls": OSC_CALLS, "configs": {}}
+    total = 0
+    cfg3_proc = None
+    for name, over in (
+        ("cfg3", {}),
+        ("cfg3b", dict(trigger_mode=TriggerMode.SPECTRAL)),
+        ("cfg3_colour", dict(colour_enabled=True)),
+    ):
+        kw = dict(pairs=PAIRS, device=dev, window_samples=OSC_WINDOW, **osc_kwargs(**over))
+        proc = OscilloscopeProcessor.create(**kw)
+        plain = OscilloscopeProcessor.create(**kw)
+        colour = bool(over.get("colour_enabled", False))
+        wave_err = 0.0
+        frames = []
+        walks = []  # the spectral walk's iterations (host syncs) per call
+        br.launches = 0
+        for h in calls:
+            plain.state = proc.state
+            frame = proc.process(h, new_samples=OSC_HOP)
+            walks.append(tk.walk_iterations)
+            with plain_resample():
+                want = plain.process(h, new_samples=OSC_HOP)
+            torch.cuda.synchronize()
+            require(frame.waveform.shape == (PAIRS, 2, OSC_PIXELS), f"{name} waveform shape")
+            require(frame.colours.shape == (PAIRS, 2, OSC_PIXELS, 3), f"{name} colours shape")
+            for key in ("waveform", "envelope_min", "envelope_max", "colours", "gain"):
+                require(bool(torch.isfinite(getattr(frame, key)).all()), f"{name} {key} finite")
+            require(torch.equal(frame.trigger_found, want.trigger_found), f"{name} trigger_found")
+            require(torch.equal(frame.fundamental, want.fundamental), f"{name} fundamental")
+            err = float((frame.waveform - want.waveform).abs().max())
+            bound = 1e-5 * scale * float(frame.gain.max())
+            require(err <= bound, f"{name} waveform vs plain {err} > {bound}")
+            wave_err = max(wave_err, err)
+            for key in ("envelope_min", "envelope_max", "colours"):
+                require(torch.equal(getattr(frame, key), getattr(want, key)), f"{name} {key} vs plain")
+            require(bool((frame.waveform[-1] == 0).all()), f"{name} silent pair draws zero")
+            frames.append(frame)
+        launches = br.launches
+        require(launches == OSC_CALLS * (1 + int(colour)),
+                f"{name}: kernel C launched {launches} times in {OSC_CALLS} calls")
+        total += launches
+
+        last = frames[-1]
+        found = last.trigger_found.cpu().numpy()
+        checks = {}
+        if over.get("trigger_mode") == TriggerMode.SPECTRAL:
+            fund = last.fundamental.cpu().numpy()
+            off = np.abs(fund[:-1] - freqs)
+            require(bool((off <= bin_hz).all()), f"{name}: fundamentals {fund[:-1]} vs sines {freqs}")
+            checks["max_fundamental_off_hz"] = float(off.max())
+            checks["walk_iterations_per_call"] = walks
+        else:
+            require(bool(found[:-1].all()) and not found[-1], f"{name}: trigger_found {found}")
+            # a rising crossing of each pair's sine at the window's centre:
+            # negative an eighth of a cycle before it, positive after
+            wave = last.waveform[:, 0].cpu().numpy()
+            step = (OSC_WINDOW - 1.0) / (OSC_PIXELS - 1)
+            mid = (OSC_PIXELS - 1) / 2.0
+            for i, f in enumerate(freqs):
+                d = OSC_FS / f / 8.0 / step
+                before, after = wave[i, int(np.floor(mid - d))], wave[i, int(np.ceil(mid + d))]
+                require(before < 0.0 < after, f"{name} pair {i}: {before} .. {after} around the centre")
+            checks["rising_crossing_centred"] = PAIRS - 1
+        ms = call_ms(torch, lambda: proc.process(calls[0], new_samples=OSC_HOP))
+        with plain_resample():
+            plain_ms = call_ms(torch, lambda: plain.process(calls[0], new_samples=OSC_HOP))
+        report["configs"][name] = {
+            "launches": launches, "max_wave_err_vs_plain": wave_err, "checks": checks,
+            "ms_per_call": ms, "plain_ms_per_call": plain_ms,
+            "frames_per_s": PAIRS / (ms / 1e3), "plain_frames_per_s": PAIRS / (plain_ms / 1e3),
+        }
+        if name == "cfg3":
+            cfg3_proc = proc
+    launches_out["banded_resample"] = total
+
+    # information only: one ENVELOPE_HOLD call (its trigger is a Python
+    # loop over the 2048-sample pow2 bucket of the new samples)
+    hold = OscilloscopeProcessor.create(
+        pairs=PAIRS, device=dev, window_samples=OSC_WINDOW,
+        **osc_kwargs(trigger_mode=TriggerMode.ENVELOPE_HOLD),
+    )
+    report["envelope_hold_ms_per_call"] = call_ms(
+        torch, lambda: hold.process(calls[0], new_samples=OSC_HOP), reps=1
+    )
+    info(report)
+    return cfg3_proc, calls[0]
+
+
+def phase_profile(torch, workloads, calls: int = 20):
+    """Device time per kernel and busy share of each workload's call:
+    kernel times from ``torch.profiler`` (CUPTI) over ``calls`` calls, host
+    wall time from the same calls run without the profiler (which slows
+    the host side)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def run(frames) -> float:
+    def run(fn) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
-            proc.process(frames)
+            fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
     report = {"phase": "profile", "calls": calls}
-    for name, frames in (("t128", x), ("t1", tick)):
-        run(frames)  # warm-up
-        wall_us = run(frames)
+    for name, fn in workloads:
+        run(fn)  # warm-up
+        wall_us = run(fn)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_wall_us = run(frames)
+            profiled_wall_us = run(fn)
         kernels_us = {}
         for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue  # a host op: its kernels are their own events
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
                 us = evt.self_cuda_time_total
             if us > 0:
-                kernel = evt.key.removeprefix("(anonymous namespace)::").split("(")[0]
-                kernels_us[kernel] = us / calls
+                kernel = evt.key.removeprefix("(anonymous namespace)::").split("(")[0][:80]
+                kernels_us[kernel] = kernels_us.get(kernel, 0.0) + us / calls
         device_us = sum(kernels_us.values())
         require(device_us > 0, f"profile {name}: the profiler saw no device time")
+        top = dict(sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8])
         report[name] = {
             "wall_us_per_call": wall_us / calls,
             "profiled_wall_us_per_call": profiled_wall_us / calls,
             "device_us_per_call": device_us,
             "busy_share": device_us * calls / wall_us,
-            "kernels_us_per_call": kernels_us,
+            "device_kernels": len(kernels_us),
+            "top_kernels_us_per_call": top,
         }
     info(report)
 
@@ -387,7 +673,13 @@ def main() -> int:
     del mags
     launches = {}
     proc, x, tick = phase_slice(torch, dev, launches)
-    phase_profile(torch, proc, x, tick)
+    phase_kernel_c(torch, dev, results)
+    osc, history = phase_osc_slice(torch, dev, launches)
+    phase_profile(torch, [
+        ("t128", lambda: proc.process(x)),
+        ("t1", lambda: proc.process(tick)),
+        ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
+    ])
     kernels = [
         dict(name=name, **meta, launches=launches[name], **results[name])
         for name, meta in KERNELS.items()

@@ -1,10 +1,12 @@
 """signalizer_tpu_torch — the PyTorch / CUDA port of signalizer_tpu.
 
-A second package beside the JAX one: the same Spectrum view, on tensors on
-one explicit device, with the Spectrum step's two stages carried by CUDA
-kernels written for Hopper (``csrc/``) and plain PyTorch versions beside
-them. It imports no jax; from the JAX package it uses only the jax-free
-``core.config`` (enums), ``core.windows`` and ``core.scaling``.
+A second package beside the JAX one: the Spectrum view's FFT path and the
+Oscilloscope view, on tensors on one explicit device, carried by CUDA
+kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
+them. It imports no jax; from the JAX package it uses only jax-free
+modules: ``core.config`` (enums), ``core.windows``, ``core.scaling``,
+``params.transformatters`` (``TimeMode``) and ``utils.colour``
+(``pair_key_table``).
 
 Layout mirrors :mod:`signalizer_tpu`:
 
@@ -14,6 +16,10 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.kernels.display_map`    — kernel B wrapper
 * :mod:`signalizer_tpu_torch.kernels.peak_decay`     — the decay loop
 * :mod:`signalizer_tpu_torch.views.spectrum`   — SpectrumProcessor
+* :mod:`signalizer_tpu_torch.kernels.filters`  — biquads, crossover, one-pole smoothers
+* :mod:`signalizer_tpu_torch.kernels.oscilloscope`    — triggers, spectral fundamental, resamples
+* :mod:`signalizer_tpu_torch.kernels.banded_resample` — kernel C wrapper
+* :mod:`signalizer_tpu_torch.views.oscilloscope` — OscilloscopeProcessor
 
 Importing builds nothing: the kernels compile with ``nvcc`` on first launch.
 """
@@ -21,8 +27,16 @@ Importing builds nothing: the kernels compile with ``nvcc`` on first launch.
 from signalizer_tpu.core.config import (  # noqa: F401
     BinInterpolation,
     DisplayMode,
+    OscChannels,
     SpectrumChannels,
     TransformAlgorithm,
     ViewScaling,
+)
+from signalizer_tpu.params.transformatters import TimeMode  # noqa: F401
+from signalizer_tpu_torch.views.oscilloscope import (  # noqa: F401
+    AutoGain,
+    OscilloscopeProcessor,
+    SubSampleInterpolation,
+    TriggerMode,
 )
 from signalizer_tpu_torch.views.spectrum import SpectrumProcessor  # noqa: F401

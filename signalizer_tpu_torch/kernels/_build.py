@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from ``signalizer_tpu_torch/csrc`` on first
 use and load them with ``ctypes``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds, not minutes)
-for ``sm_90a``. The library lands in ``build/signalizer_tpu_torch/`` beside
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds, not minutes). The library lands in ``build/signalizer_tpu_torch/`` beside
 the package, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing here runs at
 import: :func:`library` builds on its first call, and raises if ``nvcc`` is
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "signalizer_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,6 +45,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # x, pos, out, near (or null), B, R, W, P, a, kind, stream
+    "sig_banded_resample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # what the last build in this process printed and how long it took
@@ -88,16 +91,35 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(cu, objs)
+    ]
+    logs = [p.communicate()[0] for p in compiles]
+    failed = [p.returncode for p in compiles if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_info["log"] = "".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_info['log']}")
     os.replace(tmp, out)
     return out
 

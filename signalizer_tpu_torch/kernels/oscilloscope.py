@@ -1,0 +1,490 @@
+"""Oscilloscope kernels: triggers, spectral fundamental, resampling.
+
+Counterpart of :mod:`signalizer_tpu.kernels.oscilloscope` (ref:
+Source/Oscilloscope/OscilloscopeDSP.inl:61-308 spectral trigger,
+StreamPreprocessing.h:270-349 peak-hold / zero-crossing processors,
+OscilloscopeRendering.cpp:790-891 windowed-sinc pixel resampling), with the
+same shapes and semantics, on tensors on any device.
+
+* Every Lanczos, linear and nearest resample goes to kernel C,
+  :func:`~signalizer_tpu_torch.kernels.banded_resample.banded_resample`:
+  its CUDA kernel for a CUDA tensor, its plain per-tap version for a CPU
+  one. The JAX package's TPU routing (the ``covers`` check, the XLA band
+  widths) has no counterpart.
+* The zero-crossing trigger finds each crossing's segment end and the next
+  hot sample with reversed running minima (exact booleans).
+* The envelope-hold trigger is the reference's sequential state machine, a
+  Python loop over the consumed samples (a per-pair CUDA scan is later
+  work: ROADMAP).
+* The spectral fundamental walk iterates acceptance to acceptance like the
+  JAX ``while_loop``; each iteration tests ``any(active)`` on the host (one
+  device sync per iteration, at most 280).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from signalizer_tpu_torch.kernels.banded_resample import banded_resample
+from signalizer_tpu_torch.kernels.filters import onepole_smooth
+
+LOOKAHEAD_SIZE = 8192  # ref: OscilloscopeParameters.h:46
+INTERPOLATION_KERNEL_SIZE = 10  # ref: OscilloscopeParameters.h:47
+MEDIAN_FILTER_SIZE = 8  # ref: OscilloscopeDSP.inl MedianData::FilterSize
+PEAK_DECAY = 0.9999  # ref: StreamPreprocessing.h:291
+MAX_WALK_ITERATIONS = 280  # > the 277 doublings f32's range allows
+
+# host syncs of the last spectral_fundamental call (its loop iterations)
+walk_iterations = 0
+
+
+# ---------------------------------------------------------------------------
+# triggers
+# ---------------------------------------------------------------------------
+
+
+def _reverse_cummin(v: torch.Tensor) -> torch.Tensor:
+    """Running minimum from the end of the last axis."""
+    return torch.flip(torch.cummin(torch.flip(v, [-1]), dim=-1).values, [-1])
+
+
+def zero_crossing_triggers(x: torch.Tensor, threshold) -> torch.Tensor:
+    """Rising-zero-crossing trigger events (ref: ZeroCrossingProcessor,
+    StreamPreprocessing.h:315-349).
+
+    x [..., W] -> bool [..., W]: True at each crossing origin that fires (a
+    sample of its segment [origin, next origin) exceeds ``threshold``).
+    Sample 0 can never be a crossing.
+    """
+    w = x.shape[-1]
+    crossing = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    crossing[..., 1:] = (x[..., 1:] > 0) & (x[..., :-1] < 0)
+    hot = x > threshold
+    idx = torch.arange(w, device=x.device).expand(x.shape)
+    big = torch.full_like(idx, w)
+    next_hot = _reverse_cummin(torch.where(hot, idx, big))  # first hot at or after i
+    next_cross = _reverse_cummin(torch.where(crossing, idx, big))  # first crossing at or after i
+    seg_end = torch.cat([next_cross[..., 1:], big[..., :1]], dim=-1)  # first crossing after i
+    return crossing & (next_hot < seg_end)
+
+
+def last_zero_crossing_trigger(x: torch.Tensor, threshold) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Index of the most recent firing crossing in the frame, and whether
+    one exists. x [..., W] -> (int32 [...], bool [...])."""
+    fires = zero_crossing_triggers(x, threshold)
+    idx = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
+    last = torch.amax(torch.where(fires, idx, -1), dim=-1)
+    return torch.clamp(last, min=0), last >= 0
+
+
+def peak_hold_triggers(
+    x: torch.Tensor,
+    threshold,
+    hysteresis,
+    state: torch.Tensor = None,
+    holding: torch.Tensor = None,
+    decay: float = PEAK_DECAY,
+    valid=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Envelope-hold trigger events (ref: PeakHoldProcessor,
+    StreamPreprocessing.h:270-312).
+
+    Squared-sample peak tracker: while rising, arm when the jump exceeds
+    ``hysteresis * state``; on the first fall, fire the previous sample and
+    decay the held state by 0.9999 (floored at threshold^2).
+
+    ``valid`` ([W] bools, host or device) marks which samples to consume;
+    the others are identity steps (state unchanged, no fire). The loop runs
+    over the consumed samples only.
+
+    x [..., W] -> (fires bool [..., W], state [...], holding [...]).
+    """
+    sq = x * x
+    w = x.shape[-1]
+    if state is None:
+        state = torch.full(x.shape[:-1], 1.0, dtype=x.dtype, device=x.device) * (threshold * threshold)
+    if holding is None:
+        holding = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
+    thr2 = torch.as_tensor(threshold * threshold, dtype=x.dtype, device=x.device)
+    if valid is None:
+        consumed = range(w)
+    else:
+        v = torch.as_tensor(valid, dtype=torch.bool).cpu().expand(w).tolist()
+        consumed = [i for i in range(w) if v[i]]
+    st, hold = state, holding
+    fires = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for i in consumed:
+        s = sq[..., i]
+        delta = s - st
+        falling = delta < 0
+        fires[..., i] = falling & hold
+        hold = ~falling & (hold | (delta > hysteresis * st))
+        st = torch.where(falling, torch.maximum(thr2, st * decay), s)
+    # the fire marks "first sample that no longer qualifies"; the event
+    # timestamp is the previous sample (ref: peaks.push(... - 1)); a fall at
+    # sample 0 stays at sample 0 (the JAX package's boundary clamp)
+    boundary = fires[..., 0]
+    shifted = torch.cat([fires[..., 1:], torch.zeros_like(fires[..., :1])], dim=-1)
+    shifted[..., 0] |= boundary
+    return shifted, st, hold
+
+
+# ---------------------------------------------------------------------------
+# spectral trigger
+# ---------------------------------------------------------------------------
+
+
+class BinRecord(NamedTuple):
+    """Fundamental candidate (ref: OscilloscopeDSP.inl BinRecord)."""
+
+    index: torch.Tensor  # int32
+    value: torch.Tensor  # f32 magnitude
+    offset: torch.Tensor  # f32 fractional bin offset
+
+    def omega(self):
+        return self.index.to(torch.float32) + self.offset
+
+
+def _quad_delta(spec: torch.Tensor) -> torch.Tensor:
+    """Complex quadratic interpolation of the true peak offset per bin
+    (ref: OscilloscopeDSP.inl:103-126): Re((X[w-1]-X[w+1]) /
+    (2 X[w] - X[w-1] - X[w+1])), with bin 0 mirroring bin 1. The guard is
+    the reference's ``(denom.real + denom.imag) != 0``, as the JAX code has
+    it."""
+    xm1 = torch.cat([spec[..., 1:2], spec[..., :-1]], dim=-1)
+    x1 = torch.roll(spec, -1, dims=-1)
+    denom = spec * 2.0 - xm1 - x1
+    ok = (denom.real + denom.imag) != 0
+    ratio = (xm1 - x1) / torch.where(ok, denom, torch.ones_like(denom))
+    return torch.where(ok, ratio.real, 0.0)
+
+
+def spectral_fundamental(
+    x: torch.Tensor,
+    sample_rate: float,
+    *,
+    threshold=0.0,
+    hysteresis=0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, BinRecord]:
+    """Estimate the dominant fundamental of a lookahead buffer
+    (ref: calculateFundamentalPeriod, OscilloscopeDSP.inl:80-225).
+
+    x [..., N] real. Returns (fundamental_hz [...], cycle_samples [...],
+    BinRecord). Candidate walk: a bin must beat the incumbent by 2x (scaled
+    by 1-hysteresis); a 20x winner always takes over; a candidate within a
+    quarter semitone of the incumbent is a better estimate of the same
+    partial; a candidate harmonically related to the incumbent is rejected.
+
+    Between two acceptances the incumbent is constant, so each iteration
+    tests every later bin against it at once and takes the first accepted
+    one; the loop ends when no batch row accepted anything, a test the host
+    makes each iteration (``walk_iterations`` counts them).
+    """
+    global walk_iterations
+    n = x.shape[-1]
+    spec = torch.fft.rfft(x, dim=-1)
+    mags = spec.abs()
+    offsets = _quad_delta(spec)
+
+    quarter_semitone = 2.0 ** (0.25 / 12.0) - 1.0
+    inv_h = 1.0 - hysteresis
+
+    batch_shape = x.shape[:-1]
+    floor = torch.as_tensor(threshold, dtype=torch.float32, device=x.device) * n / 6.0
+    record = BinRecord(
+        index=torch.full(batch_shape, 1, dtype=torch.int32, device=x.device),
+        value=torch.maximum(floor, mags[..., 1]),
+        offset=offsets[..., 1],
+    )
+
+    half = n // 2
+    idxs = torch.arange(2, half, dtype=torch.int32, device=x.device)
+    vals = mags[..., 2:half]  # [..., M]
+    offs = offsets[..., 2:half]
+    omegas = idxs.to(torch.float32) + offs
+
+    def accept_mask(rec: BinRecord) -> torch.Tensor:
+        max_omega = rec.omega()[..., None]
+        vastly_better = inv_h * vals > rec.value[..., None] * 2.0
+        factor = omegas / torch.where(max_omega > 0, max_omega, 1.0)
+        sensitivity = vals / torch.clamp(rec.value[..., None], min=1e-30)
+        twenty_x = inv_h * sensitivity > 20.0
+        same_partial = torch.abs(1.0 - factor) < inv_h * quarter_semitone
+        mult_dev = torch.abs(factor - torch.floor(factor + 0.5))
+        not_harmonic = inv_h * mult_dev > quarter_semitone
+        accept_with_positive = twenty_x | same_partial | not_harmonic
+        accept = vastly_better & torch.where(max_omega > 0, accept_with_positive, True)
+        return accept & (idxs > rec.index[..., None])
+
+    it = 0
+    while it < MAX_WALK_ITERATIONS:
+        acc = accept_mask(record)
+        any_acc = acc.any(dim=-1)
+        it += 1
+        if not bool(any_acc.any()):
+            break
+        first = torch.argmax(acc.to(torch.uint8), dim=-1)  # first True
+        record = BinRecord(
+            index=torch.where(any_acc, idxs[first], record.index),
+            value=torch.where(any_acc, torch.gather(vals, -1, first[..., None])[..., 0], record.value),
+            offset=torch.where(any_acc, torch.gather(offs, -1, first[..., None])[..., 0], record.offset),
+        )
+    walk_iterations = it
+    fundamental = sample_rate * record.omega() / n
+    fundamental = torch.clamp(fundamental, min=5.0)  # ref: :221 floor at 5 Hz
+    cycle_samples = sample_rate / fundamental
+    return fundamental, cycle_samples, record
+
+
+def median_record_filter(
+    history_omega: torch.Tensor, record: BinRecord
+) -> Tuple[torch.Tensor, BinRecord, torch.Tensor]:
+    """8-deep median-by-bin filter over detected fundamentals
+    (ref: OscilloscopeDSP.inl:187-213): the single upper-middle element of
+    the history BEFORE inserting the new detection, skipped while it is a
+    -1 sentinel. Returns (new_history, filtered record, use_median)."""
+    middle = history_omega.shape[-1] // 2
+    med = torch.sort(history_omega, dim=-1).values[..., middle]
+    omega = record.omega()
+    hist = torch.cat([history_omega[..., 1:], omega[..., None]], dim=-1)
+    use_median = (med >= 0) & (torch.abs(omega - med) > 0.5)
+    omega = torch.where(use_median, med, omega)
+    filtered = BinRecord(
+        index=torch.floor(omega).to(torch.int32),
+        value=record.value,
+        offset=omega - torch.floor(omega),
+    )
+    return hist, filtered, use_median
+
+
+def goertzel(x: torch.Tensor, radians: torch.Tensor) -> torch.Tensor:
+    """Single-frequency DFT correlate: sum x[n] e^{-i r n}
+    (ref: cpl dsp::goertzel usage at OscilloscopeDSP.inl:277). The phases
+    are formed in f32 and only then made complex64, as the JAX code forms
+    them."""
+    n = x.shape[-1]
+    k = torch.arange(n, dtype=x.dtype, device=x.device)
+    phases = radians[..., None] * k
+    return torch.sum(x * torch.exp(-1j * phases.to(torch.complex64)), dim=-1)
+
+
+def trigger_phase_offset(
+    lookahead: torch.Tensor,
+    omega: torch.Tensor,
+    cycle_samples: torch.Tensor,
+    effective_window,
+    sample_rate: float,
+    fundamental: torch.Tensor,
+    bin_offset: torch.Tensor,
+    phase_offset_degrees=0.0,
+) -> torch.Tensor:
+    """Phase-lock sample offset via Goertzel + DFT shift theorem
+    (ref: calculateTriggeringOffset, OscilloscopeDSP.inl:230-308), anchored
+    at exactly -N like the JAX code (its docstring has the derivation).
+
+    lookahead [..., N]: the most recent N samples (newest last). Returns
+    the fractional sample offset that phase-locks the waveform on screen.
+    """
+    n = lookahead.shape[-1]
+    tau = 2.0 * math.pi
+    radians = tau * omega / n
+    sample_difference = float(n) - (effective_window + cycle_samples)
+
+    z = goertzel(lookahead, radians)
+    rotation = -sample_difference * radians
+    z = z * torch.exp(-1j * rotation.to(torch.complex64))
+
+    phase = tau - torch.angle(z)
+    phase = phase + bin_offset * tau
+    phase = phase - tau / 4.0
+    phase = phase + tau * phase_offset_degrees / 360.0
+    phase = torch.remainder(torch.remainder(phase, tau) + tau, tau)
+    cycles = phase / tau
+    return cycles * sample_rate / fundamental - 1.0
+
+
+# ---------------------------------------------------------------------------
+# display resampling
+# ---------------------------------------------------------------------------
+
+
+def _per_row(v):
+    """A start or step as the JAX code broadcasts it, in float64 holding its
+    f32 value: a tensor [...] gains a pixel axis; a host number stays a
+    scalar (no upload)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).to(torch.float64)[..., None]
+    return float(np.float32(v))
+
+
+def _positions(x: torch.Tensor, start, step, num_out: int, lo: float, hi: float) -> torch.Tensor:
+    """``clip(start[..., None] + p * step[..., None], lo, hi)`` in f32, with
+    ``start + p * step`` rounded once, as a fused multiply-add rounds it:
+    under ``jit`` XLA contracts this expression into an FMA, and the JAX
+    processor runs jitted. The product of two f32 values is exact in
+    float64, so the sum is formed there and rounded to f32."""
+    p = torch.arange(num_out, dtype=torch.float64, device=x.device)
+    pos = (_per_row(start) + p * _per_row(step)).to(torch.float32)
+    return torch.clamp(pos, lo, hi)
+
+
+def _resample(x: torch.Tensor, pos: torch.Tensor, a: int, kind: str, with_nearest: bool = False):
+    """Map x [..., W] and pos [..., P] onto kernel C's [B, R, W] x [B, P].
+
+    Positions that do not vary along x's last batch axis (pos [..., 1, P],
+    the oscilloscope step's rows) make that axis kernel C's R; otherwise
+    every batch row is its own pair (R = 1).
+    """
+    w = x.shape[-1]
+    lead = torch.broadcast_shapes(x.shape[:-1], pos.shape[:-1])
+    shared = len(lead) > 0 and (pos.ndim < 2 or pos.shape[-2] == 1)
+    if shared:
+        rows, outer = lead[-1], lead[:-1]
+        xb = x.expand(lead + (w,)).reshape((-1, rows, w))
+        pb = pos.expand(outer + (1, pos.shape[-1])).reshape((-1, pos.shape[-1]))
+    else:
+        xb = x.expand(lead + (w,)).reshape((-1, 1, w))
+        pb = pos.expand(lead + (pos.shape[-1],)).reshape((-1, pos.shape[-1]))
+    res = banded_resample(
+        xb.contiguous(), pb.contiguous(), a=a, kind=kind, with_nearest=with_nearest
+    )
+    shape = lead + (pos.shape[-1],)
+    if with_nearest:
+        return res[0].reshape(shape), res[1].reshape(shape)
+    return res.reshape(shape)
+
+
+def sinc_resample(
+    x: torch.Tensor,
+    start,
+    step,
+    num_out: int,
+    kernel_size: int = INTERPOLATION_KERNEL_SIZE,
+) -> torch.Tensor:
+    """Windowed-sinc (Lanczos) fractional resampling to pixel space
+    (ref: drawWavePlot Lanczos path, OscilloscopeRendering.cpp:854-888).
+
+    x [..., W]; output pixel p samples position start + p*step, clipped to
+    a kernel radius outside the frame. Edge taps clamp. Returns [..., num_out].
+    """
+    a = kernel_size
+    w = x.shape[-1]
+    pos = _positions(x, start, step, num_out, -(a + 1.0), w - 1.0 + a)
+    return _resample(x, pos, a, "lanczos")
+
+
+def sinc_resample_with_nearest(
+    x: torch.Tensor,
+    start,
+    step,
+    num_out: int,
+    kernel_size: int = INTERPOLATION_KERNEL_SIZE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lanczos wave + nearest-sample pick at the SAME pixel positions, in
+    one kernel-C pass (the oscilloscope step's envelope source when
+    ``env_os == 1``). Positions are clipped to the Lanczos range, as the
+    JAX fused call clips them."""
+    a = kernel_size
+    w = x.shape[-1]
+    pos = _positions(x, start, step, num_out, -(a + 1.0), w - 1.0 + a)
+    return _resample(x, pos, a, "lanczos", with_nearest=True)
+
+
+def linear_resample(x: torch.Tensor, start, step, num_out: int) -> torch.Tensor:
+    """2-tap linear variant (ref: SubSampleInterpolation::Linear path)."""
+    w = x.shape[-1]
+    pos = _positions(x, start, step, num_out, -2.0, w * 1.0)
+    return _resample(x, pos, 1, "linear")
+
+
+def nearest_resample(x: torch.Tensor, start, step, num_out: int) -> torch.Tensor:
+    """Nearest-sample pick (ref: SubSampleInterpolation::None /
+    Rectangular); exact .5 ties resolve upward (floor(pos + 0.5))."""
+    w = x.shape[-1]
+    pos = _positions(x, start, step, num_out, -1.0, w * 1.0)
+    return _resample(x, pos, 1, "nearest")
+
+
+def minmax_decimate(x: torch.Tensor, num_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Min-max peak decimation: x [..., W] -> (mins, maxs) each
+    [..., num_out], pixel p reducing samples [p*W/P, (p+1)*W/P); a W that
+    num_out does not divide is edge-padded to the next multiple."""
+    w = x.shape[-1]
+    k = -(-w // num_out)
+    pad = k * num_out - w
+    if pad:
+        x = torch.cat([x, x[..., -1:].expand(x.shape[:-1] + (pad,))], dim=-1)
+    r = x.reshape(x.shape[:-1] + (num_out, k))
+    return r.amin(-1), r.amax(-1)
+
+
+# ---------------------------------------------------------------------------
+# spectral colouring
+# ---------------------------------------------------------------------------
+
+
+def spectral_colour_track(
+    bands: torch.Tensor,
+    smooth_pole,
+    band_colours: torch.Tensor,
+    key_colour: torch.Tensor,
+    blend,
+    smooth_state: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample 3-band energy colouring (ref: OscilloscopeDSP.inl:460-494
+    filterStates/accumulateColour).
+
+    bands [..., 3, W]; band_colours [3, 3] rgb rows for low/mid/high;
+    key_colour [..., 3]; blend in [0, 1]. Per sample: smoothed band energy,
+    rgb = sum_b s[b] * colour[b] (three products and sums, no matmul, so no
+    TF32), normalized so max(r, g, b) = 1, then lerped toward the key
+    colour. Returns (colours [..., W, 3], final smooth state [..., 3]).
+    """
+    sq = bands * bands  # [..., 3, W]
+    smoothed = onepole_smooth(sq, smooth_pole, smooth_state)  # [..., 3, W]
+    s = smoothed[..., :, :, None]  # [..., 3, W, 1]
+    rgb = s[..., 0, :, :] * band_colours[0] + s[..., 1, :, :] * band_colours[1]
+    rgb = rgb + s[..., 2, :, :] * band_colours[2]  # [..., W, 3]
+    peak = torch.amax(rgb, dim=-1, keepdim=True)
+    rgb = rgb / torch.clamp(peak, min=1e-20)
+    rgb = torch.where(peak > 0, rgb, 0.0)
+    key = key_colour[..., None, :]
+    out = key + (rgb - key) * blend
+    return out, smoothed[..., -1]
+
+
+def sinc_resample_matrix(
+    window: int,
+    start: float,
+    step: float,
+    num_out: int,
+    kernel_size: int = INTERPOLATION_KERNEL_SIZE,
+    device="cpu",
+) -> torch.Tensor:
+    """The resample for *static* positions as a dense [window, num_out]
+    f32 matrix, built on the host once per configuration."""
+    a = kernel_size
+    pos = start + np.arange(num_out) * step
+    i0 = np.floor(pos)
+    offs = np.arange(-a + 1, a + 1)
+    taps = i0[:, None] + offs[None, :]
+    t = pos[:, None] - taps
+    wts = np.sinc(t) * np.sinc(t / a)
+    wts = np.where(np.abs(t) < a, wts, 0.0)
+    idx = np.clip(taps.astype(np.int64), 0, window - 1)
+    mat = np.zeros((window, num_out), np.float32)
+    for p in range(num_out):
+        for k in range(2 * a):
+            mat[idx[p, k], p] += wts[p, k]
+    return torch.from_numpy(mat).to(device)
+
+
+def sinc_resample_static(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Apply a precomputed resample matrix: x [..., W] @ [W, P] -> [..., P].
+    Full f32 needs torch's default matmul precision on a GPU
+    (``torch.backends.cuda.matmul.allow_tf32`` False)."""
+    return x @ matrix

@@ -4,15 +4,20 @@ card. Every test takes the ``cuda`` fixture, which skips where
 collects and skips. It imports no jax, so on a machine without jax run it
 as ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
-from signalizer_tpu.core.config import BinInterpolation, SpectrumChannels, ViewScaling
+from signalizer_tpu.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
+from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import display_map as dm
+from signalizer_tpu_torch.kernels import oscilloscope as tk
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 from signalizer_tpu_torch.kernels.spectrum import analyze_frames, init_line_graph_state
+from signalizer_tpu_torch.views import oscilloscope as tv
 
 MODES = [
     SpectrumChannels.LEFT,
@@ -155,3 +160,150 @@ def test_phase_on_cuda_feeds_kernel_a_complex_output(cuda):
     cpu = c.to("cpu")
     want = analyze_frames(cpu, init_line_graph_state(cpu, (2,)), frames.cpu()).results
     torch.testing.assert_close(out[..., 0, :].cpu(), want[..., 0, :], rtol=1e-4, atol=1e-4)
+
+
+# the clip range of each resample kind (kernels/oscilloscope.py), by a
+CLIP = {
+    "lanczos": lambda a, w: (-(a + 1.0), w - 1.0 + a),
+    "linear": lambda a, w: (-2.0, float(w)),
+    "nearest": lambda a, w: (-1.0, float(w)),
+}
+
+
+def _resample_inputs(kind, a, p, step, rows, seed, device, w=16384):
+    """x [3, rows, w] and pos [3, p]: one pair inside the frame, one
+    hanging off its left edge, one off its right edge, each at the
+    f32 positions start + k * step, clipped as the callers clip them."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((3, rows, w)) * 0.4).astype(np.float32)
+    lo, hi = CLIP[kind](a, w)
+    span = step * (p - 1)
+    starts = [rng.uniform(0.0, max(w - 1.0 - span, 1.0)) + 0.3137, lo - 3.3, hi - span / 2 + 0.21]
+    k = np.arange(p, dtype=np.float64)
+    pos = np.stack([np.float32(s) + k * np.float32(step) for s in starts]).astype(np.float32)
+    pos = np.clip(pos, lo, hi).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(pos).to(device)
+
+
+@pytest.mark.parametrize("p", [8192, 160])
+@pytest.mark.parametrize("with_nearest", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("a", [10, 5, 1])
+@pytest.mark.parametrize("kind", ["lanczos", "linear", "nearest"])
+def test_banded_resample_kernel_matches_plain(cuda, kind, a, with_nearest, p):
+    """Kernel C vs its plain version over steps 0.125 to 128 (the last two
+    read their taps from global memory), inside the frame and off both
+    edges. Bound: atol 1e-5 x max|x| for Lanczos and linear (the same
+    weights, summed with fused multiply-adds in tap order); nearest and
+    the dual output's pick exactly equal."""
+    for i, step in enumerate([0.125, 0.8, 1.0, 16.0, 128.0]):
+        x, pos = _resample_inputs(kind, a, p, step, rows=2, seed=i + 10 * a + p, device=cuda)
+        before = br.launches
+        got = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=with_nearest)
+        want = br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=with_nearest)
+        torch.cuda.synchronize()
+        assert br.launches == before + 1
+        if with_nearest:
+            assert torch.equal(got[1], want[1]), step
+            got, want = got[0], want[0]
+        assert got.shape == (3, 2, p)
+        if kind == "nearest":
+            assert torch.equal(got, want), step
+        else:
+            atol = 1e-5 * float(x.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=atol, msg=f"step {step}")
+
+
+def test_banded_resample_kernel_colour_track_rows(cuda):
+    """Six rows (the colour track's rgb x 2 rows) at 1:1 nearest and at the
+    8x Lanczos upsample: exact and within 1e-5 x max|x|."""
+    x, pos = _resample_inputs("nearest", 1, 1024, 1.0, rows=6, seed=3, device=cuda)
+    assert torch.equal(br.banded_resample(x, pos, a=1, kind="nearest"),
+                       br.banded_resample_plain(x, pos, a=1, kind="nearest"))
+    x, pos = _resample_inputs("lanczos", 10, 8192, 1023 / 8191, rows=6, seed=4, device=cuda)
+    torch.testing.assert_close(br.banded_resample(x, pos, a=10, kind="lanczos"),
+                               br.banded_resample_plain(x, pos, a=10, kind="lanczos"),
+                               rtol=0, atol=1e-5 * float(x.abs().max()))
+
+
+def test_banded_resample_refuses_what_it_cannot_take(cuda):
+    x, pos = _resample_inputs("lanczos", 10, 256, 1.0, rows=2, seed=5, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        br.banded_resample(x, pos, a=17, kind="lanczos")
+    with pytest.raises(TypeError):
+        br.banded_resample(x.double(), pos, a=10, kind="lanczos")
+    with pytest.raises(ValueError, match="contiguous"):
+        br.banded_resample(x[..., ::2], pos, a=10, kind="lanczos")
+    with pytest.raises(ValueError, match="on"):
+        br.banded_resample(x, pos.cpu(), a=10, kind="lanczos")
+
+
+@contextlib.contextmanager
+def _plain_resample():
+    """Route the oscilloscope functions' resamples to kernel C's plain
+    version on the same tensors (the plain path to compare against)."""
+    kernel = tk.banded_resample
+    tk.banded_resample = br.banded_resample_plain
+    try:
+        yield
+    finally:
+        tk.banded_resample = kernel
+
+
+def _osc_history(pairs, h, seed):
+    rng = np.random.default_rng(seed)
+    n = np.arange(h)
+    x = np.zeros((pairs, 2, h), np.float32)
+    for p in range(pairs - 1):  # the last pair stays silent
+        f = 173.1 * (p + 1)
+        for c in range(2):
+            x[p, c] = 0.5 * np.sin(2 * np.pi * f * n / 96_000.0 + 0.4 * c) + 0.003 * rng.standard_normal(h)
+    return x
+
+
+@pytest.mark.parametrize(
+    "trigger,interp,colour",
+    [
+        (tv.TriggerMode.ZERO_CROSSING, tv.SubSampleInterpolation.LANCZOS, False),
+        (tv.TriggerMode.SPECTRAL, tv.SubSampleInterpolation.LANCZOS, True),
+        (tv.TriggerMode.ENVELOPE_HOLD, tv.SubSampleInterpolation.LINEAR, False),
+        (tv.TriggerMode.NONE, tv.SubSampleInterpolation.NONE, False),
+    ],
+    ids=["zero_crossing", "spectral_colour", "envelope_hold", "none"],
+)
+def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, interp, colour):
+    """OscilloscopeProcessor on the card, three calls, against the same
+    processor with its resamples on kernel C's plain version, each call
+    from the same carried state: triggers and fundamentals equal, waves
+    within 1e-5 x max|x| x gain, envelopes and colours equal; kernel C
+    launched once per resample (a 1024-sample window over 2048 px takes
+    the Lanczos pass with the envelope pick fused in)."""
+    kw = dict(
+        pairs=4, sample_rate=96_000.0, channel_mode=OscChannels.SEPARATE, trigger_mode=trigger,
+        interpolation=interp, window_samples=1024.0, pixels=2048, lookahead=4096,
+        trigger_threshold=0.1, autogain=tv.AutoGain.PEAK_DECAY, colour_enabled=colour,
+    )
+    proc = tv.OscilloscopeProcessor.create(device=cuda, **kw)
+    plain = tv.OscilloscopeProcessor.create(device=cuda, **kw)
+    hist = torch.from_numpy(_osc_history(4, 8192 + 2 * 800, seed=int(trigger))).to(cuda)
+    # one dual-output Lanczos pass (wave and envelope pick); otherwise the
+    # wave and the envelope pick apart; plus the colour track's pick
+    per_call = (1 if interp == tv.SubSampleInterpolation.LANCZOS else 2) + int(colour)
+    for i in range(3):
+        h = hist[..., i * 800 : i * 800 + 8192].contiguous()
+        plain.state = proc.state
+        before = br.launches
+        got = proc.process(h, new_samples=800)
+        assert br.launches - before == per_call
+        with _plain_resample():
+            want = plain.process(h, new_samples=800)
+        torch.cuda.synchronize()
+        assert torch.equal(got.trigger_found, want.trigger_found)
+        assert torch.equal(got.fundamental, want.fundamental)
+        assert torch.equal(got.gain, want.gain)
+        atol = 1e-5 * float(h.abs().max()) * float(got.gain.max())
+        torch.testing.assert_close(got.waveform, want.waveform, rtol=0, atol=atol)
+        assert torch.equal(got.envelope_min, want.envelope_min)
+        assert torch.equal(got.envelope_max, want.envelope_max)
+        assert torch.equal(got.colours, want.colours)
+        assert torch.isfinite(got.waveform).all()
+        assert (got.waveform[-1] == 0).all()

@@ -11,6 +11,23 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+# the JAX package's jax-free modules the port may load: core.config (enums),
+# core.windows, core.scaling, params.transformatters (TimeMode) and
+# utils.colour (pair_key_table), with what those two import
+ALLOWED = {
+    "signalizer_tpu",
+    "signalizer_tpu.core",
+    "signalizer_tpu.core.config",
+    "signalizer_tpu.core.windows",
+    "signalizer_tpu.core.scaling",
+    "signalizer_tpu.params",
+    "signalizer_tpu.params.parameters",
+    "signalizer_tpu.params.transformatters",
+    "signalizer_tpu.params.values",
+    "signalizer_tpu.utils",
+    "signalizer_tpu.utils.colour",
+    "signalizer_tpu.utils.diagnostics",
+}
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -23,8 +40,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_port_runs_with_jax_blocked():
     """With ``sys.modules['jax'] = None`` any jax import raises; the port
-    still imports and a small SpectrumProcessor runs on the CPU. Only the
-    three jax-free modules of the JAX package get loaded."""
+    still imports and a small SpectrumProcessor runs on the CPU. Only
+    jax-free modules of the JAX package get loaded."""
     proc = _run(
         """
         import sys
@@ -43,13 +60,33 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     loaded = set(proc.stdout.split())
-    assert loaded <= {
-        "signalizer_tpu",
-        "signalizer_tpu.core",
-        "signalizer_tpu.core.config",
-        "signalizer_tpu.core.windows",
-        "signalizer_tpu.core.scaling",
-    }, loaded
+    assert loaded <= ALLOWED, loaded
+
+
+def test_oscilloscope_runs_with_jax_blocked():
+    """With jax blocked a CPU OscilloscopeProcessor (ZERO_CROSSING trigger,
+    colour track) runs, finds each sine's trigger, and loads no JAX-package
+    module beyond the jax-free set."""
+    proc = _run(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import signalizer_tpu_torch as st
+        p = st.OscilloscopeProcessor.create(
+            pairs=2, device="cpu", sample_rate=48000.0, pixels=128,
+            channel_mode=st.OscChannels.SEPARATE, trigger_mode=st.TriggerMode.ZERO_CROSSING,
+            trigger_threshold=0.1, autogain=st.AutoGain.PEAK_DECAY, colour_enabled=True)
+        x = np.sin(2 * np.pi * 440.0 * np.arange(4096) / 48000.0).astype(np.float32)
+        f = p.process(np.broadcast_to(x, (2, 2, 4096)).copy())
+        assert tuple(f.waveform.shape) == (2, 2, 128) and bool(f.trigger_found.all())
+        assert tuple(f.colours.shape) == (2, 2, 128, 3)
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print(" ".join(loaded))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():
@@ -72,12 +109,15 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         ctypes.CDLL = trap("ctypes.CDLL")
         import signalizer_tpu_torch.kernels.window_fft_mag as a
         import signalizer_tpu_torch.kernels.display_map as b
+        import signalizer_tpu_torch.kernels.banded_resample as c
         import signalizer_tpu_torch.kernels.spectrum
+        import signalizer_tpu_torch.kernels.oscilloscope
+        import signalizer_tpu_torch.views.oscilloscope
         from signalizer_tpu_torch.kernels import _build
         assert calls == [], calls
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
-        assert (a.launches, b.launches) == (0, 0)
+        assert (a.launches, b.launches, c.launches) == (0, 0, 0)
         print("ok")
         """
     )
@@ -103,10 +143,10 @@ def test_build_names_the_library_by_its_sources():
     from signalizer_tpu_torch.kernels import _build
 
     names = {p.name for p in _build._sources()}
-    assert {"window_fft_mag.cu", "display_map.cu"} <= names
+    assert {"window_fft_mag.cu", "display_map.cu", "banded_resample.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert set(_build.SIGNATURES) == {"sig_window_fft_mag", "sig_display_map"}
+    assert set(_build.SIGNATURES) == {"sig_window_fft_mag", "sig_display_map", "sig_banded_resample"}
 
 
 def test_cuda_processor_raises_without_gpu():
