@@ -10,9 +10,16 @@ Phases, each printing one informational line:
 2. build — the three kernels from ``signalizer_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all started together);
 3. kernel A (window -> FFT -> |.|) against its plain PyTorch version at the
-   headline shape and at small COMPLEX, PHASE and zero-padded shapes;
+   headline shape, at small COMPLEX, PHASE and zero-padded shapes, in every
+   real mode at a small N, at N = 32, 16384 and 32768, with an odd window
+   length, and with an all-zero channel beside a loud one (exactly zero
+   out); ``torch.fft.rfft`` of the already windowed rows is timed beside it
+   as the one library call that does part of its work;
 4. kernel B (remap -> decay -> dB) against its plain version at the
-   headline shape, at T=1 and with padded (invalid) frames;
+   headline shape, at T=1, at T=127 and T=128 with padded (invalid) frames,
+   with no valid frame at all, and with 1 and 8 line graphs at a small
+   shape; in every case the carried state must equal the plain version's
+   bit for bit on the pixels whose remapped value has no tap sum;
 5. the slice end to end: a seeded 48 kHz stereo stream for 16 channel
    pairs, framed at hop 800 (60 fps), through ``SpectrumProcessor`` in three
    T=128 calls and three T=1 calls, held against the plain functions on the
@@ -44,11 +51,18 @@ oscilloscope's cfg3 is the repo's bench geometry (bench.py:769-822): 16
 SEPARATE stereo pairs at 96 kHz, ZERO_CROSSING at 0.1 over an 8192-sample
 lookahead, LANCZOS (a = 10) of a 1024-sample window upsampled to 8192
 pixels, PEAK_DECAY autogain; cfg3b swaps in the SPECTRAL trigger
-(bench.py:824-879). Kernel times are medians of CUDA-event timings; call
-times are medians of host-clock timings ending in a synchronize. The last
-two lines are a JSON
-object of the kernels and a JSON object ``{"ok": true, "device": ...}``;
-any failed check raises and exits non-zero before them. Without a CUDA
+(bench.py:824-879). Kernel times (``ms``, ``plain_ms``, ``library_ms``) are medians of
+CUDA-event timings over four calls queued back to back; ``profile_us`` is
+the kernel's device time per launch on the main path, from the profile
+phase; call times are medians of host-clock timings ending in a
+synchronize. Each
+kernel's ``bound_ms`` is the least time the card could take for the call it
+was timed on: the larger of its bytes (every input read once, every output
+written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
+both counted from the shapes. The last three lines are a JSON object of the
+kernels, the card's name and power limit, and a JSON object
+``{"ok": true, "device": ...}``; any failed check raises and exits non-zero
+before them. Without a CUDA
 device the script exits non-zero and prints no result. It imports no jax.
 """
 
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -72,6 +87,10 @@ PAIRS = 16
 T = 128
 HOP = 800  # 48 kHz / 60 fps
 REPS = 25
+# the card's published peaks (H100 SXM): device memory rate, float32 rate
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 KERNELS = {
     "window_fft_mag": dict(
         route="cuda",
@@ -123,8 +142,11 @@ def info(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def median_ms(torch, fn, reps: int = REPS) -> float:
-    """Median over ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+def median_ms(torch, fn, reps: int = REPS, inner: int = 4) -> float:
+    """Median over ``reps`` CUDA-event timings of ``fn`` after a warm-up,
+    each over ``inner`` calls queued back to back (so that a kernel longer
+    than its wrapper's host time is timed without the gap before it),
+    divided by ``inner``."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -133,11 +155,29 @@ def median_ms(torch, fn, reps: int = REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def roofline(bytes_moved: float, flops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a call that must move
+    ``bytes_moved`` bytes and do ``flops`` float32 operations."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_flops = flops / F32_FLOPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(by_bytes, by_flops),
+        bound_by="bytes" if by_bytes >= by_flops else "operations",
+        bound_bytes=bytes_moved,
+        bound_flops=flops,
+    )
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def row_rel_err(got, want) -> float:
@@ -174,10 +214,14 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.library()
-    ptxas = [
-        ln.strip() for ln in _build.build_info["log"].splitlines()
-        if "Used" in ln or "spill" in ln
-    ]
+    # per kernel (and template instantiation): registers, spills, shared memory
+    ptxas = []
+    for ln in _build.build_info["log"].splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(I\w+?E)?E", ln)
+        if entry:
+            ptxas.append(entry.group(1) + (" " + entry.group(2) if entry.group(2) else ""))
+        elif "Used" in ln or "spill" in ln:
+            ptxas.append(ln.strip().removeprefix("ptxas info    : "))
     info({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
@@ -192,19 +236,43 @@ def _frames(torch, shape, seed, dev):
     return torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32)).to(dev)
 
 
+def fft_bound(c, frames, out) -> dict:
+    """Kernel A's least time for this call: it reads the frames, the window
+    and the twiddle table once and writes its rows once; a packed real row
+    is an N/2-point complex transform (5 L log2 L flops) and a split of ten
+    flops a bin, a COMPLEX row an N-point transform."""
+    from signalizer_tpu_torch import SpectrumChannels as SC
+
+    n = c.transform_size
+    length = n if c.configuration == SC.COMPLEX else n // 2
+    n_rows = out.numel() // out.shape[-1]
+    flops = n_rows * (5.0 * length * np.log2(length) + 10.0 * out.shape[-1] + 2.0 * c.window_size)
+    return roofline(nbytes(frames, c.window_kernel, c.fft_twiddles, out), flops)
+
+
 def phase_kernel_a(torch, dev, results):
     from signalizer_tpu_torch import SpectrumChannels as SC
     from signalizer_tpu_torch.core.constant import make_spectrum_constant
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 
-    report = {"phase": "kernel_a", "cases": {}}
-    cases = [
-        ("headline", headline(), (PAIRS, T, 2, WINDOW)),
-        ("complex", headline(window_size=1024, configuration=SC.COMPLEX), (4, 8, 2, 1024)),
-        ("phase", headline(window_size=1024, configuration=SC.PHASE), (4, 8, 2, 1024)),
-        ("zero_pad", headline(window_size=3000), (4, 8, 2, 3000)),
+    report = {"phase": "kernel_a", "bound": "row-relative error <= 5e-6; a silent row exactly 0", "cases": {}}
+    real_modes = [SC.LEFT, SC.RIGHT, SC.MERGE, SC.SIDE, SC.PHASE, SC.SEPARATE, SC.MIDSIDE]
+    cases = [  # name, constant keywords, frames shape, timed
+        ("headline", headline(), (PAIRS, T, 2, WINDOW), True),
+        ("complex", headline(window_size=1024, configuration=SC.COMPLEX), (4, 8, 2, 1024), True),
+        ("phase", headline(window_size=1024, configuration=SC.PHASE), (4, 8, 2, 1024), True),
+        ("zero_pad", headline(window_size=3000), (4, 8, 2, 3000), True),
+        ("n32", headline(window_size=24), (4, 8, 2, 24), False),
+        ("odd_w701", headline(window_size=701), (4, 8, 2, 701), False),
+        ("n16384", headline(window_size=16384), (2, 4, 2, 16384), True),
+        ("n32768", headline(window_size=32768), (2, 4, 2, 32768), True),
+        ("complex_n16384", headline(window_size=16384, configuration=SC.COMPLEX), (2, 4, 2, 16384), False),
     ]
-    for i, (name, kw, shape) in enumerate(cases):
+    cases += [
+        (f"mode_{m.name.lower()}_n256", headline(window_size=256, configuration=m), (4, 8, 2, 256), False)
+        for m in real_modes
+    ]
+    for i, (name, kw, shape, timed) in enumerate(cases):
         c = make_spectrum_constant(device=dev, **kw)
         frames = _frames(torch, shape, seed=10 + i, dev=dev)
         got = wfm.window_fft_mag(c, frames)
@@ -213,53 +281,121 @@ def phase_kernel_a(torch, dev, results):
         rel = row_rel_err(got, want)
         require(got.shape == want.shape and got.dtype == want.dtype, f"kernel A {name} shape")
         require(rel <= 5e-6, f"kernel A {name}: row-relative error {rel} > 5e-6")
-        ms = median_ms(torch, lambda: wfm.window_fft_mag(c, frames))
-        plain_ms = median_ms(torch, lambda: wfm.window_fft_mag_plain(c, frames))
-        report["cases"][name] = {"shape": list(shape), "row_rel_err": rel, "ms": ms, "plain_ms": plain_ms}
+        report["cases"][name] = {"shape": list(shape), "row_rel_err": rel}
+        if timed:
+            ms = median_ms(torch, lambda: wfm.window_fft_mag(c, frames))
+            plain_ms = median_ms(torch, lambda: wfm.window_fft_mag_plain(c, frames))
+            report["cases"][name].update(ms=ms, plain_ms=plain_ms)
         if name == "headline":
+            # the one library call that does part of the kernel's work: the
+            # transform alone, of rows that are already packed and windowed
+            # (no packing, window, DC/Nyquist halving or magnitude)
+            rows = frames * c.window_kernel
+            library_ms = median_ms(torch, lambda: torch.fft.rfft(rows, n=c.transform_size, dim=-1))
+            del rows
             results["window_fft_mag"] = dict(
-                max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms
+                max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                **fft_bound(c, frames, got), library_ms=library_ms,
+                library="torch.fft.rfft of already windowed rows: less than the kernel does",
             )
             headline_mags = got
             headline_constant = c
+    # an all-zero channel beside a loud one comes out exactly zero
+    for name, kw, shape in (
+        ("silent_separate", headline(), (4, 2, WINDOW)),
+        ("silent_phase_n32", headline(window_size=32, configuration=SC.PHASE), (4, 2, 32)),
+        ("silent_separate_n32768", headline(window_size=32768), (2, 2, 32768)),
+    ):
+        c = make_spectrum_constant(device=dev, **kw)
+        frames = _frames(torch, shape, seed=90, dev=dev) * 3.0
+        frames[:, 1] = 0.0
+        got = wfm.window_fft_mag(c, frames)
+        want = wfm.window_fft_mag_plain(c, frames)
+        torch.cuda.synchronize()
+        require(bool((got[:, 1] == 0).all()), f"kernel A {name}: the silent channel is not exactly zero")
+        rel = row_rel_err(got[:, 0], want[:, 0])
+        require(rel <= 5e-6, f"kernel A {name}: loud row error {rel} > 5e-6")
+        report["cases"][name] = {"shape": list(shape), "row_rel_err": rel, "silent_row_max": 0.0}
     info(report)
     return headline_constant, headline_mags
 
 
 def phase_kernel_b(torch, dev, c, mags, results):
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
     from signalizer_tpu_torch.kernels import display_map as dm
 
-    report = {"phase": "kernel_b", "cases": {}}
+    report = {
+        "phase": "kernel_b",
+        "bound": "display <= 1e-5; state rel <= 1e-6, and bit-equal on chunk-max and single-bin pixels",
+        "cases": {},
+    }
     rng = np.random.default_rng(20)
-    state0 = torch.from_numpy(
-        (rng.random((PAIRS, c.num_line_graphs, c.state_channels, c.axis_points)) * 0.5).astype(np.float32)
-    ).to(dev)
+
+    def state_for(constant, pairs):
+        shape = (pairs, constant.num_line_graphs, constant.state_channels, constant.axis_points)
+        return torch.from_numpy((rng.random(shape) * 0.5).astype(np.float32)).to(dev)
+
     valid = rng.random(T) > 0.25
     valid[0] = False
-    cases = [
-        ("headline", mags, None),
-        ("t1", mags[:, :1].contiguous(), None),
-        ("valid_mask", mags, torch.from_numpy(valid).to(dev)),
+    small = {
+        k: make_spectrum_constant(device=dev, **headline(axis_points=200, window_size=1024, num_line_graphs=k))
+        for k in (1, 8)
+    }
+    small_mags = {
+        k: torch.from_numpy(
+            (np.abs(rng.standard_normal((3, 40, 2, sc.n_spectrum_values))) * 40.0).astype(np.float32)
+        ).to(dev)
+        for k, sc in small.items()
+    }
+    cases = [  # name, constant, mags, valid, timed
+        ("headline", c, mags, None, True),
+        ("t1", c, mags[:, :1].contiguous(), None, True),
+        ("valid_mask", c, mags, torch.from_numpy(valid).to(dev), True),
+        ("t127_ragged", c, mags[:, :127].contiguous(), torch.from_numpy(valid[:127]).to(dev), False),
+        ("none_valid", c, mags, torch.zeros(T, dtype=torch.bool, device=dev), False),
+        ("k1_small", small[1], small_mags[1], None, False),
+        ("k8_small", small[8], small_mags[8], torch.from_numpy(valid[:40]).to(dev), False),
     ]
-    for name, m, v in cases:
+    for name, cc, m, v, timed in cases:
+        state0 = state_for(cc, m.shape[0])
         s_kernel, s_plain = state0.clone(), state0.clone()
-        got = dm.display_map(c, m, s_kernel, v)
-        want = dm.display_map_plain(c, m, s_plain, v)
+        got = dm.display_map(cc, m, s_kernel, v)
+        want = dm.display_map_plain(cc, m, s_plain, v)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         state_rel = float(((s_kernel - s_plain).abs() / s_plain.abs().clamp(min=1e-30)).max())
         require(got.shape == want.shape, f"kernel B {name} shape")
         require(err <= 1e-5, f"kernel B {name}: display error {err} > 1e-5")
         require(state_rel <= 1e-6, f"kernel B {name}: state relative error {state_rel} > 1e-6")
-        scratch = state0.clone()
-        ms = median_ms(torch, lambda: dm.display_map(c, m, scratch, v))
-        plain_ms = median_ms(torch, lambda: dm.display_map_plain(c, m, scratch, v))
+        # no tap sum on these pixels, and the split of the decay over groups
+        # of frames is exact: the state is the plain loop's bit for bit
+        exact = ~cc.interp_mask
+        require(bool(exact.any()), f"kernel B {name}: no chunk-max or single-bin pixel")
+        require(torch.equal(s_kernel[..., exact], s_plain[..., exact]),
+                f"kernel B {name}: state differs from the plain loop on a pixel without a tap sum")
+        if name == "none_valid":
+            require(torch.equal(s_kernel, state0), "kernel B none_valid: the state moved")
         report["cases"][name] = {
-            "shape": list(m.shape), "max_abs_err": err, "state_rel_err": state_rel,
-            "ms": ms, "plain_ms": plain_ms,
+            "shape": list(m.shape), "line_graphs": cc.num_line_graphs, "max_abs_err": err,
+            "state_rel_err": state_rel, "state_bit_equal_pixels": int(exact.sum()),
         }
+        if timed:
+            scratch = state0.clone()
+            ms = median_ms(torch, lambda: dm.display_map(cc, m, scratch, v))
+            plain_ms = median_ms(torch, lambda: dm.display_map_plain(cc, m, scratch, v))
+            report["cases"][name].update(ms=ms, plain_ms=plain_ms)
         if name == "headline":
-            results["display_map"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # reads the magnitudes, the state and the plan once, writes the
+            # display values and the state once; per output a multiply and
+            # max, the dB map's multiply, divide, log and scale (~30 flops
+            # with the log's polynomial), per pixel and frame its taps
+            tables = (cc.interp_indices, cc.interp_weights, cc.interp_mask, cc.single_mask,
+                      cc.single_bin, cc.chunk_lo, cc.chunk_len, cc.slope_map)
+            moved = nbytes(m, got, *tables) + 2 * nbytes(state0)
+            flops = 30.0 * got.numel() + 2.0 * m.numel()
+            results["display_map"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **roofline(moved, flops), library_ms=None
+            )
     info(report)
 
 
@@ -290,7 +426,7 @@ def frame_stream(stream, n_frames: int):
     return np.ascontiguousarray(view[:, :, :n_frames].transpose(0, 2, 1, 3))
 
 
-def phase_slice(torch, dev, launches_out):
+def phase_slice(torch, dev, launches_out, calls_out):
     from signalizer_tpu_torch import SpectrumProcessor
     from signalizer_tpu_torch.kernels import display_map as dm
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
@@ -321,6 +457,7 @@ def phase_slice(torch, dev, launches_out):
         require(bool((out[-1] == clip_db).all()), "silent pair reads clip_db everywhere")
     launches = {"window_fft_mag": wfm.launches, "display_map": dm.launches}
     launches_out.update(launches)
+    calls_out.update({name: len(calls) for name in launches})
     require(worst <= 2e-4, f"slice vs plain display error {worst} > 2e-4")
     require(launches == {"window_fft_mag": len(calls), "display_map": len(calls)},
             f"launch counts {launches} != {len(calls)} calls each")
@@ -459,7 +596,15 @@ def phase_kernel_c(torch, dev, results):
             "nearest_max_abs_err": near_err, "ms": ms, "plain_ms": plain_ms,
         }
         if name == "cfg3":
-            results["banded_resample"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            # reads x and the positions once, writes the wave and the
+            # nearest pick once; per pixel 2a weights (two sines of ~20
+            # flops and a division each) and per row 2a multiply-adds
+            outs = 2 if dual else 1
+            moved = nbytes(x, pos) + outs * PAIRS * rows * p * 4
+            flops = PAIRS * p * (2 * a * 50.0 + rows * 2 * a * 2.0)
+            results["banded_resample"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **roofline(moved, flops), library_ms=None
+            )
     info(report)
 
 
@@ -510,7 +655,7 @@ def call_ms(torch, fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_osc_slice(torch, dev, launches_out):
+def phase_osc_slice(torch, dev, launches_out, calls_out):
     from signalizer_tpu_torch import OscilloscopeProcessor, TriggerMode
     from signalizer_tpu_torch.kernels import banded_resample as br
     from signalizer_tpu_torch.kernels import oscilloscope as tk
@@ -595,6 +740,7 @@ def phase_osc_slice(torch, dev, launches_out):
         if name == "cfg3":
             cfg3_proc = proc
     launches_out["banded_resample"] = total
+    calls_out["banded_resample"] = 3 * OSC_CALLS  # three configurations
 
     # information only: one ENVELOPE_HOLD call (its trigger is a Python
     # loop over the 2048-sample pow2 bucket of the new samples)
@@ -639,7 +785,10 @@ def phase_profile(torch, workloads, calls: int = 20):
             if us is None:
                 us = evt.self_cuda_time_total
             if us > 0:
-                kernel = evt.key.removeprefix("(anonymous namespace)::").split("(")[0][:80]
+                kernel = evt.key.split("(anonymous namespace)::")[-1]
+                if kernel != evt.key:
+                    kernel = kernel.split("<")[0]  # the port's own: one name per kernel
+                kernel = kernel.split("(")[0][:80]
                 kernels_us[kernel] = kernels_us.get(kernel, 0.0) + us / calls
         device_us = sum(kernels_us.values())
         require(device_us > 0, f"profile {name}: the profiler saw no device time")
@@ -653,6 +802,7 @@ def phase_profile(torch, workloads, calls: int = 20):
             "top_kernels_us_per_call": top,
         }
     info(report)
+    return report
 
 
 def main() -> int:
@@ -671,17 +821,26 @@ def main() -> int:
     c, mags = phase_kernel_a(torch, dev, results)
     phase_kernel_b(torch, dev, c, mags, results)
     del mags
-    launches = {}
-    proc, x, tick = phase_slice(torch, dev, launches)
+    launches, calls = {}, {}
+    proc, x, tick = phase_slice(torch, dev, launches, calls)
     phase_kernel_c(torch, dev, results)
-    osc, history = phase_osc_slice(torch, dev, launches)
-    phase_profile(torch, [
+    osc, history = phase_osc_slice(torch, dev, launches, calls)
+    profile = phase_profile(torch, [
         ("t128", lambda: proc.process(x)),
         ("t1", lambda: proc.process(tick)),
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
     ])
+    # device time per launch on the main path: one launch per profiled call
+    for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3")):
+        results[name]["profile_us"] = profile[path]["top_kernels_us_per_call"].get(f"{name}_kernel")
+        require(results[name]["profile_us"], f"profile {path}: no device time for {name}_kernel")
+    # launches: counted while the main paths were driven (the comparisons
+    # with the plain versions are not in it); per call: over those calls
     kernels = [
-        dict(name=name, **meta, launches=launches[name], **results[name])
+        dict(
+            name=name, **meta, launches=launches[name],
+            launches_per_call=launches[name] / calls[name], **results[name],
+        )
         for name, meta in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

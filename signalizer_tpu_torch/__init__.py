@@ -3,13 +3,16 @@
 A second package beside the JAX one: the Spectrum view's FFT path and the
 Oscilloscope view, on tensors on one explicit device, carried by CUDA
 kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
-them. It imports no jax; from the JAX package it uses only jax-free
-modules: ``core.config`` (enums), ``core.windows``, ``core.scaling``,
-``params.transformatters`` (``TimeMode``) and ``utils.colour``
-(``pair_key_table``).
+them. It imports no jax and nothing of the JAX package: the enums, windows,
+decay-pole design, ``TimeMode`` and key-colour table it shares with that
+package are its own copies (``core.config``, ``core.windows``,
+``core.scaling``, ``params.transformatters``, ``utils.colour``). Entry points
+run on the GPU unless the caller passes ``device="cpu"``.
 
 Layout mirrors :mod:`signalizer_tpu`:
 
+* :mod:`signalizer_tpu_torch.core.config`      — channel / interpolation / scaling enums
+* :mod:`signalizer_tpu_torch.core.windows`     — window generation
 * :mod:`signalizer_tpu_torch.core.constant`    — SpectrumConstant, remap-plan functions
 * :mod:`signalizer_tpu_torch.kernels.spectrum` — analyze_frames and its stages
 * :mod:`signalizer_tpu_torch.kernels.window_fft_mag` — kernel A wrapper
@@ -24,7 +27,7 @@ Layout mirrors :mod:`signalizer_tpu`:
 Importing builds nothing: the kernels compile with ``nvcc`` on first launch.
 """
 
-from signalizer_tpu.core.config import (  # noqa: F401
+from signalizer_tpu_torch.core.config import (  # noqa: F401
     BinInterpolation,
     DisplayMode,
     OscChannels,
@@ -32,7 +35,7 @@ from signalizer_tpu.core.config import (  # noqa: F401
     TransformAlgorithm,
     ViewScaling,
 )
-from signalizer_tpu.params.transformatters import TimeMode  # noqa: F401
+from signalizer_tpu_torch.params.transformatters import TimeMode  # noqa: F401
 from signalizer_tpu_torch.views.oscilloscope import (  # noqa: F401
     AutoGain,
     OscilloscopeProcessor,

@@ -1,1 +1,1 @@
-"""Spectrum constant of the PyTorch port."""
+"""Core of the PyTorch port: enums, windows, scaling, the Spectrum constant."""

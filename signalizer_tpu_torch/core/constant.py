@@ -4,9 +4,8 @@ data bundle of the Spectrum view.
 Counterpart of :mod:`signalizer_tpu.core.constant` (ref:
 Source/Spectrum/TransformConstant.h:44-241). The numpy remap-plan functions
 (:func:`build_remap_plan`, :func:`remap_frequencies`) are copied here with
-their arithmetic unchanged, because the JAX module imports jax at import
-time and the port must run where jax is absent; tests hold the copies
-bit-equal to the originals.
+their arithmetic unchanged (the port imports nothing of the JAX package);
+tests hold the copies bit-equal to the originals.
 
 The constant is a frozen dataclass: static fields are plain Python values,
 array fields are tensors on one explicit ``device``. It drops the JAX
@@ -17,8 +16,9 @@ kernels read:
 * ``chunk_lo`` / ``chunk_len`` [P] int32 — each bin-max pixel's contiguous
   chunk ``[lo, lo + len)``, the ranges ``band_idx[:, 0]`` and
   ``band_mask.sum(1)`` already encode (0-length for other pixels);
-* ``fft_twiddles`` [N/2, 2] f32 — ``exp(-2*pi*i*k/N)`` computed in float64
-  on the host and rounded once, for the FFT kernel;
+* ``fft_twiddles`` [N, 2] f32 — every radix-2 stage's twiddles in stage
+  order (see :func:`fft_twiddles`), computed in float64 on the host and
+  rounded once, for the FFT kernel;
 * ``display_scalars`` [4] f32 (derived) — ``inv_size``, the dB map's
   ``lower`` and ``1/log(upper/lower)`` computed in f32 exactly as the dB map
   computes them, and ``clip_db``, so the display kernel reads them on the
@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from signalizer_tpu.core.config import (
+from signalizer_tpu_torch.core.config import (
     BinInterpolation,
     DisplayMode,
     SpectrumChannels,
@@ -41,8 +41,8 @@ from signalizer_tpu.core.config import (
     ViewScaling,
     next_pow2,
 )
-from signalizer_tpu.core.scaling import peak_decay_pole
-from signalizer_tpu.core.windows import WindowType, generate_window
+from signalizer_tpu_torch.core.scaling import peak_decay_pole
+from signalizer_tpu_torch.core.windows import WindowType, generate_window
 
 # ref: SpectrumParameters.h:48-51 — LineMain + LineSecond.
 NUM_LINE_GRAPHS = 2
@@ -255,11 +255,23 @@ def chunk_ranges(band_idx: np.ndarray, band_mask: np.ndarray) -> Tuple[np.ndarra
 
 
 def fft_twiddles(transform_size: int) -> np.ndarray:
-    """[N/2, 2] f32 ``(cos, sin)`` of ``-2*pi*k/N``: float64 on the host,
-    rounded once (the display floor is -96 dB, so no fast-math sines)."""
-    k = np.arange(transform_size // 2, dtype=np.float64)
-    ang = -2.0 * np.pi * k / transform_size
-    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    """[N, 2] f32 ``(cos, sin)`` twiddles of an N-point radix-2 transform in
+    stage order: entry ``half + pos`` (``half`` = 1, 2, .., N/2; ``pos`` <
+    ``half``) is ``exp(-2*pi*i*pos / (2*half))``; entry 0 is unused (1, 0).
+    Float64 on the host, rounded once (the display floor is -96 dB, so no
+    fast-math sines). The first N/2 entries are the same table for an
+    N/2-point transform, and the last N/2 are ``exp(-2*pi*i*k/N)``: a packed
+    real transform takes its core's stages from the former and its split
+    factors from the latter."""
+    out = np.empty((transform_size, 2), np.float64)
+    out[0] = (1.0, 0.0)
+    half = 1
+    while half < transform_size:
+        ang = -2.0 * np.pi * np.arange(half, dtype=np.float64) / (2 * half)
+        out[half : 2 * half, 0] = np.cos(ang)
+        out[half : 2 * half, 1] = np.sin(ang)
+        half *= 2
+    return out.astype(np.float32)
 
 
 STATIC_FIELDS = (
@@ -342,7 +354,7 @@ class SpectrumConstant:
     band_mask: torch.Tensor  # [P, maxband] bool
     chunk_lo: torch.Tensor  # [P] i32
     chunk_len: torch.Tensor  # [P] i32
-    fft_twiddles: torch.Tensor  # [N/2, 2] f32
+    fft_twiddles: torch.Tensor  # [N, 2] f32, stage order
     # [4] f32: inv_size, lower, 1/log(upper/lower), clip_db — derived from
     # the fields above whenever the constant is built or replaced
     display_scalars: torch.Tensor = dataclasses.field(init=False, repr=False)
@@ -385,14 +397,22 @@ def check_device(device) -> torch.device:
     return device
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device=None`` means the GPU
+    (``cuda``), anything else is taken as given. Either way a CUDA device
+    on a machine without one raises (:func:`check_device`); the CPU is used
+    only when the caller asks for it."""
+    return check_device("cuda" if device is None else device)
+
+
 def constant_from_arrays(
-    static: Dict[str, object], arrays: Dict[str, np.ndarray], device
+    static: Dict[str, object], arrays: Dict[str, np.ndarray], device=None
 ) -> SpectrumConstant:
     """Build the port's constant from a constant's static fields and its
     array fields given as numpy arrays (e.g. a JAX ``SpectrumConstant`` read
     with ``np.asarray``). The kernel tables (``chunk_lo``, ``chunk_len``,
-    ``fft_twiddles``) are derived on the host."""
-    device = check_device(device)
+    ``fft_twiddles``) are derived on the host. ``device=None`` is the GPU."""
+    device = resolve_device(device)
     tensors = {
         name: torch.tensor(np.asarray(arrays[name])).to(device=device, dtype=dtype)
         for name, dtype in ARRAY_FIELDS.items()
@@ -422,7 +442,7 @@ def make_spectrum_constant(
     *,
     axis_points: int,
     window_size: int,
-    device,
+    device=None,
     sample_rate: float = 48_000.0,
     configuration: SpectrumChannels = SpectrumChannels.LEFT,
     bin_interpolation: BinInterpolation = BinInterpolation.LINEAR,
@@ -447,7 +467,7 @@ def make_spectrum_constant(
     mapped_frequencies: Optional[np.ndarray] = None,
 ) -> SpectrumConstant:
     """Build a :class:`SpectrumConstant` on ``device`` (host precompute,
-    then one upload).
+    then one upload); ``device=None`` is the GPU, and raises without one.
 
     Mirrors the reference's reconfiguration cascade
     (ref: Spectrum.cpp:351-616 handleFlagUpdates): window regeneration,

@@ -9,52 +9,74 @@
 //
 // Layout: mags [pairs, T, rows, nv] f32; plan tables per pixel
 // (interp_indices/weights [P, taps], interp_mask, single_mask, single_bin,
-// chunk_lo, chunk_len [P]); slope_map [P]; decay_poles [K]; scalars [4] =
-// inv_size, lower, 1/log(upper/lower), clip_db (f32, computed on the
-// device exactly as the dB map computes them); valid [T] bool or null;
-// state [pairs, K, rows, P] f32, updated in place; out [pairs, T, K, rows,
-// P] f32.
-//
-// Grid (ceil(P/128), rows, pairs), 128 threads, one thread per pixel. Each
-// thread walks t = 0..T-1 in order, so the decay recurrence needs no scan:
+// chunk_lo, chunk_len [P]); slope_map [P]; decay_poles [K] (>= 0);
+// scalars [4] = inv_size, lower, 1/log(upper/lower), clip_db (f32, computed
+// on the device exactly as the dB map computes them); valid [T] bool or
+// null; state [pairs, K, rows, P] f32, updated in place; out [pairs, T, K,
+// rows, P] f32. Per pixel, frame t and line graph k:
 //   v = inv_size * (interp ? |sum w*m[idx]| : single ? m[bin] : max m[lo..lo+len))
-//   for k: if valid[t]: s_k = max(pole_k * s_k, v)
-//          out = x > 0 ? log(max(x, 1e-38)) * dyr : clip_db,  x = slope*s_k/lower
+//   if valid[t]: s_k = max(pole_k * s_k, v)
+//   out = x > 0 ? log(max(x, 1e-38)) * dyr : clip_db,  x = slope*s_k/lower
 //
-// What bounds it on the H100: HBM traffic — each magnitude is read once
-// from device memory and each output written once (34 MB + 34 MB at the
-// headline, ~20 us at 3.35 TB/s); the per-pixel work is a handful of flops
-// and one log per output; with only pairs*rows*P threads in flight (32 K
-// at the headline) the T loop is latency-bound. The design: per frame, the
-// block stages the bin range its 128 pixels touch (found once with a
-// shared min/max) into shared memory with coalesced cp.async copies, double
-// buffered so frame t+1 is in flight while frame t is computed; the taps'
-// gathers and the chunk max then read shared memory, not scattered global
-// addresses; taps and the K states stay in registers across the whole T
-// loop; the chunk max stays in f32 (no dense selector operands, which were
-// the TPU's answer to having no cheap gather). TMA staging and fusing with
-// the FFT kernel are later work.
+// What bounds it on the H100: HBM traffic sets the floor — each magnitude
+// is read once and each output written once (34 MB + 34 MB at the headline,
+// ~20 us at 3.35 TB/s) — but what the kernel spends is instruction slots:
+// an IEEE division and a logf per output (no fast math: the values are
+// displayed down to -96 dB) and the frames' dependent loads. One thread per
+// pixel walking all T frames in order left the card a tenth full, so the
+// design splits T, keeps the recurrence exact, and executes nothing it
+// does not need:
+//
+// * Groups. A block is up to eight warps; warp g maps the block's 32 pixels
+//   for its own kGroup = 8 consecutive frames (a chunk of 8 * 8 frames a
+//   block; longer T runs chunk after chunk in the same block): 262 K
+//   threads at the headline instead of 32 K, and a thread's 8 frames are
+//   independent loads the card can overlap. (Measured at the headline: 4,
+//   8 and 16 frames a group take 64, 60 and 68 us.)
+// * The split decay. From an empty state (-inf) a group scans its own
+//   frames, l_t = max(pole * l_{t-1}, v_t) at valid frames, and publishes
+//   its end value and its count of valid frames. The state a group starts
+//   from is then the fold, in order, of the groups before it: s <- pole * s
+//   once per valid frame of that group (the same chain of single
+//   multiplies), then s <- max(s, l_end). Rounding a product with a
+//   non-negative pole is monotone, so fl(pole * max(a, b)) = max(fl(pole *
+//   a), fl(pole * b)) and the fold gives the sequential recurrence's state
+//   bit for bit. Each group then runs the plain recurrence over its
+//   frames (kept in registers) from that state and stores the dB values.
+//   The fold is at most T multiplies per line graph, all in registers; one
+//   block barrier per chunk.
+// * Line graphs are an outer loop over scalars, not arrays unrolled to the
+//   most the kernel takes, and the tap count is a template parameter (1 and
+//   2 taps live in registers; other counts read their table through L1):
+//   with both unrolled to their limits and predicated, three quarters of
+//   the instructions executed for the headline's 2 line graphs and 2 taps did
+//   nothing, and the kernel was no faster than the one it replaced.
+// * Magnitudes are read from device memory through L1, not staged: a warp's
+//   32 pixels read one short range of a frame's row, and staging that range
+//   with cp.async (16-byte pieces, a per-warp double buffer) measured no
+//   faster at the headline than reading it directly, in every variant
+//   tried, at the price of shared memory, warp barriers and a bound on the
+//   range.
+// * Short calls (T <= 8, the per-tick call's T = 1 among them) run the
+//   kernel's one-frame-a-group instantiation: a warp per frame, nothing
+//   unrolled over frames that are not there, and for T = 1 an empty fold.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kGroup = 8;      // frames a warp handles per chunk (1 for T <= 8)
+constexpr int kMaxGroups = 8;  // warps a block
 constexpr int kMaxTaps = 10;
 constexpr int kMaxK = 8;
 
-// Start this thread's share of the asynchronous copy of bins [lo, hi] of
-// one magnitude row into shared memory, as one pipeline batch.
-__device__ __forceinline__ void stage_row(float* dst, const float* src, int lo,
-                                          int hi) {
-  for (int i = lo + threadIdx.x; i <= hi; i += kThreads) {
-    __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
-  }
-  __pipeline_commit();
-}
-
-__global__ void display_map_kernel(
+// kTaps: 1 or 2 taps held in registers; 0 takes any count up to kMaxTaps
+// from the tables in device memory, per frame. kFrames: frames a warp
+// handles per chunk.
+template <int kTaps, int kFrames>
+__global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
     const float* __restrict__ mags, const int* __restrict__ interp_indices,
     const float* __restrict__ interp_weights,
     const bool* __restrict__ interp_mask, const bool* __restrict__ single_mask,
@@ -63,53 +85,45 @@ __global__ void display_map_kernel(
     const float* __restrict__ decay_poles, const float* __restrict__ scalars,
     const bool* __restrict__ valid, float* __restrict__ state,
     float* __restrict__ out, int T, int K, int rows, int P, int nv, int taps) {
-  extern __shared__ float rows_buf[];  // two frames, [2][nv]
-  __shared__ int s_lo, s_hi;
+  // per chunk parity: [groups + 1][K][32] floats (the groups' end values,
+  // then the chunk's start state), and [groups] counts of valid frames
+  extern __shared__ float ends[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int g = threadIdx.x / kWarp;
+  const int groups = blockDim.x / kWarp;
+  const int ends_stride = (groups + 1) * K * kWarp;  // one parity
+  int* counts = reinterpret_cast<int*>(ends + 2 * ends_stride);
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int p = blockIdx.x * kWarp + lane;
   const int r = blockIdx.y;
   const int pair = blockIdx.z;
   const bool active = p < P;
 
-  // this pixel's plan and the bin range it reads
-  int kind = 2;  // 0 interp, 1 single bin, 2 chunk max
-  int idx[kMaxTaps];
-  float wts[kMaxTaps];
-  int lo = 0, len = 1, plo = nv, phi = -1;
+  // this pixel's plan
+  int kind = 1;  // 0 interp, 1 chunk max (a single bin is a chunk of one)
+  int idx0 = 0, idx1 = 0;
+  float w0 = 0.f, w1 = 0.f;
+  int lo = 0, len = 1;
+  const int* idx = interp_indices + (size_t)p * taps;
+  const float* wts = interp_weights + (size_t)p * taps;
   if (active) {
     if (interp_mask[p]) {
       kind = 0;
-#pragma unroll
-      for (int j = 0; j < kMaxTaps; ++j) {
-        if (j < taps) {
-          idx[j] = interp_indices[p * taps + j];
-          wts[j] = interp_weights[p * taps + j];
-          plo = min(plo, idx[j]);
-          phi = max(phi, idx[j]);
-        }
+      if (kTaps >= 1) {
+        idx0 = idx[0];
+        w0 = wts[0];
+      }
+      if (kTaps >= 2) {
+        idx1 = idx[1];
+        w1 = wts[1];
       }
     } else if (single_mask[p]) {
-      kind = 1;
       lo = single_bin[p];
-      plo = phi = lo;
     } else {
       lo = chunk_lo[p];
       len = chunk_len[p];
-      plo = lo;
-      phi = lo + len - 1;
     }
   }
-  if (threadIdx.x == 0) {
-    s_lo = nv;
-    s_hi = -1;
-  }
-  __syncthreads();
-  if (active) {
-    atomicMin(&s_lo, plo);
-    atomicMax(&s_hi, phi);
-  }
-  __syncthreads();
-  const int blo = s_lo, bhi = s_hi;
 
   const float inv_size = scalars[0];
   const float lower = scalars[1];
@@ -119,60 +133,128 @@ __global__ void display_map_kernel(
 
   const size_t plane = (size_t)rows * P;  // one line graph's [rows, P]
   float* st = state + (size_t)pair * K * plane + (size_t)r * P + p;
-  float s[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) s[k] = (active && k < K) ? st[k * plane] : 0.f;
+  if (g == 0) {
+    // the first chunk's start state (parity 0, slot groups)
+    for (int k = 0; k < K; ++k) {
+      ends[(groups * K + k) * kWarp + lane] = active ? st[k * plane] : 0.f;
+    }
+  }
 
   const float* src = mags + ((size_t)pair * T * rows + r) * nv;
   const size_t frame_stride = (size_t)rows * nv;
-  stage_row(rows_buf, src, blo, bhi);
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) {
-      // buffer (t+1)&1 was last read in frame t-1, before its closing barrier
-      stage_row(rows_buf + ((t + 1) & 1) * nv, src + (t + 1) * frame_stride, blo, bhi);
-      __pipeline_wait_prior(1);  // this thread's copies of frame t landed
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // everyone's copies of frame t landed
-    const float* row = rows_buf + (t & 1) * nv;
-    if (active) {
-      float v;
-      if (kind == 0) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxTaps; ++j) {
-          if (j < taps) acc += row[idx[j]] * wts[j];
-        }
-        v = fabsf(acc);
-      } else if (kind == 1) {
-        v = row[lo];
-      } else {
-        v = row[lo];
-        for (int i = 1; i < len; ++i) v = fmaxf(v, row[lo + i]);
-      }
-      v = inv_size * v;
+  const int chunk_frames = groups * kFrames;
 
-      const bool step = valid == nullptr || valid[t];
-      float* o = out + (((size_t)pair * T + t) * K * rows + r) * P + p;
+  for (int c0 = 0, parity = 0; c0 < T; c0 += chunk_frames, parity ^= 1) {
+    const int t0 = c0 + g * kFrames;  // this group's frames [t0, t0 + count)
+    int count = T - t0;
+    count = count < 0 ? 0 : (count > kFrames ? kFrames : count);
+    unsigned steps = 0;  // bit i: frame t0 + i updates the state
+    if (valid == nullptr) {
+      steps = (1u << count) - 1u;
+    } else {
+      for (int i = 0; i < count; ++i) steps |= valid[t0 + i] ? 1u << i : 0u;
+    }
+
+    // 1. remap this group's frames: the pixel's kind outside, the frames
+    //    inside, so that the group's loads of one tap or one chunk element
+    //    are independent and in flight together
+    float v[kFrames];
+    const float* row0 = src + (size_t)t0 * frame_stride;
+    const int live = active ? count : 0;  // frames this lane reads
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          if (step) s[k] = fmaxf(decay_poles[k] * s[k], v);
-          const float x = slope * s[k] / lower;
-          o[k * plane] = x > 0.f ? logf(fmaxf(x, 1e-38f)) * dyr : clip_db;
+    for (int i = 0; i < kFrames; ++i) v[i] = 0.f;
+    if (kind == 0) {
+      if (kTaps == 0) {
+        for (int j = 0; j < taps; ++j) {  // tap order, as the plain sum
+          const int at = __ldg(idx + j);
+          const float wt = __ldg(wts + j);
+#pragma unroll
+          for (int i = 0; i < kFrames; ++i) {
+            if (i < live) v[i] += row0[i * frame_stride + at] * wt;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kFrames; ++i) {
+          if (i < live) {
+            float acc = 0.f;
+            acc += row0[i * frame_stride + idx0] * w0;
+            if (kTaps >= 2) acc += row0[i * frame_stride + idx1] * w1;
+            v[i] = acc;
+          }
         }
       }
-    }
-    __syncthreads();  // frame t's reads done before frame t+2 refills its buffer
-  }
-  if (active) {
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) st[k * plane] = s[k];
+      for (int i = 0; i < kFrames; ++i) v[i] = inv_size * fabsf(v[i]);
+    } else {
+      // a single bin is a chunk of one
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (i < live) v[i] = row0[i * frame_stride + lo];
+      }
+      for (int j = 1; j < len; ++j) {
+#pragma unroll
+        for (int i = 0; i < kFrames; ++i) {
+          if (i < live) v[i] = fmaxf(v[i], row0[i * frame_stride + lo + j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) v[i] = inv_size * v[i];
+    }
+
+    // 2. this group's end values from an empty state, published to the block
+    float* mine = ends + parity * ends_stride;
+    for (int k = 0; k < K; ++k) {
+      const float pole = decay_poles[k];
+      float l = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (steps & (1u << i)) l = fmaxf(pole * l, v[i]);
+      }
+      mine[(g * K + k) * kWarp + lane] = l;
+    }
+    if (lane == 0) counts[parity * kMaxGroups + g] = __popc(steps);
+    __syncthreads();
+
+    const bool last_chunk = c0 + chunk_frames >= T;
+    for (int k = 0; k < K; ++k) {
+      const float pole = decay_poles[k];
+      // 3. the state this group starts from: the chunk's start state
+      //    folded, in order, through the groups before this one
+      float s = mine[(groups * K + k) * kWarp + lane];
+      for (int h = 0; h < g; ++h) {
+        const int n = counts[parity * kMaxGroups + h];
+        for (int i = 0; i < n; ++i) s = pole * s;
+        s = fmaxf(s, mine[(h * K + k) * kWarp + lane]);
+      }
+      // 4. the recurrence over this group's frames, and the dB map
+      float* o = out + (((size_t)pair * T + t0) * K + k) * plane + (size_t)r * P + p;
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (i < count && active) {
+          if (steps & (1u << i)) s = fmaxf(pole * s, v[i]);
+          const float x = slope * s / lower;
+          o[(size_t)i * K * plane] = x > 0.f ? logf(fmaxf(x, 1e-38f)) * dyr : clip_db;
+        }
+      }
+      // the last group ends on the chunk's end state: the next chunk's
+      // start state, in the other parity (read there after that chunk's
+      // barrier), and after the last chunk the carried state
+      if (g == groups - 1) {
+        if (!last_chunk) {
+          ends[(parity ^ 1) * ends_stride + (groups * K + k) * kWarp + lane] = s;
+        } else if (active) {
+          st[k * plane] = s;
+        }
+      }
     }
   }
 }
+
+typedef void (*KernelFn)(const float*, const int*, const float*, const bool*,
+                         const bool*, const int*, const int*, const int*,
+                         const float*, const float*, const float*, const bool*,
+                         float*, float*, int, int, int, int, int, int);
 
 }  // namespace
 
@@ -184,18 +266,25 @@ extern "C" int sig_display_map(
     float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
     int taps, void* stream) {
   if (taps < 1 || taps > kMaxTaps || K < 1 || K > kMaxK || rows < 1 ||
-      P < 1 || nv < 1 || pairs > 65535 || rows > 65535) {
+      P < 1 || nv < 1 || T < 1 || pairs < 1 || pairs > 65535 || rows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * sizeof(float) * (size_t)nv;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        display_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((P + kThreads - 1) / kThreads, rows, pairs);
-  display_map_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  // short calls: a warp per frame; otherwise kGroup frames a warp
+  const bool single = T <= kMaxGroups;
+  const int frames = single ? 1 : kGroup;
+  int groups = (T + frames - 1) / frames;
+  if (groups > kMaxGroups) groups = kMaxGroups;
+  // at most 2 * 9 * 8 * 32 floats and 16 counts: under the 48 KB default
+  const size_t smem = sizeof(float) * (size_t)2 * (groups + 1) * K * kWarp +
+                      sizeof(int) * 2 * kMaxGroups;
+  static const KernelFn kernels[2][3] = {
+      {display_map_kernel<0, kGroup>, display_map_kernel<1, kGroup>,
+       display_map_kernel<2, kGroup>},
+      {display_map_kernel<0, 1>, display_map_kernel<1, 1>, display_map_kernel<2, 1>},
+  };
+  const KernelFn kernel = kernels[single ? 1 : 0][taps <= 2 ? taps : 0];
+  const dim3 grid((P + kWarp - 1) / kWarp, rows, pairs);
+  kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
       mags, interp_indices, interp_weights, interp_mask, single_mask,
       single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
       state, out, T, K, rows, P, nv, taps);

@@ -1,5 +1,6 @@
 """Kernel B: pixel remap -> peak decay -> normalized dB over all frames and
-line graphs, one CUDA thread per (pair, row, pixel).
+line graphs, one CUDA warp per (pair, row, 32 pixels, 8 frames) with the
+decay recurrence split exactly across the groups of frames.
 
 Replaces the Pallas kernel ``tools/pallas_display_map.py::fused_display_map``
 and computes the magnitude tail of the Spectrum step: the JAX production
@@ -22,11 +23,9 @@ from signalizer_tpu_torch.core.constant import SpectrumConstant, db_constants
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
-# the kernel keeps each pixel's taps and line-graph states in registers
+# the most taps and line graphs the kernel takes
 MAX_TAPS = 10
 MAX_LINE_GRAPHS = 8
-# dynamic shared memory a block may opt into on sm_90 (two magnitude rows)
-MAX_SHARED_BYTES = 232_448
 
 # kernel launches since the last reset (chip_smoke.py and tests read it)
 launches = 0
@@ -141,8 +140,6 @@ def display_map(
         raise ValueError("display_map: mags, state and constant must share one device")
     if taps > MAX_TAPS or k > MAX_LINE_GRAPHS:
         raise ValueError(f"display_map: at most {MAX_TAPS} taps and {MAX_LINE_GRAPHS} line graphs")
-    if 2 * nv * 4 > MAX_SHARED_BYTES:
-        raise NotImplementedError(f"display_map: {nv} spectrum values exceed one block's shared memory")
     pairs = 1
     for d in lead:
         pairs *= d

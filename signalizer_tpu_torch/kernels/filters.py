@@ -26,6 +26,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from signalizer_tpu_torch.core.constant import resolve_device
+
 
 class BiquadCoeffs(NamedTuple):
     """Normalized (a0 = 1) biquad coefficients."""
@@ -122,8 +124,10 @@ class CrossoverState(NamedTuple):
 
 
 def init_crossover_state(
-    batch_shape: Tuple[int, ...] = (), dtype=torch.float32, device="cpu"
+    batch_shape: Tuple[int, ...] = (), dtype=torch.float32, device=None
 ) -> CrossoverState:
+    """Zero states on ``device`` (``None``: the GPU, raising without one)."""
+    device = resolve_device(device)
     return CrossoverState(z=torch.zeros(tuple(batch_shape) + (8, 2), dtype=dtype, device=device))
 
 

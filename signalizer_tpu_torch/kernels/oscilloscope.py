@@ -29,6 +29,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from signalizer_tpu_torch.core.constant import resolve_device
 from signalizer_tpu_torch.kernels.banded_resample import banded_resample
 from signalizer_tpu_torch.kernels.filters import onepole_smooth
 
@@ -463,10 +464,11 @@ def sinc_resample_matrix(
     step: float,
     num_out: int,
     kernel_size: int = INTERPOLATION_KERNEL_SIZE,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
     """The resample for *static* positions as a dense [window, num_out]
-    f32 matrix, built on the host once per configuration."""
+    f32 matrix, built on the host once per configuration and uploaded to
+    ``device`` (``None``: the GPU, raising without one)."""
     a = kernel_size
     pos = start + np.arange(num_out) * step
     i0 = np.floor(pos)
@@ -480,7 +482,7 @@ def sinc_resample_matrix(
     for p in range(num_out):
         for k in range(2 * a):
             mat[idx[p, k], p] += wts[p, k]
-    return torch.from_numpy(mat).to(device)
+    return torch.from_numpy(mat).to(resolve_device(device))
 
 
 def sinc_resample_static(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:

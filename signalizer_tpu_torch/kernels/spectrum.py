@@ -33,8 +33,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from signalizer_tpu.core.config import SpectrumChannels
-from signalizer_tpu_torch.core.constant import SpectrumConstant
+from signalizer_tpu_torch.core.config import SpectrumChannels
+from signalizer_tpu_torch.core.constant import SpectrumConstant, resolve_device
 from signalizer_tpu_torch.kernels.display_map import (  # noqa: F401 — re-exported
     _binmax_mag,
     _db_map,
@@ -73,9 +73,11 @@ def init_line_graph_state(
     )
 
 
-def line_graph_state_from_arrays(magnitude, phase, device) -> LineGraphState:
+def line_graph_state_from_arrays(magnitude, phase, device=None) -> LineGraphState:
     """A :class:`LineGraphState` from carried state given as arrays (e.g. a
-    JAX state read with ``np.asarray``), copied to ``device``."""
+    JAX state read with ``np.asarray``), copied to ``device`` (``None``:
+    the GPU, raising without one)."""
+    device = resolve_device(device)
     return LineGraphState(
         magnitude=torch.tensor(magnitude, dtype=torch.float32, device=device),
         phase=torch.tensor(phase, dtype=torch.float32, device=device),

@@ -1,5 +1,5 @@
-"""Kernel A: channel packing -> window -> FFT -> magnitude, one frame row
-per CUDA block.
+"""Kernel A: channel packing -> window -> FFT -> magnitude, each frame row
+a packed real transform in one CUDA block's shared memory.
 
 Replaces the Pallas kernel
 ``signalizer_tpu/kernels/pallas_spectrum.py::fused_window_rfft_mag`` and
@@ -24,12 +24,15 @@ from __future__ import annotations
 
 import torch
 
-from signalizer_tpu.core.config import SpectrumChannels
+from signalizer_tpu_torch.core.config import SpectrumChannels
 from signalizer_tpu_torch.core.constant import SpectrumConstant
 from signalizer_tpu_torch.kernels import _build
 
-# the largest transform the kernel holds in shared memory (8*N bytes)
-MAX_TRANSFORM_SIZE = 16384
+# the largest transforms the kernel holds in one block's shared memory: a
+# real row runs as an N/2-point complex transform (4*N bytes), COMPLEX as an
+# N-point one (8*N bytes)
+MAX_TRANSFORM_SIZE = 32768
+MAX_COMPLEX_TRANSFORM_SIZE = 16384
 
 # kernel launches since the last reset (chip_smoke.py and tests read it)
 launches = 0
@@ -98,7 +101,7 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
     """Stage 1 of the Spectrum step for frames [..., C, W] f32.
 
     CPU tensors take :func:`window_fft_mag_plain`; CUDA tensors launch
-    ``csrc/window_fft_mag.cu`` (one block per output row) or raise.
+    ``csrc/window_fft_mag.cu`` (blocks stride over the output rows) or raise.
     """
     global launches
     if frames.device.type == "cpu":
@@ -106,10 +109,13 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
     if frames.device.type != "cuda":
         raise ValueError(f"window_fft_mag: unsupported device {frames.device}")
     n = constant.transform_size
-    if n > MAX_TRANSFORM_SIZE:
+    complex_mode = constant.configuration == SpectrumChannels.COMPLEX
+    limit = MAX_COMPLEX_TRANSFORM_SIZE if complex_mode else MAX_TRANSFORM_SIZE
+    if n > limit:
         raise NotImplementedError(
-            f"window_fft_mag: transform_size {n} > {MAX_TRANSFORM_SIZE} does not fit "
-            "one block's shared memory (ROADMAP: kernel A above 16384 points)"
+            f"window_fft_mag: transform_size {n} > {limit} does not fit one block's "
+            f"shared memory (ROADMAP: kernel A above {MAX_TRANSFORM_SIZE} points, "
+            f"{MAX_COMPLEX_TRANSFORM_SIZE} for COMPLEX)"
         )
     w = constant.window_size
     if frames.dtype != torch.float32:
@@ -121,6 +127,8 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
     for name in ("window_kernel", "fft_twiddles"):
         if getattr(constant, name).device != frames.device:
             raise ValueError(f"window_fft_mag: constant.{name} is not on {frames.device}")
+    if tuple(constant.fft_twiddles.shape) != (n, 2) or not constant.fft_twiddles.is_contiguous():
+        raise ValueError(f"window_fft_mag: constant.fft_twiddles must be a contiguous [{n}, 2] table")
     lead = frames.shape[:-2]
     batch = 1
     for d in lead:

@@ -31,10 +31,10 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from signalizer_tpu.core.config import OscChannels
-from signalizer_tpu.params.transformatters import TimeMode
-from signalizer_tpu.utils.colour import pair_key_table
-from signalizer_tpu_torch.core.constant import check_device
+from signalizer_tpu_torch.core.config import OscChannels
+from signalizer_tpu_torch.params.transformatters import TimeMode
+from signalizer_tpu_torch.utils.colour import pair_key_table
+from signalizer_tpu_torch.core.constant import resolve_device
 from signalizer_tpu_torch.kernels.filters import (
     CrossoverState,
     init_crossover_state,
@@ -128,7 +128,7 @@ class OscilloscopeConstant:
 
 def make_oscilloscope_constant(
     *,
-    device="cpu",
+    device=None,
     sample_rate: float = 48_000.0,
     channel_mode: OscChannels = OscChannels.SEPARATE,
     trigger_mode: TriggerMode = TriggerMode.NONE,
@@ -151,7 +151,7 @@ def make_oscilloscope_constant(
     custom_trigger: bool = False,
     custom_trigger_frequency: float = 440.0,
 ) -> OscilloscopeConstant:
-    device = check_device(device)
+    device = resolve_device(device)  # None: the GPU, raising without one
     if isinstance(autogain, bool):
         autogain = AutoGain.PEAK_DECAY if autogain else AutoGain.NONE
     # ref: SmoothedParameterState-designed pole over colour_smooth_ms
@@ -225,13 +225,13 @@ def init_oscilloscope_state(constant: OscilloscopeConstant, pairs: int) -> Oscil
     )
 
 
-def oscilloscope_state_from_arrays(arrays, device) -> OscilloscopeState:
+def oscilloscope_state_from_arrays(arrays, device=None) -> OscilloscopeState:
     """An :class:`OscilloscopeState` from carried state given as arrays: a
     mapping or a named tuple with the state's field names (e.g. a JAX
     ``OscilloscopeState`` read leaf by leaf with ``np.asarray``), whose
     ``crossover`` is the crossover's ``z`` array or an object holding it as
-    ``.z``. Copied to ``device``."""
-    device = check_device(device)
+    ``.z``. Copied to ``device`` (``None``: the GPU)."""
+    device = resolve_device(device)
     fields = arrays._asdict() if hasattr(arrays, "_asdict") else dict(arrays)
     xover = fields["crossover"]
     xover = getattr(xover, "z", xover)
@@ -615,7 +615,7 @@ class OscilloscopeProcessor:
         cls,
         *,
         pairs: int = 1,
-        device,
+        device=None,
         window_samples: float = 1024.0,
         time_mode: TimeMode = None,
         window_value: Optional[float] = None,
@@ -623,8 +623,8 @@ class OscilloscopeProcessor:
         bpm_source=None,
         **constant_kwargs,
     ) -> "OscilloscopeProcessor":
-        """Build the constant on ``device`` (raises for ``"cuda"`` when no
-        GPU is available) and a processor for ``pairs`` channel pairs;
+        """Build the constant on ``device`` (``None``: the GPU, raising
+        when none is available) and a processor for ``pairs`` channel pairs;
         ``constant_kwargs`` are :func:`make_oscilloscope_constant`'s."""
         constant = make_oscilloscope_constant(device=device, **constant_kwargs)
         return cls(

@@ -19,7 +19,7 @@ import torch
 
 from signalizer_tpu_torch.core.constant import (
     SpectrumConstant,
-    check_device,
+    resolve_device,
     make_spectrum_constant,
 )
 from signalizer_tpu_torch.kernels.spectrum import (
@@ -39,10 +39,11 @@ class SpectrumProcessor:
         self._state = init_line_graph_state(constant, (pairs,))
 
     @classmethod
-    def create(cls, *, pairs: int = 1, device, **constant_kwargs) -> "SpectrumProcessor":
-        """Build the constant on ``device`` (raises for ``"cuda"`` when no
-        GPU is available) and a processor for ``pairs`` channel pairs."""
-        device = check_device(device)
+    def create(cls, *, pairs: int = 1, device=None, **constant_kwargs) -> "SpectrumProcessor":
+        """Build the constant on ``device`` and a processor for ``pairs``
+        channel pairs. ``device=None`` is the GPU; it raises when no GPU is
+        available, and the CPU is used only for ``device="cpu"``."""
+        device = resolve_device(device)
         return cls(make_spectrum_constant(device=device, **constant_kwargs), pairs=pairs)
 
     @property

@@ -173,12 +173,20 @@ def test_display_scalars_follow_the_db_map():
 
 
 def test_twiddles_are_float64_rounded_once():
+    """Stage order: entry half + pos is exp(-2 pi i pos / (2 half)); the
+    last N/2 entries are exp(-2 pi i k / N), and the first N/2 are the
+    N/2-point transform's own table."""
     tw = fft_twiddles(4096)
+    assert tw.dtype == np.float32 and tw.shape == (4096, 2)
+    for half in (1, 2, 64, 1024, 2048):
+        want = np.exp(-2j * np.pi * np.arange(half) / (2 * half))
+        assert np.array_equal(tw[half : 2 * half, 0], want.real.astype(np.float32))
+        assert np.array_equal(tw[half : 2 * half, 1], want.imag.astype(np.float32))
     k = np.arange(2048)
-    want = np.exp(-2j * np.pi * k / 4096)
-    assert tw.dtype == np.float32 and tw.shape == (2048, 2)
-    assert np.array_equal(tw[:, 0], want.real.astype(np.float32))
-    assert np.array_equal(tw[:, 1], want.imag.astype(np.float32))
+    ang = -2.0 * np.pi * k / 4096  # the flat table's own arithmetic
+    assert np.array_equal(tw[2048:, 0], np.cos(ang).astype(np.float32))
+    assert np.array_equal(tw[2048:, 1], np.sin(ang).astype(np.float32))
+    assert np.array_equal(tw[:2048], fft_twiddles(2048))
 
 
 def test_to_moves_every_tensor_and_replace_rederives_scalars():

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from signalizer_tpu.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
+from signalizer_tpu_torch.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import display_map as dm
@@ -55,14 +55,21 @@ def _row_rel_err(got, want):
     return float((err / scale).max())
 
 
-@pytest.mark.parametrize("window", [24, 256, 700, 4096, 16384])
+@pytest.mark.parametrize("window", [24, 255, 256, 700, 701, 4096, 16384, 20000, 32768])
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_window_fft_mag_kernel_matches_plain(cuda, mode, window):
-    """Kernel A vs torch.fft on the card, every mode, N from 32 to 16384,
-    W < N included. Bound: 5e-6 of each row's max (the Pallas kernel's
-    bound against float64 numpy)."""
+    """Kernel A vs torch.fft on the card, every mode, N from 32 to 32768
+    (COMPLEX to 16384, and raising above it), W < N and odd W (the scalar
+    loads) included. Bound: 5e-6 of each row's max (the Pallas kernel's
+    bound against float64 numpy); the packed real transform's split adds one
+    rounding per bin and stays inside it."""
     c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
     frames = _frames((3, 5, 2, window), seed=window + int(mode), device=cuda)
+    limit = wfm.MAX_COMPLEX_TRANSFORM_SIZE if mode == SpectrumChannels.COMPLEX else wfm.MAX_TRANSFORM_SIZE
+    if c.transform_size > limit:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            wfm.window_fft_mag(c, frames)
+        return
     before = wfm.launches
     got = wfm.window_fft_mag(c, frames)
     want = wfm.window_fft_mag_plain(c, frames)
@@ -81,10 +88,38 @@ def test_window_fft_mag_silent_rows_stay_zero(cuda):
     assert (got[:, 0] > 0).any()
 
 
+@pytest.mark.parametrize("window", [32, 701, 4096, 32768])
+@pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE], ids=lambda m: m.name)
+def test_window_fft_mag_silent_channel_beside_a_loud_one(cuda, mode, window):
+    """An all-zero channel comes out exactly zero in every bin while the
+    other channel of the same frame is loud (each row is its own packed
+    transform), and the loud row keeps its bound."""
+    c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+    frames = _frames((4, 2, window), seed=window, device=cuda) * 3.0
+    frames[:, 1] = 0.0
+    got = wfm.window_fft_mag(c, frames)
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1] == 0).all())
+    assert _row_rel_err(got[:, 0], want[:, 0]) <= 5e-6
+
+
+def test_window_fft_mag_takes_a_misaligned_view(cuda):
+    """Frames that start 4 bytes past a 16-byte boundary take the scalar
+    loads inside the kernel and give the aligned result."""
+    c = make_spectrum_constant(axis_points=64, window_size=1024, configuration=SpectrumChannels.MIDSIDE, device=cuda)
+    flat = _frames((3 * 2 * 1024 + 1,), seed=9, device=cuda)
+    view = flat[1:].view(3, 2, 1024)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    got = wfm.window_fft_mag(c, view)
+    assert torch.equal(got, wfm.window_fft_mag(c, view.clone()))
+    assert _row_rel_err(got, wfm.window_fft_mag_plain(c, view)) <= 5e-6
+
+
 def test_window_fft_mag_refuses_what_it_cannot_take(cuda):
-    big = make_spectrum_constant(axis_points=64, window_size=20000, device=cuda)
+    big = make_spectrum_constant(axis_points=64, window_size=40000, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wfm.window_fft_mag(big, _frames((1, 2, 20000), seed=2, device=cuda))
+        wfm.window_fft_mag(big, _frames((1, 2, 40000), seed=2, device=cuda))
     c = make_spectrum_constant(axis_points=64, window_size=256, device=cuda)
     with pytest.raises(TypeError):
         wfm.window_fft_mag(c, _frames((1, 2, 256), seed=3, device=cuda).double())
@@ -103,7 +138,29 @@ def _mags_state(c, seed, t, pairs, device):
     )
 
 
-@pytest.mark.parametrize("t,valid", [(1, None), (1, [False]), (7, [True, False, True, True, False, False, True])])
+def _valid_mask(t, valid):
+    """``valid`` as a list: "random" is a seeded mask that drops about a
+    third of the frames, "none" drops them all."""
+    if valid == "random":
+        return (np.random.default_rng(t).random(t) > 0.35).tolist()
+    if valid == "none":
+        return [False] * t
+    return valid
+
+
+@pytest.mark.parametrize(
+    "t,valid",
+    [
+        (1, None),
+        (1, [False]),
+        (7, [True, False, True, True, False, False, True]),
+        (127, "random"),  # a ragged last group of frames
+        (128, None),
+        (128, "none"),
+        (300, "random"),  # more than one chunk of groups
+    ],
+    ids=["t1", "t1_invalid", "t7_mask", "t127_mask", "t128", "t128_none_valid", "t300_mask"],
+)
 @pytest.mark.parametrize("interp", INTERPS, ids=lambda i: i.name)
 @pytest.mark.parametrize("mode", MAG_MODES, ids=lambda m: m.name)
 def test_display_map_kernel_matches_plain(cuda, mode, interp, t, valid):
@@ -112,7 +169,11 @@ def test_display_map_kernel_matches_plain(cuda, mode, interp, t, valid):
     2- to 10-tap sum may round differently (fused multiply-adds). Lanczos
     taps have negative lobes, so that sum can cancel: its rounding error
     scales with the spectrum, not the result, and the state also gets an
-    atol of 1e-6 of its largest value."""
+    atol of 1e-6 of its largest value. On chunk-max and single-bin pixels
+    the remapped value has no sum, and the kernel's split of the decay over
+    groups of frames is exact: there the state equals the plain loop's bit
+    for bit."""
+    valid = _valid_mask(t, valid)
     c = make_spectrum_constant(
         axis_points=300, window_size=2048, configuration=mode, bin_interpolation=interp,
         view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
@@ -127,8 +188,51 @@ def test_display_map_kernel_matches_plain(cuda, mode, interp, t, valid):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     atol = 1e-6 * float(s_plain.abs().max()) if interp == BinInterpolation.LANCZOS else 0.0
     torch.testing.assert_close(s_kernel, s_plain, rtol=1e-6, atol=atol)
+    exact = ~c.interp_mask
+    assert bool(exact.any())
+    assert torch.equal(s_kernel[..., exact], s_plain[..., exact])
     if valid is not None and not any(valid):
         assert torch.equal(s_kernel, state)
+
+
+@pytest.mark.parametrize("t", [1, 40])
+@pytest.mark.parametrize("graphs", [1, 8])
+def test_display_map_kernel_line_graph_counts(cuda, graphs, t):
+    """One and eight line graphs (the kernel's register limit), with a zero
+    pole among them (a decay time of 0: the state follows the input)."""
+    c = make_spectrum_constant(
+        axis_points=200, window_size=1024, configuration=SpectrumChannels.SEPARATE,
+        view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=graphs,
+        decay_seconds=(0.1, 0.0, 1.0), device=cuda,
+    )
+    mags, state = _mags_state(c, seed=graphs + t, t=t, pairs=2, device=cuda)
+    s_kernel, s_plain = state.clone(), state.clone()
+    valid = _valid_mask(t, "random") if t > 1 else None
+    got = dm.display_map(c, mags, s_kernel, valid)
+    want = dm.display_map_plain(c, mags, s_plain, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (2, t, graphs, 2, 200)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(s_kernel, s_plain, rtol=1e-6, atol=0)
+    exact = ~c.interp_mask
+    assert torch.equal(s_kernel[..., exact], s_plain[..., exact])
+
+
+def test_display_map_kernel_wide_chunks(cuda):
+    """A 16384-point window over 64 linear pixels: every pixel is the max of
+    a chunk of about 130 bins, and 32 neighbouring pixels span half the
+    spectrum."""
+    c = make_spectrum_constant(axis_points=64, window_size=16384, device=cuda)
+    assert int(c.chunk_len.max()) > 100
+    for t in (1, 128):
+        mags, state = _mags_state(c, seed=t, t=t, pairs=2, device=cuda)
+        s_kernel, s_plain = state.clone(), state.clone()
+        got = dm.display_map(c, mags, s_kernel)
+        want = dm.display_map_plain(c, mags, s_plain)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        exact = ~c.interp_mask
+        assert torch.equal(s_kernel[..., exact], s_plain[..., exact])
 
 
 def test_analyze_frames_on_cuda_goes_through_both_kernels(cuda):

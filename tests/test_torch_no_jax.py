@@ -1,5 +1,6 @@
-"""The port imports and runs with jax blocked, refuses a missing GPU, and
-builds nothing when its kernel modules are imported."""
+"""The port imports and runs with jax blocked and loads nothing of the JAX
+package, refuses a missing GPU (asked for or by default), and builds nothing
+when its kernel modules are imported."""
 
 import os
 import subprocess
@@ -11,23 +12,9 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-# the JAX package's jax-free modules the port may load: core.config (enums),
-# core.windows, core.scaling, params.transformatters (TimeMode) and
-# utils.colour (pair_key_table), with what those two import
-ALLOWED = {
-    "signalizer_tpu",
-    "signalizer_tpu.core",
-    "signalizer_tpu.core.config",
-    "signalizer_tpu.core.windows",
-    "signalizer_tpu.core.scaling",
-    "signalizer_tpu.params",
-    "signalizer_tpu.params.parameters",
-    "signalizer_tpu.params.transformatters",
-    "signalizer_tpu.params.values",
-    "signalizer_tpu.utils",
-    "signalizer_tpu.utils.colour",
-    "signalizer_tpu.utils.diagnostics",
-}
+# modules of the JAX package the port may load: none, not even its jax-free
+# ones (the port keeps its own copies of what it needs from them)
+ALLOWED = set()
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -40,8 +27,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_port_runs_with_jax_blocked():
     """With ``sys.modules['jax'] = None`` any jax import raises; the port
-    still imports and a small SpectrumProcessor runs on the CPU. Only
-    jax-free modules of the JAX package get loaded."""
+    still imports and a small SpectrumProcessor runs on the CPU. No module
+    of the JAX package gets loaded."""
     proc = _run(
         """
         import sys
@@ -65,8 +52,8 @@ def test_port_runs_with_jax_blocked():
 
 def test_oscilloscope_runs_with_jax_blocked():
     """With jax blocked a CPU OscilloscopeProcessor (ZERO_CROSSING trigger,
-    colour track) runs, finds each sine's trigger, and loads no JAX-package
-    module beyond the jax-free set."""
+    colour track) runs, finds each sine's trigger, and loads no module of
+    the JAX package."""
     proc = _run(
         """
         import sys
@@ -156,3 +143,74 @@ def test_cuda_processor_raises_without_gpu():
 
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         SpectrumProcessor.create(pairs=1, device="cuda", axis_points=32, window_size=128)
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No file of the port, and not chip_smoke.py, has an import statement
+    naming jax or the JAX package (docstrings may name the counterpart a
+    module was ported from)."""
+    import ast
+
+    files = sorted((REPO / "signalizer_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "signalizer_tpu"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        "spectrum_create",
+        "oscilloscope_create",
+        "make_spectrum_constant",
+        "make_oscilloscope_constant",
+        "constant_from_arrays",
+        "line_graph_state_from_arrays",
+        "oscilloscope_state_from_arrays",
+        "init_crossover_state",
+        "sinc_resample_matrix",
+    ],
+)
+def test_default_device_is_the_gpu_and_raises_without_one(entry):
+    """With no ``device`` given every entry point asks for the GPU: without
+    one it raises and names torch.cuda.is_available; it never carries on on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the no-GPU refusal is not reachable")
+    import numpy as np
+
+    import signalizer_tpu_torch as st
+    from signalizer_tpu_torch.core import constant as tc
+    from signalizer_tpu_torch.kernels import filters as tf
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.views import oscilloscope as tv
+
+    cpu = tc.make_spectrum_constant(axis_points=32, window_size=128, device="cpu")
+    static = {name: getattr(cpu, name) for name in tc.STATIC_FIELDS}
+    arrays = {name: getattr(cpu, name).numpy() for name in tc.ARRAY_FIELDS}
+    osc = tv.OscilloscopeProcessor.create(pairs=1, device="cpu", pixels=32)
+    calls = {
+        "spectrum_create": lambda: st.SpectrumProcessor.create(pairs=1, axis_points=32, window_size=128),
+        "oscilloscope_create": lambda: st.OscilloscopeProcessor.create(pairs=1, pixels=32),
+        "make_spectrum_constant": lambda: tc.make_spectrum_constant(axis_points=32, window_size=128),
+        "make_oscilloscope_constant": lambda: tv.make_oscilloscope_constant(pixels=32),
+        "constant_from_arrays": lambda: tc.constant_from_arrays(static, arrays),
+        "line_graph_state_from_arrays": lambda: ts.line_graph_state_from_arrays(
+            np.zeros((1, 2, 1, 32), np.float32), np.zeros((1, 2, 32), np.float32)
+        ),
+        "oscilloscope_state_from_arrays": lambda: tv.oscilloscope_state_from_arrays(osc.state),
+        "init_crossover_state": lambda: tf.init_crossover_state((1, 2)),
+        "sinc_resample_matrix": lambda: tk.sinc_resample_matrix(64, 0.0, 1.0, 16),
+    }
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        calls[entry]()
+    assert tc.resolve_device("cpu") == torch.device("cpu")

@@ -241,9 +241,9 @@ def test_reconfigure_resets_on_a_row_change_and_reset_clears_state():
     proc = tv.OscilloscopeProcessor.create(device="cpu", pairs=2, autogain=tv.AutoGain.PEAK_DECAY, pixels=64)
     proc.process(_calls(_stream())[0])
     assert proc.state.peak_env.abs().sum() > 0
-    proc.reconfigure(tv.make_oscilloscope_constant(channel_mode=OscChannels.SEPARATE, pixels=32))
+    proc.reconfigure(tv.make_oscilloscope_constant(device="cpu", channel_mode=OscChannels.SEPARATE, pixels=32))
     assert proc.state.peak_env.abs().sum() > 0  # same rows: state kept
-    proc.reconfigure(tv.make_oscilloscope_constant(channel_mode=OscChannels.LEFT, pixels=32))
+    proc.reconfigure(tv.make_oscilloscope_constant(device="cpu", channel_mode=OscChannels.LEFT, pixels=32))
     assert proc.state.peak_env.shape == (2, 1) and not proc.state.peak_env.any()
     proc.process(_calls(_stream())[0])
     proc.reset()
