@@ -27,9 +27,12 @@ Phases, each printing one informational line:
    checks;
 6. kernel C (banded resample) against its plain version at the
    oscilloscope's cfg3 shape (Lanczos with the nearest pick, linear,
-   nearest), a 160-pixel tail block, a 16384-sample window over 1024 px
-   (the kernel's global-memory form), positions off both edges, and the
-   colour track's six rows;
+   nearest), a 160-pixel tail block, a 16384-sample window over 1024 px,
+   positions off both edges, the colour track's six rows, a = 5 and a = 16
+   (the form with a run-time a), one pixel, and positions on samples and
+   within 1e-6 of them; at cfg3, the edges and the zoom-out the kernel
+   forming its positions itself is held against the same kernel reading
+   them from a tensor;
 7. the oscilloscope slice: a seeded 96 kHz stereo stream for 16 pairs,
    advanced 1600 samples (60 fps) per call over a 16384-sample history,
    through ``OscilloscopeProcessor`` at cfg3 (ZERO_CROSSING), cfg3b
@@ -42,7 +45,10 @@ Phases, each printing one informational line:
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
    the profiler give the host wall time per call, and the device busy
-   share is kernel time over that wall time.
+   share is kernel time over that wall time; the cfg3 Lanczos resample
+   alone is profiled by both routes (positions formed in the kernel, and a
+   position tensor built by torch operations) to count the launches of
+   each.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -527,23 +533,30 @@ CLIP = {
 
 
 def resample_case(torch, dev, kind, a, rows, p, step, where, seed):
-    """x [16, rows, 16384] and f32 positions start + k * step [16, p],
-    clipped as the callers clip them; ``where`` is "inside" (seeded starts
-    within the history) or "edges" (even pairs start off the left edge,
-    odd pairs run off the right one)."""
+    """x [16, rows, 16384], f32 positions start + k * step [16, p], clipped
+    as the callers clip them, and the f32 starts [16]; ``where`` is "inside"
+    (seeded starts within the history), "edges" (even pairs start off the
+    left edge, odd pairs run off the right one) or "samples" (positions on
+    samples, within 1e-6 either side of them and on half samples, about
+    samples spread over the row and at both of its ends)."""
     rng = np.random.default_rng(seed)
     w = OSC_HISTORY
     x = (rng.standard_normal((PAIRS, rows, w)) * 0.4).astype(np.float32)
     lo, hi = CLIP[kind](a, w)
     span = step * (p - 1)
-    if where == "inside":
-        starts = rng.uniform(0.0, w - 1.0 - span, PAIRS) + 0.3137
-    else:
+    if where == "edges":
         starts = np.where(np.arange(PAIRS) % 2 == 0, lo - 2.7, hi - span / 2 + 0.21)
+    else:
+        starts = rng.uniform(0.0, w - 1.0 - span, PAIRS) + 0.3137
     k = np.arange(p, dtype=np.float64)
     pos = np.float32(starts)[:, None].astype(np.float64) + k * np.float64(np.float32(step))
+    if where == "samples":
+        off = np.array([0.0, 1e-7, -1e-7, 5e-7, -5e-7, 9e-7, -9e-7, 1.1e-6, -1.1e-6, 1e-5, -1e-5,
+                        0.5, 0.5 - 1e-7, 0.5 + 1e-7, -0.5, 0.25])
+        base = np.concatenate([[0.0, 1.0, w - 2.0, w - 1.0], rng.integers(2, w - 2, p // len(off) - 4)])
+        pos = np.tile((base[:, None] + off[None, :]).reshape(-1), (PAIRS, 1))
     pos = np.clip(pos.astype(np.float32), lo, hi).astype(np.float32)
-    return torch.from_numpy(x).to(dev), torch.from_numpy(pos).to(dev)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(pos).to(dev), torch.from_numpy(np.float32(starts)).to(dev)
 
 
 def phase_kernel_c(torch, dev, results):
@@ -561,13 +574,23 @@ def phase_kernel_c(torch, dev, results):
         ("edges_linear", "linear", 1, False, 2, OSC_PIXELS, up, "edges"),
         ("edges_nearest", "nearest", 1, False, 2, OSC_PIXELS, up, "edges"),
         ("colour_rows6", "nearest", 1, False, 6, OSC_PIXELS, up, "inside"),
+        ("a5", "lanczos", 5, True, 2, OSC_PIXELS, up, "inside"),
+        ("a16", "lanczos", 16, True, 2, OSC_PIXELS, up, "inside"),
+        ("a16_edges", "lanczos", 16, False, 2, OSC_PIXELS, up, "edges"),
+        ("one_pixel", "lanczos", 10, True, 2, 1, up, "inside"),
+        ("on_samples", "lanczos", 10, True, 2, 1024, 1.0, "samples"),
+        ("on_samples_a16", "lanczos", 16, True, 2, 1024, 1.0, "samples"),
+        ("on_samples_linear", "linear", 1, True, 2, 1024, 1.0, "samples"),
     ]
-    require(not br.stages_in_shared_memory(2, zoom_out, 10), "step 16 takes the global-memory form")
-    require(br.stages_in_shared_memory(2, up, 10), "cfg3 stages its taps in shared memory")
-    report = {"phase": "kernel_c", "bound": "max|kernel - plain| / max|x|: <= 1e-5 lanczos and linear, 0 nearest",
+    affine_cases = {"cfg3", "cfg3_linear", "cfg3_nearest", "global_step16", "edges", "edges_linear",
+                    "edges_nearest", "a16_edges"}
+    report = {"phase": "kernel_c",
+              "bound": "max|kernel - plain| / max|x|: <= 1e-5 lanczos and linear, 0 nearest and the nearest pick; "
+                       "positions formed in the kernel against the same positions read from a tensor: "
+                       "<= 1e-6 lanczos and linear, 0 nearest and the nearest pick",
               "cases": {}}
     for i, (name, kind, a, dual, rows, p, step, where) in enumerate(cases):
-        x, pos = resample_case(torch, dev, kind, a, rows, p, step, where, seed=30 + i)
+        x, pos, start = resample_case(torch, dev, kind, a, rows, p, step, where, seed=30 + i)
 
         def kernel():
             return br.banded_resample(x, pos, a=a, kind=kind, with_nearest=dual)
@@ -578,11 +601,29 @@ def phase_kernel_c(torch, dev, results):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         scale = float(x.abs().max())
+        affine_err = None
+        if name in affine_cases:
+            # the kernel forming these positions itself, against itself
+            # reading them: the same f32 values but for a rare
+            # double-rounding tie of the tensor's float64 sum
+            lo, hi = CLIP[kind](a, OSC_HISTORY)
+            formed = br.banded_resample_affine(
+                x, start, float(np.float32(step)), p, lo, hi, a=a, kind=kind, with_nearest=True
+            )
+            same = torch.equal(pos, br.affine_positions(x, start, float(np.float32(step)), p, lo, hi))
+            require(same, f"kernel C {name}: the case's positions are not affine_positions' tensor")
+            read = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=True)
+            torch.cuda.synchronize()
+            affine_err = float((formed[0] - read[0]).abs().max()) / scale
+            require(affine_err <= (0.0 if kind == "nearest" else 1e-6),
+                    f"kernel C {name}: positions formed in the kernel differ by {affine_err} of max|x|")
+            require(torch.equal(formed[1], read[1]), f"kernel C {name}: nearest pick at positions formed in the kernel")
         near_err = 0.0
         if dual:
             near_err = float((got[1] - want[1]).abs().max())
             got, want = got[0], want[0]
         require(got.shape == (PAIRS, rows, p), f"kernel C {name} shape {tuple(got.shape)}")
+        require(bool(torch.isfinite(got).all()), f"kernel C {name}: not finite")
         abs_err = float((got - want).abs().max())
         rel = abs_err / scale
         bound = 0.0 if kind == "nearest" else 1e-5
@@ -593,12 +634,13 @@ def phase_kernel_c(torch, dev, results):
         report["cases"][name] = {
             "kind": kind, "a": a, "with_nearest": dual, "shape": [PAIRS, rows, OSC_HISTORY], "P": p,
             "step": step, "where": where, "max_abs_err": abs_err, "err_of_max_x": rel,
-            "nearest_max_abs_err": near_err, "ms": ms, "plain_ms": plain_ms,
+            "nearest_max_abs_err": near_err, "affine_err_of_max_x": affine_err, "ms": ms, "plain_ms": plain_ms,
         }
         if name == "cfg3":
             # reads x and the positions once, writes the wave and the
-            # nearest pick once; per pixel 2a weights (two sines of ~20
-            # flops and a division each) and per row 2a multiply-adds
+            # nearest pick once; per pixel 2a weights as the function
+            # defines them (two sines of ~20 flops and a division each,
+            # whatever a kernel makes of them) and per row 2a multiply-adds
             outs = 2 if dual else 1
             moved = nbytes(x, pos) + outs * PAIRS * rows * p * 4
             flops = PAIRS * p * (2 * a * 50.0 + rows * 2 * a * 2.0)
@@ -615,12 +657,12 @@ def plain_resample():
     from signalizer_tpu_torch.kernels import banded_resample as br
     from signalizer_tpu_torch.kernels import oscilloscope as tk
 
-    kernel = tk.banded_resample
-    tk.banded_resample = br.banded_resample_plain
+    kernels = tk.banded_resample, tk.banded_resample_affine
+    tk.banded_resample, tk.banded_resample_affine = br.banded_resample_plain, br.banded_resample_affine_plain
     try:
         yield
     finally:
-        tk.banded_resample = kernel
+        tk.banded_resample, tk.banded_resample_affine = kernels
 
 
 def make_osc_stream():
@@ -778,6 +820,7 @@ def phase_profile(torch, workloads, calls: int = 20):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled_wall_us = run(fn)
         kernels_us = {}
+        launched = 0
         for evt in prof.key_averages():
             if evt.device_type != DeviceType.CUDA:
                 continue  # a host op: its kernels are their own events
@@ -785,9 +828,12 @@ def phase_profile(torch, workloads, calls: int = 20):
             if us is None:
                 us = evt.self_cuda_time_total
             if us > 0:
-                kernel = evt.key.split("(anonymous namespace)::")[-1]
+                launched += evt.count
+                # the port's kernels live in anonymous namespaces (and so may
+                # the types of their arguments, later in the name)
+                kernel = evt.key.split("(anonymous namespace)::", 1)[-1]
                 if kernel != evt.key:
-                    kernel = kernel.split("<")[0]  # the port's own: one name per kernel
+                    kernel = kernel.split("<")[0]  # one name per kernel, whatever its template arguments
                 kernel = kernel.split("(")[0][:80]
                 kernels_us[kernel] = kernels_us.get(kernel, 0.0) + us / calls
         device_us = sum(kernels_us.values())
@@ -799,10 +845,38 @@ def phase_profile(torch, workloads, calls: int = 20):
             "device_us_per_call": device_us,
             "busy_share": device_us * calls / wall_us,
             "device_kernels": len(kernels_us),
+            "launches_per_call": launched / calls,
             "top_kernels_us_per_call": top,
+            "own_kernels_us_per_call": {
+                k: kernels_us[k] for k in (f"{kern}_kernel" for kern in KERNELS) if k in kernels_us
+            },
         }
     info(report)
     return report
+
+
+def resample_routes(torch, history):
+    """cfg3's Lanczos resample with the nearest pick alone, by both routes:
+    the positions formed in kernel C from each pair's start and the step
+    (what the oscilloscope step calls), and a position tensor built by
+    torch operations and handed to the kernel."""
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+
+    a = tk.INTERPOLATION_KERNEL_SIZE
+    step = float(np.float32((OSC_WINDOW - 1.0) / (OSC_PIXELS - 1)))
+    start = torch.linspace(100.25, OSC_HISTORY - OSC_WINDOW - 1.0, PAIRS, device=history.device)[:, None]
+    lo, hi = CLIP["lanczos"](a, OSC_HISTORY)
+
+    def position_tensor():
+        pos = br.affine_positions(history, start, step, OSC_PIXELS, lo, hi)
+        return br.banded_resample(history, pos.reshape(PAIRS, OSC_PIXELS), a=a, kind="lanczos", with_nearest=True)
+
+    return [
+        ("resample_formed_in_kernel",
+         lambda: tk.sinc_resample_with_nearest(history, start, step, OSC_PIXELS, a)),
+        ("resample_position_tensor", position_tensor),
+    ]
 
 
 def main() -> int:
@@ -829,10 +903,11 @@ def main() -> int:
         ("t128", lambda: proc.process(x)),
         ("t1", lambda: proc.process(tick)),
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
+        *resample_routes(torch, history),
     ])
     # device time per launch on the main path: one launch per profiled call
     for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3")):
-        results[name]["profile_us"] = profile[path]["top_kernels_us_per_call"].get(f"{name}_kernel")
+        results[name]["profile_us"] = profile[path]["own_kernels_us_per_call"].get(f"{name}_kernel")
         require(results[name]["profile_us"], f"profile {path}: no device time for {name}_kernel")
     # launches: counted while the main paths were driven (the comparisons
     # with the plain versions are not in it); per call: over those calls

@@ -31,8 +31,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (every pointer and the stream as
-# c_void_p, every int as c_int; each returns its cudaError_t as an int)
+# c_void_p, every int as c_int, every float as c_float; each returns its
+# cudaError_t as an int)
 SIGNATURES = {
     # frames, window, twiddles, out, batch, channels, window_size,
     # log2_n, mode, stream
@@ -45,8 +47,14 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # x, pos, out, near (or null), B, R, W, P, a, kind, stream
-    "sig_banded_resample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, pos, out, near (or null), B, R, W, P, a, kind, rotation (a host
+    # array, or null unless lanczos), stream
+    "sig_banded_resample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # x, start, step (or null), step_all, lo, hi, out, near (or null), B, R,
+    # W, P, a, kind, rotation, stream
+    "sig_banded_resample_affine": (
+        _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
 }
 
 # what the last build in this process printed and how long it took

@@ -6,11 +6,13 @@ StreamPreprocessing.h:270-349 peak-hold / zero-crossing processors,
 OscilloscopeRendering.cpp:790-891 windowed-sinc pixel resampling), with the
 same shapes and semantics, on tensors on any device.
 
-* Every Lanczos, linear and nearest resample goes to kernel C,
-  :func:`~signalizer_tpu_torch.kernels.banded_resample.banded_resample`:
-  its CUDA kernel for a CUDA tensor, its plain per-tap version for a CPU
-  one. The JAX package's TPU routing (the ``covers`` check, the XLA band
-  widths) has no counterpart.
+* Every Lanczos, linear and nearest resample goes to kernel C
+  (:mod:`signalizer_tpu_torch.kernels.banded_resample`): its CUDA kernel
+  for a CUDA tensor, its plain per-tap version for a CPU one. Positions
+  shared by a pair's rows are formed inside the kernel from the pair's
+  start and step; any other broadcast hands it a position tensor. The JAX
+  package's TPU routing (the ``covers`` check, the XLA band widths) has no
+  counterpart.
 * The zero-crossing trigger finds each crossing's segment end and the next
   hot sample with reversed running minima (exact booleans).
 * The envelope-hold trigger is the reference's sequential state machine, a
@@ -30,7 +32,11 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.core.constant import resolve_device
-from signalizer_tpu_torch.kernels.banded_resample import banded_resample
+from signalizer_tpu_torch.kernels.banded_resample import (
+    affine_positions,
+    banded_resample,
+    banded_resample_affine,
+)
 from signalizer_tpu_torch.kernels.filters import onepole_smooth
 
 LOOKAHEAD_SIZE = 8192  # ref: OscilloscopeParameters.h:46
@@ -313,47 +319,49 @@ def trigger_phase_offset(
 # ---------------------------------------------------------------------------
 
 
-def _per_row(v):
-    """A start or step as the JAX code broadcasts it, in float64 holding its
-    f32 value: a tensor [...] gains a pixel axis; a host number stays a
-    scalar (no upload)."""
-    if isinstance(v, torch.Tensor):
-        return v.to(torch.float32).to(torch.float64)[..., None]
-    return float(np.float32(v))
+def _resample(
+    x: torch.Tensor, start, step, num_out: int, lo: float, hi: float,
+    a: int, kind: str, with_nearest: bool = False,
+):
+    """Resample x [..., W] at ``clip(start[..., None] + p * step[..., None],
+    lo, hi)``, p = 0..num_out-1, through kernel C -> [..., num_out].
 
-
-def _positions(x: torch.Tensor, start, step, num_out: int, lo: float, hi: float) -> torch.Tensor:
-    """``clip(start[..., None] + p * step[..., None], lo, hi)`` in f32, with
-    ``start + p * step`` rounded once, as a fused multiply-add rounds it:
-    under ``jit`` XLA contracts this expression into an FMA, and the JAX
-    processor runs jitted. The product of two f32 values is exact in
-    float64, so the sum is formed there and rounded to f32."""
-    p = torch.arange(num_out, dtype=torch.float64, device=x.device)
-    pos = (_per_row(start) + p * _per_row(step)).to(torch.float32)
-    return torch.clamp(pos, lo, hi)
-
-
-def _resample(x: torch.Tensor, pos: torch.Tensor, a: int, kind: str, with_nearest: bool = False):
-    """Map x [..., W] and pos [..., P] onto kernel C's [B, R, W] x [B, P].
-
-    Positions that do not vary along x's last batch axis (pos [..., 1, P],
-    the oscilloscope step's rows) make that axis kernel C's R; otherwise
-    every batch row is its own pair (R = 1).
+    A tensor ``start [..., 1]`` (with a host ``step``, or a tensor
+    ``step [..., 1]``) does not vary along x's last batch axis: that axis is
+    kernel C's R, the axes before it its B, and the kernel forms the
+    positions itself (the oscilloscope step's case: rows [pairs, rows, H],
+    start [pairs, 1]). Any other broadcast builds the position tensor and
+    takes the kernel's ``pos`` entry, every batch row its own pair (R = 1).
     """
     w = x.shape[-1]
-    lead = torch.broadcast_shapes(x.shape[:-1], pos.shape[:-1])
-    shared = len(lead) > 0 and (pos.ndim < 2 or pos.shape[-2] == 1)
-    if shared:
-        rows, outer = lead[-1], lead[:-1]
-        xb = x.expand(lead + (w,)).reshape((-1, rows, w))
-        pb = pos.expand(outer + (1, pos.shape[-1])).reshape((-1, pos.shape[-1]))
+
+    def per_pair(v):
+        return isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[-1] == 1 and v.ndim < x.ndim
+
+    if per_pair(start) and (per_pair(step) or not isinstance(step, torch.Tensor)):
+        rows = x.shape[-2]
+        outer = torch.broadcast_shapes(
+            x.shape[:-2], start.shape[:-1], step.shape[:-1] if per_pair(step) else ()
+        )
+
+        def flat(v):
+            return v.to(torch.float32).expand(outer + (1,)).reshape(-1).contiguous()
+
+        res = banded_resample_affine(
+            x.expand(outer + (rows, w)).reshape((-1, rows, w)).contiguous(),
+            flat(start), flat(step) if per_pair(step) else step, num_out, lo, hi,
+            a=a, kind=kind, with_nearest=with_nearest,
+        )
+        shape = outer + (rows, num_out)
     else:
-        xb = x.expand(lead + (w,)).reshape((-1, 1, w))
-        pb = pos.expand(lead + (pos.shape[-1],)).reshape((-1, pos.shape[-1]))
-    res = banded_resample(
-        xb.contiguous(), pb.contiguous(), a=a, kind=kind, with_nearest=with_nearest
-    )
-    shape = lead + (pos.shape[-1],)
+        pos = affine_positions(x, start, step, num_out, lo, hi)
+        lead = torch.broadcast_shapes(x.shape[:-1], pos.shape[:-1])
+        res = banded_resample(
+            x.expand(lead + (w,)).reshape((-1, 1, w)).contiguous(),
+            pos.expand(lead + (num_out,)).reshape((-1, num_out)).contiguous(),
+            a=a, kind=kind, with_nearest=with_nearest,
+        )
+        shape = lead + (num_out,)
     if with_nearest:
         return res[0].reshape(shape), res[1].reshape(shape)
     return res.reshape(shape)
@@ -374,8 +382,7 @@ def sinc_resample(
     """
     a = kernel_size
     w = x.shape[-1]
-    pos = _positions(x, start, step, num_out, -(a + 1.0), w - 1.0 + a)
-    return _resample(x, pos, a, "lanczos")
+    return _resample(x, start, step, num_out, -(a + 1.0), w - 1.0 + a, a, "lanczos")
 
 
 def sinc_resample_with_nearest(
@@ -391,23 +398,18 @@ def sinc_resample_with_nearest(
     JAX fused call clips them."""
     a = kernel_size
     w = x.shape[-1]
-    pos = _positions(x, start, step, num_out, -(a + 1.0), w - 1.0 + a)
-    return _resample(x, pos, a, "lanczos", with_nearest=True)
+    return _resample(x, start, step, num_out, -(a + 1.0), w - 1.0 + a, a, "lanczos", with_nearest=True)
 
 
 def linear_resample(x: torch.Tensor, start, step, num_out: int) -> torch.Tensor:
     """2-tap linear variant (ref: SubSampleInterpolation::Linear path)."""
-    w = x.shape[-1]
-    pos = _positions(x, start, step, num_out, -2.0, w * 1.0)
-    return _resample(x, pos, 1, "linear")
+    return _resample(x, start, step, num_out, -2.0, x.shape[-1] * 1.0, 1, "linear")
 
 
 def nearest_resample(x: torch.Tensor, start, step, num_out: int) -> torch.Tensor:
     """Nearest-sample pick (ref: SubSampleInterpolation::None /
     Rectangular); exact .5 ties resolve upward (floor(pos + 0.5))."""
-    w = x.shape[-1]
-    pos = _positions(x, start, step, num_out, -1.0, w * 1.0)
-    return _resample(x, pos, 1, "nearest")
+    return _resample(x, start, step, num_out, -1.0, x.shape[-1] * 1.0, 1, "nearest")
 
 
 def minmax_decimate(x: torch.Tensor, num_out: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -482,8 +482,8 @@ def osc_step(
 
     # (window - 1) / (pixels - 1) as the jitted JAX step computes it: XLA
     # rewrites the division by a constant into a product with its f32
-    # reciprocal (the pixel positions then round once, see _positions in
-    # kernels/oscilloscope.py)
+    # reciprocal (the pixel positions then round once, see affine_positions
+    # in kernels/banded_resample.py)
     step = float((window - F32(1.0)) * F32(1.0 / max(pixels - 1, 1)))
 
     # --- resample rows to pixel space --------------------------------------

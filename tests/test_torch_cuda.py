@@ -291,14 +291,14 @@ def _resample_inputs(kind, a, p, step, rows, seed, device, w=16384):
 
 @pytest.mark.parametrize("p", [8192, 160])
 @pytest.mark.parametrize("with_nearest", [False, True], ids=["single", "dual"])
-@pytest.mark.parametrize("a", [10, 5, 1])
+@pytest.mark.parametrize("a", [10, 5, 1, 16])
 @pytest.mark.parametrize("kind", ["lanczos", "linear", "nearest"])
 def test_banded_resample_kernel_matches_plain(cuda, kind, a, with_nearest, p):
-    """Kernel C vs its plain version over steps 0.125 to 128 (the last two
-    read their taps from global memory), inside the frame and off both
-    edges. Bound: atol 1e-5 x max|x| for Lanczos and linear (the same
-    weights, summed with fused multiply-adds in tap order); nearest and
-    the dual output's pick exactly equal."""
+    """Kernel C vs its plain version over steps 0.125 to 128, inside the
+    frame and off both edges; a = 10 is the unrolled form, 5, 1 and 16 the
+    run-time one. Bound: atol 1e-5 x max|x| for Lanczos and linear (weights
+    within 5e-7 of the plain ones, summed with fused multiply-adds in tap
+    order); nearest and the dual output's pick exactly equal."""
     for i, step in enumerate([0.125, 0.8, 1.0, 16.0, 128.0]):
         x, pos = _resample_inputs(kind, a, p, step, rows=2, seed=i + 10 * a + p, device=cuda)
         before = br.launches
@@ -315,6 +315,120 @@ def test_banded_resample_kernel_matches_plain(cuda, kind, a, with_nearest, p):
         else:
             atol = 1e-5 * float(x.abs().max())
             torch.testing.assert_close(got, want, rtol=0, atol=atol, msg=f"step {step}")
+
+
+def _near_sample_positions(w, device):
+    """pos [2, P]: about samples inside the row and at both of its ends,
+    exactly on them, within 1e-6 either side, around the 1e-6 switch of the
+    centre weight, on the half sample and a hair either side of it."""
+    base = np.array([0.0, 1.0, 7.0, w // 3, w / 2.0, w - 2.0, w - 1.0])
+    off = np.array([0.0, 1e-7, -1e-7, 5e-7, -5e-7, 9e-7, -9e-7, 1.1e-6, -1.1e-6, 1e-5, -1e-5,
+                    0.5, 0.5 - 1e-7, 0.5 + 1e-7, -0.5, 0.25])
+    pos = (base[:, None] + off[None, :]).astype(np.float32).reshape(-1)
+    return torch.from_numpy(np.stack([pos, pos[::-1].copy()])).to(device)
+
+
+@pytest.mark.parametrize("a", [5, 10, 16])
+@pytest.mark.parametrize("w", [64, 4096])
+def test_banded_resample_kernel_near_and_on_samples(cuda, a, w):
+    """Positions on samples, within 1e-6 of them from both sides and on the
+    half sample (where the nearest sample, and with it the kernel's
+    rotation, changes), at both ends of the row: Lanczos and linear within
+    1e-5 x max|x|, a position on a sample returns that sample exactly,
+    nearest and the nearest pick equal."""
+    rng = np.random.default_rng(a + w)
+    x = torch.from_numpy((rng.standard_normal((2, 3, w)) * 0.4).astype(np.float32)).to(cuda)
+    pos = _near_sample_positions(w, cuda)
+    atol = 1e-5 * float(x.abs().max())
+    got, near = br.banded_resample(x, pos, a=a, kind="lanczos", with_nearest=True)
+    want, want_near = br.banded_resample_plain(x, pos, a=a, kind="lanczos", with_nearest=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(near, want_near)
+    on = pos == torch.floor(pos)
+    picked = torch.gather(x, -1, pos.long()[:, None, :].expand(2, 3, -1))
+    assert torch.equal(got[on[:, None, :].expand_as(got)], picked[on[:, None, :].expand_as(got)])
+    torch.testing.assert_close(br.banded_resample(x, pos, a=1, kind="linear"),
+                               br.banded_resample_plain(x, pos, a=1, kind="linear"), rtol=0, atol=atol)
+    assert torch.equal(br.banded_resample(x, pos, a=1, kind="nearest"),
+                       br.banded_resample_plain(x, pos, a=1, kind="nearest"))
+
+
+@pytest.mark.parametrize("kind,a", [("lanczos", 10), ("lanczos", 16), ("linear", 1), ("nearest", 1)])
+def test_banded_resample_kernel_one_pixel(cuda, kind, a):
+    """P = 1: one live thread in the one block of each pair."""
+    x, pos = _resample_inputs(kind, a, 1, 1.0, rows=2, seed=a, device=cuda)
+    got = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=True)
+    want = br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=True)
+    torch.cuda.synchronize()
+    assert got[0].shape == (3, 2, 1)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0.0 if kind == "nearest" else 1e-5 * float(x.abs().max()))
+    assert torch.equal(got[1], want[1])
+
+
+def _affine_inputs(kind, a, p, step, where, seed, device, w=16384, pairs=4):
+    """x [pairs, 2, w], start [pairs] and the kind's clip range: every pair
+    inside the frame, or even pairs starting off the left edge and odd
+    pairs running off the right one."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((pairs, 2, w)) * 0.4).astype(np.float32)
+    lo, hi = CLIP[kind](a, w)
+    span = step * (p - 1)
+    if where == "inside":
+        start = rng.uniform(0.0, w - 1.0 - span, pairs) + 0.3137
+    else:
+        start = np.where(np.arange(pairs) % 2 == 0, lo - 2.7, hi - span / 2 + 0.21)
+    return torch.from_numpy(x).to(device), torch.from_numpy(start.astype(np.float32)).to(device), lo, hi
+
+
+@pytest.mark.parametrize("step_form", ["host", "tensor"])
+@pytest.mark.parametrize(
+    "p,step,where",
+    [(8192, 1023 / 8191, "inside"), (8192, 1023 / 8191, "edges"), (1024, 16383 / 1023, "inside"), (160, 0.8, "edges")],
+    ids=["cfg3", "edges", "zoom_out", "tail_p160"],
+)
+@pytest.mark.parametrize("kind,a", [("lanczos", 10), ("lanczos", 5), ("linear", 1), ("nearest", 1)])
+def test_banded_resample_affine_entry_matches_the_pos_entry(cuda, kind, a, p, step, where, step_form):
+    """The kernel forming ``clamp(fma(p, step, start), lo, hi)`` itself
+    against the same kernel at ``affine_positions``' tensor: nearest and
+    the nearest pick bit-equal, Lanczos and linear within 1e-6 x max|x|
+    (the positions are the same f32 values but for a rare double-rounding
+    tie, one ulp of position); and against the plain version at the usual
+    bound."""
+    x, start, lo, hi = _affine_inputs(kind, a, p, step, where, seed=p + a, device=cuda)
+    step32 = float(np.float32(step))
+    step_arg = step32 if step_form == "host" else torch.full((x.shape[0],), step32, device=cuda)
+    before = br.launches
+    got = br.banded_resample_affine(x, start, step_arg, p, lo, hi, a=a, kind=kind, with_nearest=True)
+    assert br.launches == before + 1
+    pos = br.affine_positions(x, start, step_arg, p, lo, hi)
+    same = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=True)
+    want = br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=True)
+    torch.cuda.synchronize()
+    scale = float(x.abs().max())
+    assert got[0].shape == (x.shape[0], 2, p)
+    assert torch.equal(got[1], same[1]) and torch.equal(got[1], want[1])
+    if kind == "nearest":
+        assert torch.equal(got[0], same[0]) and torch.equal(got[0], want[0])
+    else:
+        torch.testing.assert_close(got[0], same[0], rtol=0, atol=1e-6 * scale)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5 * scale)
+
+
+def test_resample_functions_on_cuda_form_positions_in_the_kernel(cuda):
+    """The oscilloscope's resample functions with per-pair starts launch
+    kernel C once each, through the affine entry (no position tensor), and
+    agree with the ``pos`` entry route an unshared start takes."""
+    x, start, _, _ = _affine_inputs("lanczos", 10, 2048, 0.5, "inside", seed=8, device=cuda)
+    own = start[:, None].expand(-1, 2).contiguous()
+    for fn, extra in ((tk.sinc_resample, (10,)), (tk.linear_resample, ()), (tk.nearest_resample, ())):
+        before = br.launches
+        shared = fn(x, start[:, None], 0.5, 2048, *extra)
+        unshared = fn(x, own, 0.5, 2048, *extra)
+        assert br.launches == before + 2
+        assert shared.shape == unshared.shape == (4, 2, 2048)
+        torch.testing.assert_close(shared, unshared, rtol=0, atol=1e-6 * float(x.abs().max()))
 
 
 def test_banded_resample_kernel_colour_track_rows(cuda):
@@ -339,18 +453,28 @@ def test_banded_resample_refuses_what_it_cannot_take(cuda):
         br.banded_resample(x[..., ::2], pos, a=10, kind="lanczos")
     with pytest.raises(ValueError, match="on"):
         br.banded_resample(x, pos.cpu(), a=10, kind="lanczos")
+    start = pos[:, 0].contiguous()
+    with pytest.raises(ValueError, match=r"start must be \[B\]"):
+        br.banded_resample_affine(x, start[:2], 1.0, 256, -11.0, 16393.0, a=10, kind="lanczos")
+    with pytest.raises(TypeError, match="step must be float32"):
+        br.banded_resample_affine(x, start, start.double(), 256, -11.0, 16393.0, a=10, kind="lanczos")
+    with pytest.raises(ValueError, match="on"):
+        br.banded_resample_affine(x, start.cpu(), 1.0, 256, -11.0, 16393.0, a=10, kind="lanczos")
+    before = br.launches
+    empty = br.banded_resample_affine(x, start, 1.0, 0, -11.0, 16393.0, a=10, kind="lanczos")
+    assert empty.shape == (3, 2, 0) and br.launches == before
 
 
 @contextlib.contextmanager
 def _plain_resample():
     """Route the oscilloscope functions' resamples to kernel C's plain
     version on the same tensors (the plain path to compare against)."""
-    kernel = tk.banded_resample
-    tk.banded_resample = br.banded_resample_plain
+    kernels = tk.banded_resample, tk.banded_resample_affine
+    tk.banded_resample, tk.banded_resample_affine = br.banded_resample_plain, br.banded_resample_affine_plain
     try:
         yield
     finally:
-        tk.banded_resample = kernel
+        tk.banded_resample, tk.banded_resample_affine = kernels
 
 
 def _osc_history(pairs, h, seed):

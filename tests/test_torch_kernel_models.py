@@ -1,16 +1,20 @@
 """The arithmetic of the redesigned CUDA kernels, rehearsed in torch on the
 CPU: the display kernel's split of the peak-decay recurrence over groups of
-frames (bit-equal to the sequential loop), and the FFT kernel's packed real
+frames (bit-equal to the sequential loop), the FFT kernel's packed real
 transform (bit-reversed radix-2 stages from the stage-ordered twiddle table,
-then the split into the real row's bins). The kernels themselves are held
-against their plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+then the split into the real row's bins), and the resample kernel's Lanczos
+weights from three trigonometric values a pixel and a rotation table. The
+kernels themselves are held against their plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from signalizer_tpu_torch.core.constant import fft_twiddles
+from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
 
@@ -140,3 +144,89 @@ def test_packed_real_split_matches_rfft(n, w):
     assert bool((got[1] == 0).all())
     assert float(got[:, 0].imag.abs().max()) == 0.0  # DC and Nyquist are real
     assert float(got[:, -1].imag.abs().max()) == 0.0
+
+
+# fractions of a sample at which the rotated weights are most at risk: on a
+# sample, a hair either side of it, around the 1e-6 switch to weight 1, at
+# the half sample where the nearest sample changes, and just below the next
+FRACTIONS = [0.0, 1e-7, -1e-7, 9e-7, 1.1e-6, -1e-6, 1e-5, -1e-5, 0.25, 0.5 - 1e-7, 0.5, 0.5 + 1e-7,
+             1.0 - 1e-5, 1.0 - 1e-7, 1.0 - 6e-8]
+
+
+def _weight_positions():
+    """f32 positions: 4001 evenly spaced fractions and FRACTIONS, about
+    samples from the left clip range to the end of a 16384-sample row."""
+    frac = np.concatenate([np.linspace(0.0, 1.0, 4001), FRACTIONS])
+    base = np.array([-11.0, -1.0, 0.0, 3.0, 100.0, 1023.0, 16383.0])
+    return torch.from_numpy((base[:, None] + frac[None, :]).astype(np.float32).reshape(-1))
+
+
+def _weights_three_ways(pos, a):
+    """The kernel's weights, the plain version's, and float64's, [N, 2a]."""
+    taps = br._tap_positions(pos, a)
+    t64 = pos.double()[:, None] - taps.double()
+    exact = torch.where(t64.abs() < a, torch.sinc(t64) * torch.sinc(t64 / a), 0.0)
+    return br.kernel_lanczos_weights(pos, a), br.plain_lanczos_weights(pos[:, None] - taps, a), exact
+
+
+@pytest.mark.parametrize("a", [1, 5, 10, 16])
+def test_kernel_lanczos_weights_match_the_plain_sinc_products(a):
+    """Bound: 5e-7 absolute against the plain version's f32
+    ``sinc(t) sinc(t / a)`` (each side is within ~2.5e-7 of the float64
+    value: weights reach 1, where an f32 ulp is 1.2e-7, and the rotation's
+    ~1e-7 absolute error enters relative to sines of at least
+    sin(pi / 2a)). The weight is exactly 1 on a sample, exactly 0 where the
+    plain one is (|t| >= a), and no value is NaN."""
+    pos = _weight_positions()
+    got, plain, exact = _weights_three_ways(pos, a)
+    assert got.shape == plain.shape == (pos.numel(), 2 * a) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - plain).abs().max()) <= 5e-7
+    assert float((got.double() - exact).abs().max()) <= 4e-7
+    outside = (pos[:, None] - br._tap_positions(pos, a)).abs() >= a
+    assert bool(outside.any()) and bool((got[outside] == 0).all())
+    on_sample = pos == torch.floor(pos)
+    assert bool((got[on_sample, a - 1] == 1).all())
+    assert bool((got[on_sample].sum(-1) == 1).all())  # every other tap is exactly 0 there
+
+
+@settings(max_examples=300, deadline=None, derandomize=True, database=None)
+@given(
+    sample=st.integers(min_value=-17, max_value=16400),
+    frac=st.floats(min_value=0.0, max_value=1.0, allow_nan=False, width=32),
+    a=st.integers(min_value=1, max_value=16),
+)
+def test_kernel_lanczos_weights_hold_at_any_position(sample, frac, a):
+    """Any sample, any f32 fraction, any a <= 16: 5e-7 against the plain
+    weights and 4e-7 against float64's."""
+    pos = torch.tensor([np.float32(sample) + np.float32(frac)], dtype=torch.float32)
+    got, plain, exact = _weights_three_ways(pos, a)
+    assert float((got - plain).abs().max()) <= 5e-7
+    assert float((got.double() - exact).abs().max()) <= 4e-7
+
+
+@pytest.mark.parametrize("a", [1, 5, 10, 16])
+def test_kernel_lanczos_resample_matches_plain(a):
+    """The resample built from the kernel's weights against
+    ``banded_resample_plain``: 1e-6 of max|x|, inside the row and off both
+    edges (2a weights, each within 5e-7, on samples of random sign)."""
+    rng = np.random.default_rng(a)
+    x = torch.from_numpy((rng.standard_normal((3, 2, 2048)) * 0.4).astype(np.float32))
+    p = np.arange(512, dtype=np.float32)
+    pos = np.stack([100.3137 + p * np.float32(0.1249), -(a + 3.3) + p * np.float32(0.8), 2047.0 + a - p * np.float32(0.37)])
+    pos = torch.from_numpy(np.clip(pos, -(a + 1.0), 2047.0 + a).astype(np.float32))
+    got = br.kernel_lanczos_resample(x, pos, a)
+    want = br.banded_resample_plain(x, pos, a=a, kind="lanczos")
+    assert got.shape == want.shape == (3, 2, 512)
+    assert float((got - want).abs().max()) <= 1e-6 * float(x.abs().max())
+
+
+@pytest.mark.parametrize("a", [1, 10, 16])
+def test_rotation_table_is_float64_rounded_once(a):
+    table = br.rotation_table(a)
+    assert table.dtype == np.float32 and table.shape == (2 * (a + 1),) and not table.flags.writeable
+    assert br.rotation_table(a) is table  # one host array per a, kept alive for the launches
+    m = np.arange(a + 1)
+    np.testing.assert_array_equal(table[: a + 1], np.cos(np.pi * m / a).astype(np.float32))
+    np.testing.assert_array_equal(table[a + 1 :], np.sin(np.pi * m / a).astype(np.float32))
+    assert table[0] == 1.0 and table[a + 1] == 0.0 and table[a] == -1.0

@@ -133,7 +133,9 @@ def test_build_names_the_library_by_its_sources():
     assert {"window_fft_mag.cu", "display_map.cu", "banded_resample.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert set(_build.SIGNATURES) == {"sig_window_fft_mag", "sig_display_map", "sig_banded_resample"}
+    assert set(_build.SIGNATURES) == {
+        "sig_window_fft_mag", "sig_display_map", "sig_banded_resample", "sig_banded_resample_affine",
+    }
 
 
 def test_cuda_processor_raises_without_gpu():

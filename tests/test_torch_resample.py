@@ -136,20 +136,133 @@ def test_wrapper_refuses_a_device_it_has_no_kernel_for():
         br.banded_resample(x, pos, a=10, kind="lanczos")
 
 
-def test_block_span_decides_the_kernels_two_forms():
-    """cfg3 (8x upsample, 2 rows) and the colour track (6 rows at 1:1)
-    stage their taps in shared memory; a 16384-sample window over 1024 px
-    (step 16) and step 128 read them from global memory."""
-    assert br.stages_in_shared_memory(2, 1023 / 8191, 10)
-    assert br.stages_in_shared_memory(6, 1.0, 1)
-    assert not br.stages_in_shared_memory(2, 16383 / 1023, 10)
-    assert not br.stages_in_shared_memory(2, 128.0, 10)
-    # the bound covers every 128-px block of evenly spaced positions
-    for step in (0.125, 0.8, 1.0, 3.7, 16.0):
-        pos = np.float32(12.3) + np.arange(1024, dtype=np.float32) * np.float32(step)
-        i0 = np.floor(pos).reshape(-1, 128)
-        spans = i0.max(1) - i0.min(1) + 2 * 10  # [min - a + 1, max + a]
-        assert spans.max() <= br.block_span(step, 10)
+def _affine_case(kind, a, where, w=4096, p=160):
+    """x [3, 2, w], per-pair starts and steps whose positions lie inside the
+    frame, hang off its left edge or run off its right edge, and the kind's
+    clip range."""
+    rng = np.random.default_rng(len(kind) + a + len(where))
+    x = rng.standard_normal((3, 2, w)).astype(np.float32)
+    lo, hi = {"lanczos": (-(a + 1.0), w - 1.0 + a), "linear": (-2.0, float(w)), "nearest": (-1.0, float(w))}[kind]
+    steps = np.array([0.1249, 0.8, 3.7], np.float32)
+    if where == "inside":
+        start = rng.uniform(20.0, w - 20.0 - steps * p).astype(np.float32)
+    elif where == "left":
+        start = (lo - np.array([3.3, 0.5, 40.0])).astype(np.float32)
+    else:
+        start = (hi - steps * (p // 2) + 0.21).astype(np.float32)
+    return x, start, steps, lo, hi
+
+
+@pytest.mark.parametrize("where", ["inside", "left", "right"])
+@pytest.mark.parametrize("step_form", ["host", "tensor"])
+@pytest.mark.parametrize("kind,a", [("lanczos", 10), ("linear", 1), ("nearest", 1)])
+def test_affine_entry_is_the_plain_version_at_the_positions_tensor(kind, a, step_form, where):
+    """On the CPU ``banded_resample_affine`` is ``banded_resample_plain`` at
+    ``affine_positions``' tensor, bit for bit: a host step for every pair
+    or a step per pair, inside the frame and off both edges, and those
+    positions are ``start + p * step`` rounded once and clipped."""
+    x, start, steps, lo, hi = _affine_case(kind, a, where)
+    step = float(steps[1]) if step_form == "host" else _t(steps)
+    before = br.launches
+    got = br.banded_resample_affine(_t(x), _t(start), step, 160, lo, hi, a=a, kind=kind, with_nearest=True)
+    pos = br.affine_positions(_t(x), _t(start), step, 160, lo, hi)
+    want = br.banded_resample_plain(_t(x), pos, a=a, kind=kind, with_nearest=True)
+    assert br.launches == before
+    assert pos.shape == (3, 160) and pos.dtype == torch.float32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    exact = start.astype(np.float64)[:, None] + np.arange(160.0) * (
+        np.float64(steps[1]) if step_form == "host" else steps.astype(np.float64)[:, None]
+    )
+    np.testing.assert_array_equal(pos.numpy(), np.clip(exact.astype(np.float32), lo, hi).astype(np.float32))
+    if where != "inside":
+        assert bool((pos == (lo if where == "left" else hi)).any())  # the clip acts
+
+
+def _fma_f32(p: int, step: np.float32, start: np.float32) -> np.float32:
+    """``p * step + start`` rounded to f32 once, by exact rational
+    arithmetic: what ``fmaf`` returns."""
+    from fractions import Fraction
+
+    exact = Fraction(p) * Fraction(float(step)) + Fraction(float(start))
+    near = np.float32(float(exact))
+    best = min(
+        (near, np.nextafter(near, np.float32(-np.inf)), np.nextafter(near, np.float32(np.inf))),
+        key=lambda c: abs(Fraction(float(c)) - exact),
+    )
+    return np.float32(best)
+
+
+def test_affine_positions_are_the_fused_multiply_add_on_a_seeded_grid():
+    """``affine_positions`` rounds a float64 sum to f32; the kernel's
+    ``fmaf`` rounds the exact value. The two differ only in a
+    double-rounding tie: none on this seeded grid (3 pairs x 1024 px at the
+    8x upsample step), and never by more than one ulp."""
+    rng = np.random.default_rng(7)
+    start = rng.uniform(0.0, 15000.0, 3).astype(np.float32)
+    step = np.float32(1023.0) * np.float32(1.0 / 8191)
+    x = torch.zeros((3, 1, 8))
+    pos = br.affine_positions(x, _t(start), float(step), 1024, -1e9, 1e9).numpy()
+    want = np.array([[_fma_f32(p, step, s) for p in range(1024)] for s in start], np.float32)
+    ulps = np.abs(pos.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert int(ulps.max()) <= 1
+    assert int((ulps > 0).sum()) == 0
+
+
+def test_affine_wrapper_refuses_what_it_cannot_take():
+    x, start, steps, lo, hi = _affine_case("lanczos", 10, "inside")
+    with pytest.raises(ValueError, match="unknown kind"):
+        br.banded_resample_affine(_t(x), _t(start), 0.5, 16, lo, hi, a=10, kind="cubic")
+    meta = torch.empty((3, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        br.banded_resample_affine(meta, torch.empty((3,), device="meta"), 0.5, 16, lo, hi, a=10, kind="lanczos")
+    # the checks a CUDA call makes, run here on CPU tensors
+    br._check_x(_t(x), 10, "lanczos")
+    br._check_rows(_t(x), _t(start), "start", 1)
+    with pytest.raises(ValueError, match="outside"):
+        br._check_x(_t(x), 17, "lanczos")
+    with pytest.raises(TypeError, match="float32"):
+        br._check_x(_t(x).double(), 10, "lanczos")
+    with pytest.raises(ValueError, match="contiguous"):
+        br._check_x(_t(x)[..., ::2], 10, "lanczos")
+    with pytest.raises(ValueError, match=r"start must be \[B\]"):
+        br._check_rows(_t(x), _t(start[:2]), "start", 1)
+    with pytest.raises(ValueError, match=r"pos must be \[B, P\]"):
+        br._check_rows(_t(x), _t(start), "pos", 2)
+    with pytest.raises(TypeError, match="step must be float32"):
+        br._check_rows(_t(x), _t(steps).double(), "step", 1)
+
+
+@pytest.mark.parametrize(
+    "fn,extra",
+    [("sinc_resample", (10,)), ("sinc_resample_with_nearest", (10,)), ("linear_resample", ()), ("nearest_resample", ())],
+)
+def test_resample_functions_choose_the_entry_by_the_broadcast(monkeypatch, fn, extra):
+    """Positions shared by x's last batch axis (start [pairs, 1], a host
+    step or a step [pairs, 1]) take the affine entry with that axis as R;
+    any other broadcast takes the ``pos`` entry with R = 1. Both give the
+    plain version at the same positions."""
+    calls = []
+
+    def spy(name, real):
+        def wrapped(x, *args, **kw):
+            calls.append((name, tuple(x.shape)))
+            return real(x, *args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tk, "banded_resample", spy("pos", br.banded_resample))
+    monkeypatch.setattr(tk, "banded_resample_affine", spy("affine", br.banded_resample_affine))
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((2, 3, 256)).astype(np.float32))
+    shared = _t(np.array([[1.5], [100.25]], np.float32))
+    own = _t(np.array([[1.5, 1.5, 1.5], [100.25, 100.25, 100.25]], np.float32))
+    f = getattr(tk, fn)
+    first = lambda r: r[0] if isinstance(r, tuple) else r
+    a_host = first(f(x, shared, 0.37, 64, *extra))
+    a_tensor = first(f(x, shared, torch.full((2, 1), 0.37), 64, *extra))
+    b = first(f(x, own, 0.37, 64, *extra))
+    assert calls == [("affine", (2, 3, 256)), ("affine", (2, 3, 256)), ("pos", (6, 1, 256))]
+    assert a_host.shape == b.shape == (2, 3, 64)
+    assert torch.equal(a_host, b) and torch.equal(a_tensor, b)
 
 
 def _jit(fn, *static):
