@@ -585,7 +585,8 @@ def phase_kernel_c(torch, dev, results):
     affine_cases = {"cfg3", "cfg3_linear", "cfg3_nearest", "global_step16", "edges", "edges_linear",
                     "edges_nearest", "a16_edges"}
     report = {"phase": "kernel_c",
-              "bound": "max|kernel - plain| / max|x|: <= 1e-5 lanczos and linear, 0 nearest and the nearest pick; "
+              "bound": "max|kernel - plain| / max|x|: <= 1e-5 lanczos and linear, 0 nearest and the nearest pick, "
+                       "for positions read from a tensor and for positions formed in the kernel; "
                        "positions formed in the kernel against the same positions read from a tensor: "
                        "<= 1e-6 lanczos and linear, 0 nearest and the nearest pick",
               "cases": {}}
@@ -601,19 +602,35 @@ def phase_kernel_c(torch, dev, results):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         scale = float(x.abs().max())
-        affine_err = None
+        affine_err = affine_plain_err = None
         if name in affine_cases:
-            # the kernel forming these positions itself, against itself
-            # reading them: the same f32 values but for a rare
-            # double-rounding tie of the tensor's float64 sum
+            # the entry the oscilloscope step calls: the kernel forming these
+            # positions itself, held against its plain version and against
+            # itself reading them (the same f32 values but for a rare
+            # double-rounding tie of the tensor's float64 sum)
             lo, hi = CLIP[kind](a, OSC_HISTORY)
-            formed = br.banded_resample_affine(
-                x, start, float(np.float32(step)), p, lo, hi, a=a, kind=kind, with_nearest=True
-            )
-            same = torch.equal(pos, br.affine_positions(x, start, float(np.float32(step)), p, lo, hi))
+            host_step = float(np.float32(step))
+
+            def affine():
+                return br.banded_resample_affine(x, start, host_step, p, lo, hi, a=a, kind=kind, with_nearest=True)
+
+            def affine_plain():
+                return br.banded_resample_affine_plain(
+                    x, start, host_step, p, lo, hi, a=a, kind=kind, with_nearest=True
+                )
+
+            formed, formed_want = affine(), affine_plain()
+            same = torch.equal(pos, br.affine_positions(x, start, host_step, p, lo, hi))
             require(same, f"kernel C {name}: the case's positions are not affine_positions' tensor")
             read = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=True)
             torch.cuda.synchronize()
+            affine_plain_abs = float((formed[0] - formed_want[0]).abs().max())
+            affine_plain_err = affine_plain_abs / scale
+            require(affine_plain_err <= (0.0 if kind == "nearest" else 1e-5),
+                    f"kernel C {name}: positions formed in the kernel, error {affine_plain_err} of max|x| "
+                    "against the plain version")
+            require(torch.equal(formed[1], formed_want[1]),
+                    f"kernel C {name}: nearest pick at positions formed in the kernel against the plain version")
             affine_err = float((formed[0] - read[0]).abs().max()) / scale
             require(affine_err <= (0.0 if kind == "nearest" else 1e-6),
                     f"kernel C {name}: positions formed in the kernel differ by {affine_err} of max|x|")
@@ -634,18 +651,26 @@ def phase_kernel_c(torch, dev, results):
         report["cases"][name] = {
             "kind": kind, "a": a, "with_nearest": dual, "shape": [PAIRS, rows, OSC_HISTORY], "P": p,
             "step": step, "where": where, "max_abs_err": abs_err, "err_of_max_x": rel,
-            "nearest_max_abs_err": near_err, "affine_err_of_max_x": affine_err, "ms": ms, "plain_ms": plain_ms,
+            "nearest_max_abs_err": near_err, "affine_err_of_max_x": affine_err,
+            "affine_err_of_max_x_against_plain": affine_plain_err, "ms": ms, "plain_ms": plain_ms,
         }
         if name == "cfg3":
-            # reads x and the positions once, writes the wave and the
-            # nearest pick once; per pixel 2a weights as the function
-            # defines them (two sines of ~20 flops and a division each,
-            # whatever a kernel makes of them) and per row 2a multiply-adds
-            outs = 2 if dual else 1
-            moved = nbytes(x, pos) + outs * PAIRS * rows * p * 4
-            flops = PAIRS * p * (2 * a * 50.0 + rows * 2 * a * 2.0)
+            # The `kernels` line's row is the entry the main path launches:
+            # positions formed in the kernel. It reads x and the starts once
+            # and writes the wave and the nearest pick once. Operations the
+            # function needs: per pixel three trigonometric values (~20 each)
+            # and 2a weights of ~10 (a rotation, a reciprocal, three
+            # multiplies), per row 2a multiply-adds. (Counting two sines and a
+            # division for every weight, 50 operations, as this script did for
+            # the first kernel C, gives 2.11 us: more than the function needs.)
+            affine_ms = median_ms(torch, affine)
+            affine_plain_ms = median_ms(torch, affine_plain)
+            report["cases"][name].update(affine_ms=affine_ms, affine_plain_ms=affine_plain_ms)
+            moved = nbytes(x, start) + 2 * PAIRS * rows * p * 4
+            flops = PAIRS * p * (3 * 20.0 + 2 * a * 10.0 + rows * 2 * a * 2.0)
             results["banded_resample"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **roofline(moved, flops), library_ms=None
+                max_abs_err=max(abs_err, affine_plain_abs), ms=affine_ms, plain_ms=affine_plain_ms,
+                **roofline(moved, flops), library_ms=None,
             )
     info(report)
 

@@ -40,9 +40,10 @@
 // the plain version's samples are read, in its order.
 //
 // What bounds it on the H100: at the oscilloscope's cfg3 geometry
-// (16 pairs x 2 rows x 8192 px, a = 10) the call moves 2.1 MB in and 4.2 MB
-// out (1.4 us of HBM time) and its arithmetic is small (2.1 us if every tap
-// cost the 50 operations of two sines and a division), so what it takes is
+// (16 pairs x 2 rows x 8192 px, a = 10) the call moves 2.1 MB in and 2.1 MB
+// out (1.25 us of HBM time; 1.4 us with a position tensor) and its
+// arithmetic is smaller still (~340 operations a pixel, 0.7 us at the
+// card's f32 rate), so what it takes is
 // a launch's own few microseconds plus the issue slots it fills: with the
 // weights replaced by constants the kernel takes as long as a bare nearest
 // pick of the same outputs, and the weights add their ~300 issue slots a

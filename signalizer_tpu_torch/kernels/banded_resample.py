@@ -232,6 +232,16 @@ def _rotation_address(a: int) -> int:
     return rotation_table(a).ctypes.data
 
 
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream. torch's private
+    accessor answers without building a Stream object (~2.6 us less a
+    launch); where a torch version lacks it, the public one does."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def _launch(entry: str, x: torch.Tensor, head: tuple, p: int, a: int, kind: str, with_nearest: bool):
     """Allocate the outputs (one buffer for both), launch ``entry`` on x's
     device and current stream, count the launch."""
@@ -247,8 +257,7 @@ def _launch(entry: str, x: torch.Tensor, head: tuple, p: int, a: int, kind: str,
             out + 4 * bsz * rows * p if with_nearest else None,
             bsz, rows, w, p, a, KINDS[kind],
             _rotation_address(a) if kind == "lanczos" else None,
-            # the current stream's handle without building a Stream object
-            torch._C._cuda_getCurrentRawStream(index),
+            _raw_stream(index),
         )
         if index == torch.cuda.current_device():
             err = fn(*args)

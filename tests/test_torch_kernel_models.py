@@ -10,8 +10,6 @@ kernels themselves are held against their plain versions on the card
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
 
 from signalizer_tpu_torch.core.constant import fft_twiddles
 from signalizer_tpu_torch.kernels import banded_resample as br
@@ -190,19 +188,26 @@ def test_kernel_lanczos_weights_match_the_plain_sinc_products(a):
     assert bool((got[on_sample].sum(-1) == 1).all())  # every other tap is exactly 0 there
 
 
-@settings(max_examples=300, deadline=None, derandomize=True, database=None)
-@given(
-    sample=st.integers(min_value=-17, max_value=16400),
-    frac=st.floats(min_value=0.0, max_value=1.0, allow_nan=False, width=32),
-    a=st.integers(min_value=1, max_value=16),
-)
-def test_kernel_lanczos_weights_hold_at_any_position(sample, frac, a):
+def test_kernel_lanczos_weights_hold_at_any_position():
     """Any sample, any f32 fraction, any a <= 16: 5e-7 against the plain
-    weights and 4e-7 against float64's."""
-    pos = torch.tensor([np.float32(sample) + np.float32(frac)], dtype=torch.float32)
-    got, plain, exact = _weights_three_ways(pos, a)
-    assert float((got - plain).abs().max()) <= 5e-7
-    assert float((got.double() - exact).abs().max()) <= 4e-7
+    weights and 4e-7 against float64's. A hypothesis property (the package
+    is imported here, so the file's other tests need not have it)."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=300, deadline=None, derandomize=True, database=None)
+    @hypothesis.given(
+        sample=st.integers(min_value=-17, max_value=16400),
+        frac=st.floats(min_value=0.0, max_value=1.0, allow_nan=False, width=32),
+        a=st.integers(min_value=1, max_value=16),
+    )
+    def holds(sample, frac, a):
+        pos = torch.tensor([np.float32(sample) + np.float32(frac)], dtype=torch.float32)
+        got, plain, exact = _weights_three_ways(pos, a)
+        assert float((got - plain).abs().max()) <= 5e-7
+        assert float((got.double() - exact).abs().max()) <= 4e-7
+
+    holds()
 
 
 @pytest.mark.parametrize("a", [1, 5, 10, 16])
