@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA GPU: the Spectrum
-view's FFT path and the Oscilloscope view.
+view (FFT path and resonator bank), the Oscilloscope, the Vectorscope and
+the Spectrogram.
 
     python3 chip_smoke.py
 
@@ -41,14 +42,38 @@ Phases, each printing one informational line:
    version from the same carried state, with launch counts, finiteness,
    trigger, fundamental and silence checks; one ENVELOPE_HOLD call is
    timed as information;
-8. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
+8. kernel B's other two entries (after phase 4): the remap alone at the
+   headline shape and at T=1, decay-and-dB alone on the headline's remapped
+   values, at T=1, with 127 of 128 frames valid, a ragged T=127, no valid
+   frame, 1 and 8 line graphs (state bit-equal to the plain loop
+   everywhere), and the two in turn against the fused entry (bit-equal);
+   then ``spectrum_values`` + ``post_process`` on the slice's frames against
+   ``analyze_frames`` (after phase 5);
+9. the Vectorscope at the bench geometry (bench.py:743-767: 256 stereo
+   streams x 4096 samples), every mode and autogain, against the same
+   processor on the CPU, with the balance, correlation and silence checks;
+10. the Spectrogram: the batched step (bench.py:881-924: 16384-point
+   window, 1024 px, 1 pair x T=512 with a validity mask) against the plain
+   versions by bytes, and the production tick (bench.py:940-992: 240 pushes
+   of 800 samples, a pull each) by both ingest routes, byte-equal, with
+   launches, readbacks (syncs) and p50/p99 ms per pull, the sine's pixel,
+   black silence, the lag under one hop and no drops; 16 pairs against the
+   CPU by bytes;
+11. the resonator Spectrum at the headline constant, 16 pairs: six ticks of
+   800 samples and a backlog of T=16 chunks of 512 with the last 3 invalid
+   (bench.py:1052-1114), each call against the same step with the plain
+   ``decay_db`` tail on the same tensors, the two tones' pixels, and the
+   invalid chunks' guarantees;
+12. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
    the profiler give the host wall time per call, and the device busy
    share is kernel time over that wall time; the cfg3 Lanczos resample
    alone is profiled by both routes (positions formed in the kernel, and a
    position tensor built by torch operations) to count the launches of
-   each.
+   each; one Vectorscope call, the Spectrogram's batched step and one pull,
+   the ring's window copy alone, one resonator tick and one backlog call
+   are profiled the same way.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -108,11 +133,31 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/display_map.cu",
         replaces="tools/pallas_display_map.py:233",
     ),
+    # kernel B's two other entries: the remap alone and decay-and-dB alone
+    # (the latter is display_map_kernel without its remap)
+    "display_remap": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/display_map.cu",
+        replaces="tools/pallas_display_map.py:233",
+    ),
+    "display_decay_db": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/display_map.cu",
+        replaces="tools/pallas_display_map.py:233",
+    ),
     "banded_resample": dict(
         route="cuda",
         source="signalizer_tpu_torch/csrc/banded_resample.cu",
         replaces="signalizer_tpu/kernels/pallas_resample.py:185",
     ),
+}
+# each kernel's device function, as the profiler names it
+DEVICE_FUNCTION = {
+    "window_fft_mag": "window_fft_mag_kernel",
+    "display_map": "display_map_kernel",
+    "display_remap": "display_remap_kernel",
+    "display_decay_db": "display_map_kernel",
+    "banded_resample": "banded_resample_kernel",
 }
 # the oscilloscope's cfg3 (bench.py:769-822)
 OSC_FS = 96_000.0
@@ -403,6 +448,474 @@ def phase_kernel_b(torch, dev, c, mags, results):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **roofline(moved, flops), library_ms=None
             )
     info(report)
+
+
+def display_tables(c):
+    """The plan tables kernel B's remap reads."""
+    return (c.interp_indices, c.interp_weights, c.interp_mask, c.single_mask,
+            c.single_bin, c.chunk_lo, c.chunk_len)
+
+
+def phase_kernel_b_entries(torch, dev, c, mags, results):
+    """Kernel B's remap-only and decay-and-dB entries against their plain
+    versions, and the two in turn against the fused entry."""
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import display_map as dm
+
+    report = {
+        "phase": "kernel_b_entries",
+        "bound": "remap: rel <= 1e-6 of the largest value, bit-equal on chunk-max and single-bin pixels; "
+                 "decay_db: display <= 1e-5, state bit-equal everywhere; remap then decay_db: bit-equal to the fused entry",
+        "cases": {},
+    }
+    rng = np.random.default_rng(21)
+
+    # the remap alone, at the headline shape and at T = 1
+    exact = ~c.interp_mask
+    for name, m in (("remap_headline", mags), ("remap_t1", mags[:, :1].contiguous())):
+        got = dm.display_remap(c, m)
+        want = dm.display_remap_plain(c, m)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        require(got.shape == want.shape, f"{name} shape")
+        require(rel <= 1e-6, f"{name}: error {rel} of the largest value > 1e-6")
+        require(torch.equal(got[..., exact], want[..., exact]), f"{name}: differs on a pixel without a tap sum")
+        ms = median_ms(torch, lambda: dm.display_remap(c, m))
+        plain_ms = median_ms(torch, lambda: dm.display_remap_plain(c, m))
+        report["cases"][name] = {"shape": list(m.shape), "max_abs_err": err, "err_of_max": rel, "ms": ms, "plain_ms": plain_ms}
+        if name == "remap_headline":
+            # reads the magnitudes and the plan once, writes the values once;
+            # two multiply-adds a tap, an abs and a scale
+            results["display_remap"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **roofline(nbytes(m, got, *display_tables(c)), 6.0 * got.numel()), library_ms=None,
+            )
+            vals = got
+
+    # decay and dB alone, on the headline's remapped values
+    def state_for(constant, pairs):
+        shape = (pairs, constant.num_line_graphs, constant.state_channels, constant.axis_points)
+        return torch.from_numpy((rng.random(shape) * 0.5).astype(np.float32)).to(dev)
+
+    valid = rng.random(T) > 0.25
+    valid[0] = False
+    one_invalid = np.ones(T, bool)
+    one_invalid[57] = False
+    small = {
+        k: make_spectrum_constant(device=dev, **headline(axis_points=200, window_size=1024, num_line_graphs=k))
+        for k in (1, 8)
+    }
+    small_vals = torch.from_numpy((np.abs(rng.standard_normal((3, 40, 2, 200))) * 0.3).astype(np.float32)).to(dev)
+    cases = [  # name, constant, vals, valid, timed
+        ("decay_db_headline", c, vals, None, True),
+        ("decay_db_t1", c, vals[:, :1].contiguous(), None, True),
+        ("decay_db_127_of_128_valid", c, vals, torch.from_numpy(one_invalid).to(dev), False),
+        ("decay_db_t127_ragged", c, vals[:, :127].contiguous(), torch.from_numpy(valid[:127]).to(dev), False),
+        ("decay_db_none_valid", c, vals, torch.zeros(T, dtype=torch.bool, device=dev), False),
+        ("decay_db_k1_small", small[1], small_vals, None, False),
+        ("decay_db_k8_small", small[8], small_vals, torch.from_numpy(valid[:40]).to(dev), False),
+    ]
+    for name, cc, v, mask, timed in cases:
+        state0 = state_for(cc, v.shape[0])
+        s_kernel, s_plain = state0.clone(), state0.clone()
+        got = dm.display_decay_db(cc, s_kernel, v, mask)
+        want = dm.decay_db(cc, s_plain, v, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(got.shape == want.shape, f"{name} shape")
+        require(err <= 1e-5, f"{name}: display error {err} > 1e-5")
+        require(torch.equal(s_kernel, s_plain), f"{name}: state differs from the plain loop")
+        if name == "decay_db_none_valid":
+            require(torch.equal(s_kernel, state0), f"{name}: the state moved")
+        report["cases"][name] = {"shape": list(v.shape), "line_graphs": cc.num_line_graphs, "max_abs_err": err,
+                                 "state_bit_equal": True}
+        if timed:
+            scratch = state0.clone()
+            ms = median_ms(torch, lambda: dm.display_decay_db(cc, scratch, v, mask))
+            plain_ms = median_ms(torch, lambda: dm.decay_db(cc, scratch, v, mask))
+            report["cases"][name].update(ms=ms, plain_ms=plain_ms)
+        if name == "decay_db_headline":
+            # reads the values, the state and the slope once, writes the
+            # display values and the state once; ~30 flops an output (the dB
+            # map's multiply, divide, log and scale, the decay's multiply and max)
+            moved = nbytes(v, got, cc.slope_map) + 2 * nbytes(state0)
+            results["display_decay_db"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **roofline(moved, 30.0 * got.numel()), library_ms=None,
+            )
+
+    # the two halves in turn are the fused entry, bit for bit
+    for name, m, mask in (("halves_headline", mags, torch.from_numpy(valid).to(dev)),
+                          ("halves_t1", mags[:, :1].contiguous(), None)):
+        state0 = state_for(c, m.shape[0])
+        s_fused, s_halves = state0.clone(), state0.clone()
+        fused = dm.display_map(c, m, s_fused, mask)
+        halves = dm.display_decay_db(c, s_halves, dm.display_remap(c, m), mask)
+        torch.cuda.synchronize()
+        require(torch.equal(fused, halves), f"{name}: display differs from the fused entry")
+        require(torch.equal(s_fused, s_halves), f"{name}: state differs from the fused entry")
+        report["cases"][name] = {"shape": list(m.shape), "equal_to_fused": True}
+    info(report)
+
+
+def phase_halves_slice(torch, dev, proc, x, tick, launches_out, calls_out):
+    """``spectrum_values`` then ``post_process`` (the Spectrum step as two
+    public calls) on the slice's device-resident frames: kernel A, kernel
+    B's remap entry and its decay-and-dB entry, held against
+    ``analyze_frames`` from the same state."""
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+
+    c = proc.constant
+    frames = [x, x.flip(1), tick[:, None]]
+    state = ts.init_line_graph_state(c, (PAIRS,))
+    fused_state = ts.init_line_graph_state(c, (PAIRS,))
+    wfm.launches = dm.launches = dm.remap_launches = dm.decay_db_launches = 0
+    outs = [ts.post_process(c, state, ts.spectrum_values(c, f)).results for f in frames]
+    torch.cuda.synchronize()
+    launches = {"window_fft_mag": wfm.launches, "display_map": dm.launches,
+                "display_remap": dm.remap_launches, "display_decay_db": dm.decay_db_launches}
+    require(launches == {"window_fft_mag": 3, "display_map": 0, "display_remap": 3, "display_decay_db": 3},
+            f"halves launch counts {launches}")
+    for f, out in zip(frames, outs):
+        want = ts.analyze_frames(c, fused_state, f).results
+        torch.cuda.synchronize()
+        require(torch.equal(out, want), "spectrum_values + post_process differ from analyze_frames")
+        require(bool(torch.isfinite(out).all()), "halves output finite")
+    require(torch.equal(state.magnitude, fused_state.magnitude), "halves state differs from analyze_frames'")
+    launches_out["display_remap"] = launches["display_remap"]
+    calls_out["display_remap"] = 3
+    scratch = ts.init_line_graph_state(c, (PAIRS,))
+    info({
+        "phase": "halves_slice", "calls": [list(f.shape) for f in frames], "launches": launches,
+        "equal_to_analyze_frames": True,
+        "t128_call_ms": median_ms(torch, lambda: ts.post_process(c, scratch, ts.spectrum_values(c, x)), reps=10),
+        "t1_call_ms": median_ms(torch, lambda: ts.post_process(c, scratch, ts.spectrum_values(c, tick[:, None]))),
+    })
+    return lambda: ts.post_process(c, scratch, ts.spectrum_values(c, x))
+
+
+def phase_vectorscope(torch, dev):
+    """VectorscopeProcessor at the vectorscope bench geometry
+    (bench.py:743-767, cfg2): 256 stereo streams x 4096 samples, envelope
+    pole 0.999, stereo pole 0.99; every mode and autogain, three calls each
+    on a seeded stream (the third with new_samples and a meter slice), held
+    against the same processor on the CPU; then the physical checks."""
+    from signalizer_tpu_torch import OperationalMode, VectorscopeAutoGain, VectorscopeProcessor
+
+    streams, w, hop = 256, 4096, 800
+    rng = np.random.default_rng(2028)
+    n = np.arange(w + 2 * hop)
+    stream = (rng.standard_normal((streams, 2, w + 2 * hop)) * 0.25).astype(np.float32)
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * n / FS)).astype(np.float32)
+    stream[0] = [tone, 1e-4 * tone]  # hard left, right merely tiny
+    stream[1] = [tone, tone]  # centre / mono
+    stream[2] = [1e-4 * tone, tone]  # hard right
+    stream[3] = [tone, 0 * tone]  # right exactly silent
+    stream[4] = [tone, -tone]  # inverted
+    stream[5] = 0.0  # silence
+    on_card = torch.from_numpy(stream).to(dev)
+    report = {"phase": "vectorscope", "streams": streams, "samples": w, "configs": {}}
+    keep = None
+    for mode in OperationalMode:
+        for gain in VectorscopeAutoGain:
+            procs = []
+            for device in (dev, "cpu"):
+                proc = VectorscopeProcessor(pairs=streams, device=device, sample_rate=FS, mode=mode, autogain=gain)
+                proc.envelope_pole, proc.stereo_pole = 0.999, 0.99
+                procs.append(proc)
+            proc, ref = procs
+            worst = 0.0
+            for i in range(3):
+                lo = i * hop
+                kw = dict(new_samples=hop, meter_frames=on_card[..., lo + w - 1024 : lo + w]) if i == 2 else {}
+                frame = proc.process(on_card[..., lo : lo + w], **kw)
+                if "meter_frames" in kw:
+                    kw["meter_frames"] = stream[..., lo + w - 1024 : lo + w]
+                want = ref.process(stream[..., lo : lo + w], **kw)
+                torch.cuda.synchronize()
+                require(frame.vertices.shape == (streams, w, 3) and frame.vertices.device.type == "cuda",
+                        "vectorscope vertices on the card")
+                for key in ("vertices", "balance", "correlation_bars", "gain"):
+                    require(bool(torch.isfinite(getattr(frame, key)).all()), f"vectorscope {key} finite")
+                g = max(float(want.gain.max()), 1.0)
+                err = float((frame.vertices.cpu() - want.vertices).abs().max()) / g
+                bars = max(float((frame.balance.cpu() - want.balance).abs().max()),
+                           float((frame.correlation_bars.cpu() - want.correlation_bars).abs().max()))
+                gerr = float(((frame.gain.cpu() - want.gain).abs() / want.gain.abs()).max())
+                require(err <= 5e-6, f"vectorscope {mode.name} {gain.name}: vertices differ from the CPU's by {err} x gain")
+                require(bars <= 5e-6, f"vectorscope {mode.name} {gain.name}: bars differ from the CPU's by {bars}")
+                require(gerr <= 1e-5, f"vectorscope {mode.name} {gain.name}: gain differs from the CPU's by {gerr}")
+                worst = max(worst, err, bars)
+            bal = frame.balance[:, 0].cpu().numpy()
+            corr = frame.correlation_bars[:, 0].cpu().numpy()
+            require(bal[0] < 0.01 and abs(bal[1] - 0.5) < 0.01 and bal[2] > 0.99,
+                    f"balance bars {bal[:3]} for hard-left, centre, hard-right")
+            require(bal[3] == 0.5, f"an exactly silent right reads {bal[3]}, not 0.5")
+            require(abs(corr[1] - 1.0) < 0.01 and abs(corr[4]) < 0.01,
+                    f"correlation bars {corr[1]}, {corr[4]} for mono, inverted")
+            require(bool((frame.vertices[5, :, :2] == 0).all()), "silence draws the origin")
+            if gain != VectorscopeAutoGain.NONE:
+                require(float(frame.gain[5]) == 1.0, f"silence moved the held gain to {float(frame.gain[5])}")
+            x = on_card[..., :w]
+            ms = call_ms(torch, lambda: proc.process(x))
+            ms_new = call_ms(torch, lambda: proc.process(x, new_samples=hop, meter_frames=x[..., -1024:]))
+            report["configs"][f"{mode.name.lower()}_{gain.name.lower()}"] = {
+                "max_err_vs_cpu": worst, "ms_per_call": ms, "ms_per_call_meter_slice": ms_new,
+                "frames_per_s": streams / (ms / 1e3),
+            }
+            if mode == OperationalMode.LISSAJOUS and gain == VectorscopeAutoGain.PEAK_DECAY:
+                keep = (proc, x)
+    report["checks"] = "balance 0/0.5/1, silent right 0.5, correlation 1/0, silence finite with held gain"
+    info(report)
+    return keep
+
+
+def phase_spectrogram(torch, dev):
+    """The Spectrogram at full width: (a) the bench's batched step
+    (bench.py:881-924, cfg4): LEFT, 16384-point window, 1024 px,
+    LOGARITHMIC, 1 pair x T = 512 with the validity mask; (b) the
+    production tick (bench.py:940-992, cfg4b): 240 pushes of 800 samples,
+    a pull each, by both ingest routes, and a 16-pair run."""
+    from signalizer_tpu_torch import DisplayMode, SpectrogramProcessor, SpectrumChannels
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+    from signalizer_tpu_torch.kernels.colormap import gradient_bounds, normalize_ratios, spectrogram_columns
+    from signalizer_tpu_torch.stream.device_ring import extract_frames
+    from signalizer_tpu_torch.views import spectrogram as tv
+
+    report = {"phase": "spectrogram"}
+    # (a) cfg4
+    c4 = make_spectrum_constant(device=dev, **headline(
+        window_size=16384, configuration=SpectrumChannels.LEFT, display_mode=DisplayMode.COLOUR_SPECTRUM))
+    t4 = 512
+    frames = _frames(torch, (1, t4, 2, 16384), seed=44, dev=dev)
+    valid = np.ones(t4, bool)
+    valid[-3:] = False
+    colours = torch.from_numpy(tv.DEFAULT_GRADIENT[None]).to(dev)
+    ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
+    bounds = gradient_bounds(ratios)
+    state, plain_state = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
+    wfm.launches = dm.launches = 0
+    cols, _ = tv.spectrogram_step(c4, state, frames, colours, ratios, valid, bounds)
+    a_launches, b_launches = wfm.launches, dm.launches
+    plain = dm.display_map_plain(c4, wfm.window_fft_mag_plain(c4, frames), plain_state.magnitude, valid)
+    want = spectrogram_columns(plain[:, :, 0, 0, :], colours, ratios)
+    torch.cuda.synchronize()
+    require((a_launches, b_launches) == (1, 1), f"cfg4: kernels A and B launched {a_launches}, {b_launches} times")
+    require(cols.shape == (t4, AXIS_POINTS, 4) and cols.dtype == torch.uint8, f"cfg4 columns {tuple(cols.shape)}")
+    diff = (cols.to(torch.int16) - want.to(torch.int16)).abs()
+    require(int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3 and bool((cols[..., 3] == 255).all()),
+            f"cfg4 columns vs plain: max byte difference {int(diff.max())}, {float((diff != 0).float().mean()):.2%} differ")
+    require(torch.equal(cols[-3:], cols[-4:-3].expand(3, -1, -1)), "cfg4: a padded frame repeats the last column")
+    scratch = ts.init_line_graph_state(c4, (1,))
+    step_ms = call_ms(torch, lambda: tv.spectrogram_step(c4, scratch, frames, colours, ratios, valid, bounds))
+    # kernel B's least time here: one row of magnitudes a frame in, K rows of
+    # display values out, the state twice
+    out_values = t4 * c4.num_line_graphs * AXIS_POINTS
+    b_bound = roofline(4.0 * (t4 * c4.n_spectrum_values + out_values + 2 * state.magnitude.numel()), 30.0 * out_values)
+    report["cfg4"] = {
+        "frames": list(frames.shape), "frames_mb": nbytes(frames) / 1e6, "launches": {"a": a_launches, "b": b_launches},
+        "kernel_b_bound_ms": b_bound["bound_ms"], "kernel_b_blocks": (AXIS_POINTS // 32) * c4.state_channels,
+        "byte_differences_vs_plain": float((diff != 0).float().mean()), "ms_per_step": step_ms,
+        "frames_per_s": t4 / (step_ms / 1e3),
+    }
+    cfg4_call = lambda: tv.spectrogram_step(c4, scratch, frames, colours, ratios, valid, bounds)  # noqa: E731
+
+    # (b) cfg4b, both routes on the same seeded stream
+    ticks, tick_n, hop = 240, 800, 480
+    rng = np.random.default_rng(2029)
+    n = np.arange(ticks * tick_n)
+    tone_hz = 3000.0
+    audio = (rng.standard_normal((2, ticks * tick_n)) * 0.003).astype(np.float32)
+    audio[0] += (0.5 * np.sin(2 * np.pi * tone_hz * n / FS)).astype(np.float32)
+    audio[:, 100 * tick_n : 140 * tick_n] = 0.0  # a stretch of digital silence
+    kw = dict(pairs=1, blob_ms=10.0, axis_points=256, window_size=4096, sample_rate=FS)
+    columns, per_route = {}, {}
+    for route in ("device", "host"):
+        sp = SpectrogramProcessor(device=dev, device_ingest=(route == "device"), **kw)
+        wfm.launches = dm.launches = 0
+        cols_out, ms, lags = [], [], []
+        for i in range(ticks):
+            sp.push(audio[:, i * tick_n : (i + 1) * tick_n])
+            t0 = time.perf_counter()
+            cols_out.append(sp.pull())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            lag = sp.freshness_lag()
+            if lag is not None:
+                lags.append(lag)
+        pulls = sum(1 for c_ in cols_out if c_.shape[0])
+        columns[route] = np.concatenate(cols_out)
+        require(wfm.launches == dm.launches == sp.readbacks, f"cfg4b {route}: launches {wfm.launches}, {dm.launches}, readbacks {sp.readbacks}")
+        require(wfm.launches >= pulls > 200, f"cfg4b {route}: {wfm.launches} launches in {pulls} pulls with frames")
+        require(max(lags) < hop, f"cfg4b {route}: freshness lag {max(lags)} >= one hop")
+        require(sp.batcher.dropped_frames == 0, f"cfg4b {route}: dropped {sp.batcher.dropped_frames} frames")
+        steady = ms[20:]
+        per_route[route] = {
+            "pull_p50_ms": float(np.percentile(steady, 50)), "pull_p99_ms": float(np.percentile(steady, 99)),
+            "kernel_a_launches_per_pull": wfm.launches / pulls, "kernel_b_launches_per_pull": dm.launches / pulls,
+            "syncs_per_pull": sp.readbacks / pulls, "columns": int(columns[route].shape[0]),
+            "lag_max_samples": float(max(lags)),
+        }
+        if route == "device":
+            keep = sp
+    require(np.array_equal(columns["device"], columns["host"]), "cfg4b: the two ingest routes' columns differ")
+    cols = columns["device"]
+    require(cols.shape == (1 + (ticks * tick_n - 4096) // hop, 256, 4), f"cfg4b columns {cols.shape}")
+    require(bool((cols[..., 3] == 255).all()), "cfg4b alpha")
+    mapped = keep.constant.mapped_frequencies.cpu().numpy()
+    expect = int(np.argmin(np.abs(mapped - tone_hz)))
+    bright = cols[50, :, :3].astype(int).sum(-1)
+    require(abs(int(np.argmax(bright)) - expect) <= 1, f"cfg4b: column peaks at {int(np.argmax(bright))}, sine at {expect}")
+    # frames lying wholly inside the silent stretch (after the decay let go) are black
+    first_silent = -(-(100 * tick_n) // hop)
+    last_silent = (140 * tick_n - 4096) // hop
+    require(last_silent - first_silent > 20, "silent stretch covers whole frames")
+    silent = cols[last_silent - 3 : last_silent]
+    require(bool((silent[..., :3] == 0).all()), "cfg4b: silence is not the black column")
+    report["cfg4b"] = dict(per_route, byte_equal_routes=True, sine_pixel=expect)
+
+    # 16 pairs: the per-pair colour rotation and the blend
+    sp16 = SpectrogramProcessor(device=dev, **dict(kw, pairs=PAIRS))
+    ref16 = SpectrogramProcessor(device="cpu", **dict(kw, pairs=PAIRS))
+    audio16 = (rng.standard_normal((2 * PAIRS, 24 * tick_n)) * 0.01).astype(np.float32)
+    for ch in range(2 * PAIRS - 2):
+        audio16[ch] += (0.4 * np.sin(2 * np.pi * (300.0 + 400.0 * ch) * n[: 24 * tick_n] / FS)).astype(np.float32)
+    audio16[-2:] = 0.0
+    got16, want16, ms16 = [], [], []
+    for i in range(24):
+        block = audio16[:, i * tick_n : (i + 1) * tick_n]
+        sp16.push(block)
+        ref16.push(block)
+        t0 = time.perf_counter()
+        got16.append(sp16.pull())
+        ms16.append((time.perf_counter() - t0) * 1e3)
+        want16.append(ref16.pull())
+    got16, want16 = np.concatenate(got16), np.concatenate(want16)
+    d16 = np.abs(got16.astype(np.int16) - want16.astype(np.int16))
+    require(got16.shape == want16.shape and got16.shape[0] > 30, f"16 pairs: columns {got16.shape}")
+    require(d16.max() <= 1 and (d16 != 0).mean() <= 1e-3, f"16 pairs vs the CPU: max {d16.max()}, {(d16 != 0).mean():.2%} differ")
+    require(len(np.unique(got16[..., :3].reshape(-1, 3), axis=0)) > 2, "16 pairs: the blend shows one colour")
+    report["pairs16"] = {"columns": int(got16.shape[0]), "byte_differences_vs_cpu": float((d16 != 0).mean()),
+                         "pull_p50_ms": float(np.percentile(ms16[8:], 50))}
+    info(report)
+
+    block = audio[:, :tick_n]
+
+    def tick():
+        keep.push(block)
+        keep.pull()
+
+    def windows_copy():
+        # the one copy the device route makes: two hop-spaced windows off the
+        # ring into the contiguous frames kernel A's wrapper takes
+        return extract_frames(keep.ring, 4096, hop, 2, frame_axis=-3).contiguous()
+
+    return cfg4_call, tick, windows_copy
+
+
+def phase_resonator(torch, dev, launches_out, calls_out):
+    """ResonatorSpectrumProcessor over the Spectrum headline constant, 16
+    pairs: ticks of one 800-sample chunk, then the bench's backlog shape
+    (bench.py:1052-1114, cfg6: T = 16 chunks of 512) with the last 3 chunks
+    invalid; each call held against the same step with the display tail on
+    the plain ``decay_db``, on the same CUDA tensors."""
+    from signalizer_tpu_torch import ResonatorSpectrumProcessor
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import spectrum as ts
+
+    proc = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline())
+    plain = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline())
+    c = proc.constant
+    f = c.host_frequencies
+    px = (400, 700)
+    total = 6 * 800 + 16 * 512
+    n = np.arange(total)
+    rng = np.random.default_rng(2030)
+    stream = (rng.standard_normal((PAIRS, 2, total)) * 0.002).astype(np.float32)
+    stream[:, 0] += (0.7 * np.sin(2 * np.pi * f[px[0]] * n / FS)).astype(np.float32)
+    stream[:, 1] += (0.4 * np.sin(2 * np.pi * f[px[1]] * n / FS)).astype(np.float32)
+    stream[-1] = 0.0
+    x = torch.from_numpy(stream).to(dev)
+    backlog_valid = np.ones(16, bool)
+    backlog_valid[-3:] = False
+    calls = [(x[..., i * 800 : (i + 1) * 800][:, :, None, :], None) for i in range(6)]
+    calls.append((x[..., 4800:].reshape(PAIRS, 2, 16, 512), backlog_valid))
+
+    worst = 0.0
+    dm.decay_db_launches = 0
+    for blocks, valid in calls:
+        plain.load_state(proc.res_state, ts.LineGraphState(*(t.clone() for t in proc.graph_state)))
+        out = proc.process_chunks(blocks, valid=valid)
+        counted = dm.decay_db_launches
+        tail = ts.display_decay_db
+        ts.display_decay_db = dm.decay_db  # the plain tail, on the same CUDA tensors
+        try:
+            want = plain.process_chunks(blocks, valid=valid)
+        finally:
+            ts.display_decay_db = tail
+        torch.cuda.synchronize()
+        require(dm.decay_db_launches == counted, "the plain tail launched the kernel")
+        require(out.shape == (PAIRS, 1, 2, 2, AXIS_POINTS) and bool(torch.isfinite(out).all()), "resonator output")
+        require(torch.equal(proc.res_state, plain.res_state), "resonator bank differs between the two tails")
+        require(torch.equal(proc.graph_state.magnitude, plain.graph_state.magnitude),
+                "resonator graph state differs from the plain tail's")
+        worst = max(worst, float((out - want).abs().max()))
+        require(bool((out[-1] == float(c.clip_db)).all()), "silent pair reads clip_db")
+    launches = dm.decay_db_launches
+    require(launches == len(calls), f"decay_db launched {launches} times in {len(calls)} calls")
+    require(worst <= 1e-5, f"resonator display vs the plain tail {worst} > 1e-5")
+    launches_out["display_decay_db"] = launches
+    calls_out["display_decay_db"] = len(calls)
+    main = out[0, 0, 0].cpu().numpy()  # LineMain [rows, P]
+    peaks = [int(np.argmax(main[0])), int(np.argmax(main[1]))]
+    require(abs(peaks[0] - px[0]) <= 1 and abs(peaks[1] - px[1]) <= 1, f"two tones peak at {peaks}, not {px}")
+
+    # invalid chunks: what they hold does not matter, and a call with no
+    # valid chunk leaves the bank as it was
+    bank, graph = proc.res_state.clone(), proc.graph_state.magnitude.clone()
+    blocks = calls[-1][0]
+    other = blocks.clone()
+    other[:, :, -3:] = 9.0
+    proc.process_chunks(blocks, valid=backlog_valid)
+    a_bank, a_graph = proc.res_state.clone(), proc.graph_state.magnitude.clone()
+    proc.load_state(bank.clone(), ts.LineGraphState(graph.clone(), proc.graph_state.phase))
+    proc.process_chunks(other, valid=backlog_valid)
+    require(torch.equal(proc.res_state, a_bank) and torch.equal(proc.graph_state.magnitude, a_graph),
+            "an invalid chunk's samples changed the states")
+    before = proc.res_state.clone()
+    proc.process_chunks(blocks, valid=np.zeros(16, bool))
+    require(torch.equal(proc.res_state, before), "a call with no valid chunk moved the bank")
+
+    tick = calls[0][0]
+    tick_ms = call_ms(torch, lambda: proc.process_chunks(tick))
+    backlog_ms = call_ms(torch, lambda: proc.process_chunks(blocks, valid=backlog_valid))
+    plan = proc.block_plan(800)
+    # information only: the tick's drive, a float32 product of height 32
+    # (16 pairs x 2 rows) against the [6144, 800] ramp, as the library runs it
+    # from the plan's layout and from the transposed one; it must read the
+    # ramp once
+    rows = tick.reshape(-1, 800)
+    transposed = plan.drive_matrix.t().contiguous()
+    drive = {
+        "rows_ramp_t_ms": median_ms(torch, lambda: torch.matmul(rows, plan.drive_matrix.t())),
+        "rows_transposed_ms": median_ms(torch, lambda: torch.matmul(rows, transposed)),
+        "ramp_rows_t_ms": median_ms(torch, lambda: torch.matmul(plan.drive_matrix, rows.t())),
+        **roofline(nbytes(rows, plan.drive_matrix) + rows.shape[0] * plan.drive_matrix.shape[0] * 4,
+                   2.0 * rows.shape[0] * plan.drive_matrix.numel()),
+    }
+    info({
+        "phase": "resonator", "pairs": PAIRS, "pixels": AXIS_POINTS, "vectors": proc.resonator.vectors,
+        "calls": [list(b.shape) for b, _ in calls], "decay_db_launches": launches,
+        "max_abs_err_vs_plain_tail": worst, "two_tone_pixels": peaks,
+        "ramp_mb": {"w800": nbytes(plan.drive_matrix) / 1e6, "w512": nbytes(proc.block_plan(512).drive_matrix) / 1e6},
+        "tick_ms": tick_ms, "backlog_t16_ms": backlog_ms, "readouts_per_s_backlog": PAIRS * 16 / (backlog_ms / 1e3),
+        "tick_drive_product": drive,
+    })
+    return (lambda: proc.process_chunks(tick)), (lambda: proc.process_chunks(blocks, valid=backlog_valid))
 
 
 def make_stream(pairs: int, n_frames: int):
@@ -873,7 +1386,7 @@ def phase_profile(torch, workloads, calls: int = 20):
             "launches_per_call": launched / calls,
             "top_kernels_us_per_call": top,
             "own_kernels_us_per_call": {
-                k: kernels_us[k] for k in (f"{kern}_kernel" for kern in KERNELS) if k in kernels_us
+                k: kernels_us[k] for k in sorted(set(DEVICE_FUNCTION.values())) if k in kernels_us
             },
         }
     info(report)
@@ -919,21 +1432,34 @@ def main() -> int:
     results = {}
     c, mags = phase_kernel_a(torch, dev, results)
     phase_kernel_b(torch, dev, c, mags, results)
+    phase_kernel_b_entries(torch, dev, c, mags, results)
     del mags
     launches, calls = {}, {}
     proc, x, tick = phase_slice(torch, dev, launches, calls)
+    halves = phase_halves_slice(torch, dev, proc, x, tick, launches, calls)
     phase_kernel_c(torch, dev, results)
     osc, history = phase_osc_slice(torch, dev, launches, calls)
+    scope, scope_x = phase_vectorscope(torch, dev)
+    cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
+    resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
     profile = phase_profile(torch, [
         ("t128", lambda: proc.process(x)),
         ("t1", lambda: proc.process(tick)),
+        ("halves_t128", halves),
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
         *resample_routes(torch, history),
+        ("vectorscope_cfg2", lambda: scope.process(scope_x)),
+        ("spectrogram_cfg4", cfg4_step),
+        ("spectrogram_pull", spectrogram_tick),
+        ("ring_windows_copy", windows_copy),
+        ("resonator_tick", resonator_tick),
+        ("resonator_backlog_t16", resonator_backlog),
     ])
     # device time per launch on the main path: one launch per profiled call
-    for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3")):
-        results[name]["profile_us"] = profile[path]["own_kernels_us_per_call"].get(f"{name}_kernel")
-        require(results[name]["profile_us"], f"profile {path}: no device time for {name}_kernel")
+    for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
+                       ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128")):
+        results[name]["profile_us"] = profile[path]["own_kernels_us_per_call"].get(DEVICE_FUNCTION[name])
+        require(results[name]["profile_us"], f"profile {path}: no device time for {DEVICE_FUNCTION[name]}")
     # launches: counted while the main paths were driven (the comparisons
     # with the plain versions are not in it); per call: over those calls
     kernels = [
@@ -943,6 +1469,8 @@ def main() -> int:
         )
         for name, meta in KERNELS.items()
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

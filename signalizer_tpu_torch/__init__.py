@@ -1,7 +1,8 @@
 """signalizer_tpu_torch — the PyTorch / CUDA port of signalizer_tpu.
 
-A second package beside the JAX one: the Spectrum view's FFT path and the
-Oscilloscope view, on tensors on one explicit device, carried by CUDA
+A second package beside the JAX one: the Spectrum view (FFT path and
+resonator bank), the Oscilloscope, Vectorscope and Spectrogram views, on
+tensors on one explicit device, carried by CUDA
 kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
 them. It imports no jax and nothing of the JAX package: the enums, windows,
 decay-pole design, ``TimeMode`` and key-colour table it shares with that
@@ -18,11 +19,17 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.kernels.window_fft_mag` — kernel A wrapper
 * :mod:`signalizer_tpu_torch.kernels.display_map`    — kernel B wrapper
 * :mod:`signalizer_tpu_torch.kernels.peak_decay`     — the decay loop
-* :mod:`signalizer_tpu_torch.views.spectrum`   — SpectrumProcessor
+* :mod:`signalizer_tpu_torch.views.spectrum`   — SpectrumProcessor, ResonatorSpectrumProcessor
+* :mod:`signalizer_tpu_torch.kernels.resonator` — the resonator bank (RSNT)
 * :mod:`signalizer_tpu_torch.kernels.filters`  — biquads, crossover, one-pole smoothers
 * :mod:`signalizer_tpu_torch.kernels.oscilloscope`    — triggers, spectral fundamental, resamples
 * :mod:`signalizer_tpu_torch.kernels.banded_resample` — kernel C wrapper
 * :mod:`signalizer_tpu_torch.views.oscilloscope` — OscilloscopeProcessor
+* :mod:`signalizer_tpu_torch.kernels.vectorscope` — Lissajous/polar transforms, meters, autogain
+* :mod:`signalizer_tpu_torch.views.vectorscope`   — VectorscopeProcessor
+* :mod:`signalizer_tpu_torch.kernels.colormap`    — gradient map, pair blend, RGBA8 columns
+* :mod:`signalizer_tpu_torch.stream`              — host ring buffer, frame batcher, device-resident ring
+* :mod:`signalizer_tpu_torch.views.spectrogram`   — SpectrogramProcessor, SpectrogramImage, ColumnPacer
 
 Importing builds nothing: the kernels compile with ``nvcc`` on first launch.
 """
@@ -42,4 +49,17 @@ from signalizer_tpu_torch.views.oscilloscope import (  # noqa: F401
     SubSampleInterpolation,
     TriggerMode,
 )
-from signalizer_tpu_torch.views.spectrum import SpectrumProcessor  # noqa: F401
+from signalizer_tpu_torch.views.spectrogram import (  # noqa: F401
+    ColumnPacer,
+    SpectrogramImage,
+    SpectrogramProcessor,
+)
+from signalizer_tpu_torch.views.spectrum import (  # noqa: F401
+    ResonatorSpectrumProcessor,
+    SpectrumProcessor,
+)
+from signalizer_tpu_torch.views.vectorscope import AutoGain as VectorscopeAutoGain  # noqa: F401
+from signalizer_tpu_torch.views.vectorscope import (  # noqa: F401
+    OperationalMode,
+    VectorscopeProcessor,
+)

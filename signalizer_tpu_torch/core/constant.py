@@ -19,6 +19,9 @@ kernels read:
 * ``fft_twiddles`` [N, 2] f32 — every radix-2 stage's twiddles in stage
   order (see :func:`fft_twiddles`), computed in float64 on the host and
   rounded once, for the FFT kernel;
+* ``host_frequencies`` [P] float64 numpy — the pixel frequencies as they
+  were designed, before their rounding to f32, for host-side design that
+  starts from them (the resonator bank);
 * ``display_scalars`` [4] f32 (derived) — ``inv_size``, the dB map's
   ``lower`` and ``1/log(upper/lower)`` computed in f32 exactly as the dB map
   computes them, and ``clip_db``, so the display kernel reads them on the
@@ -355,6 +358,9 @@ class SpectrumConstant:
     chunk_lo: torch.Tensor  # [P] i32
     chunk_len: torch.Tensor  # [P] i32
     fft_twiddles: torch.Tensor  # [N, 2] f32, stage order
+    # [P] float64 on the host: the design-time pixel frequencies before
+    # their rounding to f32 (the resonator bank is designed from them)
+    host_frequencies: np.ndarray = dataclasses.field(repr=False)
     # [4] f32: inv_size, lower, 1/log(upper/lower), clip_db — derived from
     # the fields above whenever the constant is built or replaced
     display_scalars: torch.Tensor = dataclasses.field(init=False, repr=False)
@@ -434,6 +440,7 @@ def constant_from_arrays(
         num_line_graphs=int(static["num_line_graphs"]),
         interp_taps=int(static["interp_taps"]),
         n_spectrum_values=int(static["n_spectrum_values"]),
+        host_frequencies=np.array(arrays["mapped_frequencies"], dtype=np.float64),
         **tensors,
     )
 

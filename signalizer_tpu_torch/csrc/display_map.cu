@@ -60,6 +60,17 @@
 // * Short calls (T <= 8, the per-tick call's T = 1 among them) run the
 //   kernel's one-frame-a-group instantiation: a warp per frame, nothing
 //   unrolled over frames that are not there, and for T = 1 an empty fold.
+//
+// Three C entries share this device code. sig_display_map is the fused
+// function above. sig_display_decay_db is its second half alone, for values
+// that are already display values (the resonator's readout; post_process):
+// the same kernel with kRemap = false, whose step 1 loads vals [pairs, T,
+// rows, P] instead of remapping, so the split decay, the `valid` handling
+// and the T <= 8 form are the fused entry's own and the carried state is
+// the sequential loop's bit for bit. sig_display_remap is its first half
+// alone (spectrum_values): remap_frames, the function the fused kernel
+// inlines, over the flattened leading axes, each warp storing its frames'
+// values instead of feeding them to the decay; no state, no barrier.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -72,10 +83,112 @@ constexpr int kMaxGroups = 8;  // warps a block
 constexpr int kMaxTaps = 10;
 constexpr int kMaxK = 8;
 
+// One pixel's remap plan: tap interpolation, or the max of a contiguous
+// chunk of bins (a single bin is a chunk of one).
+struct PixelPlan {
+  int kind;  // 0 interp, 1 chunk max
+  int idx0, idx1;
+  float w0, w1;
+  int lo, len;
+  const int* idx;
+  const float* wts;
+};
+
 // kTaps: 1 or 2 taps held in registers; 0 takes any count up to kMaxTaps
-// from the tables in device memory, per frame. kFrames: frames a warp
-// handles per chunk.
+// from the tables in device memory, per frame.
+template <int kTaps>
+__device__ __forceinline__ PixelPlan load_plan(
+    bool active, int p, int taps, const int* __restrict__ interp_indices,
+    const float* __restrict__ interp_weights,
+    const bool* __restrict__ interp_mask, const bool* __restrict__ single_mask,
+    const int* __restrict__ single_bin, const int* __restrict__ chunk_lo,
+    const int* __restrict__ chunk_len) {
+  PixelPlan pl;
+  pl.kind = 1;
+  pl.idx0 = 0;
+  pl.idx1 = 0;
+  pl.w0 = 0.f;
+  pl.w1 = 0.f;
+  pl.lo = 0;
+  pl.len = 1;
+  pl.idx = interp_indices + (size_t)p * taps;
+  pl.wts = interp_weights + (size_t)p * taps;
+  if (active) {
+    if (interp_mask[p]) {
+      pl.kind = 0;
+      if (kTaps >= 1) {
+        pl.idx0 = pl.idx[0];
+        pl.w0 = pl.wts[0];
+      }
+      if (kTaps >= 2) {
+        pl.idx1 = pl.idx[1];
+        pl.w1 = pl.wts[1];
+      }
+    } else if (single_mask[p]) {
+      pl.lo = single_bin[p];
+    } else {
+      pl.lo = chunk_lo[p];
+      pl.len = chunk_len[p];
+    }
+  }
+  return pl;
+}
+
+// Remap `live` (<= kFrames) frames of one pixel: v[i] from the row at
+// row0 + i * frame_stride. The pixel's kind outside, the frames inside, so
+// that the loads of one tap or one chunk element are independent and in
+// flight together.
 template <int kTaps, int kFrames>
+__device__ __forceinline__ void remap_frames(
+    float (&v)[kFrames], const PixelPlan& pl, const float* __restrict__ row0,
+    size_t frame_stride, int live, int taps, float inv_size) {
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) v[i] = 0.f;
+  if (pl.kind == 0) {
+    if (kTaps == 0) {
+      for (int j = 0; j < taps; ++j) {  // tap order, as the plain sum
+        const int at = __ldg(pl.idx + j);
+        const float wt = __ldg(pl.wts + j);
+#pragma unroll
+        for (int i = 0; i < kFrames; ++i) {
+          if (i < live) v[i] += row0[i * frame_stride + at] * wt;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (i < live) {
+          float acc = 0.f;
+          acc += row0[i * frame_stride + pl.idx0] * pl.w0;
+          if (kTaps >= 2) acc += row0[i * frame_stride + pl.idx1] * pl.w1;
+          v[i] = acc;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFrames; ++i) v[i] = inv_size * fabsf(v[i]);
+  } else {
+    // a single bin is a chunk of one
+#pragma unroll
+    for (int i = 0; i < kFrames; ++i) {
+      if (i < live) v[i] = row0[i * frame_stride + pl.lo];
+    }
+    for (int j = 1; j < pl.len; ++j) {
+#pragma unroll
+      for (int i = 0; i < kFrames; ++i) {
+        if (i < live) v[i] = fmaxf(v[i], row0[i * frame_stride + pl.lo + j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFrames; ++i) v[i] = inv_size * v[i];
+  }
+}
+
+// kFrames: frames a warp handles per chunk. kRemap: `mags` holds
+// magnitudes [pairs, T, rows, nv] to remap; false: it holds display values
+// [pairs, T, rows, P] (nv == P, no plan tables read) and the kernel is the
+// decay and the dB map alone.
+template <int kTaps, int kFrames, bool kRemap>
 __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
     const float* __restrict__ mags, const int* __restrict__ interp_indices,
     const float* __restrict__ interp_weights,
@@ -100,29 +213,11 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
   const bool active = p < P;
 
   // this pixel's plan
-  int kind = 1;  // 0 interp, 1 chunk max (a single bin is a chunk of one)
-  int idx0 = 0, idx1 = 0;
-  float w0 = 0.f, w1 = 0.f;
-  int lo = 0, len = 1;
-  const int* idx = interp_indices + (size_t)p * taps;
-  const float* wts = interp_weights + (size_t)p * taps;
-  if (active) {
-    if (interp_mask[p]) {
-      kind = 0;
-      if (kTaps >= 1) {
-        idx0 = idx[0];
-        w0 = wts[0];
-      }
-      if (kTaps >= 2) {
-        idx1 = idx[1];
-        w1 = wts[1];
-      }
-    } else if (single_mask[p]) {
-      lo = single_bin[p];
-    } else {
-      lo = chunk_lo[p];
-      len = chunk_len[p];
-    }
+  PixelPlan pl = {};
+  if (kRemap) {
+    pl = load_plan<kTaps>(active, p, taps, interp_indices, interp_weights,
+                          interp_mask, single_mask, single_bin, chunk_lo,
+                          chunk_len);
   }
 
   const float inv_size = scalars[0];
@@ -155,51 +250,17 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
       for (int i = 0; i < count; ++i) steps |= valid[t0 + i] ? 1u << i : 0u;
     }
 
-    // 1. remap this group's frames: the pixel's kind outside, the frames
-    //    inside, so that the group's loads of one tap or one chunk element
-    //    are independent and in flight together
+    // 1. this group's display values: remapped, or loaded as they are
     float v[kFrames];
     const float* row0 = src + (size_t)t0 * frame_stride;
     const int live = active ? count : 0;  // frames this lane reads
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) v[i] = 0.f;
-    if (kind == 0) {
-      if (kTaps == 0) {
-        for (int j = 0; j < taps; ++j) {  // tap order, as the plain sum
-          const int at = __ldg(idx + j);
-          const float wt = __ldg(wts + j);
-#pragma unroll
-          for (int i = 0; i < kFrames; ++i) {
-            if (i < live) v[i] += row0[i * frame_stride + at] * wt;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kFrames; ++i) {
-          if (i < live) {
-            float acc = 0.f;
-            acc += row0[i * frame_stride + idx0] * w0;
-            if (kTaps >= 2) acc += row0[i * frame_stride + idx1] * w1;
-            v[i] = acc;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i) v[i] = inv_size * fabsf(v[i]);
+    if (kRemap) {
+      remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, live, taps, inv_size);
     } else {
-      // a single bin is a chunk of one
 #pragma unroll
       for (int i = 0; i < kFrames; ++i) {
-        if (i < live) v[i] = row0[i * frame_stride + lo];
+        v[i] = i < live ? row0[i * frame_stride + p] : 0.f;
       }
-      for (int j = 1; j < len; ++j) {
-#pragma unroll
-        for (int i = 0; i < kFrames; ++i) {
-          if (i < live) v[i] = fmaxf(v[i], row0[i * frame_stride + lo + j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i) v[i] = inv_size * v[i];
     }
 
     // 2. this group's end values from an empty state, published to the block
@@ -251,10 +312,82 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
   }
 }
 
+// The remap alone: mags [frames, rows, nv] -> out [frames, rows, P]. Warp g
+// of block z maps the block's 32 pixels for its own kFrames consecutive
+// frames; no state, no barrier.
+template <int kTaps, int kFrames>
+__global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_remap_kernel(
+    const float* __restrict__ mags, const int* __restrict__ interp_indices,
+    const float* __restrict__ interp_weights,
+    const bool* __restrict__ interp_mask, const bool* __restrict__ single_mask,
+    const int* __restrict__ single_bin, const int* __restrict__ chunk_lo,
+    const int* __restrict__ chunk_len, const float* __restrict__ scalars,
+    float* __restrict__ out, int frames, int rows, int P, int nv, int taps) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int g = threadIdx.x / kWarp;
+  const int groups = blockDim.x / kWarp;
+  const int p = blockIdx.x * kWarp + lane;
+  const int r = blockIdx.y;
+  const int t0 = (blockIdx.z * groups + g) * kFrames;
+  int count = frames - t0;
+  count = count > kFrames ? kFrames : count;
+  if (p >= P || count <= 0) return;
+  const PixelPlan pl =
+      load_plan<kTaps>(true, p, taps, interp_indices, interp_weights, interp_mask,
+                       single_mask, single_bin, chunk_lo, chunk_len);
+  const size_t frame_stride = (size_t)rows * nv;
+  const float* row0 = mags + ((size_t)t0 * rows + r) * nv;
+  float v[kFrames];
+  remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, count, taps, scalars[0]);
+  float* o = out + ((size_t)t0 * rows + r) * P + p;
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) {
+    if (i < count) o[(size_t)i * rows * P] = v[i];
+  }
+}
+
 typedef void (*KernelFn)(const float*, const int*, const float*, const bool*,
                          const bool*, const int*, const int*, const int*,
                          const float*, const float*, const float*, const bool*,
                          float*, float*, int, int, int, int, int, int);
+typedef void (*RemapFn)(const float*, const int*, const float*, const bool*,
+                        const bool*, const int*, const int*, const int*,
+                        const float*, float*, int, int, int, int, int);
+
+// Launch the decay kernel: short calls a warp per frame, otherwise kGroup
+// frames a warp. taps < 0 picks the decay-and-dB form (no remap).
+int launch_display_map(
+    const float* mags, const int* interp_indices, const float* interp_weights,
+    const bool* interp_mask, const bool* single_mask, const int* single_bin,
+    const int* chunk_lo, const int* chunk_len, const float* slope_map,
+    const float* decay_poles, const float* scalars, const bool* valid,
+    float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
+    int taps, void* stream) {
+  if (K < 1 || K > kMaxK || rows < 1 || P < 1 || nv < 1 || T < 1 ||
+      pairs < 1 || pairs > 65535 || rows > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool single = T <= kMaxGroups;
+  const int frames = single ? 1 : kGroup;
+  int groups = (T + frames - 1) / frames;
+  if (groups > kMaxGroups) groups = kMaxGroups;
+  // at most 2 * 9 * 8 * 32 floats and 16 counts: under the 48 KB default
+  const size_t smem = sizeof(float) * (size_t)2 * (groups + 1) * K * kWarp +
+                      sizeof(int) * 2 * kMaxGroups;
+  static const KernelFn kernels[2][4] = {
+      {display_map_kernel<0, kGroup, true>, display_map_kernel<1, kGroup, true>,
+       display_map_kernel<2, kGroup, true>, display_map_kernel<0, kGroup, false>},
+      {display_map_kernel<0, 1, true>, display_map_kernel<1, 1, true>,
+       display_map_kernel<2, 1, true>, display_map_kernel<0, 1, false>},
+  };
+  const KernelFn kernel = kernels[single ? 1 : 0][taps < 0 ? 3 : (taps <= 2 ? taps : 0)];
+  const dim3 grid((P + kWarp - 1) / kWarp, rows, pairs);
+  kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
+      mags, interp_indices, interp_weights, interp_mask, single_mask,
+      single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
+      state, out, T, K, rows, P, nv, taps);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -265,28 +398,53 @@ extern "C" int sig_display_map(
     const float* decay_poles, const float* scalars, const bool* valid,
     float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
     int taps, void* stream) {
-  if (taps < 1 || taps > kMaxTaps || K < 1 || K > kMaxK || rows < 1 ||
-      P < 1 || nv < 1 || T < 1 || pairs < 1 || pairs > 65535 || rows > 65535) {
+  if (taps < 1 || taps > kMaxTaps) return (int)cudaErrorInvalidValue;
+  return launch_display_map(mags, interp_indices, interp_weights, interp_mask,
+                            single_mask, single_bin, chunk_lo, chunk_len,
+                            slope_map, decay_poles, scalars, valid, state, out,
+                            pairs, T, K, rows, P, nv, taps, stream);
+}
+
+// Decay and dB alone: vals [pairs, T, rows, P] display values, state
+// [pairs, K, rows, P] updated in place, out [pairs, T, K, rows, P].
+extern "C" int sig_display_decay_db(
+    const float* vals, const float* slope_map, const float* decay_poles,
+    const float* scalars, const bool* valid, float* state, float* out,
+    int pairs, int T, int K, int rows, int P, void* stream) {
+  return launch_display_map(vals, nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, slope_map, decay_poles, scalars,
+                            valid, state, out, pairs, T, K, rows, P, P, -1,
+                            stream);
+}
+
+// Remap alone: mags [frames, rows, nv] -> out [frames, rows, P] =
+// inv_size * (the pixel's tap sum rectified, or its chunk's max).
+extern "C" int sig_display_remap(
+    const float* mags, const int* interp_indices, const float* interp_weights,
+    const bool* interp_mask, const bool* single_mask, const int* single_bin,
+    const int* chunk_lo, const int* chunk_len, const float* scalars, float* out,
+    int frames, int rows, int P, int nv, int taps, void* stream) {
+  if (taps < 1 || taps > kMaxTaps || rows < 1 || rows > 65535 || P < 1 ||
+      nv < 1 || frames < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  // short calls: a warp per frame; otherwise kGroup frames a warp
-  const bool single = T <= kMaxGroups;
-  const int frames = single ? 1 : kGroup;
-  int groups = (T + frames - 1) / frames;
+  const bool single = frames <= kMaxGroups;
+  const int per_warp = single ? 1 : kGroup;
+  int groups = (frames + per_warp - 1) / per_warp;
   if (groups > kMaxGroups) groups = kMaxGroups;
-  // at most 2 * 9 * 8 * 32 floats and 16 counts: under the 48 KB default
-  const size_t smem = sizeof(float) * (size_t)2 * (groups + 1) * K * kWarp +
-                      sizeof(int) * 2 * kMaxGroups;
-  static const KernelFn kernels[2][3] = {
-      {display_map_kernel<0, kGroup>, display_map_kernel<1, kGroup>,
-       display_map_kernel<2, kGroup>},
-      {display_map_kernel<0, 1>, display_map_kernel<1, 1>, display_map_kernel<2, 1>},
+  const int per_block = groups * per_warp;
+  const long long blocks = ((long long)frames + per_block - 1) / per_block;
+  if (blocks > 65535) return (int)cudaErrorInvalidValue;
+  static const RemapFn kernels[2][3] = {
+      {display_remap_kernel<0, kGroup>, display_remap_kernel<1, kGroup>,
+       display_remap_kernel<2, kGroup>},
+      {display_remap_kernel<0, 1>, display_remap_kernel<1, 1>,
+       display_remap_kernel<2, 1>},
   };
-  const KernelFn kernel = kernels[single ? 1 : 0][taps <= 2 ? taps : 0];
-  const dim3 grid((P + kWarp - 1) / kWarp, rows, pairs);
-  kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
+  const RemapFn kernel = kernels[single ? 1 : 0][taps <= 2 ? taps : 0];
+  const dim3 grid((P + kWarp - 1) / kWarp, rows, (unsigned)blocks);
+  kernel<<<grid, groups * kWarp, 0, (cudaStream_t)stream>>>(
       mags, interp_indices, interp_weights, interp_mask, single_mask,
-      single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
-      state, out, T, K, rows, P, nv, taps);
+      single_bin, chunk_lo, chunk_len, scalars, out, frames, rows, P, nv, taps);
   return (int)cudaGetLastError();
 }

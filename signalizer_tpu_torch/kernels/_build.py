@@ -47,6 +47,15 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # vals, slope_map, decay_poles, display_scalars, valid, state, out,
+    # pairs, T, K, rows, P, stream
+    "sig_display_decay_db": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # mags, interp_indices, interp_weights, interp_mask, single_mask,
+    # single_bin, chunk_lo, chunk_len, display_scalars, out, frames, rows,
+    # P, n_values, taps, stream
+    "sig_display_remap": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ),
     # x, pos, out, near (or null), B, R, W, P, a, kind, rotation (a host
     # array, or null unless lanczos), stream
     "sig_banded_resample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),

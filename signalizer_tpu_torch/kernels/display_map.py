@@ -8,8 +8,12 @@ path runs it as ``_remap_mag`` + ``post_process``
 (``signalizer_tpu/kernels/spectrum.py:286-291, :518-598``; ref:
 TransformDSP.inl mapToLinearSpace :504-1135, mapAndTransformDFTFilters
 :1297-1435). The CUDA source is ``signalizer_tpu_torch/csrc/display_map.cu``;
-this module holds its wrapper, its plain PyTorch version and the remap/dB
-helpers the Spectrum functions share.
+this module holds its wrappers, their plain PyTorch versions and the remap/dB
+helpers the Spectrum functions share. The source has three entries:
+:func:`display_map` (remap, decay and dB in one launch, the Spectrum step),
+:func:`display_remap` (the remap alone: ``spectrum_values``) and
+:func:`display_decay_db` (decay and dB alone, for values that are already
+display values: ``post_process``, the resonator view).
 
 Only the linear max-decay semantics exist here: the JAX package's log-domain
 form is the same function evaluated another way on the TPU.
@@ -27,8 +31,11 @@ from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 MAX_TAPS = 10
 MAX_LINE_GRAPHS = 8
 
-# kernel launches since the last reset (chip_smoke.py and tests read it)
+# kernel launches since the last reset, one count per entry (chip_smoke.py
+# and tests read them): the fused entry, the remap alone, decay and dB alone
 launches = 0
+remap_launches = 0
+decay_db_launches = 0
 
 
 def _interp(values: torch.Tensor, constant: SpectrumConstant) -> torch.Tensor:
@@ -87,6 +94,12 @@ def decay_db(
     return _db_map(constant, decayed)
 
 
+def display_remap_plain(constant: SpectrumConstant, mags: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch remap: magnitudes [..., rows, nv] -> linear display
+    values ``inv_size * _remap_mag`` [..., rows, P]."""
+    return constant.inv_size * _remap_mag(mags, constant)
+
+
 def display_map_plain(
     constant: SpectrumConstant, mags: torch.Tensor, state: torch.Tensor, valid=None
 ) -> torch.Tensor:
@@ -94,8 +107,7 @@ def display_map_plain(
     sequential peak-decay loop -> ``_db_map``. ``mags`` [..., T, rows, nv],
     ``state`` [..., K, rows, P] updated in place; returns
     [..., T, K, rows, P]."""
-    vals = constant.inv_size * _remap_mag(mags, constant)
-    return decay_db(constant, state, vals, valid)
+    return decay_db(constant, state, display_remap_plain(constant, mags), valid)
 
 
 def _valid_tensor(valid, t: int, device) -> torch.Tensor:
@@ -103,6 +115,139 @@ def _valid_tensor(valid, t: int, device) -> torch.Tensor:
     if v.numel() != t:
         raise ValueError(f"display_map: valid has {v.numel()} entries for T={t}")
     return v.contiguous()
+
+
+def _checked(name: str, constant: SpectrumConstant, x: torch.Tensor, width: int, lead_axes: int):
+    """The checks every entry makes of its input ``x`` [..., width] with at
+    least ``lead_axes`` axes before the last; returns the product of the
+    axes before those."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: input must be float32")
+    if x.ndim < lead_axes + 1 or x.shape[-1] != width:
+        raise ValueError(f"{name}: input must be [..., {width}] with {lead_axes + 1}+ axes, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if constant.device != x.device:
+        raise ValueError(f"{name}: input and constant must share one device")
+    batch = 1
+    for d in x.shape[: x.ndim - 1 - lead_axes]:
+        batch *= d
+    return batch
+
+
+def _rows_like(x: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., rows, n] with its one row repeated for each of the
+    state's rows (COMPLEX: one magnitude row feeds both state rows, which
+    the plain versions get by broadcasting); other shapes as they are."""
+    rows = state.shape[-2] if state.ndim >= 2 else 1
+    if x.ndim >= 2 and x.shape[-2] == 1 and rows > 1:
+        return x.expand(x.shape[:-2] + (rows, x.shape[-1])).contiguous()
+    return x
+
+
+def display_remap(constant: SpectrumConstant, mags: torch.Tensor) -> torch.Tensor:
+    """The remap alone: magnitudes ``mags`` [..., rows, nv] f32 -> linear
+    display values [..., rows, P], the values :func:`display_map` feeds its
+    decay. CPU tensors take :func:`display_remap_plain`; CUDA tensors launch
+    ``sig_display_remap`` of ``csrc/display_map.cu`` or raise."""
+    global remap_launches
+    if mags.device.type == "cpu":
+        return display_remap_plain(constant, mags)
+    c = constant
+    frames = _checked("display_remap", c, mags, c.n_spectrum_values, 1)
+    rows = mags.shape[-2]
+    if c.interp_taps > MAX_TAPS:
+        raise ValueError(f"display_remap: at most {MAX_TAPS} taps")
+    out = torch.empty(mags.shape[:-1] + (c.axis_points,), dtype=torch.float32, device=mags.device)
+    if frames == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(mags.device):
+        err = lib.sig_display_remap(
+            mags.data_ptr(),
+            c.interp_indices.data_ptr(),
+            c.interp_weights.data_ptr(),
+            c.interp_mask.data_ptr(),
+            c.single_mask.data_ptr(),
+            c.single_bin.data_ptr(),
+            c.chunk_lo.data_ptr(),
+            c.chunk_len.data_ptr(),
+            c.display_scalars.data_ptr(),
+            out.data_ptr(),
+            frames,
+            rows,
+            c.axis_points,
+            c.n_spectrum_values,
+            c.interp_taps,
+            torch.cuda.current_stream(mags.device).cuda_stream,
+        )
+    _build.check(err, "display_remap")
+    remap_launches += 1
+    return out
+
+
+def _decay_inputs(name: str, constant: SpectrumConstant, x: torch.Tensor, width: int, state, valid):
+    """What the two entries that carry the decay share: ``x`` [..., T, rows,
+    width] (its one row repeated for COMPLEX) checked against ``state``
+    [..., K, rows, P]; returns ``(x, out, valid tensor or None, pairs)`` with
+    ``out`` [..., T, K, rows, P] allocated."""
+    p, k = constant.axis_points, constant.num_line_graphs
+    x = _rows_like(x, state)
+    pairs = _checked(name, constant, x, width, 2)
+    lead, t, rows = x.shape[:-3], x.shape[-3], x.shape[-2]
+    if state.dtype != torch.float32 or tuple(state.shape) != tuple(lead) + (k, rows, p):
+        raise ValueError(
+            f"{name}: state must be float32 {tuple(lead) + (k, rows, p)}, "
+            f"got {state.dtype} {tuple(state.shape)}"
+        )
+    if not state.is_contiguous() or state.device != x.device:
+        raise ValueError(f"{name}: state must be contiguous and on the input's device")
+    if k > MAX_LINE_GRAPHS or constant.interp_taps > MAX_TAPS:
+        raise ValueError(f"{name}: at most {MAX_TAPS} taps and {MAX_LINE_GRAPHS} line graphs")
+    out = torch.empty(tuple(lead) + (t, k, rows, p), dtype=torch.float32, device=x.device)
+    v = None if valid is None else _valid_tensor(valid, t, x.device)
+    return x, out, v, pairs
+
+
+def display_decay_db(
+    constant: SpectrumConstant, state: torch.Tensor, vals: torch.Tensor, valid=None
+) -> torch.Tensor:
+    """Decay and dB alone: linear display values ``vals`` [..., T, rows, P]
+    f32 against ``state`` [..., K, rows, P] f32, updated in place; ``valid``
+    (optional [T] bool) marks padded frames that leave the state untouched.
+    Returns [..., T, K, rows, P]. CPU tensors take :func:`decay_db`; CUDA
+    tensors launch ``sig_display_decay_db`` of ``csrc/display_map.cu`` (the
+    fused kernel without its remap: the same split decay, so the state is
+    the sequential loop's bit for bit) or raise."""
+    global decay_db_launches
+    if vals.device.type == "cpu":
+        return decay_db(constant, state, vals, valid)
+    c = constant
+    vals, out, v, pairs = _decay_inputs("display_decay_db", c, vals, c.axis_points, state, valid)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(vals.device):
+        err = lib.sig_display_decay_db(
+            vals.data_ptr(),
+            c.slope_map.data_ptr(),
+            c.decay_poles.data_ptr(),
+            c.display_scalars.data_ptr(),
+            None if v is None else v.data_ptr(),
+            state.data_ptr(),
+            out.data_ptr(),
+            pairs,
+            vals.shape[-3],
+            c.num_line_graphs,
+            vals.shape[-2],
+            c.axis_points,
+            torch.cuda.current_stream(vals.device).cuda_stream,
+        )
+    _build.check(err, "display_decay_db")
+    decay_db_launches += 1
+    return out
 
 
 def display_map(
@@ -114,43 +259,17 @@ def display_map(
     donated it); ``valid`` (optional [T] bool) marks padded frames that
     leave the state untouched. Returns display values [..., T, K, rows, P].
     CPU tensors take :func:`display_map_plain`; CUDA tensors launch
-    ``csrc/display_map.cu`` or raise.
+    ``sig_display_map`` of ``csrc/display_map.cu`` or raise.
     """
     global launches
     if mags.device.type == "cpu":
         return display_map_plain(constant, mags, state, valid)
-    if mags.device.type != "cuda":
-        raise ValueError(f"display_map: unsupported device {mags.device}")
-    p = constant.axis_points
-    nv = constant.n_spectrum_values
-    k = constant.num_line_graphs
-    taps = constant.interp_taps
-    if mags.dtype != torch.float32 or state.dtype != torch.float32:
-        raise TypeError("display_map: mags and state must be float32")
-    if mags.ndim < 3 or mags.shape[-1] != nv:
-        raise ValueError(f"display_map: mags must be [..., T, rows, {nv}], got {tuple(mags.shape)}")
-    lead, t, rows = mags.shape[:-3], mags.shape[-3], mags.shape[-2]
-    if tuple(state.shape) != tuple(lead) + (k, rows, p):
-        raise ValueError(
-            f"display_map: state must be {tuple(lead) + (k, rows, p)}, got {tuple(state.shape)}"
-        )
-    if not (mags.is_contiguous() and state.is_contiguous()):
-        raise ValueError("display_map: mags and state must be contiguous")
-    if state.device != mags.device or constant.device != mags.device:
-        raise ValueError("display_map: mags, state and constant must share one device")
-    if taps > MAX_TAPS or k > MAX_LINE_GRAPHS:
-        raise ValueError(f"display_map: at most {MAX_TAPS} taps and {MAX_LINE_GRAPHS} line graphs")
-    pairs = 1
-    for d in lead:
-        pairs *= d
-    out = torch.empty(tuple(lead) + (t, k, rows, p), dtype=torch.float32, device=mags.device)
-    if pairs == 0 or t == 0:
-        return out
-    v = None if valid is None else _valid_tensor(valid, t, mags.device)
     c = constant
+    mags, out, v, pairs = _decay_inputs("display_map", c, mags, c.n_spectrum_values, state, valid)
+    if out.numel() == 0:
+        return out
     lib = _build.library()
     with torch.cuda.device(mags.device):
-        stream = torch.cuda.current_stream(mags.device).cuda_stream
         err = lib.sig_display_map(
             mags.data_ptr(),
             c.interp_indices.data_ptr(),
@@ -167,13 +286,13 @@ def display_map(
             state.data_ptr(),
             out.data_ptr(),
             pairs,
-            t,
-            k,
-            rows,
-            p,
-            nv,
-            taps,
-            stream,
+            mags.shape[-3],
+            c.num_line_graphs,
+            mags.shape[-2],
+            c.axis_points,
+            c.n_spectrum_values,
+            c.interp_taps,
+            torch.cuda.current_stream(mags.device).cuda_stream,
         )
     _build.check(err, "display_map")
     launches += 1

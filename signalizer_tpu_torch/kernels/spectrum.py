@@ -17,11 +17,13 @@ needs complex interpolation, a first-maximum argbin and phase smoothing,
 which no kernel carries (the JAX package ran them as XLA ops too): on
 either device its tail is the plain code below, fed by stage 1's complex
 output. For the magnitude modes, :func:`spectrum_values` and
-:func:`post_process` are the CPU halves of the tail; on a device the
-remapped values exist only inside kernel B, so they raise there and
-:func:`analyze_frames` is the entry point. Only the linear max-decay
-semantics are ported; ``decay_domain`` is accepted for API parity and
-ignored.
+:func:`post_process` are the two halves of the tail, each its own entry of
+the display kernel on a CUDA tensor
+(:func:`~signalizer_tpu_torch.kernels.display_map.display_remap`,
+:func:`~signalizer_tpu_torch.kernels.display_map.display_decay_db`);
+:func:`analyze_frames` runs both halves in one launch. Only the linear
+max-decay semantics are ported; ``decay_domain`` is accepted for API parity
+and ignored.
 
 The carried :class:`LineGraphState` is updated in place by
 :func:`post_process` and :func:`analyze_frames` (the JAX step donated it).
@@ -42,7 +44,9 @@ from signalizer_tpu_torch.kernels.display_map import (  # noqa: F401 — re-expo
     _interp_mag,
     _remap_mag,
     decay_db,
+    display_decay_db,
     display_map,
+    display_remap,
 )
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 from signalizer_tpu_torch.kernels.window_fft_mag import (  # noqa: F401 — re-exported
@@ -123,30 +127,19 @@ def _binmax_argbin(values: torch.Tensor, constant: SpectrumConstant) -> torch.Te
     return torch.where(constant.single_mask, constant.single_bin.long(), first)
 
 
-def _magnitude_modes_on_cpu(constant: SpectrumConstant, x: torch.Tensor, name: str) -> None:
-    if constant.configuration != SpectrumChannels.PHASE and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"{name}: {constant.configuration.name} values on {x.device} exist only inside "
-            "kernel B; call analyze_frames"
-        )
-
-
 def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
     """Frames [..., C, W] -> display-space linear values [..., rows, P].
 
     * mono modes / Complex: rows=1, magnitude.
     * Separate / MidSide: rows=2, (first, second) magnitudes.
     * Phase: rows=2, (mid magnitude, phase-cancellation in [0, 1]).
-
-    The magnitude modes take CPU tensors only (see the module docstring).
     """
-    _magnitude_modes_on_cpu(constant, frames, "spectrum_values")
     inv = constant.inv_size
     stage1 = window_fft_mag(constant, frames)
     if constant.configuration != SpectrumChannels.PHASE:
         # magnitudes for every other mode: the reference abs()'s csf
         # before its loops (ref: TransformDSP.inl:557-560/866-869/999-1002)
-        return inv * _remap_mag(stage1, constant)
+        return display_remap(constant, stage1)
 
     spec = stage1  # [..., 2, nb+1] complex
     mags = spec.abs()
@@ -198,13 +191,11 @@ def post_process(
     [T] bool) marks padded frames that leave every filter state untouched.
     ``state``'s tensors are updated in place and returned in the result.
     ``decay_domain`` is accepted for parity with the JAX package and
-    ignored: the port has the linear semantics only. The magnitude modes
-    take CPU tensors only (see the module docstring).
+    ignored: the port has the linear semantics only.
     """
     del decay_domain
-    _magnitude_modes_on_cpu(constant, vals, "post_process")
     if constant.configuration != SpectrumChannels.PHASE:
-        results = decay_db(constant, state.magnitude, vals, valid)
+        results = display_decay_db(constant, state.magnitude, vals.contiguous(), valid)
         return SpectrumResult(results, state)
 
     poles = constant.decay_poles  # [K]

@@ -16,7 +16,12 @@ from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import oscilloscope as tk
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
-from signalizer_tpu_torch.kernels.spectrum import analyze_frames, init_line_graph_state
+from signalizer_tpu_torch.kernels.spectrum import (
+    analyze_frames,
+    init_line_graph_state,
+    post_process,
+    spectrum_values,
+)
 from signalizer_tpu_torch.views import oscilloscope as tv
 
 MODES = [
@@ -235,6 +240,129 @@ def test_display_map_kernel_wide_chunks(cuda):
         assert torch.equal(s_kernel[..., exact], s_plain[..., exact])
 
 
+@pytest.mark.parametrize("frames_shape", [(1,), (7,), (3, 40), (2, 65), ()], ids=["b1", "b7", "b120", "b130", "no_lead"])
+@pytest.mark.parametrize("interp", INTERPS, ids=lambda i: i.name)
+@pytest.mark.parametrize("mode", [SpectrumChannels.LEFT, SpectrumChannels.SEPARATE, SpectrumChannels.COMPLEX], ids=lambda m: m.name)
+def test_display_remap_entry_matches_plain(cuda, mode, interp, frames_shape):
+    """Kernel B's remap entry vs ``inv_size * _remap_mag`` on the card:
+    rtol 1e-6 with an atol of 1e-6 of the largest value for the tap sums
+    (fused multiply-adds; Lanczos lobes cancel), and bit-equal on chunk-max
+    and single-bin pixels, which have no sum. Leading axes of any shape,
+    none included."""
+    c = make_spectrum_constant(
+        axis_points=300, window_size=2048, configuration=mode, bin_interpolation=interp,
+        view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
+    )
+    rng = np.random.default_rng(len(frames_shape) + int(interp))
+    shape = frames_shape + (c.state_channels, c.n_spectrum_values)
+    mags = torch.from_numpy((np.abs(rng.standard_normal(shape)) * 40.0).astype(np.float32)).to(cuda)
+    before = dm.remap_launches
+    got = dm.display_remap(c, mags)
+    want = dm.display_remap_plain(c, mags)
+    torch.cuda.synchronize()
+    assert dm.remap_launches == before + 1 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    exact = ~c.interp_mask
+    assert bool(exact.any()) and torch.equal(got[..., exact], want[..., exact])
+
+
+@pytest.mark.parametrize(
+    "t,valid",
+    [(1, None), (1, [False]), (7, "random"), (127, "random"), (128, None), (128, "none"), (300, "random")],
+    ids=["t1", "t1_invalid", "t7_mask", "t127_mask", "t128", "t128_none_valid", "t300_mask"],
+)
+@pytest.mark.parametrize("graphs", [1, 2, 8])
+def test_display_decay_db_entry_matches_plain(cuda, graphs, t, valid):
+    """Kernel B's decay-and-dB entry vs ``decay_db`` on the card: no sum
+    anywhere, and the split of the decay over groups of frames is exact, so
+    the state equals the sequential loop's bit for bit on every pixel;
+    display atol 1e-5 (the log)."""
+    valid = _valid_mask(t, valid)
+    c = make_spectrum_constant(
+        axis_points=300, window_size=1024, configuration=SpectrumChannels.SEPARATE,
+        view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=graphs, decay_seconds=(0.1, 0.0, 1.0),
+        slope_a=0.5, device=cuda,
+    )
+    rng = np.random.default_rng(t + graphs)
+    vals = torch.from_numpy((np.abs(rng.standard_normal((3, t, 2, 300))) * 0.3).astype(np.float32)).to(cuda)
+    vals[:, :, :, ::17] = 0.0  # exact zeros read clip_db until a peak arrives
+    state = torch.from_numpy((rng.random((3, graphs, 2, 300)) * 0.5).astype(np.float32)).to(cuda)
+    state[:, :, :, ::17] = 0.0
+    s_kernel, s_plain = state.clone(), state.clone()
+    before = dm.decay_db_launches
+    got = dm.display_decay_db(c, s_kernel, vals, valid)
+    want = dm.decay_db(c, s_plain, vals, valid)
+    torch.cuda.synchronize()
+    assert dm.decay_db_launches == before + 1 and got.shape == (3, t, graphs, 2, 300)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(s_kernel, s_plain)
+    if valid is not None and not any(valid):
+        assert torch.equal(s_kernel, state)
+
+
+def test_remap_then_decay_db_equals_the_fused_entry(cuda):
+    """The two halves in turn give what the fused entry gives in one
+    launch: the same remap code feeds the same decay, so state and display
+    are equal bit for bit."""
+    c = make_spectrum_constant(
+        axis_points=300, window_size=2048, configuration=SpectrumChannels.SEPARATE,
+        bin_interpolation=BinInterpolation.LANCZOS, view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
+    )
+    for t in (1, 5, 130):
+        mags, state = _mags_state(c, seed=t, t=t, pairs=3, device=cuda)
+        valid = _valid_mask(t, "random") if t > 1 else None
+        s_fused, s_halves = state.clone(), state.clone()
+        fused = dm.display_map(c, mags, s_fused, valid)
+        halves = dm.display_decay_db(c, s_halves, dm.display_remap(c, mags), valid)
+        torch.cuda.synchronize()
+        assert torch.equal(fused, halves) and torch.equal(s_fused, s_halves)
+
+
+def test_new_entries_refuse_what_they_cannot_take(cuda):
+    c = make_spectrum_constant(axis_points=64, window_size=256, configuration=SpectrumChannels.SEPARATE, device=cuda)
+    mags = torch.zeros((2, 3, 2, c.n_spectrum_values), device=cuda)
+    vals = torch.zeros((2, 3, 2, 64), device=cuda)
+    state = torch.zeros((2, 2, 2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        dm.display_remap(c, mags[..., :-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        dm.display_remap(c, mags.transpose(0, 1))
+    with pytest.raises(TypeError):
+        dm.display_remap(c, mags.double())
+    with pytest.raises(ValueError, match="state"):
+        dm.display_decay_db(c, state[:1], vals)
+    with pytest.raises(ValueError, match="valid"):
+        dm.display_decay_db(c, state, vals, [True])
+    with pytest.raises(ValueError, match="one device"):
+        dm.display_decay_db(c.to("cpu"), state, vals)
+    assert dm.display_remap(c, mags[:0]).shape == (0, 3, 2, 64)
+
+
+@pytest.mark.parametrize("mode", MAG_MODES, ids=lambda m: m.name)
+def test_spectrum_values_and_post_process_on_cuda(cuda, mode):
+    """Off the CPU the two halves of the magnitude tail launch kernel A,
+    kernel B's remap entry and its decay-and-dB entry (the counters show
+    it) and agree with the plain functions on the same tensors."""
+    c = make_spectrum_constant(
+        axis_points=128, window_size=1024, configuration=mode, view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
+    )
+    frames = _frames((2, 5, 2, 1024), seed=int(mode), device=cuda)
+    a0, r0, d0, f0 = wfm.launches, dm.remap_launches, dm.decay_db_launches, dm.launches
+    vals = spectrum_values(c, frames)
+    state = init_line_graph_state(c, (2,))
+    valid = [True, True, False, True, True]
+    got = post_process(c, state, vals, valid=valid)
+    plain_vals = dm.display_remap_plain(c, wfm.window_fft_mag_plain(c, frames))
+    plain_state = torch.zeros_like(state.magnitude)
+    want = dm.decay_db(c, plain_state, plain_vals, valid)
+    torch.cuda.synchronize()
+    assert (wfm.launches - a0, dm.remap_launches - r0, dm.decay_db_launches - d0, dm.launches - f0) == (1, 1, 1, 0)
+    assert got.state is state
+    torch.testing.assert_close(vals, plain_vals, rtol=1e-5, atol=1e-6 * float(plain_vals.abs().max()))
+    torch.testing.assert_close(got.results, want, rtol=0, atol=2e-4)
+    torch.testing.assert_close(state.magnitude, plain_state, rtol=1e-5, atol=1e-9)
+
+
 def test_analyze_frames_on_cuda_goes_through_both_kernels(cuda):
     """The magnitude path launches kernel A and kernel B once per call and
     agrees with the plain versions composed on the same tensors (display
@@ -252,6 +380,22 @@ def test_analyze_frames_on_cuda_goes_through_both_kernels(cuda):
     torch.cuda.synchronize()
     assert (wfm.launches - a0, dm.launches - b0) == (1, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+    torch.testing.assert_close(state.magnitude, plain_state, rtol=1e-5, atol=1e-9)
+
+
+def test_complex_mode_on_cuda_feeds_one_row_to_both_state_rows(cuda):
+    """COMPLEX has one magnitude row and two state rows: the wrappers repeat
+    the row, as the plain versions broadcast it."""
+    c = make_spectrum_constant(axis_points=128, window_size=512, configuration=SpectrumChannels.COMPLEX, device=cuda)
+    frames = _frames((2, 5, 2, 512), seed=8, device=cuda)
+    state = init_line_graph_state(c, (2,))
+    plain_state = state.magnitude.clone()
+    got = analyze_frames(c, state, frames).results
+    want = dm.display_map_plain(c, wfm.window_fft_mag_plain(c, frames), plain_state)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 5, 2, 2, 128)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+    assert torch.equal(got[..., 0, :], got[..., 1, :])
     torch.testing.assert_close(state.magnitude, plain_state, rtol=1e-5, atol=1e-9)
 
 
@@ -535,3 +679,97 @@ def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, in
         assert torch.equal(got.colours, want.colours)
         assert torch.isfinite(got.waveform).all()
         assert (got.waveform[-1] == 0).all()
+
+
+def test_vectorscope_processor_on_cuda_matches_the_cpu(cuda):
+    """VectorscopeProcessor on the card against itself on the CPU, three
+    calls with new_samples and a meter slice: vertices 2e-6 x gain, bars
+    2e-6, states 1e-5 relative (the block sums run in another order)."""
+    from signalizer_tpu_torch.views import vectorscope as vs
+
+    rng = np.random.default_rng(40)
+    stream = (rng.standard_normal((4, 2, 3000)) * 0.3).astype(np.float32)
+    stream[3] = 0.0
+    for mode in vs.OperationalMode:
+        for gain in vs.AutoGain:
+            kw = dict(pairs=4, mode=mode, autogain=gain, stereo_window=0.002, rotation=0.1)
+            on_card, on_cpu = vs.VectorscopeProcessor(device=cuda, **kw), vs.VectorscopeProcessor(device="cpu", **kw)
+            for i in range(3):
+                x = stream[..., i * 400 : i * 400 + 2048]
+                kwargs = dict(new_samples=400, meter_frames=x[..., -512:]) if i else {}
+                got, want = on_card.process(x, **kwargs), on_cpu.process(x, **kwargs)
+                assert got.vertices.device.type == "cuda"
+                g = float(want.gain.max())
+                torch.testing.assert_close(got.vertices.cpu(), want.vertices, rtol=1e-5, atol=2e-6 * max(g, 1.0))
+                torch.testing.assert_close(got.balance.cpu(), want.balance, rtol=0, atol=2e-6)
+                torch.testing.assert_close(got.correlation_bars.cpu(), want.correlation_bars, rtol=0, atol=2e-6)
+                torch.testing.assert_close(got.gain.cpu(), want.gain, rtol=1e-5, atol=0)
+            for a, b in zip(on_card.state, on_cpu.state):
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+
+
+def test_spectrogram_processor_on_cuda(cuda):
+    """SpectrogramProcessor on the card: both ingest routes emit the same
+    bytes, kernels A and B launch once per upload unit, and the columns
+    agree with the CPU's by the byte rule (within 1 LSB, at most 0.1% of
+    bytes different, alpha 255)."""
+    from signalizer_tpu_torch.views.spectrogram import SpectrogramProcessor
+
+    rng = np.random.default_rng(41)
+    n = np.arange(9600)
+    stream = (rng.standard_normal((6, 9600)) * 0.02).astype(np.float32)
+    for ch in range(4):
+        stream[ch] += (0.4 * np.sin(2 * np.pi * (700.0 + 900.0 * ch) * n / 48000.0)).astype(np.float32)
+    kw = dict(pairs=3, axis_points=256, window_size=4096, blob_ms=10.0)
+    procs = {
+        "device": SpectrogramProcessor(device=cuda, device_ingest=True, **kw),
+        "host": SpectrogramProcessor(device=cuda, device_ingest=False, **kw),
+        "cpu": SpectrogramProcessor(device="cpu", device_ingest=True, **kw),
+    }
+    for at in range(0, 9600, 800):
+        a0, b0 = wfm.launches, dm.launches
+        cols = {}
+        for name, proc in procs.items():
+            proc.push(stream[:, at : at + 800])
+            cols[name] = proc.pull()
+        assert (wfm.launches - a0) == (dm.launches - b0)
+        assert np.array_equal(cols["device"], cols["host"])
+        if cols["cpu"].size:
+            diff = np.abs(cols["device"].astype(np.int16) - cols["cpu"].astype(np.int16))
+            assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3 and (cols["device"][..., 3] == 255).all()
+    # one launch of each kernel, and one readback, per upload unit or host batch
+    assert procs["device"].readbacks >= procs["host"].readbacks > 0
+    assert procs["device"].freshness_lag() < 480 and procs["device"].batcher.dropped_frames == 0
+    torch.testing.assert_close(procs["device"].state.magnitude.cpu(), procs["cpu"].state.magnitude, rtol=1e-4, atol=1e-7)
+
+
+def test_resonator_processor_on_cuda(cuda):
+    """ResonatorSpectrumProcessor on the card: each call launches kernel
+    B's decay-and-dB entry once, agrees with the CPU processor (bank 2e-6
+    of its peak, display 1e-4), and invalid chunks leave the bank as it
+    was."""
+    from signalizer_tpu_torch.views.spectrum import ResonatorSpectrumProcessor
+
+    kw = dict(pairs=2, axis_points=256, window_size=1024, configuration=SpectrumChannels.SEPARATE,
+              view_scaling=ViewScaling.LOGARITHMIC)
+    on_card = ResonatorSpectrumProcessor.create(device=cuda, **kw)
+    on_cpu = ResonatorSpectrumProcessor.create(device="cpu", **kw)
+    rng = np.random.default_rng(42)
+    n = np.arange(4096)
+    x = (rng.standard_normal((2, 2, 4096)) * 0.02 + 0.5 * np.sin(2 * np.pi * 1234.0 * n / 48000.0)).astype(np.float32)
+    calls = [
+        (x[..., :800][:, :, None, :], None),
+        (x[..., 800:2848].reshape(2, 2, 4, 512), [True, True, True, False]),
+        (x[..., 2848:3872].reshape(2, 2, 2, 512), None),
+    ]
+    for blocks, valid in calls:
+        before = dm.decay_db_launches
+        got = on_card.process_chunks(blocks, valid=valid)
+        want = on_cpu.process_chunks(blocks, valid=valid)
+        assert dm.decay_db_launches == before + 1
+        peak = float(on_cpu.res_state.abs().max())
+        torch.testing.assert_close(on_card.res_state.cpu(), on_cpu.res_state, rtol=0, atol=2e-6 * peak)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    bank = on_card.res_state.clone()
+    on_card.process_chunks(calls[1][0], valid=[False] * 4)
+    assert torch.equal(on_card.res_state, bank)

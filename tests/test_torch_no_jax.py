@@ -76,6 +76,43 @@ def test_oscilloscope_runs_with_jax_blocked():
     assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
 
 
+def test_vectorscope_spectrogram_and_resonator_run_with_jax_blocked():
+    """With jax blocked the three other views run on the CPU (the
+    spectrogram by both ingest routes, byte for byte the same) and, after
+    all five processors ran, no module of the JAX package is loaded."""
+    proc = _run(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import signalizer_tpu_torch as st
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2, 2, 512)).astype(np.float32)
+        st.SpectrumProcessor.create(pairs=2, device="cpu", axis_points=64, window_size=256).process(x[..., :256])
+        st.OscilloscopeProcessor.create(pairs=2, device="cpu", pixels=64).process(x)
+        for mode in st.OperationalMode:
+            for gain in st.VectorscopeAutoGain:
+                f = st.VectorscopeProcessor(pairs=2, device="cpu", mode=mode, autogain=gain).process(x, new_samples=100)
+                assert tuple(f.vertices.shape) == (2, 512, 3) and np.isfinite(f.vertices.numpy()).all()
+        cols = []
+        for ingest in (True, False):
+            sp = st.SpectrogramProcessor(pairs=2, device="cpu", axis_points=64, window_size=256, blob_ms=1.0,
+                                         device_ingest=ingest)
+            sp.push(x.reshape(4, 512))
+            cols.append(sp.pull())
+        assert cols[0].shape == (6, 64, 4) and cols[0].dtype == np.uint8 and np.array_equal(*cols)
+        rs = st.ResonatorSpectrumProcessor.create(pairs=2, device="cpu", axis_points=64, window_size=256,
+                                                  configuration=st.SpectrumChannels.SEPARATE)
+        out = rs.process_chunks(x.reshape(2, 2, 4, 128), valid=[True, True, True, False])
+        assert tuple(out.shape) == (2, 1, 2, 2, 64)
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print(" ".join(loaded))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
+
+
 def test_kernel_modules_import_without_nvcc_or_triton():
     """Importing the kernel wrappers runs no subprocess, looks for no
     compiler, loads no library and imports no triton: the build happens at
@@ -100,11 +137,14 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.kernels.spectrum
         import signalizer_tpu_torch.kernels.oscilloscope
         import signalizer_tpu_torch.views.oscilloscope
+        import signalizer_tpu_torch.views.vectorscope
+        import signalizer_tpu_torch.views.spectrogram
+        import signalizer_tpu_torch.kernels.resonator
         from signalizer_tpu_torch.kernels import _build
         assert calls == [], calls
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
-        assert (a.launches, b.launches, c.launches) == (0, 0, 0)
+        assert (a.launches, b.launches, b.remap_launches, b.decay_db_launches, c.launches) == (0, 0, 0, 0, 0)
         print("ok")
         """
     )
@@ -134,7 +174,8 @@ def test_build_names_the_library_by_its_sources():
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
-        "sig_window_fft_mag", "sig_display_map", "sig_banded_resample", "sig_banded_resample_affine",
+        "sig_window_fft_mag", "sig_display_map", "sig_display_remap", "sig_display_decay_db",
+        "sig_banded_resample", "sig_banded_resample_affine",
     }
 
 
@@ -179,6 +220,12 @@ def test_port_sources_import_nothing_of_the_jax_package():
         "oscilloscope_state_from_arrays",
         "init_crossover_state",
         "sinc_resample_matrix",
+        "vectorscope",
+        "spectrogram",
+        "resonator_create",
+        "meter_state_from_arrays",
+        "resonator_state_from_arrays",
+        "make_resonator_constant",
     ],
 )
 def test_default_device_is_the_gpu_and_raises_without_one(entry):
@@ -193,7 +240,9 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
     from signalizer_tpu_torch.core import constant as tc
     from signalizer_tpu_torch.kernels import filters as tf
     from signalizer_tpu_torch.kernels import oscilloscope as tk
+    from signalizer_tpu_torch.kernels import resonator as tres
     from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import vectorscope as tvs
     from signalizer_tpu_torch.views import oscilloscope as tv
 
     cpu = tc.make_spectrum_constant(axis_points=32, window_size=128, device="cpu")
@@ -212,6 +261,14 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
         "oscilloscope_state_from_arrays": lambda: tv.oscilloscope_state_from_arrays(osc.state),
         "init_crossover_state": lambda: tf.init_crossover_state((1, 2)),
         "sinc_resample_matrix": lambda: tk.sinc_resample_matrix(64, 0.0, 1.0, 16),
+        "vectorscope": lambda: st.VectorscopeProcessor(pairs=1),
+        "spectrogram": lambda: st.SpectrogramProcessor(pairs=1, axis_points=32, window_size=128),
+        "resonator_create": lambda: st.ResonatorSpectrumProcessor.create(pairs=1, axis_points=32, window_size=128),
+        "meter_state_from_arrays": lambda: tvs.meter_state_from_arrays(
+            np.zeros((1, 2)), np.zeros((1, 2, 2)), np.zeros((1, 2)), np.ones(1)
+        ),
+        "resonator_state_from_arrays": lambda: tres.resonator_state_from_arrays(np.zeros((1, 1, 4, 3, 2))),
+        "make_resonator_constant": lambda: tres.make_resonator_constant(np.linspace(100.0, 1000.0, 4), 48000.0, 128),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()

@@ -104,7 +104,7 @@ def test_analyze_frames_matches_jax(mode, interp):
 
 @pytest.mark.parametrize("mode", [m for m in MODES if m != SpectrumChannels.PHASE], ids=lambda m: m.name)
 def test_magnitude_values_and_post_process_match_jax_on_cpu(mode):
-    """The CPU halves of the magnitude tail: spectrum_values then
+    """The two halves of the magnitude tail on the CPU: spectrum_values then
     post_process, against JAX's with its linear decay, T=3 with a padded
     frame. rtol/atol 1e-5, as for analyze_frames."""
     jc, tc = _pair(
@@ -128,17 +128,57 @@ def test_magnitude_values_and_post_process_match_jax_on_cpu(mode):
     np.testing.assert_allclose(state.magnitude.numpy(), np.asarray(want.state.magnitude), rtol=1e-5, atol=1e-7)
 
 
-def test_magnitude_values_refuse_a_device_tensor():
-    """Off the CPU the magnitude modes' remapped values exist only inside
-    kernel B, so spectrum_values and post_process point to analyze_frames
-    (checked on the meta device, which needs no GPU)."""
+def _recording(monkeypatch, module, name, result):
+    """Replace ``module.name`` by a stand-in that records its tensor
+    arguments' devices and returns ``result``."""
+    calls = []
+
+    def stand_in(*args, **kwargs):
+        calls.append([a.device.type for a in args if isinstance(a, torch.Tensor)])
+        return result
+
+    monkeypatch.setattr(module, name, stand_in)
+    return calls
+
+
+def test_spectrum_values_dispatches_a_device_tensor_to_the_remap_entry(monkeypatch):
+    """Off the CPU the magnitude modes' values come from kernel A's wrapper
+    and then kernel B's remap entry, never from ``_remap_mag`` (checked on
+    the meta device, which needs no GPU, with the wrappers replaced by
+    recorders)."""
+    from signalizer_tpu_torch.kernels import spectrum as ts
+
     tc = make_spectrum_constant(axis_points=64, window_size=256, device=CPU)
-    meta = torch.empty((1, 2, 256), device="meta")
-    with pytest.raises(NotImplementedError, match="analyze_frames"):
-        spectrum_values(tc, meta)
-    state = init_line_graph_state(tc, (1,))
-    with pytest.raises(NotImplementedError, match="analyze_frames"):
-        post_process(tc, state, torch.empty((1, 1, 1, 64), device="meta"))
+    mags = torch.empty((1, 1, 129), device="meta")
+    out = torch.empty((1, 1, 64), device="meta")
+    stage1 = _recording(monkeypatch, ts, "window_fft_mag", mags)
+    remap = _recording(monkeypatch, ts, "display_remap", out)
+    monkeypatch.setattr(ts, "_remap_mag", lambda *a: pytest.fail("the plain remap ran"))
+    assert spectrum_values(tc, torch.empty((1, 2, 256), device="meta")) is out
+    assert stage1 == [["meta"]] and remap == [["meta"]]
+
+
+def test_post_process_dispatches_a_device_tensor_to_the_decay_db_entry(monkeypatch):
+    """Off the CPU the magnitude modes' decay and dB map go to kernel B's
+    decay-and-dB entry with the state it updates in place, never to
+    ``decay_db``; the wrappers themselves refuse a device that is neither
+    the CPU nor CUDA."""
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import spectrum as ts
+
+    tc = make_spectrum_constant(axis_points=64, window_size=256, device=CPU)
+    vals = torch.empty((1, 1, 1, 64), device="meta")
+    state = ts.LineGraphState(torch.empty((1, 2, 1, 64), device="meta"), torch.empty((1, 2, 64), device="meta"))
+    out = torch.empty((1, 1, 2, 1, 64), device="meta")
+    calls = _recording(monkeypatch, ts, "display_decay_db", out)
+    monkeypatch.setattr(ts, "decay_db", lambda *a, **k: pytest.fail("the plain decay ran"))
+    got = post_process(tc, state, vals)
+    assert got.results is out and got.state is state and calls == [["meta", "meta"]]
+    with pytest.raises(ValueError, match="unsupported device"):
+        dm.display_decay_db(tc, state.magnitude, vals)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dm.display_remap(tc, torch.empty((1, 1, 129), device="meta"))
+    assert (dm.remap_launches, dm.decay_db_launches) == (0, 0)
 
 
 @pytest.mark.parametrize("name", list(GOLDEN_CASES))
