@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA GPU: the Spectrum
-view (FFT path and resonator bank), the Oscilloscope, the Vectorscope and
-the Spectrogram.
+view (FFT path and resonator bank), the Oscilloscope, the Vectorscope, the
+Spectrogram, and the live ingest path that feeds them from an audio stream.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,26 @@ Phases, each printing one informational line:
    (bench.py:1052-1114), each call against the same step with the plain
    ``decay_db`` tail on the same tensors, the two tones' pixels, and the
    invalid chunks' guarantees;
-12. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
+12. kernel A's long form (rows above 32768 points, COMPLEX above 16384:
+   two passes through a scratch tensor) against its plain version at
+   N = 65536, 131072, 262144 and 2^20, COMPLEX at 32768 and 65536, every
+   mode at 65536 on a small batch and with a silent channel beside a loud
+   one (exactly zero out); timed at 16 pairs x 16 frames of 48000 samples
+   with ``torch.fft.rfft`` of the already windowed rows beside it;
+13. the live ingest path: a threaded 16-channel ``AudioStream`` at 48 kHz
+   with the default 48000-sample history (native packet queue and native
+   ring, required here), a second stereo instance mixed into the last pair
+   through ``HostGraph.connect`` and ``MixGraph``, and a
+   ``DevicePresentationHistory`` on the card; 240 ticks of 800-sample
+   blocks, each a ``sync`` and then the Spectrum at the headline constant
+   and at a 48000-sample window (the long form), the Oscilloscope on 16384
+   samples and the Vectorscope on 4096, all reading windows of the device
+   ring; every window equal to ``get_history`` bit for bit at every tick
+   and after a stall longer than the ring (one re-prime); bytes uploaded a
+   tick, ``sync`` µs, ms a tick (p50, p99), launches and syncs a tick, the
+   long Spectrum's sine peaks (the last pair's from the mixed-in peer), both
+   Spectrum processors against their plain versions;
+14. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
    the profiler give the host wall time per call, and the device busy
@@ -72,8 +91,9 @@ Phases, each printing one informational line:
    alone is profiled by both routes (positions formed in the kernel, and a
    position tensor built by torch operations) to count the launches of
    each; one Vectorscope call, the Spectrogram's batched step and one pull,
-   the ring's window copy alone, one resonator tick and one backlog call
-   are profiled the same way.
+   the ring's window copy alone, one resonator tick and one backlog call,
+   the long form at its timed shape and one live tick are profiled the
+   same way.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -150,15 +170,23 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/banded_resample.cu",
         replaces="signalizer_tpu/kernels/pallas_resample.py:185",
     ),
+    # kernel A's long form: rows above 32768 points (COMPLEX 16384)
+    "window_fft_mag_long": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/window_fft_mag_long.cu",
+        replaces="signalizer_tpu/kernels/pallas_spectrum.py:147",
+    ),
 }
-# each kernel's device function, as the profiler names it
-DEVICE_FUNCTION = {
-    "window_fft_mag": "window_fft_mag_kernel",
-    "display_map": "display_map_kernel",
-    "display_remap": "display_remap_kernel",
-    "display_decay_db": "display_map_kernel",
-    "banded_resample": "banded_resample_kernel",
+# each kernel's device functions, as the profiler names them
+DEVICE_FUNCTIONS = {
+    "window_fft_mag": ("window_fft_mag_kernel",),
+    "display_map": ("display_map_kernel",),
+    "display_remap": ("display_remap_kernel",),
+    "display_decay_db": ("display_map_kernel",),
+    "banded_resample": ("banded_resample_kernel",),
+    "window_fft_mag_long": ("long_columns_kernel", "long_rows_kernel"),
 }
+OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
 OSC_FS = 96_000.0
 OSC_HISTORY = 16384
@@ -390,7 +418,7 @@ def phase_kernel_b(torch, dev, c, mags, results):
     valid[0] = False
     small = {
         k: make_spectrum_constant(device=dev, **headline(axis_points=200, window_size=1024, num_line_graphs=k))
-        for k in (1, 8)
+        for k in (1, 8, 11)
     }
     small_mags = {
         k: torch.from_numpy(
@@ -406,6 +434,7 @@ def phase_kernel_b(torch, dev, c, mags, results):
         ("none_valid", c, mags, torch.zeros(T, dtype=torch.bool, device=dev), False),
         ("k1_small", small[1], small_mags[1], None, False),
         ("k8_small", small[8], small_mags[8], torch.from_numpy(valid[:40]).to(dev), False),
+        ("k11_small", small[11], small_mags[11], torch.from_numpy(valid[:40]).to(dev), False),  # two launches
     ]
     for name, cc, m, v, timed in cases:
         state0 = state_for(cc, m.shape[0])
@@ -504,7 +533,7 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
     one_invalid[57] = False
     small = {
         k: make_spectrum_constant(device=dev, **headline(axis_points=200, window_size=1024, num_line_graphs=k))
-        for k in (1, 8)
+        for k in (1, 8, 11)
     }
     small_vals = torch.from_numpy((np.abs(rng.standard_normal((3, 40, 2, 200))) * 0.3).astype(np.float32)).to(dev)
     cases = [  # name, constant, vals, valid, timed
@@ -515,6 +544,7 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
         ("decay_db_none_valid", c, vals, torch.zeros(T, dtype=torch.bool, device=dev), False),
         ("decay_db_k1_small", small[1], small_vals, None, False),
         ("decay_db_k8_small", small[8], small_vals, torch.from_numpy(valid[:40]).to(dev), False),
+        ("decay_db_k11_small", small[11], small_vals, torch.from_numpy(valid[:40]).to(dev), False),
     ]
     for name, cc, v, mask, timed in cases:
         state0 = state_for(cc, v.shape[0])
@@ -1335,6 +1365,351 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
     return cfg3_proc, calls[0]
 
 
+# kernel A's long form, timed at 16 pairs x T = 16 frames of the engine's
+# default 48000-sample history (N = 65536)
+LONG_WINDOW = 48_000
+LONG_T = 16
+
+
+def phase_kernel_a_long(torch, dev, results):
+    """Kernel A's long form (two passes through a scratch tensor) against
+    its plain version: SEPARATE at N = 65536, 131072, 262144 and 2^20,
+    COMPLEX at 32768 and 65536, all eight modes at 65536 on a small batch,
+    silent channels; timed at 16 pairs x 16 frames x 2 x 48000 samples with
+    ``torch.fft.rfft`` of the already windowed rows beside it."""
+    from signalizer_tpu_torch import SpectrumChannels as SC
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+
+    report = {"phase": "kernel_a_long", "bound": "row-relative error <= 5e-6; a silent row exactly 0", "cases": {}}
+    cases = [  # name, constant keywords, frames shape
+        ("n65536_w48000", headline(window_size=LONG_WINDOW), (PAIRS, 4, 2, LONG_WINDOW)),
+        ("n131072", headline(window_size=131072), (4, 2, 2, 131072)),
+        ("n262144", headline(window_size=262144), (2, 2, 2, 262144)),
+        ("n1048576", headline(window_size=1 << 20), (1, 2, 2, 1 << 20)),
+        ("complex_n32768", headline(window_size=32768, configuration=SC.COMPLEX), (4, 2, 2, 32768)),
+        ("complex_n65536", headline(window_size=65536, configuration=SC.COMPLEX), (4, 2, 2, 65536)),
+    ]
+    cases += [(f"mode_{m.name.lower()}_n65536", headline(window_size=65536, configuration=m), (2, 2, 2, 65536))
+              for m in SC if m.name not in ("MID", "OFFSET_FOR_MONO")]
+    for i, (name, kw, shape) in enumerate(cases):
+        c = make_spectrum_constant(device=dev, **kw)
+        require(wfm.uses_long_form(c), f"kernel A long {name}: takes the one-block form")
+        frames = _frames(torch, shape, seed=200 + i, dev=dev)
+        before = (wfm.launches, wfm.long_launches)
+        got = wfm.window_fft_mag(c, frames)
+        want = wfm.window_fft_mag_plain(c, frames)
+        torch.cuda.synchronize()
+        require((wfm.launches, wfm.long_launches) == (before[0], before[1] + 1), f"kernel A long {name}: launches")
+        rel = row_rel_err(got, want)
+        require(got.shape == want.shape and got.dtype == want.dtype, f"kernel A long {name} shape")
+        require(rel <= 5e-6, f"kernel A long {name}: row-relative error {rel} > 5e-6")
+        report["cases"][name] = {"shape": list(shape), "n": c.transform_size, "row_rel_err": rel}
+    for name, kw, shape in (
+        ("silent_separate_n65536", headline(window_size=65536), (4, 2, 65536)),
+        ("silent_phase_n131072", headline(window_size=131072, configuration=SC.PHASE), (2, 2, 131072)),
+    ):
+        c = make_spectrum_constant(device=dev, **kw)
+        frames = _frames(torch, shape, seed=91, dev=dev) * 3.0
+        frames[:, 1] = 0.0
+        got = wfm.window_fft_mag(c, frames)
+        want = wfm.window_fft_mag_plain(c, frames)
+        torch.cuda.synchronize()
+        require(bool((got[:, 1] == 0).all()), f"kernel A long {name}: the silent channel is not exactly zero")
+        rel = row_rel_err(got[:, 0], want[:, 0])
+        require(rel <= 5e-6, f"kernel A long {name}: loud row error {rel} > 5e-6")
+        report["cases"][name] = {"shape": list(shape), "row_rel_err": rel, "silent_row_max": 0.0}
+
+    # timed: 16 pairs x 16 frames of the default history
+    c = make_spectrum_constant(device=dev, **headline(window_size=LONG_WINDOW))
+    frames = _frames(torch, (PAIRS, LONG_T, 2, LONG_WINDOW), seed=230, dev=dev)
+    got = wfm.window_fft_mag(c, frames)
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    rel = row_rel_err(got, want)
+    abs_err = float((got - want).abs().max())
+    require(rel <= 5e-6, f"kernel A long t16: row-relative error {rel} > 5e-6")
+    ms = median_ms(torch, lambda: wfm.window_fft_mag(c, frames), reps=10)
+    plain_ms = median_ms(torch, lambda: wfm.window_fft_mag_plain(c, frames), reps=10)
+    rows = frames * c.window_kernel
+    library_ms = median_ms(torch, lambda: torch.fft.rfft(rows, n=c.transform_size, dim=-1), reps=10)
+    del rows, want
+    bound = fft_bound(c, frames, got)
+    scratch_mb = PAIRS * LONG_T * 2 * (c.transform_size // 2) * 8 / 1e6
+    report["timed"] = {"shape": list(frames.shape), "n": c.transform_size, "row_rel_err": rel,
+                       "max_abs_err": abs_err, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "in_mb": nbytes(frames) / 1e6,
+                       "out_mb": nbytes(got) / 1e6, "scratch_mb": scratch_mb, **bound}
+    results["window_fft_mag_long"] = dict(
+        max_abs_err=abs_err, row_rel_err=rel, ms=ms, plain_ms=plain_ms, **bound, library_ms=library_ms,
+        library="torch.fft.rfft of already windowed rows: less than the kernel does",
+    )
+    info(report)
+
+    def long_t16():
+        return wfm.window_fft_mag(c, frames)
+
+    return long_t16
+
+
+# the live phase: a threaded 16-channel stream at 48 kHz with the default
+# history, a second stereo instance mixed into the last pair, 800-sample
+# blocks (one 60 fps display frame) for 240 ticks
+LIVE_TICKS = 240
+LIVE_CHANNELS = 16
+LIVE_HISTORY = 48_000
+LIVE_PAIRS = LIVE_CHANNELS // 2
+LIVE_OSC_WINDOW = 16384
+LIVE_VS_WINDOW = 4096
+LIVE_PEER_HZ = 1000.0
+
+
+def make_live_audio(n_blocks: int):
+    """Seeded [16, n] main stream: pair i < 7 a sine on a distinct 65536-point
+    bin (both channels, the right phase-shifted) plus noise 40 dB below;
+    pair 7 noise alone, where the peer's 1 kHz sine is mixed in. And the
+    peer's stereo stream [2, n]."""
+    rng = np.random.default_rng(2031)
+    length = n_blocks * HOP
+    n = np.arange(length)
+    bins = np.round(np.geomspace(150.0, 12_000.0, LIVE_PAIRS - 1) * 65536 / FS).astype(int)
+    freqs = bins * FS / 65536
+    main = (rng.standard_normal((LIVE_CHANNELS, length)) * 0.5 / np.sqrt(2.0) * 0.01).astype(np.float32)
+    for i, f in enumerate(freqs):
+        for ch, phase in ((0, 0.0), (1, 0.3)):
+            main[2 * i + ch] += (0.5 * np.sin(2 * np.pi * f * n / FS + phase)).astype(np.float32)
+    peer = np.stack([0.5 * np.sin(2 * np.pi * LIVE_PEER_HZ * n / FS + p) for p in (0.0, 0.2)]).astype(np.float32)
+    return main, peer, freqs
+
+
+class SyncCounter:
+    """Counts the synchronizing CUDA operations inside a ``with`` block
+    (``torch.cuda.set_sync_debug_mode``: each one warns)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.count = 0
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self.count = sum("synchroniz" in str(w.message) for w in self._log)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def phase_live(torch, dev, launches_out, calls_out):
+    """The live ingest path at full width: AudioStream (threaded, native SPSC
+    packet queue and native ring) -> MixGraph with a peer instance ->
+    DevicePresentationHistory on the card -> two Spectrum processors
+    (N = 4096 and 65536), the Oscilloscope and the Vectorscope, each reading
+    its window off the device ring, for 240 ticks; every window held
+    against the host ring's ``get_history`` bit for bit; then a stall
+    longer than the ring and the re-prime."""
+    from signalizer_tpu_torch import OscilloscopeProcessor, SpectrumProcessor, VectorscopeProcessor
+    from signalizer_tpu_torch.core.config import DEFAULT_HISTORY_SIZE, MAX_INPUT_CHANNELS
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+    from signalizer_tpu_torch.native_bindings import (
+        NativePacketQueue, NativeRingBuffer, native_available, native_build_error)
+    from signalizer_tpu_torch.stream.audio_stream import AudioStream, AudioStreamInfo, Playhead
+    from signalizer_tpu_torch.stream.device_history import DevicePresentationHistory
+    from signalizer_tpu_torch.stream.host_graph import HostGraph, PortPair
+    from signalizer_tpu_torch.stream.mix_graph import MixGraph
+
+    require(MAX_INPUT_CHANNELS == LIVE_CHANNELS and DEFAULT_HISTORY_SIZE == LIVE_HISTORY, "live geometry")
+    require(native_available(), f"live: the native host runtime did not build: {native_build_error()}")
+    stall_blocks = LIVE_HISTORY // HOP + 2
+    n_blocks = LIVE_TICKS + stall_blocks + 80  # the profile's ticks wrap around
+    main_audio, peer_audio, freqs = make_live_audio(n_blocks)
+
+    info_main = AudioStreamInfo(channels=LIVE_CHANNELS, sample_rate=FS, audio_history_size=LIVE_HISTORY,
+                                audio_history_capacity=LIVE_HISTORY)
+    main_in, main_out = AudioStream.create(True, info_main)
+    peer_in, peer_out = AudioStream.create(False, AudioStreamInfo(channels=2, sample_rate=FS,
+                                                                  audio_history_capacity=LIVE_HISTORY))
+    main_graph, peer_graph = HostGraph("main", channels=LIVE_CHANNELS), HostGraph("peer", channels=2)
+    main_graph.stream_output, peer_graph.stream_output = main_out, peer_out
+    mix = MixGraph(main_graph, main_out, capacity=2 * LIVE_HISTORY)
+    for ch in range(2):
+        require(main_graph.connect(peer_graph.node_id, PortPair(ch, LIVE_CHANNELS - 2 + ch)), "connect the peer")
+    present = mix.presentation_output
+    history = DevicePresentationHistory(present, device=dev)
+    ring_kind = type(main_out._stream._history).__name__
+    queue_kind = type(main_out._stream._native_queue).__name__
+    require(isinstance(main_out._stream._history, NativeRingBuffer), f"live: the main stream's ring is {ring_kind}")
+    require(isinstance(main_out._stream._native_queue, NativePacketQueue), f"live: the packet queue is {queue_kind}")
+    require(isinstance(present._stream._history, NativeRingBuffer), "live: the presentation ring is not native")
+
+    spec = SpectrumProcessor.create(pairs=LIVE_PAIRS, device=dev, **headline())
+    spec_long = SpectrumProcessor.create(pairs=LIVE_PAIRS, device=dev, **headline(window_size=LIVE_HISTORY))
+    osc = OscilloscopeProcessor.create(pairs=LIVE_PAIRS, device=dev, window_samples=OSC_WINDOW,
+                                       **osc_kwargs(sample_rate=FS))
+    scope = VectorscopeProcessor(pairs=LIVE_PAIRS, device=dev)
+    require(wfm.uses_long_form(spec_long.constant), "live: the 48000-sample Spectrum takes the one-block form")
+    block = {"i": 0}
+
+    def feed():
+        i = block["i"]
+        block["i"] += 1
+        ph = Playhead(steady_clock=i * HOP, position_samples=i * HOP, is_playing=True)
+        j = i % n_blocks
+        peer_in.process_incoming_audio(peer_audio[:, j * HOP : (j + 1) * HOP], ph)
+        main_in.process_incoming_audio(main_audio[:, j * HOP : (j + 1) * HOP], ph)
+        require(main_in._stream.wait_for_drain(timeout=5.0), "live: the stream did not drain")
+
+    def views():
+        frames = lambda n: history.window(n).reshape(LIVE_PAIRS, 2, n)  # noqa: E731
+        return (spec.process(frames(WINDOW)), spec_long.process(frames(LIVE_HISTORY)),
+                osc.process(frames(LIVE_OSC_WINDOW), new_samples=HOP), scope.process(frames(LIVE_VS_WINDOW)))
+
+    def held(tick):
+        for n in (WINDOW, LIVE_OSC_WINDOW, LIVE_HISTORY):
+            require(np.array_equal(history.window(n).cpu().numpy(), present.get_history(n)),
+                    f"live tick {tick}: the device window of {n} differs from get_history")
+
+    for _ in range(4):  # warm-up: the kernels' first launches, the prime
+        feed()
+        history.sync()
+        views()
+    torch.cuda.synchronize()
+    held(-1)
+    counters = (wfm, "launches"), (wfm, "long_launches"), (dm, "launches"), (br, "launches")
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    reprimes0 = history.reprimes
+    tick_ms, sync_us, uploaded, arrived = [], [], [], []
+    for tick in range(LIVE_TICKS):
+        before = present.sample_clock
+        feed()
+        arrived.append(present.sample_clock - before)
+        t0 = time.perf_counter()
+        history.sync()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = views()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tick_ms.append((t2 - t0) * 1e3)
+        sync_us.append((t1 - t0) * 1e6)
+        uploaded.append(history.uploaded_bytes)
+        held(tick)
+        require(all(bool(torch.isfinite(x).all()) for x in (out[0], out[1], out[2].waveform, out[3].vertices)),
+                f"live tick {tick}: a view's output is not finite")
+    live_launches = {"window_fft_mag": wfm.launches, "window_fft_mag_long": wfm.long_launches,
+                     "display_map": dm.launches, "banded_resample": br.launches}
+    for name, count in live_launches.items():
+        require(count > 0, f"live: {name} was not launched")
+    require(history.reprimes == reprimes0, f"live: {history.reprimes - reprimes0} re-primes while fed every tick")
+    require(all(u == LIVE_CHANNELS * 4 * a for u, a in zip(uploaded, arrived)),
+            "live: a sync uploaded other than the samples that arrived")
+    launches_out["window_fft_mag_long"] = live_launches["window_fft_mag_long"]
+    calls_out["window_fft_mag_long"] = LIVE_TICKS
+
+    # what came out: each sounding pair's LineMain peak on the long Spectrum
+    # within one pixel of its sine; the last pair peaks at the peer's tone
+    mapped = spec_long.constant.mapped_frequencies.cpu().numpy()
+    last = out[1][:, -1, 0].cpu().numpy()  # [pairs, rows, P]
+    for i, f in enumerate(list(freqs) + [LIVE_PEER_HZ]):
+        expect = int(np.argmin(np.abs(mapped - f)))
+        for r in range(2):
+            got = int(np.argmax(last[i, r]))
+            require(abs(got - expect) <= 1, f"live pair {i} row {r}: long-window peak {got}, sine at {expect}")
+    # and the two Spectrum processors against their plain versions on the
+    # same device windows and the same carried state
+    for proc, n in ((spec, WINDOW), (spec_long, LIVE_HISTORY)):
+        c = proc.constant
+        x = history.window(n).reshape(LIVE_PAIRS, 1, 2, n).contiguous()
+        plain_state = proc.state.magnitude.clone()
+        got = proc.process(x)
+        want = dm.display_map_plain(c, wfm.window_fft_mag_plain(c, x), plain_state)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err <= 2e-4, f"live Spectrum N={c.transform_size} vs plain: {err} > 2e-4")
+
+    # where a tick's time goes: 40 more ticks, each part ended by a
+    # synchronize (host ms, so the parts add up to more than a tick)
+    parts = {"sync": [], "spectrum_4096": [], "spectrum_48000": [], "oscilloscope": [], "vectorscope": []}
+    frames = lambda n: history.window(n).reshape(LIVE_PAIRS, 2, n)  # noqa: E731
+    steps = (
+        ("sync", history.sync),
+        ("spectrum_4096", lambda: spec.process(frames(WINDOW))),
+        ("spectrum_48000", lambda: spec_long.process(frames(LIVE_HISTORY))),
+        ("oscilloscope", lambda: osc.process(frames(LIVE_OSC_WINDOW), new_samples=HOP)),
+        ("vectorscope", lambda: scope.process(frames(LIVE_VS_WINDOW))),
+    )
+    for _ in range(40):
+        feed()
+        for name, step in steps:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+
+    # syncs a tick, counted on ten more ticks
+    syncs = []
+    for _ in range(10):
+        feed()
+        with SyncCounter(torch) as counter:
+            history.sync()
+            views()
+        torch.cuda.synchronize()
+        syncs.append(counter.count)
+
+    # a stall longer than the ring: the mirror re-primes and stays equal
+    reprimes0 = history.reprimes
+    for _ in range(stall_blocks):
+        feed()
+    history.sync()
+    torch.cuda.synchronize()
+    held("after the stall")
+    require(history.reprimes == reprimes0 + 1, f"live: {history.reprimes - reprimes0} re-primes after the stall")
+
+    window_copy_ms = median_ms(torch, lambda: history.window(LIVE_HISTORY).contiguous(), reps=10)
+    steady = tick_ms[10:]
+    report = {
+        "phase": "live", "channels": LIVE_CHANNELS, "history": LIVE_HISTORY, "block": HOP, "ticks": LIVE_TICKS,
+        "ring": ring_kind, "packet_queue": queue_kind, "presentation_ring": type(present._stream._history).__name__,
+        "mix": {"sources": len(mix._sources), "latency_samples": mix.perf.latency_samples,
+                "discontinuities": mix.perf.discontinuities, "synchronized": mix.perf.synchronized},
+        "uploaded_bytes_per_tick": {"median": float(np.median(uploaded)), "min": int(min(uploaded)),
+                                    "max": int(max(uploaded))},
+        "sync_us": {"p50": float(np.percentile(sync_us, 50)), "p99": float(np.percentile(sync_us, 99))},
+        "tick_ms": {"p50": float(np.percentile(steady, 50)), "p99": float(np.percentile(steady, 99))},
+        "launches_per_tick": {k: v / LIVE_TICKS for k, v in live_launches.items()},
+        "syncs_per_tick": {"median": float(np.median(syncs)), "max": int(max(syncs))},
+        "part_ms_p50": {name: float(np.percentile(v, 50)) for name, v in parts.items()},
+        "reprimes": {"while_fed": 0, "after_stall": 1, "total": history.reprimes},
+        "window_48000_contiguous_ms": window_copy_ms,
+        "windows_equal_get_history": True,
+    }
+    require(report["uploaded_bytes_per_tick"]["median"] == LIVE_CHANNELS * HOP * 4,
+            f"live: median upload {report['uploaded_bytes_per_tick']['median']} bytes, not 16 x 800 x 4")
+    info(report)
+
+    def tick():
+        feed()
+        history.sync()
+        return views()
+
+    def close():
+        history.close()
+        mix.close()
+        main_in._stream.close()
+        peer_in._stream.close()
+
+    return tick, close
+
+
 def phase_profile(torch, workloads, calls: int = 20):
     """Device time per kernel and busy share of each workload's call:
     kernel times from ``torch.profiler`` (CUPTI) over ``calls`` calls, host
@@ -1385,9 +1760,7 @@ def phase_profile(torch, workloads, calls: int = 20):
             "device_kernels": len(kernels_us),
             "launches_per_call": launched / calls,
             "top_kernels_us_per_call": top,
-            "own_kernels_us_per_call": {
-                k: kernels_us[k] for k in sorted(set(DEVICE_FUNCTION.values())) if k in kernels_us
-            },
+            "own_kernels_us_per_call": {k: kernels_us[k] for k in OWN_DEVICE_FUNCTIONS if k in kernels_us},
         }
     info(report)
     return report
@@ -1442,6 +1815,8 @@ def main() -> int:
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
     resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
+    long_t16 = phase_kernel_a_long(torch, dev, results)
+    live_tick, live_close = phase_live(torch, dev, launches, calls)
     profile = phase_profile(torch, [
         ("t128", lambda: proc.process(x)),
         ("t1", lambda: proc.process(tick)),
@@ -1454,12 +1829,19 @@ def main() -> int:
         ("ring_windows_copy", windows_copy),
         ("resonator_tick", resonator_tick),
         ("resonator_backlog_t16", resonator_backlog),
+        ("window_fft_mag_long_t16", long_t16),
+        ("live_tick", live_tick),
     ])
+    live_close()
     # device time per launch on the main path: one launch per profiled call
+    # (the long form: its two passes)
     for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
-                       ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128")):
-        results[name]["profile_us"] = profile[path]["own_kernels_us_per_call"].get(DEVICE_FUNCTION[name])
-        require(results[name]["profile_us"], f"profile {path}: no device time for {DEVICE_FUNCTION[name]}")
+                       ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
+                       ("window_fft_mag_long", "window_fft_mag_long_t16")):
+        own = profile[path]["own_kernels_us_per_call"]
+        require(all(fn in own for fn in DEVICE_FUNCTIONS[name]),
+                f"profile {path}: no device time for {DEVICE_FUNCTIONS[name]}")
+        results[name]["profile_us"] = sum(own[fn] for fn in DEVICE_FUNCTIONS[name])
     # launches: counted while the main paths were driven (the comparisons
     # with the plain versions are not in it); per call: over those calls
     kernels = [

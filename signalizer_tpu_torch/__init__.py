@@ -4,11 +4,14 @@ A second package beside the JAX one: the Spectrum view (FFT path and
 resonator bank), the Oscilloscope, Vectorscope and Spectrogram views, on
 tensors on one explicit device, carried by CUDA
 kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
-them. It imports no jax and nothing of the JAX package: the enums, windows,
-decay-pole design, ``TimeMode`` and key-colour table it shares with that
-package are its own copies (``core.config``, ``core.windows``,
-``core.scaling``, ``params.transformatters``, ``utils.colour``). Entry points
-run on the GPU unless the caller passes ``device="cpu"``.
+them, and the live ingest path that feeds them from an audio stream. It
+imports no jax and nothing of the JAX package: the enums, windows,
+decay-pole design, ``TimeMode``, key-colour table and host stream layer it
+shares with that package are its own copies (``core.config``,
+``core.windows``, ``core.scaling``, ``params.transformatters``,
+``utils.colour``, ``utils.diagnostics``, ``utils.exception_log``,
+``state.serialize``, ``native_bindings``, ``stream``). Entry points run on
+the GPU unless the caller passes ``device="cpu"``.
 
 Layout mirrors :mod:`signalizer_tpu`:
 
@@ -16,7 +19,7 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.core.windows`     — window generation
 * :mod:`signalizer_tpu_torch.core.constant`    — SpectrumConstant, remap-plan functions
 * :mod:`signalizer_tpu_torch.kernels.spectrum` — analyze_frames and its stages
-* :mod:`signalizer_tpu_torch.kernels.window_fft_mag` — kernel A wrapper
+* :mod:`signalizer_tpu_torch.kernels.window_fft_mag` — kernel A wrapper (both forms)
 * :mod:`signalizer_tpu_torch.kernels.display_map`    — kernel B wrapper
 * :mod:`signalizer_tpu_torch.kernels.peak_decay`     — the decay loop
 * :mod:`signalizer_tpu_torch.views.spectrum`   — SpectrumProcessor, ResonatorSpectrumProcessor
@@ -29,9 +32,16 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.views.vectorscope`   — VectorscopeProcessor
 * :mod:`signalizer_tpu_torch.kernels.colormap`    — gradient map, pair blend, RGBA8 columns
 * :mod:`signalizer_tpu_torch.stream`              — host ring buffer, frame batcher, device-resident ring
+* :mod:`signalizer_tpu_torch.stream.audio_stream` — AudioStream (threaded on the native packet queue)
+* :mod:`signalizer_tpu_torch.stream.host_graph`   — HostGraph: instance identities and topology
+* :mod:`signalizer_tpu_torch.stream.mix_graph`    — MixGraph: instances mixed into one presentation stream
+* :mod:`signalizer_tpu_torch.stream.device_history` — DevicePresentationHistory: the presentation history on the device
+* :mod:`signalizer_tpu_torch.stream.frame_pipeline` — FramePipeline: steps in flight, harvested by CUDA events
+* :mod:`signalizer_tpu_torch.native_bindings`     — the native host runtime (ring, packet queue), built with g++
 * :mod:`signalizer_tpu_torch.views.spectrogram`   — SpectrogramProcessor, SpectrogramImage, ColumnPacer
 
-Importing builds nothing: the kernels compile with ``nvcc`` on first launch.
+Importing builds nothing: the kernels compile with ``nvcc`` on first launch,
+the host runtime with ``g++`` on first use.
 """
 
 from signalizer_tpu_torch.core.config import (  # noqa: F401

@@ -1,15 +1,22 @@
-"""Channel, interpolation, scaling and algorithm enums of the port.
+"""Stream limits and the channel, interpolation, scaling and algorithm
+enums of the port.
 
-The port's own copy of the enums and ``next_pow2`` of
-:mod:`signalizer_tpu.core.config` (ref: the channel enums in
+The port's own copy of the stream constants, the enums and ``next_pow2`` of
+:mod:`signalizer_tpu.core.config` (ref: Source/Config/
+SignalizerConfiguration.h:60-62 and the channel enums in
 Source/Common/CommonSignalizer.h:458-539), with the same names and values:
-they are ``IntEnum``s, so a member of either package compares equal to its
-counterpart. Tests hold the two sets equal.
+the enums are ``IntEnum``s, so a member of either package compares equal to
+its counterpart. Tests hold the two sets equal.
 """
 
 from __future__ import annotations
 
 import enum
+
+# ref: SignalizerConfiguration.h:60-62 — AudioStream<float, 256>, 16 channels.
+MAX_INPUT_CHANNELS: int = 16
+STREAM_PACKET_SIZE: int = 256
+DEFAULT_HISTORY_SIZE: int = 48_000  # ref: ConcurrentConfig.h:41-43
 
 
 class OscChannels(enum.IntEnum):

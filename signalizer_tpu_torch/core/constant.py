@@ -265,7 +265,9 @@ def fft_twiddles(transform_size: int) -> np.ndarray:
     fast-math sines). The first N/2 entries are the same table for an
     N/2-point transform, and the last N/2 are ``exp(-2*pi*i*k/N)``: a packed
     real transform takes its core's stages from the former and its split
-    factors from the latter."""
+    factors from the latter. The long form of the FFT kernel reads its
+    four-step twiddles exp(-2*pi*i*j/L) (L the core's length) from stage
+    L/2's entries, negated for j >= L/2."""
     out = np.empty((transform_size, 2), np.float64)
     out[0] = (1.0, 0.0)
     half = 1

@@ -27,7 +27,9 @@ from signalizer_tpu_torch.core.constant import SpectrumConstant, db_constants
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
-# the most taps and line graphs the kernel takes
+# the most taps and line graphs one launch takes: 10 taps is the most any
+# plan has (Lanczos, a = 5); more line graphs than 8 run as launches of up
+# to 8 each (the line graphs' decays are independent)
 MAX_TAPS = 10
 MAX_LINE_GRAPHS = 8
 
@@ -204,11 +206,28 @@ def _decay_inputs(name: str, constant: SpectrumConstant, x: torch.Tensor, width:
         )
     if not state.is_contiguous() or state.device != x.device:
         raise ValueError(f"{name}: state must be contiguous and on the input's device")
-    if k > MAX_LINE_GRAPHS or constant.interp_taps > MAX_TAPS:
-        raise ValueError(f"{name}: at most {MAX_TAPS} taps and {MAX_LINE_GRAPHS} line graphs")
+    if constant.interp_taps > MAX_TAPS:
+        raise ValueError(f"{name}: at most {MAX_TAPS} taps")
     out = torch.empty(tuple(lead) + (t, k, rows, p), dtype=torch.float32, device=x.device)
     v = None if valid is None else _valid_tensor(valid, t, x.device)
     return x, out, v, pairs
+
+
+def _line_graph_groups(constant: SpectrumConstant, state: torch.Tensor, out: torch.Tensor):
+    """Yield ``(poles, state, out, K)`` for each launch: all line graphs at
+    once up to ``MAX_LINE_GRAPHS``, else groups of that many, whose state
+    and output slices are contiguous copies written back after the launch."""
+    k = constant.num_line_graphs
+    if k <= MAX_LINE_GRAPHS:
+        yield constant.decay_poles, state, out, k
+        return
+    for k0 in range(0, k, MAX_LINE_GRAPHS):
+        k1 = min(k, k0 + MAX_LINE_GRAPHS)
+        st = state[..., k0:k1, :, :].contiguous()
+        o = torch.empty_like(out[..., k0:k1, :, :], memory_format=torch.contiguous_format)
+        yield constant.decay_poles[k0:k1], st, o, k1 - k0
+        state[..., k0:k1, :, :] = st
+        out[..., k0:k1, :, :] = o
 
 
 def display_decay_db(
@@ -230,23 +249,24 @@ def display_decay_db(
         return out
     lib = _build.library()
     with torch.cuda.device(vals.device):
-        err = lib.sig_display_decay_db(
-            vals.data_ptr(),
-            c.slope_map.data_ptr(),
-            c.decay_poles.data_ptr(),
-            c.display_scalars.data_ptr(),
-            None if v is None else v.data_ptr(),
-            state.data_ptr(),
-            out.data_ptr(),
-            pairs,
-            vals.shape[-3],
-            c.num_line_graphs,
-            vals.shape[-2],
-            c.axis_points,
-            torch.cuda.current_stream(vals.device).cuda_stream,
-        )
-    _build.check(err, "display_decay_db")
-    decay_db_launches += 1
+        for poles, st, o, k in _line_graph_groups(c, state, out):
+            err = lib.sig_display_decay_db(
+                vals.data_ptr(),
+                c.slope_map.data_ptr(),
+                poles.data_ptr(),
+                c.display_scalars.data_ptr(),
+                None if v is None else v.data_ptr(),
+                st.data_ptr(),
+                o.data_ptr(),
+                pairs,
+                vals.shape[-3],
+                k,
+                vals.shape[-2],
+                c.axis_points,
+                torch.cuda.current_stream(vals.device).cuda_stream,
+            )
+            _build.check(err, "display_decay_db")
+            decay_db_launches += 1
     return out
 
 
@@ -270,30 +290,31 @@ def display_map(
         return out
     lib = _build.library()
     with torch.cuda.device(mags.device):
-        err = lib.sig_display_map(
-            mags.data_ptr(),
-            c.interp_indices.data_ptr(),
-            c.interp_weights.data_ptr(),
-            c.interp_mask.data_ptr(),
-            c.single_mask.data_ptr(),
-            c.single_bin.data_ptr(),
-            c.chunk_lo.data_ptr(),
-            c.chunk_len.data_ptr(),
-            c.slope_map.data_ptr(),
-            c.decay_poles.data_ptr(),
-            c.display_scalars.data_ptr(),
-            None if v is None else v.data_ptr(),
-            state.data_ptr(),
-            out.data_ptr(),
-            pairs,
-            mags.shape[-3],
-            c.num_line_graphs,
-            mags.shape[-2],
-            c.axis_points,
-            c.n_spectrum_values,
-            c.interp_taps,
-            torch.cuda.current_stream(mags.device).cuda_stream,
-        )
-    _build.check(err, "display_map")
-    launches += 1
+        for poles, st, o, k in _line_graph_groups(c, state, out):
+            err = lib.sig_display_map(
+                mags.data_ptr(),
+                c.interp_indices.data_ptr(),
+                c.interp_weights.data_ptr(),
+                c.interp_mask.data_ptr(),
+                c.single_mask.data_ptr(),
+                c.single_bin.data_ptr(),
+                c.chunk_lo.data_ptr(),
+                c.chunk_len.data_ptr(),
+                c.slope_map.data_ptr(),
+                poles.data_ptr(),
+                c.display_scalars.data_ptr(),
+                None if v is None else v.data_ptr(),
+                st.data_ptr(),
+                o.data_ptr(),
+                pairs,
+                mags.shape[-3],
+                k,
+                mags.shape[-2],
+                c.axis_points,
+                c.n_spectrum_values,
+                c.interp_taps,
+                torch.cuda.current_stream(mags.device).cuda_stream,
+            )
+            _build.check(err, "display_map")
+            launches += 1
     return out

@@ -2,7 +2,8 @@
 
 The port's own copy of :mod:`signalizer_tpu.stream.ring_buffer` (numpy,
 arithmetic unchanged; tests hold it equal to the original over seeded
-push/read sequences). Replaces cpl's ``CLIFOStream`` / 2-segment circular AudioBufferViews
+push/read sequences, and to the native ring that :func:`make_ring_buffer`
+returns where ``g++`` built it). Replaces cpl's ``CLIFOStream`` / 2-segment circular AudioBufferViews
 (ref: cpl AudioStream buffer views, SURVEY.md §2.9) with a contiguous
 numpy design: the framework consumes *fixed-size trailing windows* (device
 frames), so the primary read is ``latest(n)`` — materialized contiguously
@@ -120,8 +121,14 @@ class RingBuffer:
         return full[:, :n].copy() if behind else full
 
 
-def make_ring_buffer(channels: int, capacity: int, dtype=np.float32):
-    """Ring factory. The port has the numpy ring only; a native ring with
-    the same semantics (and a bulk ``frame_gather``) belongs to the host
-    stream layer."""
+def make_ring_buffer(channels: int, capacity: int, dtype=np.float32, prefer_native: bool = True):
+    """Ring factory, as the JAX package's: the C++ runtime
+    (``signalizer_tpu_torch/native/host_runtime.cpp``, built with ``g++`` on
+    first use) when it is available, numpy otherwise. Both share the exact
+    same semantics (tests/test_torch_stream_copies.py cross-checks them)."""
+    if prefer_native and dtype == np.float32:
+        from signalizer_tpu_torch.native_bindings import NativeRingBuffer, native_available
+
+        if native_available():
+            return NativeRingBuffer(channels, capacity)
     return RingBuffer(channels, capacity, dtype=dtype)

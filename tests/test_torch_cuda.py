@@ -64,22 +64,19 @@ def _row_rel_err(got, want):
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_window_fft_mag_kernel_matches_plain(cuda, mode, window):
     """Kernel A vs torch.fft on the card, every mode, N from 32 to 32768
-    (COMPLEX to 16384, and raising above it), W < N and odd W (the scalar
+    (COMPLEX above 16384 on the long form), W < N and odd W (the scalar
     loads) included. Bound: 5e-6 of each row's max (the Pallas kernel's
     bound against float64 numpy); the packed real transform's split adds one
     rounding per bin and stays inside it."""
     c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
     frames = _frames((3, 5, 2, window), seed=window + int(mode), device=cuda)
-    limit = wfm.MAX_COMPLEX_TRANSFORM_SIZE if mode == SpectrumChannels.COMPLEX else wfm.MAX_TRANSFORM_SIZE
-    if c.transform_size > limit:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            wfm.window_fft_mag(c, frames)
-        return
-    before = wfm.launches
+    long_form = wfm.uses_long_form(c)
+    assert long_form == (c.transform_size > (16384 if mode == SpectrumChannels.COMPLEX else 32768))
+    before = (wfm.launches, wfm.long_launches)
     got = wfm.window_fft_mag(c, frames)
     want = wfm.window_fft_mag_plain(c, frames)
     torch.cuda.synchronize()
-    assert wfm.launches == before + 1
+    assert (wfm.launches, wfm.long_launches) == (before[0] + (not long_form), before[1] + long_form)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert _row_rel_err(got, want) <= 5e-6
 
@@ -121,10 +118,53 @@ def test_window_fft_mag_takes_a_misaligned_view(cuda):
     assert _row_rel_err(got, wfm.window_fft_mag_plain(c, view)) <= 5e-6
 
 
+@pytest.mark.parametrize(
+    "mode,window,batch",
+    [(m, 65536, (2, 2)) for m in MODES]
+    + [(SpectrumChannels.SEPARATE, w, (1, 2)) for w in (48000, 131072, 262144, 1 << 20, 1 << 21)]
+    + [(SpectrumChannels.PHASE, 100_000, (1, 2))]
+    + [(SpectrumChannels.COMPLEX, w, (1, 2)) for w in (20000, 32768, 65536, 1 << 20)],
+    ids=lambda v: v.name if isinstance(v, SpectrumChannels) else str(v),
+)
+def test_window_fft_mag_long_form_matches_plain(cuda, mode, window, batch):
+    """The long form (two passes through a scratch tensor) against torch.fft
+    on the card: every mode at N = 65536, real rows up to 2^21 points and
+    COMPLEX up to 2^20, W < N included; one launch of the form a call.
+    Bound: 5e-6 of each row's max, the one-block form's."""
+    c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+    assert wfm.uses_long_form(c)
+    frames = _frames(batch + (2, window), seed=window + int(mode), device=cuda)
+    before = (wfm.launches, wfm.long_launches)
+    got = wfm.window_fft_mag(c, frames)
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    assert (wfm.launches, wfm.long_launches) == (before[0], before[1] + 1)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _row_rel_err(got, want) <= 5e-6
+
+
+@pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE, SpectrumChannels.MIDSIDE],
+                         ids=lambda m: m.name)
+def test_window_fft_mag_long_form_silent_channel(cuda, mode):
+    """An all-zero channel beside a loud one comes out exactly zero on the
+    long form (MIDSIDE: a mono frame's side row)."""
+    c = make_spectrum_constant(axis_points=64, window_size=65536, configuration=mode, device=cuda)
+    frames = _frames((3, 2, 65536), seed=5, device=cuda) * 3.0
+    if mode == SpectrumChannels.MIDSIDE:
+        frames[:, 1] = frames[:, 0]
+    else:
+        frames[:, 1] = 0.0
+    got = wfm.window_fft_mag(c, frames)
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1] == 0).all())
+    assert _row_rel_err(got[:, 0], want[:, 0]) <= 5e-6
+
+
 def test_window_fft_mag_refuses_what_it_cannot_take(cuda):
-    big = make_spectrum_constant(axis_points=64, window_size=40000, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wfm.window_fft_mag(big, _frames((1, 2, 40000), seed=2, device=cuda))
+    big = make_spectrum_constant(axis_points=64, window_size=wfm.MAX_LONG_TRANSFORM_SIZE + 1, device=cuda)
+    with pytest.raises(ValueError, match="longest row"):
+        wfm.window_fft_mag(big, _frames((1, 2, big.window_size), seed=2, device=cuda))
     c = make_spectrum_constant(axis_points=64, window_size=256, device=cuda)
     with pytest.raises(TypeError):
         wfm.window_fft_mag(c, _frames((1, 2, 256), seed=3, device=cuda).double())
@@ -201,10 +241,11 @@ def test_display_map_kernel_matches_plain(cuda, mode, interp, t, valid):
 
 
 @pytest.mark.parametrize("t", [1, 40])
-@pytest.mark.parametrize("graphs", [1, 8])
+@pytest.mark.parametrize("graphs", [1, 8, 11])
 def test_display_map_kernel_line_graph_counts(cuda, graphs, t):
-    """One and eight line graphs (the kernel's register limit), with a zero
-    pole among them (a decay time of 0: the state follows the input)."""
+    """One and eight line graphs (the most one launch takes) and eleven
+    (two launches), with a zero pole among them (a decay time of 0: the
+    state follows the input)."""
     c = make_spectrum_constant(
         axis_points=200, window_size=1024, configuration=SpectrumChannels.SEPARATE,
         view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=graphs,
@@ -773,3 +814,58 @@ def test_resonator_processor_on_cuda(cuda):
     bank = on_card.res_state.clone()
     on_card.process_chunks(calls[1][0], valid=[False] * 4)
     assert torch.equal(on_card.res_state, bank)
+
+
+def test_device_presentation_history_on_cuda_equals_get_history(cuda):
+    """The device mirror of a threaded 16-channel stream on the card: every
+    window equals the host ring's ``get_history`` bit for bit under ragged
+    pushes, each sync uploads only the new samples, and a stall longer than
+    the ring re-primes it."""
+    from signalizer_tpu_torch.stream.audio_stream import AudioStream, AudioStreamInfo, Playhead
+    from signalizer_tpu_torch.stream.device_history import DevicePresentationHistory
+
+    inp, out = AudioStream.create(True, AudioStreamInfo(channels=16, audio_history_capacity=4096))
+    dh = DevicePresentationHistory(out)
+    assert dh.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    try:
+        for i, n in enumerate([800, 1, 257, 800, 3000, 800, 799]):
+            inp.process_incoming_audio(rng.standard_normal((16, n)).astype(np.float32), Playhead())
+            assert inp._stream.wait_for_drain(timeout=5.0)
+            ring = dh.sync()
+            assert ring.device.type == "cuda"
+            if i > 0:
+                assert dh.uploaded_bytes == 16 * n * 4
+            for w in (1, 512, 4096):
+                assert np.array_equal(dh.window(w).cpu().numpy(), out.get_history(w)), (i, w)
+        reprimes = dh.reprimes
+        for _ in range(7):  # a stall of 5600 samples > H
+            inp.process_incoming_audio(rng.standard_normal((16, 800)).astype(np.float32), Playhead())
+        assert inp._stream.wait_for_drain(timeout=5.0)
+        dh.sync()
+        assert dh.reprimes == reprimes + 1
+        assert np.array_equal(dh.window(4096).cpu().numpy(), out.get_history(4096))
+    finally:
+        dh.close()
+        inp._stream.close()
+
+
+def test_frame_pipeline_on_cuda_harvests_by_event(cuda):
+    """Steps on the card stay in flight until their event completes; the
+    outputs come back in order, each equal to the step run alone."""
+    from signalizer_tpu_torch.stream.frame_pipeline import FramePipeline
+
+    def step(state, frame):
+        y = torch.fft.rfft(frame).abs()
+        return y, state + 1
+
+    pipe = FramePipeline(step, torch.zeros((), device=cuda), depth=3)
+    frames = [np.random.default_rng(i).standard_normal(1 << 16).astype(np.float32) for i in range(8)]
+    outs = []
+    for f in frames:
+        outs.extend(pipe.submit(f))
+        assert pipe.in_flight <= 3
+    outs.extend(pipe.drain())
+    assert len(outs) == 8 and pipe.frames_completed == 8 and int(pipe.state) == 8
+    for f, o in zip(frames, outs):
+        assert torch.equal(o, torch.fft.rfft(torch.from_numpy(f).to(cuda)).abs())

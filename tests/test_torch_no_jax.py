@@ -113,6 +113,73 @@ def test_vectorscope_spectrogram_and_resonator_run_with_jax_blocked():
     assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
 
 
+def test_live_path_runs_with_jax_blocked():
+    """With jax blocked the live ingest path runs on the CPU: a threaded
+    16-channel stream with a second instance mixed in through the host and
+    mix graphs, the device history mirror read by a Spectrum processor at a
+    long window, an Oscilloscope and a Vectorscope, a frame pipeline, the
+    exception log and a profile trace; no module of the JAX package gets
+    loaded."""
+    proc = _run(
+        """
+        import sys, tempfile
+        sys.modules["jax"] = None
+        import numpy as np
+        import torch
+        import signalizer_tpu_torch as st
+        from signalizer_tpu_torch.native_bindings import native_available
+        from signalizer_tpu_torch.state.serialize import Archive
+        from signalizer_tpu_torch.stream import FramePipeline
+        from signalizer_tpu_torch.stream.audio_stream import AudioStream, AudioStreamInfo, Playhead
+        from signalizer_tpu_torch.stream.device_history import DevicePresentationHistory
+        from signalizer_tpu_torch.stream.host_graph import HostGraph, PortPair
+        from signalizer_tpu_torch.stream.mix_graph import MixGraph
+        from signalizer_tpu_torch.utils import exception_log
+        from signalizer_tpu_torch.utils.diagnostics import Diagnostics, profile_trace
+        tmp = tempfile.mkdtemp()
+        exception_log.set_exception_log_path(tmp + "/exceptions.log")
+        inp, out = AudioStream.create(True, AudioStreamInfo(channels=16, audio_history_capacity=4096))
+        peer_in, peer_out = AudioStream.create(False, AudioStreamInfo(channels=2, audio_history_capacity=4096))
+        me, peer = HostGraph("me", channels=16), HostGraph("peer", channels=2)
+        me.stream_output, peer.stream_output = out, peer_out
+        mix = MixGraph(me, out, capacity=8192)
+        for ch in range(2):
+            me.connect(peer.node_id, PortPair(ch, 14 + ch))
+        dh = DevicePresentationHistory(mix.presentation_output, device="cpu")
+        spec = st.SpectrumProcessor.create(pairs=8, device="cpu", axis_points=64, window_size=3000)
+        osc = st.OscilloscopeProcessor.create(pairs=8, device="cpu", pixels=64)
+        vs = st.VectorscopeProcessor(pairs=8, device="cpu")
+        rng = np.random.default_rng(0)
+        diag = Diagnostics()
+        for tick in range(6):
+            peer_in.process_incoming_audio(rng.standard_normal((2, 800)).astype(np.float32), Playhead(steady_clock=800 * tick))
+            inp.process_incoming_audio(rng.standard_normal((16, 800)).astype(np.float32), Playhead(steady_clock=800 * tick))
+            assert inp._stream.wait_for_drain(timeout=5.0)
+            dh.sync()
+            w = dh.window(3000)
+            assert np.array_equal(w.numpy(), mix.presentation_output.get_history(3000))
+            s = spec.process(w.reshape(8, 2, 3000))
+            f = osc.process(dh.window(2048).reshape(8, 2, 2048), new_samples=800)
+            v = vs.process(dh.window(512).reshape(8, 2, 512))
+            assert torch.isfinite(s).all() and torch.isfinite(v.vertices).all()
+            diag.tick_frame()
+        pipe = FramePipeline(lambda st_, fr: (fr.sum(), st_), device="cpu")
+        assert len(list(pipe.run([np.ones(4, np.float32)] * 3))) == 3
+        with profile_trace(tmp + "/trace") as tr:
+            spec.process(dh.window(3000).reshape(8, 2, 3000))
+        assert tr.path.exists()
+        a = Archive(); me.serialize(a); assert Archive.from_bytes(a.to_bytes())["name"] == "me"
+        assert native_available() and type(out._stream._history).__name__ == "NativeRingBuffer"
+        assert out._stream._native_queue is not None
+        mix.close(); inp._stream.close()
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print(" ".join(loaded))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
+
+
 def test_kernel_modules_import_without_nvcc_or_triton():
     """Importing the kernel wrappers runs no subprocess, looks for no
     compiler, loads no library and imports no triton: the build happens at
@@ -140,11 +207,17 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.views.vectorscope
         import signalizer_tpu_torch.views.spectrogram
         import signalizer_tpu_torch.kernels.resonator
+        import signalizer_tpu_torch.native_bindings as nb
+        import signalizer_tpu_torch.stream.audio_stream
+        import signalizer_tpu_torch.stream.mix_graph
+        import signalizer_tpu_torch.stream.device_history
+        import signalizer_tpu_torch.stream.frame_pipeline
         from signalizer_tpu_torch.kernels import _build
         assert calls == [], calls
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
-        assert (a.launches, b.launches, b.remap_launches, b.decay_db_launches, c.launches) == (0, 0, 0, 0, 0)
+        assert nb._lib is None and nb._build_error is None
+        assert (a.launches, a.long_launches, b.launches, b.remap_launches, b.decay_db_launches, c.launches) == (0,) * 6
         print("ok")
         """
     )
@@ -170,11 +243,12 @@ def test_build_names_the_library_by_its_sources():
     from signalizer_tpu_torch.kernels import _build
 
     names = {p.name for p in _build._sources()}
-    assert {"window_fft_mag.cu", "display_map.cu", "banded_resample.cu"} <= names
+    assert {"window_fft_mag.cu", "window_fft_mag_long.cu", "window_fft_common.cuh", "display_map.cu",
+            "banded_resample.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
-        "sig_window_fft_mag", "sig_display_map", "sig_display_remap", "sig_display_decay_db",
+        "sig_window_fft_mag", "sig_window_fft_mag_long", "sig_display_map", "sig_display_remap", "sig_display_decay_db",
         "sig_banded_resample", "sig_banded_resample_affine",
     }
 
@@ -226,6 +300,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
         "meter_state_from_arrays",
         "resonator_state_from_arrays",
         "make_resonator_constant",
+        "device_presentation_history",
+        "frame_pipeline",
     ],
 )
 def test_default_device_is_the_gpu_and_raises_without_one(entry):
@@ -243,6 +319,9 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
     from signalizer_tpu_torch.kernels import resonator as tres
     from signalizer_tpu_torch.kernels import spectrum as ts
     from signalizer_tpu_torch.kernels import vectorscope as tvs
+    from signalizer_tpu_torch.stream import FramePipeline
+    from signalizer_tpu_torch.stream.audio_stream import AudioStream, AudioStreamInfo
+    from signalizer_tpu_torch.stream.device_history import DevicePresentationHistory
     from signalizer_tpu_torch.views import oscilloscope as tv
 
     cpu = tc.make_spectrum_constant(axis_points=32, window_size=128, device="cpu")
@@ -269,6 +348,10 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
         ),
         "resonator_state_from_arrays": lambda: tres.resonator_state_from_arrays(np.zeros((1, 1, 4, 3, 2))),
         "make_resonator_constant": lambda: tres.make_resonator_constant(np.linspace(100.0, 1000.0, 4), 48000.0, 128),
+        "device_presentation_history": lambda: DevicePresentationHistory(
+            AudioStream.create(False, AudioStreamInfo(channels=2, audio_history_capacity=64))[1]
+        ),
+        "frame_pipeline": lambda: FramePipeline(lambda s, f: (f, s)),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()

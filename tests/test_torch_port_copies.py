@@ -121,10 +121,14 @@ def test_ring_buffer_equals_the_original(capacity):
     read_at (valid, overwritten and future) and seek_to give the same
     arrays, clocks and errors."""
     from signalizer_tpu.stream.ring_buffer import RingBuffer as JRing
+    from signalizer_tpu_torch.native_bindings import NativeRingBuffer, native_available
     from signalizer_tpu_torch.stream.ring_buffer import RingBuffer as TRing
     from signalizer_tpu_torch.stream.ring_buffer import make_ring_buffer
 
-    assert type(make_ring_buffer(2, 8)) is TRing
+    # the factory returns the native ring where g++ built it, as the JAX
+    # package's does (tests/test_torch_stream_copies.py holds the two equal)
+    assert type(make_ring_buffer(2, 8)) is (NativeRingBuffer if native_available() else TRing)
+    assert type(make_ring_buffer(2, 8, prefer_native=False)) is TRing
     rng = np.random.default_rng(capacity)
     ours, theirs = TRing(3, capacity), JRing(3, capacity)
     for n in _push_sizes(rng, 40, capacity + 17):
