@@ -64,19 +64,26 @@ Phases, each printing one informational line:
    (bench.py:1052-1114), each call against the same step with the plain
    ``decay_db`` tail on the same tensors, the two tones' pixels, and the
    invalid chunks' guarantees;
-12. kernel A's long form (rows above 32768 points, COMPLEX above 16384:
-   two passes through a scratch tensor) against its plain version at
-   N = 65536, 131072, 262144 and 2^20, COMPLEX at 32768 and 65536, every
-   mode at 65536 on a small batch and with a silent channel beside a loud
-   one (exactly zero out); timed at 16 pairs x 16 frames of 48000 samples
-   with ``torch.fft.rfft`` of the already windowed rows beside it;
+12. kernel A on rows above 32768 points (COMPLEX above 16384): the cluster
+   form (a thread-block cluster a row, to 131072 points, COMPLEX 65536)
+   against its plain version at N = 65536 and 131072, COMPLEX at 32768 and
+   65536, every mode at 65536, W < N and odd W, and the two-pass form
+   (through a scratch tensor) at N = 262144 and 2^20 and COMPLEX 131072,
+   each case on the counter of its form, silent channels beside loud ones
+   (exactly zero out); the cluster form timed at 16 pairs x 16 frames of
+   48000 samples with 2, 4 and 8 blocks a cluster (and at 16 pairs x 4
+   frames of N = 131072 with 4 and 8), the two-pass form's kernels called
+   on the same rows as a yardstick, and ``torch.fft.rfft`` of the already
+   windowed rows beside it; then the Spectrum at a
+   200000-sample window (N = 262144) for 16 pairs, three calls through
+   ``SpectrumProcessor.process``, the two-pass form's main path;
 13. the live ingest path: a threaded 16-channel ``AudioStream`` at 48 kHz
    with the default 48000-sample history (native packet queue and native
    ring, required here), a second stereo instance mixed into the last pair
    through ``HostGraph.connect`` and ``MixGraph``, and a
    ``DevicePresentationHistory`` on the card; 240 ticks of 800-sample
    blocks, each a ``sync`` and then the Spectrum at the headline constant
-   and at a 48000-sample window (the long form), the Oscilloscope on 16384
+   and at a 48000-sample window (the cluster form), the Oscilloscope on 16384
    samples and the Vectorscope on 4096, all reading windows of the device
    ring; every window equal to ``get_history`` bit for bit at every tick
    and after a stall longer than the ring (one re-prime); bytes uploaded a
@@ -92,8 +99,9 @@ Phases, each printing one informational line:
    position tensor built by torch operations) to count the launches of
    each; one Vectorscope call, the Spectrogram's batched step and one pull,
    the ring's window copy alone, one resonator tick and one backlog call,
-   the long form at its timed shape and one live tick are profiled the
-   same way.
+   the cluster form at its timed shape, the two-pass form's kernels on the
+   same rows, the 200000-sample Spectrum call and one live tick are
+   profiled the same way.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -170,10 +178,17 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/banded_resample.cu",
         replaces="signalizer_tpu/kernels/pallas_resample.py:185",
     ),
-    # kernel A's long form: rows above 32768 points (COMPLEX 16384)
+    # kernel A's two-pass form: rows above 131072 points (COMPLEX 65536)
     "window_fft_mag_long": dict(
         route="cuda",
         source="signalizer_tpu_torch/csrc/window_fft_mag_long.cu",
+        replaces="signalizer_tpu/kernels/pallas_spectrum.py:147",
+    ),
+    # kernel A's cluster form: rows above 32768 points (COMPLEX 16384) up
+    # to 131072 (65536), a thread-block cluster a row
+    "window_fft_mag_cluster": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/window_fft_mag_cluster.cu",
         replaces="signalizer_tpu/kernels/pallas_spectrum.py:147",
     ),
 }
@@ -185,6 +200,7 @@ DEVICE_FUNCTIONS = {
     "display_decay_db": ("display_map_kernel",),
     "banded_resample": ("banded_resample_kernel",),
     "window_fft_mag_long": ("long_columns_kernel", "long_rows_kernel"),
+    "window_fft_mag_cluster": ("window_fft_mag_cluster_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -1365,49 +1381,87 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
     return cfg3_proc, calls[0]
 
 
-# kernel A's long form, timed at 16 pairs x T = 16 frames of the engine's
-# default 48000-sample history (N = 65536)
+# kernel A above one block's rows, timed at 16 pairs x T = 16 frames of the
+# engine's default 48000-sample history (N = 65536: the cluster form)
 LONG_WINDOW = 48_000
 LONG_T = 16
+# the two-pass form's main path: the Spectrum at a 200000-sample window
+# (N = 262144; 131073 samples and up take the form), 16 pairs, a frame a call
+TWO_PASS_WINDOW = 200_000
+TWO_PASS_CALLS = 3
 
 
-def phase_kernel_a_long(torch, dev, results):
-    """Kernel A's long form (two passes through a scratch tensor) against
-    its plain version: SEPARATE at N = 65536, 131072, 262144 and 2^20,
-    COMPLEX at 32768 and 65536, all eight modes at 65536 on a small batch,
-    silent channels; timed at 16 pairs x 16 frames x 2 x 48000 samples with
-    ``torch.fft.rfft`` of the already windowed rows beside it."""
+def kernel_a_entry(torch, c, frames, out, log2s=None, scratch=None):
+    """One call of a C entry of kernel A on the wrapper's arguments: the
+    cluster kernel with 2^log2s blocks a row, or (with ``scratch``) the
+    two-pass form's kernels. A yardstick for the timings, not a route of
+    the port: it counts no launch."""
+    from signalizer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    batch = frames.numel() // (frames.shape[-1] * frames.shape[-2])
+    head = (frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr())
+    tail = (batch, frames.shape[-2], c.window_size, c.transform_size.bit_length() - 1, int(c.configuration))
+    if scratch is None:
+        err = lib.sig_window_fft_mag_cluster(*head, out.data_ptr(), *tail, log2s, stream)
+    else:
+        err = lib.sig_window_fft_mag_long(*head, scratch.data_ptr(), out.data_ptr(), *tail, stream)
+    _build.check(err, "kernel A entry")
+
+
+def phase_kernel_a_long(torch, dev, results, launches_out, calls_out):
+    """Kernel A on rows above one block: the cluster form against its plain
+    version at N = 65536 (every mode, W < N, odd W) and 131072, COMPLEX at
+    32768 and 65536, the two-pass form at N = 262144 and 2^20 and COMPLEX
+    131072, silent channels; the cluster form timed at 16 pairs x 16 frames
+    x 2 x 48000 samples with 2, 4 and 8 blocks a cluster, the two-pass
+    kernels on the same rows and ``torch.fft.rfft`` of the already windowed
+    rows beside it; then the two-pass form's main path, the Spectrum at a
+    200000-sample window. Returns the calls the profile phase times."""
     from signalizer_tpu_torch import SpectrumChannels as SC
+    from signalizer_tpu_torch import SpectrumProcessor
     from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import display_map as dm
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 
     report = {"phase": "kernel_a_long", "bound": "row-relative error <= 5e-6; a silent row exactly 0", "cases": {}}
-    cases = [  # name, constant keywords, frames shape
-        ("n65536_w48000", headline(window_size=LONG_WINDOW), (PAIRS, 4, 2, LONG_WINDOW)),
-        ("n131072", headline(window_size=131072), (4, 2, 2, 131072)),
-        ("n262144", headline(window_size=262144), (2, 2, 2, 262144)),
-        ("n1048576", headline(window_size=1 << 20), (1, 2, 2, 1 << 20)),
-        ("complex_n32768", headline(window_size=32768, configuration=SC.COMPLEX), (4, 2, 2, 32768)),
-        ("complex_n65536", headline(window_size=65536, configuration=SC.COMPLEX), (4, 2, 2, 65536)),
+    counters = {"cluster": "cluster_launches", "two_pass": "long_launches"}
+
+    def counts():
+        return {route: getattr(wfm, name) for route, name in counters.items()}
+
+    cases = [  # name, constant keywords, frames shape, form
+        ("n65536_w48000", headline(window_size=LONG_WINDOW), (PAIRS, 4, 2, LONG_WINDOW), "cluster"),
+        ("n65536_w40001", headline(window_size=40_001), (4, 2, 2, 40_001), "cluster"),
+        ("n131072", headline(window_size=131072), (4, 2, 2, 131072), "cluster"),
+        ("complex_n32768", headline(window_size=32768, configuration=SC.COMPLEX), (4, 2, 2, 32768), "cluster"),
+        ("complex_n32768_w20001", headline(window_size=20_001, configuration=SC.COMPLEX), (4, 2, 2, 20_001),
+         "cluster"),
+        ("complex_n65536", headline(window_size=65536, configuration=SC.COMPLEX), (4, 2, 2, 65536), "cluster"),
+        ("n262144", headline(window_size=262144), (2, 2, 2, 262144), "two_pass"),
+        ("n1048576", headline(window_size=1 << 20), (1, 2, 2, 1 << 20), "two_pass"),
+        ("complex_n131072", headline(window_size=131072, configuration=SC.COMPLEX), (2, 2, 2, 131072), "two_pass"),
     ]
-    cases += [(f"mode_{m.name.lower()}_n65536", headline(window_size=65536, configuration=m), (2, 2, 2, 65536))
-              for m in SC if m.name not in ("MID", "OFFSET_FOR_MONO")]
-    for i, (name, kw, shape) in enumerate(cases):
+    cases += [(f"mode_{m.name.lower()}_n65536", headline(window_size=65536, configuration=m), (2, 2, 2, 65536),
+               "cluster") for m in SC if m.name not in ("MID", "OFFSET_FOR_MONO")]
+    for i, (name, kw, shape, route) in enumerate(cases):
         c = make_spectrum_constant(device=dev, **kw)
-        require(wfm.uses_long_form(c), f"kernel A long {name}: takes the one-block form")
+        require(wfm.form(c) == route, f"kernel A {name}: takes the {wfm.form(c)} form, not the {route} form")
         frames = _frames(torch, shape, seed=200 + i, dev=dev)
-        before = (wfm.launches, wfm.long_launches)
+        before = counts()
         got = wfm.window_fft_mag(c, frames)
         want = wfm.window_fft_mag_plain(c, frames)
         torch.cuda.synchronize()
-        require((wfm.launches, wfm.long_launches) == (before[0], before[1] + 1), f"kernel A long {name}: launches")
+        require(counts() == {r: v + (r == route) for r, v in before.items()}, f"kernel A {name}: launches")
         rel = row_rel_err(got, want)
-        require(got.shape == want.shape and got.dtype == want.dtype, f"kernel A long {name} shape")
-        require(rel <= 5e-6, f"kernel A long {name}: row-relative error {rel} > 5e-6")
-        report["cases"][name] = {"shape": list(shape), "n": c.transform_size, "row_rel_err": rel}
+        require(got.shape == want.shape and got.dtype == want.dtype, f"kernel A {name} shape")
+        require(rel <= 5e-6, f"kernel A {name}: row-relative error {rel} > 5e-6")
+        report["cases"][name] = {"shape": list(shape), "n": c.transform_size, "form": route, "row_rel_err": rel}
     for name, kw, shape in (
         ("silent_separate_n65536", headline(window_size=65536), (4, 2, 65536)),
         ("silent_phase_n131072", headline(window_size=131072, configuration=SC.PHASE), (2, 2, 131072)),
+        ("silent_separate_n262144", headline(window_size=262144), (2, 2, 262144)),
     ):
         c = make_spectrum_constant(device=dev, **kw)
         frames = _frames(torch, shape, seed=91, dev=dev) * 3.0
@@ -1415,41 +1469,130 @@ def phase_kernel_a_long(torch, dev, results):
         got = wfm.window_fft_mag(c, frames)
         want = wfm.window_fft_mag_plain(c, frames)
         torch.cuda.synchronize()
-        require(bool((got[:, 1] == 0).all()), f"kernel A long {name}: the silent channel is not exactly zero")
+        require(bool((got[:, 1] == 0).all()), f"kernel A {name}: the silent channel is not exactly zero")
         rel = row_rel_err(got[:, 0], want[:, 0])
-        require(rel <= 5e-6, f"kernel A long {name}: loud row error {rel} > 5e-6")
-        report["cases"][name] = {"shape": list(shape), "row_rel_err": rel, "silent_row_max": 0.0}
+        require(rel <= 5e-6, f"kernel A {name}: loud row error {rel} > 5e-6")
+        report["cases"][name] = {"shape": list(shape), "form": wfm.form(c), "row_rel_err": rel,
+                                 "silent_row_max": 0.0}
 
-    # timed: 16 pairs x 16 frames of the default history
+    # timed: 16 pairs x 16 frames of the default history, the cluster form
     c = make_spectrum_constant(device=dev, **headline(window_size=LONG_WINDOW))
+    require(wfm.form(c) == "cluster", "kernel A long t16: not the cluster form")
     frames = _frames(torch, (PAIRS, LONG_T, 2, LONG_WINDOW), seed=230, dev=dev)
     got = wfm.window_fft_mag(c, frames)
     want = wfm.window_fft_mag_plain(c, frames)
     torch.cuda.synchronize()
     rel = row_rel_err(got, want)
     abs_err = float((got - want).abs().max())
-    require(rel <= 5e-6, f"kernel A long t16: row-relative error {rel} > 5e-6")
+    require(rel <= 5e-6, f"kernel A cluster t16: row-relative error {rel} > 5e-6")
     ms = median_ms(torch, lambda: wfm.window_fft_mag(c, frames), reps=10)
     plain_ms = median_ms(torch, lambda: wfm.window_fft_mag_plain(c, frames), reps=10)
     rows = frames * c.window_kernel
     library_ms = median_ms(torch, lambda: torch.fft.rfft(rows, n=c.transform_size, dim=-1), reps=10)
-    del rows, want
+    del rows
+    # the cluster size, and the two-pass form's kernels on the same rows
+    out = torch.empty_like(got)
+    sizes = {}
+    for log2s in (1, 2, 3):
+        def call(log2s=log2s):
+            kernel_a_entry(torch, c, frames, out, log2s=log2s)
+        call()
+        torch.cuda.synchronize()
+        err = row_rel_err(out, want)
+        require(err <= 5e-6, f"kernel A cluster t16 with {1 << log2s} blocks: row-relative error {err} > 5e-6")
+        sizes[1 << log2s] = {"row_rel_err": err, "ms": median_ms(torch, call, reps=10), "call": call}
+    scratch = torch.empty((PAIRS * LONG_T * 2, c.transform_size // 2, 2), dtype=torch.float32, device=dev)
+
+    def two_pass():
+        kernel_a_entry(torch, c, frames, out, scratch=scratch)
+
+    two_pass()
+    torch.cuda.synchronize()
+    two_pass_err = row_rel_err(out, want)
+    require(two_pass_err <= 5e-6, f"kernel A two-pass t16: row-relative error {two_pass_err} > 5e-6")
+    two_pass_ms = median_ms(torch, two_pass, reps=10)
+    del want
     bound = fft_bound(c, frames, got)
-    scratch_mb = PAIRS * LONG_T * 2 * (c.transform_size // 2) * 8 / 1e6
-    report["timed"] = {"shape": list(frames.shape), "n": c.transform_size, "row_rel_err": rel,
-                       "max_abs_err": abs_err, "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms, "in_mb": nbytes(frames) / 1e6,
-                       "out_mb": nbytes(got) / 1e6, "scratch_mb": scratch_mb, **bound}
-    results["window_fft_mag_long"] = dict(
+    by_size = {s: {k: v for k, v in d.items() if k != "call"} for s, d in sizes.items()}
+    # the cluster form's longest rows, N = 131072 (128 rows), with 4 and 8
+    # blocks a row (2 blocks would need 256 KB each)
+    c131 = make_spectrum_constant(device=dev, **headline(window_size=131072))
+    x131 = _frames(torch, (PAIRS, 4, 2, 131072), seed=232, dev=dev)
+    out131 = torch.empty(wfm.out_shape(c131, (PAIRS, 4)), device=dev)
+    want131 = wfm.window_fft_mag_plain(c131, x131)
+    longest = {}
+    for log2s in (2, 3):
+        def call131(log2s=log2s):
+            kernel_a_entry(torch, c131, x131, out131, log2s=log2s)
+        call131()
+        torch.cuda.synchronize()
+        err = row_rel_err(out131, want131)
+        require(err <= 5e-6, f"kernel A cluster n131072 with {1 << log2s} blocks: row-relative error {err} > 5e-6")
+        longest[1 << log2s] = {"row_rel_err": err, "ms": median_ms(torch, call131, reps=10)}
+    del x131, out131, want131
+    report["timed"] = {"shape": list(frames.shape), "n": c.transform_size, "form": "cluster",
+                       "cluster_size": wfm.cluster_size(c), "row_rel_err": rel, "max_abs_err": abs_err, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "by_cluster_size": by_size,
+                       "two_pass_ms": two_pass_ms, "two_pass_row_rel_err": two_pass_err,
+                       "n131072_rows128_by_cluster_size": longest,
+                       "in_mb": nbytes(frames) / 1e6, "out_mb": nbytes(got) / 1e6, **bound}
+    results["window_fft_mag_cluster"] = dict(
         max_abs_err=abs_err, row_rel_err=rel, ms=ms, plain_ms=plain_ms, **bound, library_ms=library_ms,
         library="torch.fft.rfft of already windowed rows: less than the kernel does",
+        cluster_size=wfm.cluster_size(c), ms_by_cluster_size={s: d["ms"] for s, d in by_size.items()},
+        two_pass_ms_same_rows=two_pass_ms,
     )
+
+    # the two-pass form's main path: three Spectrum calls at a 200000-sample
+    # window, counted from 0, then held against the plain functions from the
+    # same carried state
+    proc = SpectrumProcessor.create(pairs=PAIRS, device=dev, **headline(window_size=TWO_PASS_WINDOW))
+    c2 = proc.constant
+    require(wfm.form(c2) == "two_pass", f"kernel A: the {TWO_PASS_WINDOW}-sample Spectrum is not two-pass")
+    x = _frames(torch, (PAIRS, 1, 2, TWO_PASS_WINDOW), seed=231, dev=dev)
+    plain_state = proc.state.magnitude.clone()
+    wfm.long_launches = 0
+    for _ in range(TWO_PASS_CALLS):
+        spectrum = proc.process(x)
+    torch.cuda.synchronize()
+    launches_out["window_fft_mag_long"] = wfm.long_launches
+    calls_out["window_fft_mag_long"] = TWO_PASS_CALLS
+    require(wfm.long_launches == TWO_PASS_CALLS, f"kernel A: {wfm.long_launches} two-pass launches in "
+            f"{TWO_PASS_CALLS} Spectrum calls")
+    for _ in range(TWO_PASS_CALLS):
+        plain_spectrum = dm.display_map_plain(c2, wfm.window_fft_mag_plain(c2, x), plain_state)
+    torch.cuda.synchronize()
+    spectrum_err = float((spectrum - plain_spectrum).abs().max())
+    require(bool(torch.isfinite(spectrum).all()) and spectrum_err <= 2e-4,
+            f"kernel A: the {TWO_PASS_WINDOW}-sample Spectrum vs plain: {spectrum_err} > 2e-4")
+    # the two-pass form on its main path's rows
+    got = wfm.window_fft_mag(c2, x)
+    want = wfm.window_fft_mag_plain(c2, x)
+    torch.cuda.synchronize()
+    rel2 = row_rel_err(got, want)
+    require(rel2 <= 5e-6, f"kernel A two-pass n262144: row-relative error {rel2} > 5e-6")
+    ms2 = median_ms(torch, lambda: wfm.window_fft_mag(c2, x), reps=10)
+    plain_ms2 = median_ms(torch, lambda: wfm.window_fft_mag_plain(c2, x), reps=10)
+    rows = x * c2.window_kernel
+    library_ms2 = median_ms(torch, lambda: torch.fft.rfft(rows, n=c2.transform_size, dim=-1), reps=10)
+    del rows
+    bound2 = fft_bound(c2, x, got)
+    report["two_pass_spectrum"] = {"shape": list(x.shape), "n": c2.transform_size, "calls": TWO_PASS_CALLS,
+                                   "launches": launches_out["window_fft_mag_long"], "display_err": spectrum_err,
+                                   "row_rel_err": rel2, "ms": ms2, "plain_ms": plain_ms2,
+                                   "library_ms": library_ms2, **bound2}
+    results["window_fft_mag_long"] = dict(
+        max_abs_err=float((got - want).abs().max()), row_rel_err=rel2, ms=ms2, plain_ms=plain_ms2, **bound2,
+        library_ms=library_ms2, library="torch.fft.rfft of already windowed rows: less than the kernel does",
+    )
+    del want
     info(report)
-
-    def long_t16():
-        return wfm.window_fft_mag(c, frames)
-
-    return long_t16
+    return [
+        ("window_fft_mag_cluster_t16", lambda: wfm.window_fft_mag(c, frames)),
+        *((f"cluster_s{size}_t16", d["call"]) for size, d in sizes.items()),
+        ("window_fft_mag_two_pass_t16", two_pass),
+        ("spectrum_n262144", lambda: proc.process(x)),
+    ]
 
 
 # the live phase: a threaded 16-channel stream at 48 kHz with the default
@@ -1555,7 +1698,7 @@ def phase_live(torch, dev, launches_out, calls_out):
     osc = OscilloscopeProcessor.create(pairs=LIVE_PAIRS, device=dev, window_samples=OSC_WINDOW,
                                        **osc_kwargs(sample_rate=FS))
     scope = VectorscopeProcessor(pairs=LIVE_PAIRS, device=dev)
-    require(wfm.uses_long_form(spec_long.constant), "live: the 48000-sample Spectrum takes the one-block form")
+    require(wfm.form(spec_long.constant) == "cluster", "live: the 48000-sample Spectrum is not on the cluster form")
     block = {"i": 0}
 
     def feed():
@@ -1583,7 +1726,7 @@ def phase_live(torch, dev, launches_out, calls_out):
         views()
     torch.cuda.synchronize()
     held(-1)
-    counters = (wfm, "launches"), (wfm, "long_launches"), (dm, "launches"), (br, "launches")
+    counters = (wfm, "launches"), (wfm, "cluster_launches"), (dm, "launches"), (br, "launches")
     for mod, name in counters:
         setattr(mod, name, 0)
     reprimes0 = history.reprimes
@@ -1605,15 +1748,17 @@ def phase_live(torch, dev, launches_out, calls_out):
         held(tick)
         require(all(bool(torch.isfinite(x).all()) for x in (out[0], out[1], out[2].waveform, out[3].vertices)),
                 f"live tick {tick}: a view's output is not finite")
-    live_launches = {"window_fft_mag": wfm.launches, "window_fft_mag_long": wfm.long_launches,
+    live_launches = {"window_fft_mag": wfm.launches, "window_fft_mag_cluster": wfm.cluster_launches,
                      "display_map": dm.launches, "banded_resample": br.launches}
     for name, count in live_launches.items():
         require(count > 0, f"live: {name} was not launched")
+    require(wfm.cluster_launches == LIVE_TICKS,
+            f"live: the cluster form ran {wfm.cluster_launches} times in {LIVE_TICKS} ticks")
     require(history.reprimes == reprimes0, f"live: {history.reprimes - reprimes0} re-primes while fed every tick")
     require(all(u == LIVE_CHANNELS * 4 * a for u, a in zip(uploaded, arrived)),
             "live: a sync uploaded other than the samples that arrived")
-    launches_out["window_fft_mag_long"] = live_launches["window_fft_mag_long"]
-    calls_out["window_fft_mag_long"] = LIVE_TICKS
+    launches_out["window_fft_mag_cluster"] = live_launches["window_fft_mag_cluster"]
+    calls_out["window_fft_mag_cluster"] = LIVE_TICKS
 
     # what came out: each sounding pair's LineMain peak on the long Spectrum
     # within one pixel of its sine; the last pair peaks at the peer's tone
@@ -1815,7 +1960,7 @@ def main() -> int:
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
     resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
-    long_t16 = phase_kernel_a_long(torch, dev, results)
+    long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
     profile = phase_profile(torch, [
         ("t128", lambda: proc.process(x)),
@@ -1829,19 +1974,31 @@ def main() -> int:
         ("ring_windows_copy", windows_copy),
         ("resonator_tick", resonator_tick),
         ("resonator_backlog_t16", resonator_backlog),
-        ("window_fft_mag_long_t16", long_t16),
+        *long_rows,
         ("live_tick", live_tick),
     ])
     live_close()
     # device time per launch on the main path: one launch per profiled call
-    # (the long form: its two passes)
-    for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
-                       ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
-                       ("window_fft_mag_long", "window_fft_mag_long_t16")):
+    # (the two-pass form: its two kernels)
+    def own_us(path, name):
         own = profile[path]["own_kernels_us_per_call"]
         require(all(fn in own for fn in DEVICE_FUNCTIONS[name]),
                 f"profile {path}: no device time for {DEVICE_FUNCTIONS[name]}")
-        results[name]["profile_us"] = sum(own[fn] for fn in DEVICE_FUNCTIONS[name])
+        return sum(own[fn] for fn in DEVICE_FUNCTIONS[name])
+
+    for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
+                       ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
+                       ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
+                       ("window_fft_mag_long", "spectrum_n262144")):
+        results[name]["profile_us"] = own_us(path, name)
+    # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
+    # on the same rows (through their C entries), and the live tick's 16 rows
+    cluster = results["window_fft_mag_cluster"]
+    cluster["profile_us_by_cluster_size"] = {
+        size: own_us(f"cluster_s{size}_t16", "window_fft_mag_cluster") for size in (2, 4, 8)
+    }
+    cluster["two_pass_profile_us_same_rows"] = own_us("window_fft_mag_two_pass_t16", "window_fft_mag_long")
+    cluster["live_tick_profile_us"] = own_us("live_tick", "window_fft_mag_cluster")
     # launches: counted while the main paths were driven (the comparisons
     # with the plain versions are not in it); per call: over those calls
     kernels = [

@@ -69,44 +69,6 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-// Radix-2 DIT stages s .. s+M-1 of an l-point transform held bit-reversed
-// in shared memory. Stage t combines elements half = 2^t apart with twiddle
-// exp(-2*pi*i*pos/(2*half)) = tw[half + pos]. Each work item loads the 2^M
-// elements base + j*h (h = 2^s) that those M stages mix only among
-// themselves, runs the M stages' butterflies in registers and stores them
-// back: the same butterflies, in the same order per element, as M separate
-// radix-2 stages, with one shared-memory round trip and one barrier
-// instead of M.
-template <int M>
-__device__ __forceinline__ void fft_pass(float2* buf, const float2* tw, int l,
-                                         int log2l, int s) {
-  const int h = 1 << s;
-  for (int item = threadIdx.x; item < (l >> M); item += blockDim.x) {
-    const int p = item & (h - 1);
-    const int base = ((item >> s) << (s + M)) + p;
-    float2 v[1 << M];
-#pragma unroll
-    for (int j = 0; j < (1 << M); ++j) v[j] = buf[slot(base + j * h, log2l)];
-#pragma unroll
-    for (int q = 0; q < M; ++q) {
-      const int half = h << q;
-#pragma unroll
-      for (int j = 0; j < (1 << M); ++j) {
-        if (j & (1 << q)) continue;
-        const int j1 = j | (1 << q);
-        const int pos = p + (j & ((1 << q) - 1)) * h;
-        const float2 w = tw[half + pos];
-        const float tr = w.x * v[j1].x - w.y * v[j1].y;
-        const float ti = w.x * v[j1].y + w.y * v[j1].x;
-        v[j1] = make_float2(v[j].x - tr, v[j].y - ti);
-        v[j] = make_float2(v[j].x + tr, v[j].y + ti);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < (1 << M); ++j) buf[slot(base + j * h, log2l)] = v[j];
-  }
-}
-
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -183,18 +145,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   __syncthreads();
 
   // radix-2 DIT, up to three stages per pass in registers (see fft_pass)
-  for (int s = 0; s < log2l;) {
-    const int m = log2l - s < 3 ? log2l - s : 3;
-    if (m == 3) {
-      fft_pass<3>(buf, tw, l, log2l, s);
-    } else if (m == 2) {
-      fft_pass<2>(buf, tw, l, log2l, s);
-    } else {
-      fft_pass<1>(buf, tw, l, log2l, s);
-    }
-    s += m;
-    __syncthreads();
-  }
+  fft_in_shared(buf, tw, l, log2l);
 
   // epilogue
   if (cplx) {

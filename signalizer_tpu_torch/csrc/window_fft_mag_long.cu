@@ -1,6 +1,8 @@
-// Kernel A, long form: channel packing -> window -> N-point FFT -> |X| for
-// rows too long for one block's shared memory (real N > 32768, COMPLEX
-// N > 16384), as a four-step transform through device memory, for sm_90a.
+// Kernel A, two-pass form: channel packing -> window -> N-point FFT -> |X|
+// for rows too long for a thread-block cluster's shared memory (real
+// N > 131072, COMPLEX N > 65536; window_fft_mag_cluster.cu takes the rows
+// between one block's limit and those), as a four-step transform through
+// device memory, for sm_90a.
 //
 // Replaces, for those lengths, the same TPU kernel as window_fft_mag.cu:
 // signalizer_tpu/kernels/pallas_spectrum.py::fused_window_rfft_mag, with
@@ -11,7 +13,8 @@
 //
 // Why another form: the one-block kernel holds a row's L-point complex core
 // (L = N/2 for a packed real row, N for COMPLEX) in shared memory, 8*L
-// bytes; at N = 65536 that is 256 KB, and a block has at most 227 KB.
+// bytes, at most 227 KB a block; the cluster form spreads it over 2-8
+// blocks, up to L = 65536. Longer rows go through device memory.
 //
 // The four-step. Write L = L1 * L2 (L1 = 2^floor(log2(L)/2), L2 = L / L1),
 // the core's input z[m] with m = L2*n1 + n2 and its output Z[k] with
@@ -46,12 +49,12 @@
 // the one-block form (frames, window and twiddles read once, rows written
 // once: 98.3 MB in and 67.1 MB out for 16 pairs x 2 x 48000 samples at
 // N = 65536, about 49 us at 3.35 TB/s). The scratch round trip, 16 bytes a
-// complex point (written by pass 1, read by pass 2), is this design's cost;
-// for 16 pairs at N = 65536 the scratch is 8.4 MB and stays in the 50 MB
-// L2. Pass 2's output stores are L1 floats apart (a row k1 holds bins
-// k1 + L1 k2): each fills a 32-byte sector partly and L2 merges them. A
-// form with the row held in a thread-block cluster's distributed shared
-// memory would keep Y out of device memory.
+// complex point (written by pass 1, read by pass 2), is this design's cost:
+// 134 MB each way for those 512 rows, more than the 50 MB L2. Pass 2's
+// output stores are L1 floats apart (a row k1 holds bins k1 + L1 k2), so
+// each 4-byte store fills one 32-byte sector. The cluster form
+// (window_fft_mag_cluster.cu) keeps the row on chip; this form is left for
+// the rows it cannot hold.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +71,7 @@ constexpr int kMaxLog2L = 20;  // L1, L2 <= 1024: pass 1 holds 128 KB
 
 // Radix-2 DIT stages s .. s+M-1 of 2^log2count l-point transforms held
 // bit-reversed in shared memory, element i of transform g at at(i, g): the
-// fft_pass of window_fft_mag.cu over several transforms at once. Work item
+// fft_pass of window_fft_common.cuh over several transforms at once. Work item
 // `item` takes transform g = item mod 2^log2count (kGFast: neighbouring
 // threads take neighbouring transforms, for the interleaved layout) or
 // g = item / (l / 2^M) (neighbouring threads walk one transform).
@@ -87,21 +90,7 @@ __device__ __forceinline__ void batched_pass(float2* buf, const float2* tw,
     float2 v[1 << M];
 #pragma unroll
     for (int j = 0; j < (1 << M); ++j) v[j] = buf[at(base + j * h, g)];
-#pragma unroll
-    for (int q = 0; q < M; ++q) {
-      const int half = h << q;
-#pragma unroll
-      for (int j = 0; j < (1 << M); ++j) {
-        if (j & (1 << q)) continue;
-        const int j1 = j | (1 << q);
-        const int pos = p + (j & ((1 << q) - 1)) * h;
-        const float2 w = tw[half + pos];
-        const float tr = w.x * v[j1].x - w.y * v[j1].y;
-        const float ti = w.x * v[j1].y + w.y * v[j1].x;
-        v[j1] = make_float2(v[j].x - tr, v[j].y - ti);
-        v[j] = make_float2(v[j].x + tr, v[j].y + ti);
-      }
-    }
+    radix_stages<M>(v, tw, h, p);
 #pragma unroll
     for (int j = 0; j < (1 << M); ++j) buf[at(base + j * h, g)] = v[j];
   }

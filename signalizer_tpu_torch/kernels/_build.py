@@ -42,6 +42,9 @@ SIGNATURES = {
     # frames, window, twiddles, scratch, out, batch, channels, window_size,
     # log2_n, mode, stream
     "sig_window_fft_mag_long": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # frames, window, twiddles, out, batch, channels, window_size, log2_n,
+    # mode, log2_cluster_size, stream
+    "sig_window_fft_mag_cluster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # mags, interp_indices, interp_weights, interp_mask, single_mask,
     # single_bin, chunk_lo, chunk_len, slope_map, decay_poles,
     # display_scalars, valid, state, out, pairs, T, K, rows, P, n_values,

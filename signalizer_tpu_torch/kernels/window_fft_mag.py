@@ -1,6 +1,7 @@
 """Kernel A: channel packing -> window -> FFT -> magnitude, each frame row
-a packed real transform in one CUDA block's shared memory, or, for rows too
-long for that, a four-step transform through device memory.
+a packed real transform in one CUDA block's shared memory; for rows too
+long for that, in a thread-block cluster's distributed shared memory; for
+the longest rows, a four-step transform through device memory.
 
 Replaces the Pallas kernel
 ``signalizer_tpu/kernels/pallas_spectrum.py::fused_window_rfft_mag`` and
@@ -8,14 +9,16 @@ computes stage 1 of the Spectrum step (ref: TransformDSP.inl
 prepareTransform :38-231, doTransform :486-502): the JAX production path
 runs it as ``_pack_channels`` + ``_half_spectrum`` + ``abs``
 (``signalizer_tpu/kernels/spectrum.py:118-200, :362-364``). The CUDA source
-is ``signalizer_tpu_torch/csrc/window_fft_mag.cu`` (the one-block form)
-and ``csrc/window_fft_mag_long.cu`` (the long form); this module holds their
-wrapper, the plain PyTorch version and the stage-1 helpers the Spectrum
-functions share.
+is ``signalizer_tpu_torch/csrc/window_fft_mag.cu`` (the one-block form),
+``csrc/window_fft_mag_cluster.cu`` (the cluster form) and
+``csrc/window_fft_mag_long.cu`` (the two-pass form); this module holds
+their wrapper, the plain PyTorch version and the stage-1 helpers the
+Spectrum functions share.
 
 :func:`window_fft_mag` on a CPU tensor runs :func:`window_fft_mag_plain`;
-on a CUDA tensor it launches one of the two forms, picked by the transform
-size, or raises. Output per mode:
+on a CUDA tensor it launches the form :func:`form` names, picked by the
+transform size and whether the mode is COMPLEX, or raises. Output per
+mode:
 
 * real magnitude modes: ``[..., rows, N/2+1]`` f32, DC/Nyquist halved;
 * COMPLEX: ``[..., 1, N]`` f32, the full circle, no halving;
@@ -33,17 +36,28 @@ from signalizer_tpu_torch.kernels import _build
 
 # the largest transforms the one-block form holds in one block's shared
 # memory: a real row runs as an N/2-point complex transform (4*N bytes),
-# COMPLEX as an N-point one (8*N bytes); longer rows take the long form
+# COMPLEX as an N-point one (8*N bytes); longer rows take the cluster form
 MAX_TRANSFORM_SIZE = 32768
 MAX_COMPLEX_TRANSFORM_SIZE = 16384
-# the longest rows the long form takes: a core of L = 2^20 complex points
-# (its first pass holds 16 columns of L1 = 1024 points, 128 KB)
+# the longest rows the cluster form takes: a core of L = 65536 complex
+# points (512 KB); longer rows take the two-pass form
+MAX_CLUSTER_TRANSFORM_SIZE = 131072
+MAX_CLUSTER_COMPLEX_TRANSFORM_SIZE = 65536
+# a cluster's blocks hold CLUSTER_SHARE_BYTES of the core each: 4 blocks for
+# L = 32768, 8 for 65536. On the card 4 blocks took 231 us at 512 rows of
+# N = 65536 (8: 241) and 20 us at 16 rows (2: 27); at N = 131072, 8 blocks
+# took 0.180 ms for 128 rows against 0.210 for 4 (PERF.md)
+CLUSTER_SHARE_BYTES = 64 * 1024
+# the longest rows the two-pass form takes: a core of L = 2^20 complex
+# points (its first pass holds 16 columns of L1 = 1024 points, 128 KB)
 MAX_LONG_TRANSFORM_SIZE = 1 << 21
 MAX_LONG_COMPLEX_TRANSFORM_SIZE = 1 << 20
 
 # calls that launched each form since the last reset (chip_smoke.py and
-# tests read them): the one-block kernel, and the long form's two passes
+# tests read them): the one-block kernel, the cluster kernel, and the
+# two-pass form's two kernels
 launches = 0
+cluster_launches = 0
 long_launches = 0
 
 
@@ -106,10 +120,28 @@ def out_shape(constant: SpectrumConstant, lead) -> tuple:
     return tuple(lead) + (constant.state_channels, n // 2 + 1)
 
 
-def uses_long_form(constant: SpectrumConstant) -> bool:
-    """Whether a CUDA call for this constant takes the long form."""
-    limit = MAX_COMPLEX_TRANSFORM_SIZE if constant.configuration == SpectrumChannels.COMPLEX else MAX_TRANSFORM_SIZE
-    return constant.transform_size > limit
+def form(constant: SpectrumConstant) -> str:
+    """The form a CUDA call for this constant takes: ``"block"`` (one block
+    a row), ``"cluster"`` (a thread-block cluster a row) or ``"two_pass"``
+    (through a scratch tensor), by the transform size and whether the mode
+    is COMPLEX (whose core is N points, not N/2)."""
+    n = constant.transform_size
+    cplx = constant.configuration == SpectrumChannels.COMPLEX
+    if n <= (MAX_COMPLEX_TRANSFORM_SIZE if cplx else MAX_TRANSFORM_SIZE):
+        return "block"
+    if n <= (MAX_CLUSTER_COMPLEX_TRANSFORM_SIZE if cplx else MAX_CLUSTER_TRANSFORM_SIZE):
+        return "cluster"
+    return "two_pass"
+
+
+def cluster_size(constant: SpectrumConstant) -> int:
+    """Blocks a row of the cluster form: the fewest (2, 4 or 8) whose share
+    of the row's core (8 bytes a complex point) is at most
+    ``CLUSTER_SHARE_BYTES``."""
+    core = constant.transform_size
+    if constant.configuration != SpectrumChannels.COMPLEX:
+        core //= 2
+    return min(8, max(2, 8 * core // CLUSTER_SHARE_BYTES))
 
 
 def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
@@ -117,17 +149,19 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
 
     CPU tensors take :func:`window_fft_mag_plain`; CUDA tensors launch
     ``csrc/window_fft_mag.cu`` (a block a row) up to 32768 points (16384 for
-    COMPLEX) and ``csrc/window_fft_mag_long.cu`` (two passes through a
-    scratch tensor) above, or raise.
+    COMPLEX), ``csrc/window_fft_mag_cluster.cu`` (a cluster of
+    :func:`cluster_size` blocks a row) up to 131072 (65536) and
+    ``csrc/window_fft_mag_long.cu`` (two passes through a scratch tensor)
+    above, or raise.
     """
-    global launches, long_launches
+    global launches, cluster_launches, long_launches
     if frames.device.type == "cpu":
         return window_fft_mag_plain(constant, frames)
     if frames.device.type != "cuda":
         raise ValueError(f"window_fft_mag: unsupported device {frames.device}")
     n = constant.transform_size
     complex_mode = constant.configuration == SpectrumChannels.COMPLEX
-    long_form = uses_long_form(constant)
+    route = form(constant)
     longest = MAX_LONG_COMPLEX_TRANSFORM_SIZE if complex_mode else MAX_LONG_TRANSFORM_SIZE
     if n > longest:
         raise ValueError(f"window_fft_mag: transform_size {n} > {longest}, the longest row the kernel takes")
@@ -155,7 +189,13 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
     lib = _build.library()
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        if long_form:
+        if route == "cluster":
+            err = lib.sig_window_fft_mag_cluster(
+                frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
+                out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1, int(constant.configuration),
+                cluster_size(constant).bit_length() - 1, stream,
+            )
+        elif route == "two_pass":
             # the columns' transforms, twiddled: [rows, L] complex points
             core = n if complex_mode else n // 2
             scratch = torch.empty(
@@ -180,7 +220,9 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
                 stream,
             )
     _build.check(err, "window_fft_mag")
-    if long_form:
+    if route == "cluster":
+        cluster_launches += 1
+    elif route == "two_pass":
         long_launches += 1
     else:
         launches += 1

@@ -2,19 +2,21 @@
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants NAME=DIR [NAME=DIR ...]
-        [--kernels abc] [--flat-twiddles NAME ...] [--wrapper] [--out FILE]
+        [--kernels abcl] [--flat-twiddles NAME ...] [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
-``display_map.cu`` and/or ``banded_resample.cu`` with the same C entry
-points (``sig_window_fft_mag``, ``sig_display_map``,
-``sig_banded_resample``): an earlier revision unpacked with ``git show``, or
-a copy with one thing changed to see what it costs. A file a directory lacks
-comes from ``signalizer_tpu_torch/csrc``. Every version is built with the
-package's ``nvcc`` flags into its own library under
-``build/kernel_variants/`` and timed in turns with the package's kernels
-(``repo``): all versions in order, then in reverse order, so that drift of
-the card shows as a difference between the two rounds. ``--kernels`` picks
-which kernels are timed (any of ``a``, ``b``, ``c``). ``--flat-twiddles``
+``display_map.cu``, ``banded_resample.cu`` and/or
+``window_fft_mag_cluster.cu`` with the same C entry points
+(``sig_window_fft_mag``, ``sig_display_map``, ``sig_banded_resample``,
+``sig_window_fft_mag_cluster``): an earlier revision unpacked with
+``git show``, or a copy with one thing changed to see what it costs. A file
+a directory lacks comes from ``signalizer_tpu_torch/csrc`` (headers too).
+Every version is built with the package's ``nvcc`` flags into its own
+library under ``build/kernel_variants/`` and timed in turns with the
+package's kernels (``repo``): all versions in order, then in reverse order,
+so that drift of the card shows as a difference between the two rounds.
+``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
+``l``; the default leaves out ``l``). ``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
 entry ``sig_banded_resample_affine`` is called with the first revision's
@@ -25,7 +27,11 @@ launches (no host gaps between them), timed with CUDA events, median of 9
 replays. Kernels A and B run at the Spectrum headline: 16 pairs x 128 frames
 (and x 1 frame, the per-tick call), a 4096-point window, SEPARATE stereo,
 LINEAR interpolation, a LOGARITHMIC axis of 1024 pixels, 2 line graphs.
-Kernel C runs at three shapes of the oscilloscope, all 16 pairs over a
+Kernel A's cluster form (``l``) runs on rows of the engine's default
+48000-sample history, N = 65536, SEPARATE: 16 pairs x 16 frames (512 rows)
+and the live tick's 8 pairs x 1 frame (16 rows), with 2, 4 and 8 blocks a
+cluster each (``l_t16_s8_us`` ...). Kernel C runs at three shapes of the
+oscilloscope, all 16 pairs over a
 16384-sample history: ``cfg3`` (Lanczos a = 10 with the nearest pick, 2
 rows, a 1024-sample window over 8192 px), ``colour`` (the colour track's
 nearest pick, 6 rows, the same positions) and ``zoom_out`` (Lanczos a = 10,
@@ -69,7 +75,10 @@ from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels import banded_resample as br
 
 PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
-KERNEL_SOURCES = {"a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu"}
+KERNEL_SOURCES = {
+    "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "l": "window_fft_mag_cluster.cu",
+}
+LONG_WINDOW, LONG_FRAMES, LIVE_PAIRS = 48_000, 16, 8
 OSC_HISTORY = 16384
 # kernel C's shapes: kind, a, with_nearest, rows, pixels, step
 RESAMPLE_SHAPES = {
@@ -94,13 +103,14 @@ def build(name: str, directory: Path, kernels) -> ctypes.CDLL:
     sources = [directory / f if (directory / f).is_file() else _build.CSRC / f for f in files]
     out = out_dir / f"{name}.so"
     done = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), *map(str, sources)],
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(out),
+         *map(str, sources)],
         capture_output=True, text=True,
     )
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{done.stdout}{done.stderr}")
     for line in (done.stdout + done.stderr).splitlines():
-        if "Compiling entry" in line and "banded" in line or "Used" in line or "spill" in line:
+        if "Compiling entry" in line and ("banded" in line or "cluster" in line) or "Used" in line or "spill" in line:
             print(f"# {name}: {line.strip()}")
     lib = ctypes.CDLL(str(out))
     signatures = dict(_build.SIGNATURES)
@@ -229,6 +239,49 @@ class Spectrum:
         return line
 
 
+class LongRows:
+    """Kernel A's cluster form on rows of 48000 samples, N = 65536: the
+    timed shape (16 pairs x 16 frames) and the live tick (8 pairs x 1)."""
+
+    def __init__(self, libs, dev):
+        self.libs = libs
+        self.c = make_spectrum_constant(
+            device=dev, axis_points=PIXELS, window_size=LONG_WINDOW, sample_rate=48_000.0,
+            configuration=SpectrumChannels.SEPARATE, bin_interpolation=BinInterpolation.LINEAR,
+            view_scaling=ViewScaling.LOGARITHMIC,
+        )
+        rng = np.random.default_rng(40)
+        self.frames = torch.from_numpy(
+            (rng.standard_normal((PAIRS, LONG_FRAMES, 2, LONG_WINDOW)) * 0.3).astype(np.float32)
+        ).to(dev)
+        self.out = torch.empty((PAIRS * LONG_FRAMES, 2, self.c.n_spectrum_values), device=dev)
+        self.launch("repo", PAIRS * LONG_FRAMES, 3)
+        torch.cuda.synchronize()
+        self.want = self.out.clone()
+
+    def launch(self, name, batch, log2s):
+        c = self.c
+        err = self.libs[name].sig_window_fft_mag_cluster(
+            self.frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(), self.out.data_ptr(),
+            batch, 2, LONG_WINDOW, c.transform_size.bit_length() - 1, int(c.configuration), log2s,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, f"{name}: window_fft_mag_cluster")
+
+    def measure(self, name) -> dict:
+        line = {}
+        peak = self.want.abs().amax(-1).clamp(min=1e-30)
+        for log2s in (1, 2, 3):
+            self.out.zero_()
+            self.launch(name, PAIRS * LONG_FRAMES, log2s)
+            torch.cuda.synchronize()
+            diff = float(((self.out - self.want).abs().amax(-1) / peak).max())
+            line[f"l_s{1 << log2s}_row_rel_diff_vs_repo"] = diff
+            line[f"l_t16_s{1 << log2s}_us"] = device_us(lambda: self.launch(name, PAIRS * LONG_FRAMES, log2s), 10)
+            line[f"l_live_s{1 << log2s}_us"] = device_us(lambda: self.launch(name, LIVE_PAIRS, log2s), 50)
+        return line
+
+
 class Resample:
     """Kernel C at RESAMPLE_SHAPES."""
 
@@ -346,7 +399,7 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, l")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
     parser.add_argument("--wrapper", action="store_true", help="also time kernel C's wrapper on the host clock")
     parser.add_argument("--out", default=None, help="also append the JSON lines to this file")
@@ -368,6 +421,7 @@ def main(argv=None) -> int:
         libs[name] = build(name, Path(directory), kernels)
     spectrum = Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None
     resample = Resample(libs, dev) if "c" in kernels else None
+    long_rows = LongRows(libs, dev) if "l" in kernels else None
 
     lines = []
     for rnd, names in enumerate((list(libs), list(libs)[::-1])):
@@ -377,6 +431,8 @@ def main(argv=None) -> int:
                 line.update(spectrum.measure(name, kernels))
             if resample:
                 line.update(resample.measure(name))
+            if long_rows:
+                line.update(long_rows.measure(name))
             line["card"] = smi
             lines.append(line)
             print(json.dumps(line), flush=True)

@@ -52,6 +52,15 @@ def _frames(shape, seed, device):
     return torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32)).to(device)
 
 
+def _form_counts():
+    """Calls that launched each form of kernel A so far."""
+    return {"block": wfm.launches, "cluster": wfm.cluster_launches, "two_pass": wfm.long_launches}
+
+
+def _one_more(before, route):
+    return {k: v + (k == route) for k, v in before.items()}
+
+
 def _row_rel_err(got, want):
     """max |got - want| / max |want| per trailing row (complex: |.| of the
     difference)."""
@@ -64,19 +73,20 @@ def _row_rel_err(got, want):
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_window_fft_mag_kernel_matches_plain(cuda, mode, window):
     """Kernel A vs torch.fft on the card, every mode, N from 32 to 32768
-    (COMPLEX above 16384 on the long form), W < N and odd W (the scalar
+    (COMPLEX above 16384 on the cluster form), W < N and odd W (the scalar
     loads) included. Bound: 5e-6 of each row's max (the Pallas kernel's
     bound against float64 numpy); the packed real transform's split adds one
     rounding per bin and stays inside it."""
     c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
     frames = _frames((3, 5, 2, window), seed=window + int(mode), device=cuda)
-    long_form = wfm.uses_long_form(c)
-    assert long_form == (c.transform_size > (16384 if mode == SpectrumChannels.COMPLEX else 32768))
-    before = (wfm.launches, wfm.long_launches)
+    route = wfm.form(c)
+    assert route == ("block" if c.transform_size <= (16384 if mode == SpectrumChannels.COMPLEX else 32768)
+                     else "cluster")
+    before = _form_counts()
     got = wfm.window_fft_mag(c, frames)
     want = wfm.window_fft_mag_plain(c, frames)
     torch.cuda.synchronize()
-    assert (wfm.launches, wfm.long_launches) == (before[0] + (not long_form), before[1] + long_form)
+    assert _form_counts() == _one_more(before, route)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert _row_rel_err(got, want) <= 5e-6
 
@@ -127,29 +137,118 @@ def test_window_fft_mag_takes_a_misaligned_view(cuda):
     ids=lambda v: v.name if isinstance(v, SpectrumChannels) else str(v),
 )
 def test_window_fft_mag_long_form_matches_plain(cuda, mode, window, batch):
-    """The long form (two passes through a scratch tensor) against torch.fft
-    on the card: every mode at N = 65536, real rows up to 2^21 points and
-    COMPLEX up to 2^20, W < N included; one launch of the form a call.
-    Bound: 5e-6 of each row's max, the one-block form's."""
+    """Rows too long for one block against torch.fft on the card: every
+    mode at N = 65536 and real rows to 131072 (COMPLEX 65536) on the
+    cluster form, longer rows to 2^21 points (COMPLEX 2^20) on the two-pass
+    form, W < N included; one launch of the form a call. Bound: 5e-6 of
+    each row's max, the one-block form's."""
     c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
-    assert wfm.uses_long_form(c)
+    route = wfm.form(c)
+    limit = 65536 if mode == SpectrumChannels.COMPLEX else 131072
+    assert route == ("cluster" if c.transform_size <= limit else "two_pass")
     frames = _frames(batch + (2, window), seed=window + int(mode), device=cuda)
-    before = (wfm.launches, wfm.long_launches)
+    before = _form_counts()
     got = wfm.window_fft_mag(c, frames)
     want = wfm.window_fft_mag_plain(c, frames)
     torch.cuda.synchronize()
-    assert (wfm.launches, wfm.long_launches) == (before[0], before[1] + 1)
+    assert _form_counts() == _one_more(before, route)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert _row_rel_err(got, want) <= 5e-6
 
 
+@pytest.mark.parametrize("batch", [(1,), (16,)], ids=["b1", "b16"])
+@pytest.mark.parametrize("shorter", [0, 25536, 25535], ids=["w_eq_n", "w_lt_n", "odd_w"])
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
+def test_window_fft_mag_cluster_form_matches_plain(cuda, mode, shorter, batch):
+    """The cluster form against torch.fft on the card: every mode at
+    N = 65536 (COMPLEX at 32768), W = N, W < N (even: the 8-byte loads)
+    and odd W (the scalar loads), one frame and 16. Bound: 5e-6 of each
+    row's max."""
+    n = 32768 if mode == SpectrumChannels.COMPLEX else 65536
+    window = n - shorter // (2 if mode == SpectrumChannels.COMPLEX else 1)
+    c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+    assert c.transform_size == n and wfm.form(c) == "cluster"
+    frames = _frames(batch + (2, window), seed=window + int(mode) + batch[0], device=cuda)
+    before = _form_counts()
+    got = wfm.window_fft_mag(c, frames)
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    assert _form_counts() == _one_more(before, "cluster")
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _row_rel_err(got, want) <= 5e-6
+
+
+def test_window_fft_mag_cluster_takes_a_misaligned_view(cuda):
+    """Frames that start 4 bytes past an 8-byte boundary take the cluster
+    form's scalar loads and give the aligned result."""
+    c = make_spectrum_constant(axis_points=64, window_size=48000, configuration=SpectrumChannels.MIDSIDE, device=cuda)
+    flat = _frames((2 * 2 * 48000 + 1,), seed=19, device=cuda)
+    view = flat[1:].view(2, 2, 48000)
+    assert view.data_ptr() % 8 == 4 and view.is_contiguous()
+    got = wfm.window_fft_mag(c, view)
+    assert torch.equal(got, wfm.window_fft_mag(c, view.clone()))
+    assert _row_rel_err(got, wfm.window_fft_mag_plain(c, view)) <= 5e-6
+
+
+@pytest.mark.parametrize("log2s", [1, 2, 3])
+@pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE, SpectrumChannels.COMPLEX],
+                         ids=lambda m: m.name)
+def test_window_fft_mag_cluster_kernel_every_cluster_size(cuda, mode, log2s):
+    """The cluster kernel's C entry with 2, 4 and 8 blocks a row (the sizes
+    chip_smoke.py times) at N = 65536 (COMPLEX 32768) agrees with the plain
+    version; a share larger than one block's shared memory (2 blocks for a
+    65536-point core) is refused before launch."""
+    from signalizer_tpu_torch.kernels import _build
+
+    n = 32768 if mode == SpectrumChannels.COMPLEX else 65536
+    c = make_spectrum_constant(axis_points=64, window_size=n - 1001, configuration=mode, device=cuda)
+    frames = _frames((3, 2, c.window_size), seed=log2s, device=cuda)
+    want = wfm.window_fft_mag_plain(c, frames)
+    out = torch.empty(wfm.out_shape(c, (3,)) + ((2,) if mode == SpectrumChannels.PHASE else ()), device=cuda)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.sig_window_fft_mag_cluster(
+        frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(), out.data_ptr(), 3, 2,
+        c.window_size, n.bit_length() - 1, int(mode), log2s, stream)
+    _build.check(err, "sig_window_fft_mag_cluster")
+    torch.cuda.synchronize()
+    got = torch.view_as_complex(out) if mode == SpectrumChannels.PHASE else out
+    assert _row_rel_err(got, want) <= 5e-6
+    if log2s == 1:
+        big = make_spectrum_constant(axis_points=64, window_size=2 * n, configuration=mode, device=cuda)
+        err = lib.sig_window_fft_mag_cluster(
+            frames.data_ptr(), big.window_kernel.data_ptr(), big.fft_twiddles.data_ptr(), out.data_ptr(), 1, 2,
+            c.window_size, (2 * n).bit_length() - 1, int(mode), log2s, stream)
+        assert err != 0
+
+
+@pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE, SpectrumChannels.COMPLEX],
+                         ids=lambda m: m.name)
+def test_window_fft_mag_first_size_past_the_cluster_limit(cuda, mode):
+    """The longest row of the cluster form takes it; the next transform size
+    takes the two-pass form; both agree with the plain version."""
+    limit = wfm.MAX_CLUSTER_COMPLEX_TRANSFORM_SIZE if mode == SpectrumChannels.COMPLEX else wfm.MAX_CLUSTER_TRANSFORM_SIZE
+    for window, route in ((limit, "cluster"), (limit + 1, "two_pass")):
+        c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+        assert wfm.form(c) == route
+        frames = _frames((1, 2, window), seed=window, device=cuda)
+        before = _form_counts()
+        got = wfm.window_fft_mag(c, frames)
+        want = wfm.window_fft_mag_plain(c, frames)
+        torch.cuda.synchronize()
+        assert _form_counts() == _one_more(before, route)
+        assert _row_rel_err(got, want) <= 5e-6
+
+
+@pytest.mark.parametrize("window", [65536, 131072])
 @pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE, SpectrumChannels.MIDSIDE],
                          ids=lambda m: m.name)
-def test_window_fft_mag_long_form_silent_channel(cuda, mode):
+def test_window_fft_mag_long_form_silent_channel(cuda, mode, window):
     """An all-zero channel beside a loud one comes out exactly zero on the
-    long form (MIDSIDE: a mono frame's side row)."""
-    c = make_spectrum_constant(axis_points=64, window_size=65536, configuration=mode, device=cuda)
-    frames = _frames((3, 2, 65536), seed=5, device=cuda) * 3.0
+    cluster form (MIDSIDE: a mono frame's side row)."""
+    c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+    assert wfm.form(c) == "cluster"
+    frames = _frames((3, 2, window), seed=5, device=cuda) * 3.0
     if mode == SpectrumChannels.MIDSIDE:
         frames[:, 1] = frames[:, 0]
     else:

@@ -5,7 +5,7 @@
   to rtol/atol 1e-5, as tests/test_torch_spectrum.py holds the 4096-point
   step, and magnitudes to 1e-5 of each row's peak (two float32 FFTs of a
   row of 2^16-2^17 points).
-* The long form's arithmetic rehearsed in torch: the four-step
+* The two-pass form's arithmetic rehearsed in torch: the four-step
   decomposition of ``csrc/window_fft_mag_long.cu`` — the columns'
   transforms, the twiddles w_L^(n2 k1) read from the constant's
   ``fft_twiddles`` with their sign, the rows' transforms and the real
@@ -52,7 +52,7 @@ def test_long_rows_match_jax_analyze_frames(mode, window):
         bin_interpolation=BinInterpolation.LINEAR, view_scaling=ViewScaling.LOGARITHMIC,
     )
     assert tc.transform_size == jc.transform_size == 1 << (window - 1).bit_length()
-    assert wfm.uses_long_form(tc)
+    assert wfm.form(tc) != "block"
     rng = np.random.default_rng(window + int(mode))
     frames = (rng.standard_normal((1, 2, 2, window)) * 0.3).astype(np.float32)
     mag0 = (rng.random((1, 2, tc.state_channels, 256)) * 0.05).astype(np.float32)
@@ -80,7 +80,7 @@ def test_long_rows_stage_one_matches_jax(window):
         assert err.max() <= 1e-5, err.max()
 
 
-# --- the long form's arithmetic ------------------------------------------------
+# --- the two-pass form's arithmetic --------------------------------------------
 
 
 def _cmul(a, b):
@@ -88,7 +88,7 @@ def _cmul(a, b):
 
 
 def four_step(z: torch.Tensor, n: int, real: bool) -> torch.Tensor:
-    """The long form on rows ``z`` [rows, L] complex64 (the packed z[m] =
+    """The two-pass form on rows ``z`` [rows, L] complex64 (the packed z[m] =
     x[2m] + i x[2m+1] of a real row, or a COMPLEX row), with the kernel's
     indices: real rows give X[0..L] (halved DC and Nyquist), COMPLEX rows
     |Z|. The L1- and L2-point transforms are torch's; what is rehearsed is
@@ -166,17 +166,20 @@ def test_four_step_complex_rows_match_fft(n):
 
 def test_long_form_limits():
     """The wrapper's bounds: the one-block form to 32768 (COMPLEX 16384),
-    the long form to a core of 2^20 complex points."""
+    the cluster form to 131072 (65536), the two-pass form to a core of
+    2^20 complex points."""
     assert (wfm.MAX_TRANSFORM_SIZE, wfm.MAX_COMPLEX_TRANSFORM_SIZE) == (32768, 16384)
     assert (wfm.MAX_LONG_TRANSFORM_SIZE, wfm.MAX_LONG_COMPLEX_TRANSFORM_SIZE) == (1 << 21, 1 << 20)
-    for window, mode, long_form in [
-        (32768, SpectrumChannels.SEPARATE, False),
-        (32769, SpectrumChannels.SEPARATE, True),
-        (16384, SpectrumChannels.COMPLEX, False),
-        (16385, SpectrumChannels.COMPLEX, True),
+    for window, mode, route in [
+        (32768, SpectrumChannels.SEPARATE, "block"),
+        (32769, SpectrumChannels.SEPARATE, "cluster"),
+        (131073, SpectrumChannels.SEPARATE, "two_pass"),
+        (16384, SpectrumChannels.COMPLEX, "block"),
+        (16385, SpectrumChannels.COMPLEX, "cluster"),
+        (65537, SpectrumChannels.COMPLEX, "two_pass"),
     ]:
         c = make_spectrum_constant(axis_points=32, window_size=window, configuration=mode, device=CPU)
-        assert wfm.uses_long_form(c) == long_form
+        assert wfm.form(c) == route
 
 
 # --- kernel B's line-graph groups -------------------------------------------

@@ -217,7 +217,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
         assert nb._lib is None and nb._build_error is None
-        assert (a.launches, a.long_launches, b.launches, b.remap_launches, b.decay_db_launches, c.launches) == (0,) * 6
+        assert (a.launches, a.cluster_launches, a.long_launches, b.launches, b.remap_launches,
+                b.decay_db_launches, c.launches) == (0,) * 7
         print("ok")
         """
     )
@@ -243,13 +244,13 @@ def test_build_names_the_library_by_its_sources():
     from signalizer_tpu_torch.kernels import _build
 
     names = {p.name for p in _build._sources()}
-    assert {"window_fft_mag.cu", "window_fft_mag_long.cu", "window_fft_common.cuh", "display_map.cu",
-            "banded_resample.cu"} <= names
+    assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
+            "display_map.cu", "banded_resample.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
-        "sig_window_fft_mag", "sig_window_fft_mag_long", "sig_display_map", "sig_display_remap", "sig_display_decay_db",
-        "sig_banded_resample", "sig_banded_resample_affine",
+        "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
+        "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
     }
 
 
