@@ -8,7 +8,7 @@ Spectrogram, and the live ingest path that feeds them from an audio stream.
 Phases, each printing one informational line:
 
 1. device — name, CUDA version, ``nvidia-smi`` name and power limit, TF32 off;
-2. build — the three kernels from ``signalizer_tpu_torch/csrc`` with ``nvcc``
+2. build — the kernel sources in ``signalizer_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all started together);
 3. kernel A (window -> FFT -> |.|) against its plain PyTorch version at the
    headline shape, at small COMPLEX, PHASE and zero-padded shapes, in every
@@ -45,8 +45,10 @@ Phases, each printing one informational line:
 8. kernel B's other two entries (after phase 4): the remap alone at the
    headline shape and at T=1, decay-and-dB alone on the headline's remapped
    values, at T=1, with 127 of 128 frames valid, a ragged T=127, no valid
-   frame, 1 and 8 line graphs (state bit-equal to the plain loop
-   everywhere), and the two in turn against the fused entry (bit-equal);
+   frame, 1, 8 and 11 line graphs and the spectrogram's cfg4 shape (1 pair x
+   512 frames x 1 row, where the kernel splits T into chunks) (state
+   bit-equal to the plain loop everywhere), and the two in turn against the
+   fused entry (bit-equal);
    then ``spectrum_values`` + ``post_process`` on the slice's frames against
    ``analyze_frames`` (after phase 5);
 9. the Vectorscope at the bench geometry (bench.py:743-767: 256 stereo
@@ -76,7 +78,9 @@ Phases, each printing one informational line:
    on the same rows as a yardstick, and ``torch.fft.rfft`` of the already
    windowed rows beside it; then the Spectrum at a
    200000-sample window (N = 262144) for 16 pairs, three calls through
-   ``SpectrumProcessor.process``, the two-pass form's main path;
+   ``SpectrumProcessor.process``, the two-pass form's main path; and the
+   two-pass form on one pair at N = 2^20 and 2^21, timed beside
+   ``torch.fft.rfft`` and its bound;
 13. the live ingest path: a threaded 16-channel ``AudioStream`` at 48 kHz
    with the default 48000-sample history (native packet queue and native
    ring, required here), a second stereo instance mixed into the last pair
@@ -99,9 +103,10 @@ Phases, each printing one informational line:
    position tensor built by torch operations) to count the launches of
    each; one Vectorscope call, the Spectrogram's batched step and one pull,
    the ring's window copy alone, one resonator tick and one backlog call,
-   the cluster form at its timed shape, the two-pass form's kernels on the
-   same rows, the 200000-sample Spectrum call and one live tick are
-   profiled the same way.
+   decay-and-dB alone at T = 1 and at cfg4, the two-pass form at N = 2^20
+   and 2^21, the cluster form at its timed shape, the two-pass form's
+   kernels on the same rows, the 200000-sample Spectrum call and one live
+   tick are profiled the same way.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -162,7 +167,7 @@ KERNELS = {
         replaces="tools/pallas_display_map.py:233",
     ),
     # kernel B's two other entries: the remap alone and decay-and-dB alone
-    # (the latter is display_map_kernel without its remap)
+    # (the latter a kernel of its own)
     "display_remap": dict(
         route="cuda",
         source="signalizer_tpu_torch/csrc/display_map.cu",
@@ -170,7 +175,7 @@ KERNELS = {
     ),
     "display_decay_db": dict(
         route="cuda",
-        source="signalizer_tpu_torch/csrc/display_map.cu",
+        source="signalizer_tpu_torch/csrc/display_decay_db.cu",
         replaces="tools/pallas_display_map.py:233",
     ),
     "banded_resample": dict(
@@ -197,7 +202,7 @@ DEVICE_FUNCTIONS = {
     "window_fft_mag": ("window_fft_mag_kernel",),
     "display_map": ("display_map_kernel",),
     "display_remap": ("display_remap_kernel",),
-    "display_decay_db": ("display_map_kernel",),
+    "display_decay_db": ("display_decay_db_fold_kernel", "display_decay_db_kernel"),
     "banded_resample": ("banded_resample_kernel",),
     "window_fft_mag_long": ("long_columns_kernel", "long_rows_kernel"),
     "window_fft_mag_cluster": ("window_fft_mag_cluster_kernel",),
@@ -503,7 +508,9 @@ def display_tables(c):
 
 def phase_kernel_b_entries(torch, dev, c, mags, results):
     """Kernel B's remap-only and decay-and-dB entries against their plain
-    versions, and the two in turn against the fused entry."""
+    versions, and the two in turn against the fused entry. Returns the
+    decay-and-dB calls the profile phase times."""
+    from signalizer_tpu_torch import SpectrumChannels as SC
     from signalizer_tpu_torch.core.constant import make_spectrum_constant
     from signalizer_tpu_torch.kernels import display_map as dm
 
@@ -552,6 +559,12 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
         for k in (1, 8, 11)
     }
     small_vals = torch.from_numpy((np.abs(rng.standard_normal((3, 40, 2, 200))) * 0.3).astype(np.float32)).to(dev)
+    # the spectrogram's cfg4 shape: 1 pair x 512 frames x 1 row, the last 3
+    # invalid (a split T shows here)
+    c4 = make_spectrum_constant(device=dev, **headline(configuration=SC.LEFT))
+    cfg4_vals = torch.from_numpy((np.abs(rng.standard_normal((1, 512, 1, AXIS_POINTS))) * 0.3).astype(np.float32)).to(dev)
+    cfg4_valid = np.ones(512, bool)
+    cfg4_valid[-3:] = False
     cases = [  # name, constant, vals, valid, timed
         ("decay_db_headline", c, vals, None, True),
         ("decay_db_t1", c, vals[:, :1].contiguous(), None, True),
@@ -561,7 +574,9 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
         ("decay_db_k1_small", small[1], small_vals, None, False),
         ("decay_db_k8_small", small[8], small_vals, torch.from_numpy(valid[:40]).to(dev), False),
         ("decay_db_k11_small", small[11], small_vals, torch.from_numpy(valid[:40]).to(dev), False),
+        ("decay_db_cfg4", c4, cfg4_vals, torch.from_numpy(cfg4_valid).to(dev), True),
     ]
+    profiled = {}
     for name, cc, v, mask, timed in cases:
         state0 = state_for(cc, v.shape[0])
         s_kernel, s_plain = state0.clone(), state0.clone()
@@ -580,7 +595,13 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
             scratch = state0.clone()
             ms = median_ms(torch, lambda: dm.display_decay_db(cc, scratch, v, mask))
             plain_ms = median_ms(torch, lambda: dm.decay_db(cc, scratch, v, mask))
-            report["cases"][name].update(ms=ms, plain_ms=plain_ms)
+            # the kernel's layout: frames a group, groups a block, chunks
+            plan = dm.decay_db_plan(v.shape[0], v.shape[1], cc.num_line_graphs, v.shape[2], cc.axis_points,
+                                    torch.cuda.get_device_properties(dev).multi_processor_count)
+            report["cases"][name].update(
+                ms=ms, plain_ms=plain_ms, plan=list(plan),
+                **roofline(nbytes(v, got, cc.slope_map) + 2 * nbytes(state0), 30.0 * got.numel()))
+            profiled[name] = lambda cc=cc, scratch=scratch, v=v, mask=mask: dm.display_decay_db(cc, scratch, v, mask)
         if name == "decay_db_headline":
             # reads the values, the state and the slope once, writes the
             # display values and the state once; ~30 flops an output (the dB
@@ -602,6 +623,9 @@ def phase_kernel_b_entries(torch, dev, c, mags, results):
         require(torch.equal(s_fused, s_halves), f"{name}: state differs from the fused entry")
         report["cases"][name] = {"shape": list(m.shape), "equal_to_fused": True}
     info(report)
+    # decay-and-dB alone at T = 1 and at cfg4, for the profile (the headline
+    # is the halves' call)
+    return [("decay_db_t1", profiled["decay_db_t1"]), ("decay_db_cfg4", profiled["decay_db_cfg4"])]
 
 
 def phase_halves_slice(torch, dev, proc, x, tick, launches_out, calls_out):
@@ -1586,8 +1610,31 @@ def phase_kernel_a_long(torch, dev, results, launches_out, calls_out):
         library_ms=library_ms2, library="torch.fft.rfft of already windowed rows: less than the kernel does",
     )
     del want
+    # the two-pass form's longest rows: one pair (2 rows) at N = 2^20 and 2^21
+    longest_calls = []
+    for log2n in (20, 21):
+        cl = make_spectrum_constant(device=dev, **headline(window_size=1 << log2n))
+        xl = _frames(torch, (1, 1, 2, 1 << log2n), seed=213 + log2n, dev=dev)
+        got_l = wfm.window_fft_mag(cl, xl)
+        want_l = wfm.window_fft_mag_plain(cl, xl)
+        torch.cuda.synchronize()
+        err_l = row_rel_err(got_l, want_l)
+        require(err_l <= 5e-6, f"kernel A two-pass n{1 << log2n}: row-relative error {err_l} > 5e-6")
+        rows = xl * cl.window_kernel
+        results["window_fft_mag_long"][f"n{1 << log2n}"] = dict(
+            shape=list(xl.shape), row_rel_err=err_l,
+            ms=median_ms(torch, lambda cl=cl, xl=xl: wfm.window_fft_mag(cl, xl), reps=10),
+            plain_ms=median_ms(torch, lambda cl=cl, xl=xl: wfm.window_fft_mag_plain(cl, xl), reps=10),
+            library_ms=median_ms(torch, lambda cl=cl, rows=rows: torch.fft.rfft(rows, n=cl.transform_size, dim=-1),
+                                 reps=10),
+            **fft_bound(cl, xl, got_l),
+        )
+        del rows, want_l
+        longest_calls.append((f"two_pass_n{1 << log2n}", lambda cl=cl, xl=xl: wfm.window_fft_mag(cl, xl)))
+    report["two_pass_longest"] = {n: results["window_fft_mag_long"][n] for n in ("n1048576", "n2097152")}
     info(report)
     return [
+        *longest_calls,
         ("window_fft_mag_cluster_t16", lambda: wfm.window_fft_mag(c, frames)),
         *((f"cluster_s{size}_t16", d["call"]) for size, d in sizes.items()),
         ("window_fft_mag_two_pass_t16", two_pass),
@@ -1950,7 +1997,7 @@ def main() -> int:
     results = {}
     c, mags = phase_kernel_a(torch, dev, results)
     phase_kernel_b(torch, dev, c, mags, results)
-    phase_kernel_b_entries(torch, dev, c, mags, results)
+    decay_db_calls = phase_kernel_b_entries(torch, dev, c, mags, results)
     del mags
     launches, calls = {}, {}
     proc, x, tick = phase_slice(torch, dev, launches, calls)
@@ -1974,17 +2021,18 @@ def main() -> int:
         ("ring_windows_copy", windows_copy),
         ("resonator_tick", resonator_tick),
         ("resonator_backlog_t16", resonator_backlog),
+        *decay_db_calls,
         *long_rows,
         ("live_tick", live_tick),
     ])
     live_close()
     # device time per launch on the main path: one launch per profiled call
     # (the two-pass form: its two kernels)
-    def own_us(path, name):
+    def own_us(path, name, fns=None):
         own = profile[path]["own_kernels_us_per_call"]
-        require(all(fn in own for fn in DEVICE_FUNCTIONS[name]),
-                f"profile {path}: no device time for {DEVICE_FUNCTIONS[name]}")
-        return sum(own[fn] for fn in DEVICE_FUNCTIONS[name])
+        fns = DEVICE_FUNCTIONS[name] if fns is None else fns
+        require(all(fn in own for fn in fns), f"profile {path}: no device time for {fns}")
+        return sum(own[fn] for fn in fns)
 
     for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
                        ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
@@ -1999,6 +2047,13 @@ def main() -> int:
     }
     cluster["two_pass_profile_us_same_rows"] = own_us("window_fft_mag_two_pass_t16", "window_fft_mag_long")
     cluster["live_tick_profile_us"] = own_us("live_tick", "window_fft_mag_cluster")
+    # the two-pass form at its longest rows, and decay-and-dB at T = 1 and cfg4
+    for n in ("n1048576", "n2097152"):
+        results["window_fft_mag_long"][n]["profile_us"] = own_us(f"two_pass_{n}", "window_fft_mag_long")
+    # (T = 1 is one group of frames: no fold pass)
+    results["display_decay_db"]["profile_us_t1"] = own_us("decay_db_t1", "display_decay_db",
+                                                          ("display_decay_db_kernel",))
+    results["display_decay_db"]["profile_us_cfg4"] = own_us("decay_db_cfg4", "display_decay_db")
     # launches: counted while the main paths were driven (the comparisons
     # with the plain versions are not in it); per call: over those calls
     kernels = [

@@ -61,16 +61,15 @@
 //   kernel's one-frame-a-group instantiation: a warp per frame, nothing
 //   unrolled over frames that are not there, and for T = 1 an empty fold.
 //
-// Three C entries share this device code. sig_display_map is the fused
-// function above. sig_display_decay_db is its second half alone, for values
-// that are already display values (the resonator's readout; post_process):
-// the same kernel with kRemap = false, whose step 1 loads vals [pairs, T,
-// rows, P] instead of remapping, so the split decay, the `valid` handling
-// and the T <= 8 form are the fused entry's own and the carried state is
-// the sequential loop's bit for bit. sig_display_remap is its first half
-// alone (spectrum_values): remap_frames, the function the fused kernel
-// inlines, over the flattened leading axes, each warp storing its frames'
-// values instead of feeding them to the decay; no state, no barrier.
+// Two C entries share this device code. sig_display_map is the fused
+// function above. sig_display_remap is its first half alone
+// (spectrum_values): remap_frames, the function the fused kernel inlines,
+// over the flattened leading axes, each warp storing its frames' values
+// instead of feeding them to the decay; no state, no barrier. The second
+// half alone, for values that are already display values (post_process,
+// the resonator's readout), is a kernel of its own, display_decay_db.cu:
+// the same arithmetic and the same exact split of the decay, laid out for
+// a pass that reads one value for each value it writes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -184,11 +183,9 @@ __device__ __forceinline__ void remap_frames(
   }
 }
 
-// kFrames: frames a warp handles per chunk. kRemap: `mags` holds
-// magnitudes [pairs, T, rows, nv] to remap; false: it holds display values
-// [pairs, T, rows, P] (nv == P, no plan tables read) and the kernel is the
-// decay and the dB map alone.
-template <int kTaps, int kFrames, bool kRemap>
+// kFrames: frames a warp handles per chunk. `mags` holds magnitudes
+// [pairs, T, rows, nv] to remap.
+template <int kTaps, int kFrames>
 __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
     const float* __restrict__ mags, const int* __restrict__ interp_indices,
     const float* __restrict__ interp_weights,
@@ -213,12 +210,9 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
   const bool active = p < P;
 
   // this pixel's plan
-  PixelPlan pl = {};
-  if (kRemap) {
-    pl = load_plan<kTaps>(active, p, taps, interp_indices, interp_weights,
-                          interp_mask, single_mask, single_bin, chunk_lo,
-                          chunk_len);
-  }
+  const PixelPlan pl =
+      load_plan<kTaps>(active, p, taps, interp_indices, interp_weights,
+                       interp_mask, single_mask, single_bin, chunk_lo, chunk_len);
 
   const float inv_size = scalars[0];
   const float lower = scalars[1];
@@ -250,18 +244,11 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
       for (int i = 0; i < count; ++i) steps |= valid[t0 + i] ? 1u << i : 0u;
     }
 
-    // 1. this group's display values: remapped, or loaded as they are
+    // 1. this group's display values
     float v[kFrames];
     const float* row0 = src + (size_t)t0 * frame_stride;
     const int live = active ? count : 0;  // frames this lane reads
-    if (kRemap) {
-      remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, live, taps, inv_size);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i) {
-        v[i] = i < live ? row0[i * frame_stride + p] : 0.f;
-      }
-    }
+    remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, live, taps, inv_size);
 
     // 2. this group's end values from an empty state, published to the block
     float* mine = ends + parity * ends_stride;
@@ -354,17 +341,18 @@ typedef void (*RemapFn)(const float*, const int*, const float*, const bool*,
                         const bool*, const int*, const int*, const int*,
                         const float*, float*, int, int, int, int, int);
 
-// Launch the decay kernel: short calls a warp per frame, otherwise kGroup
-// frames a warp. taps < 0 picks the decay-and-dB form (no remap).
-int launch_display_map(
+}  // namespace
+
+// Short calls a warp per frame, otherwise kGroup frames a warp.
+extern "C" int sig_display_map(
     const float* mags, const int* interp_indices, const float* interp_weights,
     const bool* interp_mask, const bool* single_mask, const int* single_bin,
     const int* chunk_lo, const int* chunk_len, const float* slope_map,
     const float* decay_poles, const float* scalars, const bool* valid,
     float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
     int taps, void* stream) {
-  if (K < 1 || K > kMaxK || rows < 1 || P < 1 || nv < 1 || T < 1 ||
-      pairs < 1 || pairs > 65535 || rows > 65535) {
+  if (taps < 1 || taps > kMaxTaps || K < 1 || K > kMaxK || rows < 1 || P < 1 ||
+      nv < 1 || T < 1 || pairs < 1 || pairs > 65535 || rows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const bool single = T <= kMaxGroups;
@@ -374,47 +362,18 @@ int launch_display_map(
   // at most 2 * 9 * 8 * 32 floats and 16 counts: under the 48 KB default
   const size_t smem = sizeof(float) * (size_t)2 * (groups + 1) * K * kWarp +
                       sizeof(int) * 2 * kMaxGroups;
-  static const KernelFn kernels[2][4] = {
-      {display_map_kernel<0, kGroup, true>, display_map_kernel<1, kGroup, true>,
-       display_map_kernel<2, kGroup, true>, display_map_kernel<0, kGroup, false>},
-      {display_map_kernel<0, 1, true>, display_map_kernel<1, 1, true>,
-       display_map_kernel<2, 1, true>, display_map_kernel<0, 1, false>},
+  static const KernelFn kernels[2][3] = {
+      {display_map_kernel<0, kGroup>, display_map_kernel<1, kGroup>,
+       display_map_kernel<2, kGroup>},
+      {display_map_kernel<0, 1>, display_map_kernel<1, 1>, display_map_kernel<2, 1>},
   };
-  const KernelFn kernel = kernels[single ? 1 : 0][taps < 0 ? 3 : (taps <= 2 ? taps : 0)];
+  const KernelFn kernel = kernels[single ? 1 : 0][taps <= 2 ? taps : 0];
   const dim3 grid((P + kWarp - 1) / kWarp, rows, pairs);
   kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
       mags, interp_indices, interp_weights, interp_mask, single_mask,
       single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
       state, out, T, K, rows, P, nv, taps);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int sig_display_map(
-    const float* mags, const int* interp_indices, const float* interp_weights,
-    const bool* interp_mask, const bool* single_mask, const int* single_bin,
-    const int* chunk_lo, const int* chunk_len, const float* slope_map,
-    const float* decay_poles, const float* scalars, const bool* valid,
-    float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
-    int taps, void* stream) {
-  if (taps < 1 || taps > kMaxTaps) return (int)cudaErrorInvalidValue;
-  return launch_display_map(mags, interp_indices, interp_weights, interp_mask,
-                            single_mask, single_bin, chunk_lo, chunk_len,
-                            slope_map, decay_poles, scalars, valid, state, out,
-                            pairs, T, K, rows, P, nv, taps, stream);
-}
-
-// Decay and dB alone: vals [pairs, T, rows, P] display values, state
-// [pairs, K, rows, P] updated in place, out [pairs, T, K, rows, P].
-extern "C" int sig_display_decay_db(
-    const float* vals, const float* slope_map, const float* decay_poles,
-    const float* scalars, const bool* valid, float* state, float* out,
-    int pairs, int T, int K, int rows, int P, void* stream) {
-  return launch_display_map(vals, nullptr, nullptr, nullptr, nullptr, nullptr,
-                            nullptr, nullptr, slope_map, decay_poles, scalars,
-                            valid, state, out, pairs, T, K, rows, P, P, -1,
-                            stream);
 }
 
 // Remap alone: mags [frames, rows, nv] -> out [frames, rows, P] =

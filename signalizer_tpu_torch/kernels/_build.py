@@ -54,8 +54,9 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # vals, slope_map, decay_poles, display_scalars, valid, state, out,
-    # pairs, T, K, rows, P, stream
-    "sig_display_decay_db": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # starts (or null), ends (or null), pairs, T, K, rows, P, frames_a_group,
+    # groups, stream
+    "sig_display_decay_db": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # mags, interp_indices, interp_weights, interp_mask, single_mask,
     # single_bin, chunk_lo, chunk_len, display_scalars, out, frames, rows,
     # P, n_values, taps, stream

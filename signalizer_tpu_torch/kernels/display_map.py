@@ -1,25 +1,31 @@
 """Kernel B: pixel remap -> peak decay -> normalized dB over all frames and
 line graphs, one CUDA warp per (pair, row, 32 pixels, 8 frames) with the
-decay recurrence split exactly across the groups of frames.
+decay recurrence split exactly across the groups of frames; decay and dB
+alone in a kernel of their own: a fold pass, then a thread per 4 pixels x 8
+frames.
 
 Replaces the Pallas kernel ``tools/pallas_display_map.py::fused_display_map``
 and computes the magnitude tail of the Spectrum step: the JAX production
 path runs it as ``_remap_mag`` + ``post_process``
 (``signalizer_tpu/kernels/spectrum.py:286-291, :518-598``; ref:
 TransformDSP.inl mapToLinearSpace :504-1135, mapAndTransformDFTFilters
-:1297-1435). The CUDA source is ``signalizer_tpu_torch/csrc/display_map.cu``;
-this module holds its wrappers, their plain PyTorch versions and the remap/dB
-helpers the Spectrum functions share. The source has three entries:
-:func:`display_map` (remap, decay and dB in one launch, the Spectrum step),
-:func:`display_remap` (the remap alone: ``spectrum_values``) and
+:1297-1435). The CUDA sources are ``signalizer_tpu_torch/csrc/display_map.cu``
+and ``csrc/display_decay_db.cu``; this module holds their wrappers, their
+plain PyTorch versions and the remap/dB helpers the Spectrum functions
+share. Three entries: :func:`display_map` (remap, decay and dB in one
+launch, the Spectrum step), :func:`display_remap` (the remap alone:
+``spectrum_values``), both in ``display_map.cu``, and
 :func:`display_decay_db` (decay and dB alone, for values that are already
-display values: ``post_process``, the resonator view).
+display values: ``post_process``, the resonator view), the kernel of
+``display_decay_db.cu``.
 
 Only the linear max-decay semantics exist here: the JAX package's log-domain
 form is the same function evaluated another way on the TPU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,6 +38,16 @@ from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 # to 8 each (the line graphs' decays are independent)
 MAX_TAPS = 10
 MAX_LINE_GRAPHS = 8
+# the decay-and-dB kernel's layout, copies of csrc/display_decay_db.cu's
+# constants (its entry refuses a plan outside them): a thread takes 4 pixels
+# of DECAY_FRAMES frames (kFrames; 1 frame for T <= DECAY_FRAMES), a warp
+# DECAY_WARP_PIXELS pixels (4 * kWarp); the fold pass a chunk of up to
+# DECAY_MAX_GROUPS such groups a block (kMaxGroups), groups x K <=
+# DECAY_MAX_GROUPS_K (kMaxGroupsK)
+DECAY_FRAMES = 8
+DECAY_MAX_GROUPS = 16
+DECAY_MAX_GROUPS_K = 64
+DECAY_WARP_PIXELS = 128
 
 # kernel launches since the last reset, one count per entry (chip_smoke.py
 # and tests read them): the fused entry, the remap alone, decay and dB alone
@@ -230,6 +246,26 @@ def _line_graph_groups(constant: SpectrumConstant, state: torch.Tensor, out: tor
         out[..., k0:k1, :, :] = o
 
 
+def decay_db_plan(pairs: int, t: int, k: int, rows: int, p: int, sms: int) -> tuple:
+    """``(frames a group, groups a fold block, chunks)`` for the
+    decay-and-dB kernel on ``vals`` [pairs, t, rows, p] with ``k`` line
+    graphs on a card of ``sms`` multiprocessors: all of T in one chunk
+    where that gives the fold pass a block an SM or more, else half as many
+    groups a block until it does (more than one chunk: a launch before the
+    fold writes each chunk's end values)."""
+    frames = 1 if t <= DECAY_FRAMES else DECAY_FRAMES
+    groups = min(DECAY_MAX_GROUPS, -(-t // frames), DECAY_MAX_GROUPS_K // k)
+    tiles = -(-p // DECAY_WARP_PIXELS) * rows * pairs
+    while groups > 1 and tiles * -(-t // (groups * frames)) < sms:
+        groups //= 2
+    return frames, groups, -(-t // (groups * frames))
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def display_decay_db(
     constant: SpectrumConstant, state: torch.Tensor, vals: torch.Tensor, valid=None
 ) -> torch.Tensor:
@@ -237,9 +273,10 @@ def display_decay_db(
     f32 against ``state`` [..., K, rows, P] f32, updated in place; ``valid``
     (optional [T] bool) marks padded frames that leave the state untouched.
     Returns [..., T, K, rows, P]. CPU tensors take :func:`decay_db`; CUDA
-    tensors launch ``sig_display_decay_db`` of ``csrc/display_map.cu`` (the
-    fused kernel without its remap: the same split decay, so the state is
-    the sequential loop's bit for bit) or raise."""
+    tensors launch ``sig_display_decay_db`` of ``csrc/display_decay_db.cu``
+    (the fused kernel's arithmetic and its exact split of the decay, so the
+    state is the sequential loop's bit for bit; a fold pass, then the
+    outputs, laid out by :func:`decay_db_plan`) or raise."""
     global decay_db_launches
     if vals.device.type == "cpu":
         return decay_db(constant, state, vals, valid)
@@ -248,8 +285,19 @@ def display_decay_db(
     if out.numel() == 0:
         return out
     lib = _build.library()
+    t, rows = vals.shape[-3], vals.shape[-2]
+    sms = _multiprocessors(vals.device.index if vals.device.index is not None else torch.cuda.current_device())
     with torch.cuda.device(vals.device):
         for poles, st, o, k in _line_graph_groups(c, state, out):
+            frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
+            # each group's start state when T takes more than one group;
+            # each chunk's end values and the state's copy for more than one chunk
+            groups_in_t = -(-t // frames)
+            scratch = [
+                torch.empty(shape, dtype=torch.float32, device=vals.device) if n > 1 else None
+                for n, shape in ((groups_in_t, (pairs, groups_in_t, k, rows, c.axis_points)),
+                                 (chunks, (chunks, pairs, k, rows, c.axis_points)))
+            ]
             err = lib.sig_display_decay_db(
                 vals.data_ptr(),
                 c.slope_map.data_ptr(),
@@ -258,11 +306,14 @@ def display_decay_db(
                 None if v is None else v.data_ptr(),
                 st.data_ptr(),
                 o.data_ptr(),
+                *(None if x is None else x.data_ptr() for x in scratch),
                 pairs,
-                vals.shape[-3],
+                t,
                 k,
-                vals.shape[-2],
+                rows,
                 c.axis_points,
+                frames,
+                groups,
                 torch.cuda.current_stream(vals.device).cuda_stream,
             )
             _build.check(err, "display_decay_db")

@@ -144,6 +144,17 @@ def cluster_size(constant: SpectrumConstant) -> int:
     return min(8, max(2, 8 * core // CLUSTER_SHARE_BYTES))
 
 
+def long_core(constant: SpectrumConstant) -> tuple:
+    """The two-pass form's split of a row's core: ``(L1, L2)`` with
+    ``L = L1 * L2`` complex points (N/2 for a real row, N for COMPLEX) and
+    ``L1 = 2^floor(log2(L) / 2)``."""
+    core = constant.transform_size
+    if constant.configuration != SpectrumChannels.COMPLEX:
+        core //= 2
+    l1 = 1 << ((core.bit_length() - 1) >> 1)
+    return l1, core // l1
+
+
 def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
     """Stage 1 of the Spectrum step for frames [..., C, W] f32.
 

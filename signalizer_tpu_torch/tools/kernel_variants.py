@@ -1,8 +1,9 @@
 """Time other versions of kernels A, B and C against the package's own, on
 one GPU, at the shapes the main paths give them.
 
-    python -m signalizer_tpu_torch.tools.kernel_variants NAME=DIR [NAME=DIR ...]
-        [--kernels abcl] [--flat-twiddles NAME ...] [--wrapper] [--out FILE]
+    python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
+        [--kernels abcdlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
+        [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
 ``display_map.cu``, ``banded_resample.cu`` and/or
@@ -16,7 +17,15 @@ library under ``build/kernel_variants/`` and timed in turns with the
 package's kernels (``repo``): all versions in order, then in reverse order,
 so that drift of the card shows as a difference between the two rounds.
 ``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
-``l``; the default leaves out ``l``). ``--flat-twiddles``
+``d``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
+in ``signalizer_tpu_torch/tools/variants/`` (``NAMED_VARIANTS``): the
+earlier two-pass form (``long_v1``, entry ``sig_window_fft_mag_long_v1``),
+the package's two-pass form with its pass-2 block size and waves as
+arguments (``long_general``, entry ``sig_window_fft_mag_long_general``) and the
+earlier decay-and-dB kernel (``decay_db_v1``, entry
+``sig_display_decay_db_v1``), the earlier ones also with one part left out
+(the outputs are then wrong; the time shows what the part costs).
+``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
 entry ``sig_banded_resample_affine`` is called with the first revision's
@@ -30,12 +39,21 @@ LINEAR interpolation, a LOGARITHMIC axis of 1024 pixels, 2 line graphs.
 Kernel A's cluster form (``l``) runs on rows of the engine's default
 48000-sample history, N = 65536, SEPARATE: 16 pairs x 16 frames (512 rows)
 and the live tick's 8 pairs x 1 frame (16 rows), with 2, 4 and 8 blocks a
-cluster each (``l_t16_s8_us`` ...). Kernel C runs at three shapes of the
-oscilloscope, all 16 pairs over a
-16384-sample history: ``cfg3`` (Lanczos a = 10 with the nearest pick, 2
-rows, a 1024-sample window over 8192 px), ``colour`` (the colour track's
-nearest pick, 6 rows, the same positions) and ``zoom_out`` (Lanczos a = 10,
-2 rows, the whole history over 1024 px, step ~16); a version with the
+cluster each (``l_t16_s8_us`` ...). Kernel A's two-pass form (``t``) runs
+at four shapes (``TWO_PASS_SHAPES``): the Spectrum's 16 pairs of 200000
+samples (N = 262144, its main path), the cluster form's 16 x 16 x 48000
+(N = 65536) and one pair at N = 2^20 and 2^21, with ``torch.fft.rfft`` of
+the already windowed rows beside it; ``long_general`` with every pass-2 block
+size R of 8, 16 and 32 that fits (``t_n262144_r8_us`` ...) and, at
+N = 262144, in waves of 16 and 8 rows. The decay-and-dB entry (``d``) runs
+at the headline's remapped values (16 pairs x 128 frames x 2 rows x 1024 px,
+2 line graphs), at T = 1 and at the spectrogram's cfg4 (1 pair x 512 frames
+x 1 row, the last 3 frames invalid). Kernel C runs at three shapes of the
+oscilloscope, all 16 pairs over a 16384-sample history: ``cfg3`` (Lanczos
+a = 10 with the nearest pick, 2 rows, a 1024-sample window over 8192 px),
+``colour`` (the colour track's nearest pick, 6 rows, the same positions) and
+``zoom_out`` (Lanczos a = 10, 2 rows, the whole history over 1024 px, step
+~16); a version with the
 affine entry is also timed forming cfg3's positions itself
 (``c_cfg3_affine_us``). Each version's output is held against the package's
 kernels (largest absolute difference; kernel A relative to each row's peak).
@@ -73,11 +91,34 @@ from signalizer_tpu_torch import BinInterpolation, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import display_map as dm
+from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 
 PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
 KERNEL_SOURCES = {
-    "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "l": "window_fft_mag_cluster.cu",
+    "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "d": "display_decay_db.cu",
+    "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu",
 }
+VARIANTS_DIR = Path(__file__).resolve().parent / "variants"
+# versions kept beside the tool: name -> (source in VARIANTS_DIR, nvcc defines)
+NAMED_VARIANTS = {
+    "long_v1": ("window_fft_mag_long_v1.cu", ()),
+    "long_v1_no_pass2_stores": ("window_fft_mag_long_v1.cu", ("-DSIG_DROP_STORES",)),
+    "long_general": ("window_fft_mag_long_general.cu", ()),
+    "decay_db_v1": ("display_decay_db_v1.cu", ()),
+    "decay_db_v1_no_loads": ("display_decay_db_v1.cu", ("-DSIG_DROP_LOADS",)),
+    "decay_db_v1_no_db": ("display_decay_db_v1.cu", ("-DSIG_DROP_DB",)),
+    "decay_db_v1_no_fold": ("display_decay_db_v1.cu", ("-DSIG_DROP_FOLD",)),
+}
+# the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
+MAX_SHARED_BYTES = 232448
+# kernel A's two-pass form: pairs, frames, window samples
+TWO_PASS_SHAPES = {
+    "n262144": (16, 1, 200_000), "n65536_t16": (16, 16, 48_000), "n1048576": (1, 1, 1 << 20),
+    "n2097152": (1, 1, 1 << 21),
+}
+# the decay-and-dB entry: pairs, T, rows, last invalid frames
+DECAY_SHAPES = {"headline": (16, 128, 2, 0), "t1": (16, 1, 2, 0), "cfg4": (1, 512, 1, 3)}
 LONG_WINDOW, LONG_FRAMES, LIVE_PAIRS = 48_000, 16, 8
 OSC_HISTORY = 16384
 # kernel C's shapes: kind, a, with_nearest, rows, pixels, step
@@ -93,27 +134,36 @@ CLIP = {
 }
 # sig_banded_resample as the first revision took it: no rotation table
 RESAMPLE_V1 = _build.SIGNATURES["sig_banded_resample"][:-2] + (ctypes.c_void_p,)
+# the named variants' entries: the arguments their kernels took then
+_P, _I = ctypes.c_void_p, ctypes.c_int
+V1_SIGNATURES = {
+    "sig_window_fft_mag_long_v1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sig_window_fft_mag_long_general": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sig_display_decay_db_v1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
 
 
-def build(name: str, directory: Path, kernels) -> ctypes.CDLL:
-    """Compile the picked kernels of one version into their own library."""
+def build(name: str, directory: Path, kernels, sources=None, defines=()) -> ctypes.CDLL:
+    """Compile the picked kernels of one version (or the given ``sources``)
+    into their own library."""
     out_dir = _build.BUILD_DIR.parent / "kernel_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    files = [f for k, f in KERNEL_SOURCES.items() if k in kernels]
-    sources = [directory / f if (directory / f).is_file() else _build.CSRC / f for f in files]
+    if sources is None:
+        files = [f for k, f in KERNEL_SOURCES.items() if k in kernels]
+        sources = [directory / f if (directory / f).is_file() else _build.CSRC / f for f in files]
     out = out_dir / f"{name}.so"
     done = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(out),
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, *defines, "-I", str(_build.CSRC), "-shared", "-o", str(out),
          *map(str, sources)],
         capture_output=True, text=True,
     )
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{done.stdout}{done.stderr}")
     for line in (done.stdout + done.stderr).splitlines():
-        if "Compiling entry" in line and ("banded" in line or "cluster" in line) or "Used" in line or "spill" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"# {name}: {line.strip()}")
     lib = ctypes.CDLL(str(out))
-    signatures = dict(_build.SIGNATURES)
+    signatures = dict(_build.SIGNATURES, **V1_SIGNATURES)
     if not hasattr(lib, "sig_banded_resample_affine"):
         signatures["sig_banded_resample"] = RESAMPLE_V1
     for entry, argtypes in signatures.items():
@@ -282,6 +332,145 @@ class LongRows:
         return line
 
 
+def _windowed(c, frames):
+    """Rows already packed and windowed for ``torch.fft.rfft`` (SEPARATE)."""
+    return frames * c.window_kernel
+
+
+class TwoPass:
+    """Kernel A's two-pass form at TWO_PASS_SHAPES, through its C entries."""
+
+    def __init__(self, libs, dev):
+        self.libs, self.cases = libs, {}
+        for shape, (pairs, t, window) in TWO_PASS_SHAPES.items():
+            c = make_spectrum_constant(
+                device=dev, axis_points=PIXELS, window_size=window, sample_rate=48_000.0,
+                configuration=SpectrumChannels.SEPARATE, bin_interpolation=BinInterpolation.LINEAR,
+                view_scaling=ViewScaling.LOGARITHMIC,
+            )
+            rng = np.random.default_rng(50 + t)
+            frames = torch.from_numpy((rng.standard_normal((pairs, t, 2, window)) * 0.3).astype(np.float32)).to(dev)
+            l1, l2 = wfm.long_core(c)
+            case = types.SimpleNamespace(
+                c=c, frames=frames, batch=pairs * t, rows=pairs * t * 2, l1=l1, l2=l2,
+                out=torch.empty(wfm.out_shape(c, (pairs, t)), device=dev),
+                scratch=torch.empty((pairs * t * 2, l1 * l2, 2), device=dev),
+                want=wfm.window_fft_mag_plain(c, frames),
+            )
+            self.cases[shape] = case
+        self.rfft_done = False
+
+    def launch(self, name, case, r=8, wave=0):
+        """One call of a version's entry; ``long_general`` with R rows a pass-2
+        block, in waves of ``wave`` rows (0: all at once)."""
+        lib, c, stream = self.libs[name], case.c, torch.cuda.current_stream().cuda_stream
+        head = (case.frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(),
+                case.scratch.data_ptr(), case.out.data_ptr(), case.batch, 2, c.window_size,
+                c.transform_size.bit_length() - 1, int(c.configuration))
+        if hasattr(lib, "sig_window_fft_mag_long_v1"):
+            err = lib.sig_window_fft_mag_long_v1(*head, stream)
+        elif hasattr(lib, "sig_window_fft_mag_long_general"):
+            err = lib.sig_window_fft_mag_long_general(*head, r.bit_length() - 1, wave, stream)
+        else:
+            err = lib.sig_window_fft_mag_long(*head, stream)
+        _build.check(err, f"{name}: window_fft_mag_long")
+
+    def rows_a_block(self, case):
+        """Every R of 8, 16, 32 that long_general's pass-2 block takes."""
+        return [r for r in (8, 16, 32) if 2 * r <= case.l1 and (2 * r + 1) * (case.l2 + 1) * 8 <= MAX_SHARED_BYTES]
+
+    def measure(self, name) -> dict:
+        line = {}
+        general = hasattr(self.libs[name], "sig_window_fft_mag_long_general")
+        for shape, case in self.cases.items():
+            case.out.zero_()
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            peak = case.want.abs().amax(-1).clamp(min=1e-30)
+            line[f"t_{shape}_row_rel_err"] = float(((case.out - case.want).abs().amax(-1) / peak).max())
+            reps = 10 if case.rows > 8 else 40
+            line[f"t_{shape}_us"] = device_us(lambda: self.launch(name, case), reps)
+            if not self.rfft_done:
+                rows = _windowed(case.c, case.frames)
+                line[f"t_{shape}_rfft_us"] = device_us(
+                    lambda: torch.fft.rfft(rows, n=case.c.transform_size, dim=-1), reps)
+                del rows
+            if not general:
+                continue
+            for r in self.rows_a_block(case):
+                line[f"t_{shape}_r{r}_us"] = device_us(lambda: self.launch(name, case, r=r), reps)
+            if shape == "n262144":
+                for wave in (16, 8):
+                    case.out.zero_()
+                    self.launch(name, case, wave=wave)
+                    torch.cuda.synchronize()
+                    line[f"t_{shape}_wave{wave}_row_rel_err"] = float(
+                        ((case.out - case.want).abs().amax(-1) / peak).max())
+                    line[f"t_{shape}_wave{wave}_us"] = device_us(lambda: self.launch(name, case, wave=wave), reps)
+        self.rfft_done = True
+        return line
+
+
+class DecayDb:
+    """The decay-and-dB entry at DECAY_SHAPES, through its C entries."""
+
+    def __init__(self, libs, dev):
+        self.libs, self.cases = libs, {}
+        c = make_spectrum_constant(
+            device=dev, axis_points=PIXELS, window_size=WINDOW, sample_rate=48_000.0,
+            configuration=SpectrumChannels.SEPARATE, bin_interpolation=BinInterpolation.LINEAR,
+            view_scaling=ViewScaling.LOGARITHMIC,
+        )
+        self.c, self.sms = c, torch.cuda.get_device_properties(dev).multi_processor_count
+        rng = np.random.default_rng(60)
+        for shape, (pairs, t, rows, invalid) in DECAY_SHAPES.items():
+            valid = None
+            if invalid:
+                mask = np.ones(t, bool)
+                mask[-invalid:] = False
+                valid = torch.from_numpy(mask).to(dev)
+            k = c.num_line_graphs
+            frames, groups, chunks = dm.decay_db_plan(pairs, t, k, rows, PIXELS, self.sms)
+            groups_in_t = -(-t // frames)
+            case = types.SimpleNamespace(
+                pairs=pairs, t=t, rows=rows, k=k, valid=valid, plan=(frames, groups),
+                starts=torch.empty((pairs, groups_in_t, k, rows, PIXELS), device=dev) if groups_in_t > 1 else None,
+                vals=torch.from_numpy((np.abs(rng.standard_normal((pairs, t, rows, PIXELS))) * 0.3)
+                                      .astype(np.float32)).to(dev),
+                state0=torch.from_numpy((rng.random((pairs, k, rows, PIXELS)) * 0.5).astype(np.float32)).to(dev),
+                out=torch.empty((pairs, t, k, rows, PIXELS), device=dev),
+                ends=torch.empty((chunks, pairs, k, rows, PIXELS), device=dev) if chunks > 1 else None,
+            )
+            case.state = case.state0.clone()
+            self.cases[shape] = case
+            self.launch("repo", case)
+            torch.cuda.synchronize()
+            case.want_out, case.want_state = case.out.clone(), case.state.clone()
+
+    def launch(self, name, case):
+        lib, c, stream = self.libs[name], self.c, torch.cuda.current_stream().cuda_stream
+        head = (case.vals.data_ptr(), c.slope_map.data_ptr(), c.decay_poles.data_ptr(), c.display_scalars.data_ptr(),
+                None if case.valid is None else case.valid.data_ptr(), case.state.data_ptr(), case.out.data_ptr())
+        tail = (case.pairs, case.t, case.k, case.rows, PIXELS)
+        if hasattr(lib, "sig_display_decay_db_v1"):
+            err = lib.sig_display_decay_db_v1(*head, *tail, stream)
+        else:
+            scratch = (None if x is None else x.data_ptr() for x in (case.starts, case.ends))
+            err = lib.sig_display_decay_db(*head, *scratch, *tail, *case.plan, stream)
+        _build.check(err, f"{name}: display_decay_db")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            case.state.copy_(case.state0)
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            line[f"d_{shape}_max_abs_diff_vs_repo"] = float((case.out - case.want_out).abs().max())
+            line[f"d_{shape}_state_equal_repo"] = bool(torch.equal(case.state, case.want_state))
+            line[f"d_{shape}_us"] = device_us(lambda: self.launch(name, case), 10 if case.t > 1 else 50)
+        return line
+
+
 class Resample:
     """Kernel C at RESAMPLE_SHAPES."""
 
@@ -399,7 +588,9 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, l")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, l, t")
+    parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
+                        help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
     parser.add_argument("--wrapper", action="store_true", help="also time kernel C's wrapper on the host clock")
     parser.add_argument("--out", default=None, help="also append the JSON lines to this file")
@@ -419,20 +610,33 @@ def main(argv=None) -> int:
     libs = {"repo": build("repo", _build.CSRC, kernels)}
     for name, directory in versions.items():
         libs[name] = build(name, Path(directory), kernels)
-    spectrum = Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None
-    resample = Resample(libs, dev) if "c" in kernels else None
-    long_rows = LongRows(libs, dev) if "l" in kernels else None
+    for name in args.named:
+        source, defines = NAMED_VARIANTS[name]
+        libs[name] = build(name, VARIANTS_DIR, kernels, sources=[VARIANTS_DIR / source], defines=defines)
+    # each class times the versions that have its entries
+    entries = {
+        "spectrum": ("sig_window_fft_mag", "sig_display_map"), "resample": ("sig_banded_resample",),
+        "long_rows": ("sig_window_fft_mag_cluster",),
+        "two_pass": ("sig_window_fft_mag_long", "sig_window_fft_mag_long_v1", "sig_window_fft_mag_long_general"),
+        "decay_db": ("sig_display_decay_db", "sig_display_decay_db_v1"),
+    }
+    timers = {
+        "spectrum": Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None,
+        "resample": Resample(libs, dev) if "c" in kernels else None,
+        "long_rows": LongRows(libs, dev) if "l" in kernels else None,
+        "two_pass": TwoPass(libs, dev) if "t" in kernels else None,
+        "decay_db": DecayDb(libs, dev) if "d" in kernels else None,
+    }
+    resample = timers["resample"]
 
     lines = []
     for rnd, names in enumerate((list(libs), list(libs)[::-1])):
         for name in names:
             line = {"version": name, "round": rnd}
-            if spectrum:
-                line.update(spectrum.measure(name, kernels))
-            if resample:
-                line.update(resample.measure(name))
-            if long_rows:
-                line.update(long_rows.measure(name))
+            for what, timer in timers.items():
+                if timer is None or not any(hasattr(libs[name], e) for e in entries[what]):
+                    continue
+                line.update(timer.measure(name, kernels) if what == "spectrum" else timer.measure(name))
             line["card"] = smi
             lines.append(line)
             print(json.dumps(line), flush=True)

@@ -260,6 +260,47 @@ def test_window_fft_mag_long_form_silent_channel(cuda, mode, window):
     assert _row_rel_err(got[:, 0], want[:, 0]) <= 5e-6
 
 
+def _long_entry(c, frames, out, scratch):
+    """The two-pass form's C entry on the wrapper's arguments."""
+    from signalizer_tpu_torch.kernels import _build
+
+    batch = frames.numel() // (frames.shape[-1] * frames.shape[-2])
+    err = _build.library().sig_window_fft_mag_long(
+        frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), batch, frames.shape[-2], c.window_size, c.transform_size.bit_length() - 1,
+        int(c.configuration), torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(err, "window_fft_mag_long")
+
+
+@pytest.mark.parametrize(
+    "mode,window",
+    [(SpectrumChannels.SEPARATE, 262144), (SpectrumChannels.PHASE, 200_001), (SpectrumChannels.MIDSIDE, 262144),
+     (SpectrumChannels.COMPLEX, 131072), (SpectrumChannels.SEPARATE, 1 << 20), (SpectrumChannels.PHASE, 1 << 21)],
+    ids=lambda v: v.name if isinstance(v, SpectrumChannels) else str(v),
+)
+def test_window_fft_mag_two_pass_writes_every_bin(cuda, mode, window):
+    """The two-pass form's entry (pass-2 blocks of 8 rows and their mirrors,
+    stores through the transpose) into an output filled with NaN: every bin
+    written, 5e-6 of each row's max against torch.fft, a silent channel
+    exactly 0."""
+    c = make_spectrum_constant(axis_points=64, window_size=window, configuration=mode, device=cuda)
+    assert wfm.form(c) == "two_pass"
+    l1, l2 = wfm.long_core(c)
+    frames = _frames((3, 2, window), seed=window, device=cuda)
+    frames[0, 1] = 0.0
+    rows = 3 * (1 if mode == SpectrumChannels.COMPLEX else 2)
+    out = torch.full(wfm.out_shape(c, (3,)) + ((2,) if mode == SpectrumChannels.PHASE else ()), float("nan"),
+                     device=cuda)
+    _long_entry(c, frames, out, torch.empty((rows, l1 * l2, 2), device=cuda))
+    got = torch.view_as_complex(out) if mode == SpectrumChannels.PHASE else out
+    want = wfm.window_fft_mag_plain(c, frames)
+    torch.cuda.synchronize()
+    assert _row_rel_err(got, want) <= 5e-6
+    if mode in (SpectrumChannels.SEPARATE, SpectrumChannels.PHASE):
+        assert bool((got[0, 1] == 0).all())
+
+
 def test_window_fft_mag_refuses_what_it_cannot_take(cuda):
     big = make_spectrum_constant(axis_points=64, window_size=wfm.MAX_LONG_TRANSFORM_SIZE + 1, device=cuda)
     with pytest.raises(ValueError, match="longest row"):
@@ -438,6 +479,58 @@ def test_display_decay_db_entry_matches_plain(cuda, graphs, t, valid):
     assert torch.equal(s_kernel, s_plain)
     if valid is not None and not any(valid):
         assert torch.equal(s_kernel, state)
+
+
+@pytest.mark.parametrize("p", [1024, 300, 128, 5])
+@pytest.mark.parametrize(
+    "pairs,t,rows,valid",
+    [(1, 512, 1, "cfg4"), (2, 130, 2, "random"), (1, 9, 1, None), (3, 5, 2, "random"), (1, 64, 1, "none")],
+    ids=["cfg4", "t130_mask", "t9", "t5_mask", "t64_none_valid"],
+)
+@pytest.mark.parametrize("graphs", [2, 8])
+def test_display_decay_db_kernel_across_chunks(cuda, graphs, pairs, t, rows, valid, p):
+    """The decay-and-dB kernel where the grid splits T into chunks (few
+    pairs and rows: a first launch writes each chunk's end values) and
+    where it does not, 16-byte accesses (P % 4 == 0) and the scalar form
+    (P = 300 is one, P = 5 a ragged tail): the state bit-equal to
+    ``decay_db`` and display atol 1e-5."""
+    if valid == "cfg4":
+        valid = [True] * (t - 3) + [False] * 3
+    valid = _valid_mask(t, valid)
+    c = make_spectrum_constant(
+        axis_points=p, window_size=1024, configuration=SpectrumChannels.LEFT if rows == 1 else SpectrumChannels.SEPARATE,
+        view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=graphs, decay_seconds=(0.1, 0.0, 1.0), device=cuda,
+    )
+    rng = np.random.default_rng(t * 10 + p)
+    vals = torch.from_numpy((np.abs(rng.standard_normal((pairs, t, rows, p))) * 0.3).astype(np.float32)).to(cuda)
+    vals[..., ::7] = 0.0
+    state = torch.from_numpy((rng.random((pairs, graphs, rows, p)) * 0.5).astype(np.float32)).to(cuda)
+    s_kernel, s_plain = state.clone(), state.clone()
+    before = dm.decay_db_launches
+    got = dm.display_decay_db(c, s_kernel, vals, valid)
+    want = dm.decay_db(c, s_plain, vals, valid)
+    torch.cuda.synchronize()
+    assert dm.decay_db_launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(s_kernel, s_plain)
+    if valid is not None and not any(valid):
+        assert torch.equal(s_kernel, state)
+
+
+def test_display_decay_db_kernel_takes_a_misaligned_view(cuda):
+    """Values that start 4 bytes past a 16-byte edge take the scalar form
+    and give what an aligned copy gives, bit for bit."""
+    c = make_spectrum_constant(axis_points=256, window_size=1024, configuration=SpectrumChannels.SEPARATE, device=cuda)
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(np.abs(rng.standard_normal(1 + 2 * 40 * 2 * 256)).astype(np.float32)).to(cuda)
+    vals = flat[1:].view(2, 40, 2, 256)
+    assert vals.data_ptr() % 16 == 4 and vals.is_contiguous()
+    state = torch.from_numpy((rng.random((2, 2, 2, 256)) * 0.5).astype(np.float32)).to(cuda)
+    s_view, s_copy = state.clone(), state.clone()
+    got = dm.display_decay_db(c, s_view, vals)
+    want = dm.display_decay_db(c, s_copy, vals.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(s_view, s_copy)
 
 
 def test_remap_then_decay_db_equals_the_fused_entry(cuda):

@@ -1,18 +1,24 @@
 """The arithmetic of the redesigned CUDA kernels, rehearsed in torch on the
 CPU: the display kernel's split of the peak-decay recurrence over groups of
-frames (bit-equal to the sequential loop), the FFT kernel's packed real
+frames (bit-equal to the sequential loop), the decay-and-dB kernel's grid
+(groups of frames in a block, chunks of them across blocks, the chunks'
+end values folded in order: bit-equal to ``decay_db``), the FFT kernel's packed real
 transform (bit-reversed radix-2 stages from the stage-ordered twiddle table,
 then the split into the real row's bins), and the resample kernel's Lanczos
 weights from three trigonometric values a pixel and a rotation table. The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from signalizer_tpu_torch.core.constant import fft_twiddles
+from signalizer_tpu_torch.core.config import SpectrumChannels, ViewScaling
+from signalizer_tpu_torch.core.constant import fft_twiddles, make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
 
@@ -81,6 +87,149 @@ def test_split_decay_is_bit_equal_to_the_sequential_scan(t_total, group, mask):
     assert torch.equal(got_state, want_state)
     if mask == "none":
         assert torch.equal(got_state, state0)
+
+
+def decay_db_grid(constant, state, vals, valid, plan):
+    """``display_decay_db`` as ``csrc/display_decay_db.cu`` runs it, for one
+    launch's line graphs (at most 8), in torch: ``vals`` [pairs, T, rows,
+    P], ``state`` [pairs, K, rows, P] updated in place, ``plan`` =
+    ``decay_db_plan``'s (frames a group, groups a fold block, chunks). With
+    more than one chunk a first launch writes each chunk's end value from
+    an empty state and a copy of the state; fold block (chunk c) starts
+    from the copy folded through chunks 0..c-1 in order, takes each group's
+    end value from -inf and walks the groups in order (the group's start
+    state, then one multiply by the pole per valid frame and the max with
+    its end value); the output pass runs each group's recurrence from its
+    start state and the dB map. Returns [pairs, T, K, rows, P]."""
+    frames, groups, chunks = plan
+    t_total = vals.shape[1]
+    pole = constant.decay_poles[None, :, None, None]  # against [pairs, K, rows, P]
+    valid = torch.ones(t_total, dtype=torch.bool) if valid is None else torch.as_tensor(valid)
+    chunk_frames = groups * frames
+    x = vals[:, :, None]  # [pairs, T, 1, rows, P]
+    neg_inf = torch.full_like(state, -torch.inf)
+
+    def group_end(t0, t1):
+        l = neg_inf
+        for t in range(t0, t1):
+            if valid[t]:
+                l = torch.fmax(pole * l, x[:, t])
+        return l, int(valid[t0:t1].sum())
+
+    def walk(s, c):
+        """Each group's start state in chunk c from s, and the chunk's end."""
+        starts = []
+        for g in range(groups):
+            t0 = min(c * chunk_frames + g * frames, t_total)
+            l, n = group_end(t0, min(t0 + frames, t_total))
+            starts.append(s)
+            for _ in range(n):
+                s = pole * s
+            s = torch.fmax(s, l)
+        return starts, s
+
+    # the first launch: the chunks' end values from an empty state, the copy
+    ends = [walk(neg_inf, c)[1] for c in range(chunks - 1)]
+    copy = state.clone()
+    out = torch.empty(vals.shape[:2] + state.shape[1:2] + vals.shape[2:])
+    for c in range(chunks):
+        s = copy
+        for e in range(c):
+            for _ in range(int(valid[e * chunk_frames : (e + 1) * chunk_frames].sum())):
+                s = pole * s
+            s = torch.fmax(s, ends[e])
+        starts, end = walk(s, c)
+        for g, s in enumerate(starts):
+            t0 = c * chunk_frames + g * frames
+            for t in range(t0, min(t0 + frames, t_total)):
+                if valid[t]:
+                    s = torch.fmax(pole * s, x[:, t])
+                out[:, t] = s
+        if c == chunks - 1:
+            state.copy_(end)
+    return dm._db_map(constant, out)
+
+
+DECAY_MASKS = ["all", "ragged", "one_invalid", "none"]
+
+
+@pytest.mark.parametrize("mask", DECAY_MASKS)
+@pytest.mark.parametrize("graphs", [1, 2, 8, 11])
+@pytest.mark.parametrize("t_total,sms", [(1, 132), (7, 132), (128, 2), (128, 132), (300, 132)],
+                         ids=["t1", "t7", "t128_one_chunk", "t128_chunks", "t300_chunks"])
+def test_decay_db_grid_is_bit_equal_to_decay_db(t_total, sms, graphs, mask):
+    """The kernel's grid, as ``decay_db_plan`` lays it out for 2 pairs x 2
+    rows x 300 px (3 warps of pixels), against the sequential ``decay_db``:
+    state and display bit for bit, for all-valid, ragged, one-invalid and
+    no valid frames, one chunk and many (a card of 2 multiprocessors keeps
+    T = 128 in one chunk for up to 4 line graphs a launch), and more line graphs
+    than one launch takes (the wrapper's groups of 8)."""
+    c = make_spectrum_constant(
+        axis_points=300, window_size=1024, configuration=SpectrumChannels.SEPARATE,
+        view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=graphs,
+        decay_seconds=(0.1, 0.0, 1.0, 0.02), device=torch.device("cpu"),
+    )
+    rng = np.random.default_rng(t_total * 100 + graphs)
+    vals = torch.from_numpy((np.abs(rng.standard_normal((2, t_total, 2, 300))) * 0.3).astype(np.float32))
+    vals[:, :, :, ::17] = 0.0
+    state = torch.from_numpy((rng.random((2, graphs, 2, 300)) * 0.5).astype(np.float32))
+    valid = {
+        "all": None,
+        "ragged": rng.random(t_total) > 0.3,
+        "one_invalid": np.arange(t_total) != t_total // 2,
+        "none": np.zeros(t_total, bool),
+    }[mask]
+    s_grid, s_plain = state.clone(), state.clone()
+    want = dm.decay_db(c, s_plain, vals, valid)
+    got = torch.empty_like(want)
+    plans = []
+    for poles, st, o, k in dm._line_graph_groups(c, s_grid, got):
+        plan = dm.decay_db_plan(2, t_total, k, 2, 300, sms)
+        plans.append(plan)
+        o.copy_(decay_db_grid(dataclasses.replace(c, decay_poles=poles), st, vals, valid, plan))
+    assert torch.equal(got, want)
+    assert torch.equal(s_grid, s_plain)
+    if mask == "none":
+        assert torch.equal(s_grid, state)
+    chunks = {p[2] for p in plans}
+    if t_total == 1:
+        assert chunks == {1}
+    elif sms == 2:  # more than 4 line graphs a launch take at most 8 groups a fold block
+        assert [p[2] for p in plans] == [1 if k <= 4 else 2 for k in (min(8, graphs - i) for i in range(0, graphs, 8))]
+    else:  # 12 blocks of pixels do not cover 132 multiprocessors: T is split
+        assert min(chunks) > 1
+
+
+def test_decay_db_plan_covers_the_card():
+    """The headline (16 pairs x 128 frames x 2 rows x 1024 px, K = 2) is one
+    chunk of 16 groups of 8 frames, 256 fold blocks; the spectrogram's 1 x
+    512 frames x 1 row takes 2 groups a fold block and 32 chunks so that 256
+    blocks cover 132 multiprocessors; T <= 8 takes a frame a group; shared
+    memory bounds groups x line graphs."""
+    assert dm.decay_db_plan(16, 128, 2, 2, 1024, 132) == (8, 16, 1)
+    assert dm.decay_db_plan(1, 512, 2, 1, 1024, 132) == (8, 2, 32)
+    assert dm.decay_db_plan(16, 1, 2, 2, 1024, 132) == (1, 1, 1)
+    assert dm.decay_db_plan(16, 8, 8, 2, 1024, 132) == (1, 8, 1)
+    frames, groups, chunks = dm.decay_db_plan(16, 128, 8, 2, 1024, 132)
+    assert (frames, groups, chunks) == (8, 8, 2) and groups * 8 <= dm.DECAY_MAX_GROUPS_K
+
+
+
+@pytest.mark.parametrize(
+    "python_name,kernel_value",
+    [("DECAY_FRAMES", "kFrames"), ("DECAY_WARP_PIXELS", "4 * kWarp"), ("DECAY_MAX_GROUPS", "kMaxGroups"),
+     ("DECAY_MAX_GROUPS_K", "kMaxGroupsK"), ("MAX_LINE_GRAPHS", "kMaxK")],
+)
+def test_decay_db_plan_constants_are_the_kernels(python_name, kernel_value):
+    """The wrapper plans the decay-and-dB layout from copies of the kernel's
+    constants: each copy equals its constant in csrc/display_decay_db.cu."""
+    import re
+    from pathlib import Path
+
+    source = (Path(dm.__file__).resolve().parent.parent / "csrc" / "display_decay_db.cu").read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+    factor, _, name = kernel_value.rpartition(" * ")
+    assert getattr(dm, python_name) == int(factor or 1) * consts[name]
 
 
 def packed_real_spectrum(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -245,7 +245,7 @@ def test_build_names_the_library_by_its_sources():
 
     names = {p.name for p in _build._sources()}
     assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
-            "display_map.cu", "banded_resample.cu"} <= names
+            "display_map.cu", "display_decay_db.cu", "banded_resample.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
