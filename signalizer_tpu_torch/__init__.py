@@ -4,13 +4,16 @@ A second package beside the JAX one: the Spectrum view (FFT path and
 resonator bank), the Oscilloscope, Vectorscope and Spectrogram views, on
 tensors on one explicit device, carried by CUDA
 kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
-them, and the live ingest path that feeds them from an audio stream. It
+them, the live ingest path that feeds them from an audio stream, and the
+engine and session a user drives (``SignalizerEngine``, ``AnalysisSession``). It
 imports no jax and nothing of the JAX package: the enums, windows,
-decay-pole design, ``TimeMode``, key-colour table and host stream layer it
-shares with that package are its own copies (``core.config``,
-``core.windows``, ``core.scaling``, ``params.transformatters``,
-``utils.colour``, ``utils.diagnostics``, ``utils.exception_log``,
-``state.serialize``, ``native_bindings``, ``stream``). Entry points run on
+decay-pole design, parameter layer, colour and axis helpers, tracker,
+presets and host stream layer it shares with that package are its own
+copies (``core.config``, ``core.windows``, ``core.scaling``, ``params``,
+``utils.colour``, ``utils.axis``, ``utils.diagnostics``,
+``utils.exception_log``, ``kernels.tracker``, ``state``,
+``views.line_graph``, ``views.controllers``, ``views.editor_settings``,
+``native_bindings``, ``stream``). Entry points run on
 the GPU unless the caller passes ``device="cpu"``.
 
 Layout mirrors :mod:`signalizer_tpu`:
@@ -39,6 +42,15 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.stream.frame_pipeline` — FramePipeline: steps in flight, harvested by CUDA events
 * :mod:`signalizer_tpu_torch.native_bindings`     — the native host runtime (ring, packet queue), built with g++
 * :mod:`signalizer_tpu_torch.views.spectrogram`   — SpectrogramProcessor, SpectrogramImage, ColumnPacer
+* :mod:`signalizer_tpu_torch.params`              — parameters, ranges, formatters, bundles, transformatters
+* :mod:`signalizer_tpu_torch.state`               — archives, presets (the factory corpus in ``presets/``), .sgn import
+* :mod:`signalizer_tpu_torch.views.content`       — the three views' parameter contents, the bridge to the processors
+* :mod:`signalizer_tpu_torch.views.line_graph`    — LineGraphRenderFeed; ``views.controllers``, ``views.editor_settings``
+* :mod:`signalizer_tpu_torch.kernels.tracker`     — the cursor frequency tracker (numpy)
+* :mod:`signalizer_tpu_torch.utils.axis`          — grid lines; ``utils.colour`` — hue rotation, legends
+* :mod:`signalizer_tpu_torch.engine`              — SignalizerEngine: one instance, its parameters, presets and archives
+* :mod:`signalizer_tpu_torch.session`             — AnalysisSession: one UI tick of every view, fed from the engine
+* :mod:`signalizer_tpu_torch.views.fused_tick`    — run_fused_tick: spectrum, oscilloscope and vectorscope with one readback
 
 Importing builds nothing: the kernels compile with ``nvcc`` on first launch,
 the host runtime with ``g++`` on first use.

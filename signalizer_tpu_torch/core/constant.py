@@ -363,6 +363,9 @@ class SpectrumConstant:
     # [P] float64 on the host: the design-time pixel frequencies before
     # their rounding to f32 (the resonator bank is designed from them)
     host_frequencies: np.ndarray = dataclasses.field(repr=False)
+    # design-time host copies of the fields a host consumer reads every
+    # tick (render feed, tracker): see :func:`host_view`. Kept by :meth:`to`
+    host_data: Dict[str, object] = dataclasses.field(default=None, repr=False)
     # [4] f32: inv_size, lower, 1/log(upper/lower), clip_db — derived from
     # the fields above whenever the constant is built or replaced
     display_scalars: torch.Tensor = dataclasses.field(init=False, repr=False)
@@ -429,6 +432,10 @@ def constant_from_arrays(
     tensors["chunk_lo"] = torch.from_numpy(chunk_lo).to(device)
     tensors["chunk_len"] = torch.from_numpy(chunk_len).to(device)
     tensors["fft_twiddles"] = torch.from_numpy(fft_twiddles(int(static["transform_size"]))).to(device)
+    host_frequencies = np.array(arrays["mapped_frequencies"], dtype=np.float64)
+    host_data = {"mapped_frequencies": host_frequencies}
+    for name in ("inv_size", "low_dbs", "high_dbs"):
+        host_data[name] = np.float64(np.ravel(np.asarray(arrays[name], dtype=np.float64))[0])
     return SpectrumConstant(
         axis_points=int(static["axis_points"]),
         window_size=int(static["window_size"]),
@@ -442,9 +449,23 @@ def constant_from_arrays(
         num_line_graphs=int(static["num_line_graphs"]),
         interp_taps=int(static["interp_taps"]),
         n_spectrum_values=int(static["n_spectrum_values"]),
-        host_frequencies=np.array(arrays["mapped_frequencies"], dtype=np.float64),
+        host_frequencies=host_frequencies,
+        host_data=host_data,
         **tensors,
     )
+
+
+def host_view(constant: SpectrumConstant, name: str):
+    """Host copy of a constant field, made when the constant was built
+    (float64 design values; ``inv_size``, ``low_dbs`` and ``high_dbs`` as
+    0-d float64). Never reads a device tensor: a per-tick consumer on the
+    host (render feed, frequency tracker) would otherwise synchronize with
+    the device once per field per tick. Raises ``KeyError`` for a field
+    without a host copy."""
+    data = constant.host_data
+    if data is None or name not in data:
+        raise KeyError(f"SpectrumConstant has no host copy of {name!r}")
+    return data[name]
 
 
 def make_spectrum_constant(

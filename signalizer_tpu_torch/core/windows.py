@@ -66,6 +66,8 @@ _COSINE_COEFFS: Dict[WindowType, Tuple[float, ...]] = {
     ),
 }
 
+FINITE_DFT_WINDOWS = tuple(_COSINE_COEFFS.keys())
+
 
 def window_coefficients(wtype: WindowType) -> Tuple[float, ...]:
     """Cosine-sum coefficients (ref: cpl dsp::windowCoefficients usage at
@@ -135,3 +137,12 @@ def generate_window(
 def window_scale(wtype: WindowType, size: int, **kw) -> float:
     """Just the normalization scale (reciprocal coherent gain)."""
     return generate_window(wtype, size, **kw)[1]
+
+
+def window_dtft_gain(kernel: np.ndarray, bin_offset: float) -> float:
+    """Normalized DTFT magnitude of a window at a fractional bin offset:
+    ``|sum w[n] e^{-i 2 pi f n / N}| / sum w[n]``."""
+    size = len(kernel)
+    n = np.arange(size)
+    z = np.sum(kernel * np.exp(-2j * np.pi * bin_offset * n / size))
+    return float(np.abs(z) / np.sum(kernel))

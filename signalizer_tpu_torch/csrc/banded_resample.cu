@@ -14,8 +14,10 @@
 // With `near` non-null one pass also writes the nearest pick at the same
 // positions (the oscilloscope step's envelope source, pallas_resample.py
 // :159-176). Positions come from a tensor pos [B, P], or are formed here as
-// clamp(fma(p, step[b], start[b]), lo, hi): one rounding, as a compiler that
-// contracts start + p * step rounds it, and no position tensor in memory.
+// clamp(fma(p, step, start[b]), lo, hi) with one step for every pair (the
+// oscilloscope step's: its window is a host number): one rounding, as a
+// compiler that contracts start + p * step rounds it, and no position
+// tensor in memory.
 //
 // Layout: x [B, R, W] f32, out and near [B, R, P] f32, all contiguous.
 // Grid: one 128-thread block per (128-pixel block, pair), one thread per
@@ -86,8 +88,7 @@ struct Args {
   const float* x;
   const float* pos;    // [B, P], or null: positions from start and step
   const float* start;  // [B]
-  const float* step;   // [B], or null: step_all for every pair
-  float step_all, lo, hi;
+  float step, lo, hi;
   float* out;
   float* near;
   int B, R, W, P, a;
@@ -102,8 +103,7 @@ __device__ __forceinline__ float position(const Args& g, int b, int p) {
   if (g.pos != nullptr) {
     q = g.pos[(size_t)b * g.P + p];
   } else {
-    const float step = g.step != nullptr ? g.step[b] : g.step_all;
-    q = fminf(fmaxf(fmaf((float)p, step, g.start[b]), g.lo), g.hi);
+    q = fminf(fmaxf(fmaf((float)p, g.step, g.start[b]), g.lo), g.hi);
   }
   // the callers clip positions to a kernel radius outside the frame; this
   // bound only keeps the integer arithmetic defined
@@ -255,19 +255,19 @@ extern "C" int sig_banded_resample(const float* x, const float* pos,
                                    int W, int P, int a, int kind,
                                    const float* rotation, void* stream) {
   if (pos == nullptr) return (int)cudaErrorInvalidValue;
-  const Args g = {x, pos, nullptr, nullptr, 0.f, 0.f, 0.f, out, near, B, R, W, P, a};
+  const Args g = {x, pos, nullptr, 0.f, 0.f, 0.f, out, near, B, R, W, P, a};
   return run(g, kind, rotation, stream);
 }
 
 // Positions clamp(fma(p, step, start[b]), lo, hi), p = 0..P-1, formed in the
-// kernel; `step` is a device array [B], or null for `step_all`.
+// kernel with one step for every pair.
 extern "C" int sig_banded_resample_affine(const float* x, const float* start,
-                                          const float* step, float step_all,
-                                          float lo, float hi, float* out,
-                                          float* near, int B, int R, int W,
-                                          int P, int a, int kind,
-                                          const float* rotation, void* stream) {
+                                          float step, float lo, float hi,
+                                          float* out, float* near, int B,
+                                          int R, int W, int P, int a,
+                                          int kind, const float* rotation,
+                                          void* stream) {
   if (start == nullptr) return (int)cudaErrorInvalidValue;
-  const Args g = {x, nullptr, start, step, step_all, lo, hi, out, near, B, R, W, P, a};
+  const Args g = {x, nullptr, start, step, lo, hi, out, near, B, R, W, P, a};
   return run(g, kind, rotation, stream);
 }

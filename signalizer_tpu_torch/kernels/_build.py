@@ -69,7 +69,7 @@ SIGNATURES = {
     # x, start, step (or null), step_all, lo, hi, out, near (or null), B, R,
     # W, P, a, kind, rotation, stream
     "sig_banded_resample_affine": (
-        _P, _P, _P, _F, _F, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _F, _F, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
 }
 

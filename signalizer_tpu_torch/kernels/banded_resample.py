@@ -13,9 +13,10 @@ package's ``_sinc_gather`` together with the gather branches of
 
 Two entries, one kernel. :func:`banded_resample` takes the positions as a
 tensor (the TPU kernel's own signature); :func:`banded_resample_affine`
-takes ``start [B]``, a ``step`` and a clip range, and the kernel forms
+takes ``start [B]``, a host ``step`` and a clip range, and the kernel forms
 ``clamp(fma(p, step, start), lo, hi)`` itself, so evenly spaced positions
-cost no launches and no tensor. On a CPU tensor they run
+cost no launches and no tensor (a ``step`` tensor, one a pair, goes through
+the ``pos`` entry). On a CPU tensor they run
 :func:`banded_resample_plain` (the affine entry at
 :func:`affine_positions`' tensor); on a CUDA tensor they launch the kernel
 or raise. Shapes: x ``[B, R, W]`` f32, pos ``[B, P]`` f32 (any P) ->
@@ -298,7 +299,10 @@ def banded_resample_affine(
 
     start [B] f32; step a host number (every pair's) or a tensor [B] f32.
     CPU tensors take :func:`banded_resample_affine_plain`; on a CUDA tensor
-    the kernel forms the positions itself, or the call raises.
+    the kernel forms the positions itself from a host ``step`` (the
+    oscilloscope step's), and takes a tensor ``step`` (the JAX step's form,
+    which no view of the port passes) through :func:`affine_positions` and
+    the ``pos`` entry; or the call raises.
     """
     if x.device.type == "cpu":
         return banded_resample_affine_plain(
@@ -308,12 +312,11 @@ def banded_resample_affine(
         raise ValueError(f"banded_resample: unsupported device {x.device}")
     _check_x(x, a, kind)
     _check_rows(x, start, "start", 1)
-    if isinstance(step, torch.Tensor):
-        _check_rows(x, step, "step", 1)
-        step_ptr, step_all = step.data_ptr(), 0.0
-    else:
-        step_ptr, step_all = None, float(np.float32(step))
     if num_out < 0:
         raise ValueError(f"banded_resample: num_out={num_out}")
-    head = (x.data_ptr(), start.data_ptr(), step_ptr, step_all, float(lo), float(hi))
+    if isinstance(step, torch.Tensor):
+        _check_rows(x, step, "step", 1)
+        pos = affine_positions(x, start, step, num_out, lo, hi)
+        return _launch("sig_banded_resample", x, (x.data_ptr(), pos.data_ptr()), num_out, a, kind, with_nearest)
+    head = (x.data_ptr(), start.data_ptr(), float(np.float32(step)), float(lo), float(hi))
     return _launch("sig_banded_resample_affine", x, head, num_out, a, kind, with_nearest)

@@ -29,7 +29,8 @@ earlier decay-and-dB kernel (``decay_db_v1``, entry
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
 entry ``sig_banded_resample_affine`` is called with the first revision's
-arguments (no rotation table).
+arguments (no rotation table); one whose affine entry still takes a per-pair
+``step`` pointer (the revisions before the session's) gets a null one.
 
 A time is the device time of one launch: a CUDA graph of back-to-back
 launches (no host gaps between them), timed with CUDA events, median of 9
@@ -134,6 +135,14 @@ CLIP = {
 }
 # sig_banded_resample as the first revision took it: no rotation table
 RESAMPLE_V1 = _build.SIGNATURES["sig_banded_resample"][:-2] + (ctypes.c_void_p,)
+# sig_banded_resample_affine as the revisions up to the session's took it: a
+# per-pair step pointer (passed null) before the host step
+AFFINE_STEP_POINTER = (
+    _build.SIGNATURES["sig_banded_resample_affine"][:2] + (ctypes.c_void_p,)
+    + _build.SIGNATURES["sig_banded_resample_affine"][2:]
+)
+# the versions whose affine entry takes that pointer, by name
+_affine_step_pointer = set()
 # the named variants' entries: the arguments their kernels took then
 _P, _I = ctypes.c_void_p, ctypes.c_int
 V1_SIGNATURES = {
@@ -166,6 +175,9 @@ def build(name: str, directory: Path, kernels, sources=None, defines=()) -> ctyp
     signatures = dict(_build.SIGNATURES, **V1_SIGNATURES)
     if not hasattr(lib, "sig_banded_resample_affine"):
         signatures["sig_banded_resample"] = RESAMPLE_V1
+    elif any(Path(f).name == "banded_resample.cu" and "const float* step;" in Path(f).read_text() for f in sources):
+        signatures["sig_banded_resample_affine"] = AFFINE_STEP_POINTER
+        _affine_step_pointer.add(name)
     for entry, argtypes in signatures.items():
         if hasattr(lib, entry):
             fn = getattr(lib, entry)
@@ -506,8 +518,9 @@ class Resample:
         else:
             rotation = br._rotation_address(case.a) if case.kind == "lanczos" else None
             if affine:
+                pointer = (None,) if name in _affine_step_pointer else ()
                 err = lib.sig_banded_resample_affine(
-                    case.x.data_ptr(), case.start.data_ptr(), None, case.step, case.lo, case.hi,
+                    case.x.data_ptr(), case.start.data_ptr(), *pointer, case.step, case.lo, case.hi,
                     *tail, rotation, stream,
                 )
             else:

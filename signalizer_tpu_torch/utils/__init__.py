@@ -1,1 +1,2 @@
-"""Host-side utilities of the PyTorch port (so far: key colours)."""
+"""Host-side utilities of the PyTorch port: colours, axes, diagnostics, the
+exception log."""

@@ -768,11 +768,12 @@ def _affine_inputs(kind, a, p, step, where, seed, device, w=16384, pairs=4):
 @pytest.mark.parametrize("kind,a", [("lanczos", 10), ("lanczos", 5), ("linear", 1), ("nearest", 1)])
 def test_banded_resample_affine_entry_matches_the_pos_entry(cuda, kind, a, p, step, where, step_form):
     """The kernel forming ``clamp(fma(p, step, start), lo, hi)`` itself
-    against the same kernel at ``affine_positions``' tensor: nearest and
-    the nearest pick bit-equal, Lanczos and linear within 1e-6 x max|x|
-    (the positions are the same f32 values but for a rare double-rounding
-    tie, one ulp of position); and against the plain version at the usual
-    bound."""
+    (a host step; a step tensor takes the ``pos`` entry at
+    ``affine_positions``' tensor) against the same kernel at that tensor:
+    nearest and the nearest pick bit-equal, Lanczos and linear within 1e-6 x
+    max|x| (the positions are the same f32 values but for a rare
+    double-rounding tie, one ulp of position); one launch either way; and
+    against the plain version at the usual bound."""
     x, start, lo, hi = _affine_inputs(kind, a, p, step, where, seed=p + a, device=cuda)
     step32 = float(np.float32(step))
     step_arg = step32 if step_form == "host" else torch.full((x.shape[0],), step32, device=cuda)
@@ -1061,3 +1062,74 @@ def test_frame_pipeline_on_cuda_harvests_by_event(cuda):
     assert len(outs) == 8 and pipe.frames_completed == 8 and int(pipe.state) == 8
     for f, o in zip(frames, outs):
         assert torch.equal(o, torch.fft.rfft(torch.from_numpy(f).to(cuda)).abs())
+
+
+def _session_frames(device, fused, ticks=12, knobs=None, views=("spectrum", "oscilloscope", "vectorscope", "spectrogram")):
+    """Frames of a port session at the factory default preset (Transform
+    tracker on the left channel's sine) fed seeded blocks on ``device``."""
+    from signalizer_tpu_torch.engine import SignalizerEngine
+    from signalizer_tpu_torch.session import AnalysisSession
+    from signalizer_tpu_torch.stream.audio_stream import Playhead
+
+    eng = SignalizerEngine("card", device=device)
+    eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform
+    if knobs is not None:
+        knobs(eng)
+    s = AnalysisSession(eng, views=views, axis_points=256, pixels=256, cursor_fraction=1000 / 24000,
+                        fused_tick=fused)
+    rng = np.random.default_rng(43)
+    t = np.arange(ticks * 800) / 48000.0
+    x = np.stack([0.5 * np.sin(2 * np.pi * 1000.0 * t), 0.4 * np.sin(2 * np.pi * 1500.0 * t)])
+    x = (x + 0.02 * rng.standard_normal(x.shape)).astype(np.float32)
+    out = []
+    for i in range(ticks):
+        s.feed(x[:, i * 800 : (i + 1) * 800], Playhead(steady_clock=800 * (i + 1)))
+        out.append(s.tick())
+    counters = dict(eng.diagnostics.counters)
+    s.close()
+    return out, counters
+
+
+def test_session_tick_on_cuda_matches_the_cpu_session(cuda):
+    """A session on the card against the same session on the CPU (the
+    kernels' plain versions), twelve ticks at the factory default preset,
+    each view at its kernels' card tolerance: spectrum display atol 2e-4
+    (kernels A and B against their plain versions, as above), oscilloscope
+    1e-5 x max|x| x gain (kernel C's), vectorscope 2e-6 x gain,
+    spectrogram bytes within 1 LSB on at most 0.1%, tracker frequency rtol
+    1e-5; kernels A, B and C launched, every tick fused, nothing failed or
+    fell back."""
+    a0, b0, c0 = wfm.launches, dm.launches, br.launches
+    card, cc = _session_frames(cuda, True)
+    assert wfm.launches > a0 and dm.launches > b0 and br.launches > c0
+    cpu, _ = _session_frames("cpu", True)
+    assert cc["session.fused_ticks"] == cc["session.ticks"] == 12
+    assert cc["session.failures"] == cc["session.fallbacks"] == 0
+    for tick, (g, w) in enumerate(zip(card, cpu)):
+        np.testing.assert_allclose(g.spectrum, w.spectrum, rtol=0, atol=2e-4, err_msg=f"tick {tick}")
+        gain = float(w.oscilloscope.gain.max())
+        torch.testing.assert_close(g.oscilloscope.waveform.cpu(), w.oscilloscope.waveform, rtol=0,
+                                   atol=1e-5 * 0.6 * max(gain, 1.0))
+        assert torch.equal(g.oscilloscope.trigger_found.cpu(), w.oscilloscope.trigger_found)
+        torch.testing.assert_close(g.vectorscope.vertices.cpu(), w.vectorscope.vertices, rtol=1e-5,
+                                   atol=2e-6 * max(float(w.vectorscope.gain.max()), 1.0))
+        assert (g.spectrogram_columns is None) == (w.spectrogram_columns is None)
+        if w.spectrogram_columns is not None and w.spectrogram_columns.size:
+            diff = np.abs(g.spectrogram_columns.astype(np.int16) - w.spectrogram_columns.astype(np.int16))
+            assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
+        np.testing.assert_allclose(g.tracker["frequency"], w.tracker["frequency"], rtol=1e-5)
+    assert abs(card[-1].tracker["frequency"] - 1000.0) < 48000.0 / 4096
+
+
+def test_fused_session_tick_on_cuda_is_bit_equal_to_the_per_view_tick(cuda):
+    """On the card the fused tick and the per-view tick give bit-equal
+    spectra, oscilloscope and vectorscope frames."""
+    fused, _ = _session_frames(cuda, True, ticks=8)
+    per_view, pc = _session_frames(cuda, False, ticks=8)
+    assert pc["session.fused_ticks"] == 0
+    for f, p in zip(fused, per_view):
+        assert np.array_equal(f.spectrum, p.spectrum)
+        for name in ("waveform", "envelope_min", "envelope_max"):
+            assert torch.equal(getattr(f.oscilloscope, name), getattr(p.oscilloscope, name))
+        for name in ("vertices", "balance", "correlation_bars"):
+            assert torch.equal(getattr(f.vectorscope, name), getattr(p.vectorscope, name))

@@ -180,6 +180,55 @@ def test_live_path_runs_with_jax_blocked():
     assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
 
 
+def test_engine_and_session_tick_with_jax_blocked():
+    """With jax blocked a CPU SignalizerEngine loads its factory default
+    preset, an AnalysisSession with all four views and the Transform
+    tracker ticks (the fused tick included), an RSNT session ticks, the
+    engine's archive round-trips, a reference .sgn preset exports and
+    imports, and no module of the JAX package gets loaded."""
+    proc = _run(
+        """
+        import sys, tempfile
+        sys.modules["jax"] = None
+        import numpy as np
+        from signalizer_tpu_torch.engine import SignalizerEngine
+        from signalizer_tpu_torch.session import AnalysisSession
+        from signalizer_tpu_torch.state.serialize import Archive
+        from signalizer_tpu_torch.state.sgn_import import load_sgn, save_sgn
+        from signalizer_tpu_torch.stream.audio_stream import Playhead
+        eng = SignalizerEngine("nojax", device="cpu")
+        assert eng.num_parameters() == 201
+        eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform
+        s = AnalysisSession(eng, axis_points=64, pixels=64, cursor_fraction=1000 / 24000)
+        x = np.sin(2 * np.pi * 1000 * np.arange(8 * 800) / 48000).astype(np.float32)
+        for i in range(8):
+            s.feed(np.stack([x, x])[:, 800 * i: 800 * (i + 1)], Playhead(steady_clock=800 * (i + 1)))
+            f = s.tick()
+        assert f.spectrum.shape == (2, 1, 64) and f.tracker is not None and f.spectrogram_columns is not None
+        c = eng.diagnostics.counters
+        assert c["session.fused_ticks"] == c["session.ticks"] == 8 and c["session.failures"] == 0
+        ar = Archive(); eng.serialize(ar)
+        tmp = tempfile.mkdtemp()
+        save_sgn(tmp + "/x.main.sgn", vectorscope=eng.vectorscope, oscilloscope=eng.oscilloscope,
+                 spectrum=eng.spectrum, history_capacity=48000)
+        s.close()
+        eng2 = SignalizerEngine("nojax2", device="cpu", load_default_preset=False)
+        eng2.deserialize(Archive.from_bytes(ar.to_bytes()))
+        assert load_sgn(tmp + "/x.main.sgn").name == "main"
+        eng2.spectrum.algorithm.set_normalized(1.0)  # RSNT
+        s2 = AnalysisSession(eng2, views=("spectrum",), axis_points=64)
+        for i in range(3):
+            s2.feed(np.stack([x, x])[:, :1500], Playhead(steady_clock=1500 * (i + 1)))
+            assert s2.tick().spectrum.shape == (2, 1, 64)
+        s2.close()
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print(" ".join(loaded))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
+
+
 def test_kernel_modules_import_without_nvcc_or_triton():
     """Importing the kernel wrappers runs no subprocess, looks for no
     compiler, loads no library and imports no triton: the build happens at
@@ -212,6 +261,12 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.stream.mix_graph
         import signalizer_tpu_torch.stream.device_history
         import signalizer_tpu_torch.stream.frame_pipeline
+        import signalizer_tpu_torch.engine
+        import signalizer_tpu_torch.session
+        import signalizer_tpu_torch.views.fused_tick
+        import signalizer_tpu_torch.views.content
+        import signalizer_tpu_torch.state.factory_presets
+        import signalizer_tpu_torch.state.sgn_import
         from signalizer_tpu_torch.kernels import _build
         assert calls == [], calls
         assert "triton" not in sys.modules
@@ -303,6 +358,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
         "make_resonator_constant",
         "device_presentation_history",
         "frame_pipeline",
+        "signalizer_engine",
+        "analysis_session",
     ],
 )
 def test_default_device_is_the_gpu_and_raises_without_one(entry):
@@ -323,6 +380,8 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
     from signalizer_tpu_torch.stream import FramePipeline
     from signalizer_tpu_torch.stream.audio_stream import AudioStream, AudioStreamInfo
     from signalizer_tpu_torch.stream.device_history import DevicePresentationHistory
+    from signalizer_tpu_torch.engine import SignalizerEngine
+    from signalizer_tpu_torch.session import AnalysisSession
     from signalizer_tpu_torch.views import oscilloscope as tv
 
     cpu = tc.make_spectrum_constant(axis_points=32, window_size=128, device="cpu")
@@ -353,6 +412,8 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
             AudioStream.create(False, AudioStreamInfo(channels=2, audio_history_capacity=64))[1]
         ),
         "frame_pipeline": lambda: FramePipeline(lambda s, f: (f, s)),
+        "signalizer_engine": lambda: SignalizerEngine("no-gpu"),
+        "analysis_session": lambda: AnalysisSession(SignalizerEngine("no-gpu")),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()
