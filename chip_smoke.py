@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA GPU: the Spectrum
 view (FFT path and resonator bank), the Oscilloscope, the Vectorscope, the
-Spectrogram, the live ingest path that feeds them from an audio stream, and
-the engine and session tick that a user drives.
+Spectrogram, the live ingest path that feeds them from an audio stream, the
+engine and session tick that a user drives, the multi-device pipeline on a
+one-GPU mesh, and the front ends (the CLI and the browser editor).
 
     python3 chip_smoke.py
 
@@ -41,8 +42,10 @@ Phases, each printing one informational line:
    (SPECTRAL) and cfg3 with the colour track, three calls each, each call
    held against the same step with its resamples on kernel C's plain
    version from the same carried state, with launch counts, finiteness,
-   trigger, fundamental and silence checks; one ENVELOPE_HOLD call is
-   timed as information;
+   trigger, fundamental and silence checks; then cfg3 with the
+   ENVELOPE_HOLD trigger (kernel D, once a call), three calls each held to
+   the same step with the plain loop (every frame field and the fire queue
+   bit-equal), and the call timed: it must fit a 60 fps frame (16.7 ms);
 8. kernel B's other two entries (after phase 4): the remap alone at the
    headline shape and at T=1, decay-and-dB alone on the headline's remapped
    values, at T=1, with 127 of 128 frames valid, a ragged T=127, no valid
@@ -114,6 +117,9 @@ Phases, each printing one informational line:
    ZERO_CROSSING trigger with RMS vectorscope autogain and a window-size
    change (``reconfigure``) fused against per-view, and of an engine
    serialized, closed and restored into a fresh one (the same frames);
+   and a session at the factory preset ``peak trigger.oscilloscope`` (the
+   ENVELOPE_HOLD trigger: kernel D once a tick), 24 ticks against the same
+   on the CPU, with ms a tick (p50, p99) and kernel D's launches;
 15. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
@@ -126,7 +132,30 @@ Phases, each printing one informational line:
    decay-and-dB alone at T = 1 and at cfg4, the two-pass form at N = 2^20
    and 2^21, the cluster form at its timed shape, the two-pass form's
    kernels on the same rows, the 200000-sample Spectrum call, one live
-   tick and one session tick are profiled the same way.
+   tick, one session tick, the ENVELOPE_HOLD cfg3 call and (over 3 calls)
+   the pipeline's cfg5 tick are profiled the same way;
+16. kernel D (the envelope-hold scan; after phase 6) against its plain loop
+   on the same CUDA tensors, bit for bit (fires, state, holding): 16 rows
+   with 1600 of 2048 samples consumed (cfg3's tick) and all of 8192, 1 row
+   of 1 sample, 33 rows of 1600, 16 rows of 8192 with 1 and with none
+   consumed, hysteresis 0 and 0.5, three calls each with the state
+   carried; a NaN sample and a row of NaN, a held peak falling at sample 0,
+   device scalars over rows strided out of a history, a device mask;
+   timed at cfg3's tick and lookahead beside the loop, the bound and the
+   serial chain's estimate;
+17. the multi-device pipeline (after phase 14): ``ShardedAnalysisPipeline``
+   on a one-GPU mesh fed by ``push``, the fused view at cfg5
+   (bench.py:994-1050: 4 pairs x 128 frames of a 4096-point SEPARATE
+   spectrum at 192 kHz, LINEAR, a LOGARITHMIC axis of 1024 px, 1024 px of
+   waveform and envelopes, the meters), the spectrum (headline), the
+   spectrogram (cfg4), the oscilloscope (cfg3) and the vectorscope (cfg2),
+   three ticks each, each tick held against the same step built from the
+   plain versions on the tensors it uploaded (the vectorscope against the
+   pipeline on the CPU); launches, ms a tick, the device's busy share;
+18. the front ends: ``python -m signalizer_tpu_torch analyze-batch`` on 4
+   seeded WAV files, ``analyze --npz`` on one of them (kernels A, B and C
+   counted), and an ``EditorShell`` on localhost at the factory default
+   preset serving a payload of each view and the spectrogram PNG.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -217,6 +246,12 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/window_fft_mag_cluster.cu",
         replaces="signalizer_tpu/kernels/pallas_spectrum.py:147",
     ),
+    # kernel D: the envelope-hold trigger's scan (a lax.scan, not Pallas)
+    "peak_hold": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/peak_hold.cu",
+        replaces="signalizer_tpu/kernels/oscilloscope.py:94",
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -227,6 +262,7 @@ DEVICE_FUNCTIONS = {
     "banded_resample": ("banded_resample_kernel",),
     "window_fft_mag_long": ("long_columns_kernel", "long_rows_kernel"),
     "window_fft_mag_cluster": ("window_fft_mag_cluster_kernel",),
+    "peak_hold": ("peak_hold_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -1413,17 +1449,10 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
     launches_out["banded_resample"] = total
     calls_out["banded_resample"] = 3 * OSC_CALLS  # three configurations
 
-    # information only: one ENVELOPE_HOLD call (its trigger is a Python
-    # loop over the 2048-sample pow2 bucket of the new samples)
-    hold = OscilloscopeProcessor.create(
-        pairs=PAIRS, device=dev, window_samples=OSC_WINDOW,
-        **osc_kwargs(trigger_mode=TriggerMode.ENVELOPE_HOLD),
-    )
-    report["envelope_hold_ms_per_call"] = call_ms(
-        torch, lambda: hold.process(calls[0], new_samples=OSC_HOP), reps=1
-    )
+    # cfg3 with the ENVELOPE_HOLD trigger: kernel D's main path
+    report["envelope_hold"], hold_call = envelope_hold_calls(torch, dev, calls, launches_out, calls_out)
     info(report)
-    return cfg3_proc, calls[0]
+    return cfg3_proc, calls[0], hold_call
 
 
 # kernel A above one block's rows, timed at 16 pairs x T = 16 frames of the
@@ -2259,6 +2288,47 @@ def phase_session(torch, dev, launches_out, calls_out):
         session_equal(session_host(restored.tick()), before[i], f"restored session tick {i}")
     restored.close()
 
+    # the factory preset `peak trigger.oscilloscope` (the ENVELOPE_HOLD
+    # trigger: kernel D once a tick), against the same session on the CPU
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+    from signalizer_tpu_torch.views.oscilloscope import TriggerMode
+
+    def peak_trigger(eng):
+        require(eng.load_preset("peak trigger.oscilloscope"), "no factory preset peak trigger.oscilloscope")
+        eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform, as session_open sets it
+
+    pk, pk_cpu = session_open(dev, knobs=peak_trigger), session_open("cpu", knobs=peak_trigger)
+    require(pk.processor("oscilloscope").trigger_mode == TriggerMode.ENVELOPE_HOLD,
+            "peak trigger: the preset's trigger is not ENVELOPE_HOLD")
+    # the card session's ticks first, timed with nothing else in the loop;
+    # then the CPU session's on the same blocks
+    pk_ms, pk_frames, pk_worst, pk_found = [], [], {}, 0
+    ph.launches = 0
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(pk, blocks, i)
+        t0 = time.perf_counter()
+        got = pk.tick()
+        torch.cuda.synchronize()
+        pk_ms.append((time.perf_counter() - t0) * 1e3)
+        pk_frames.append(session_host(got))
+        pk_found += int(got.oscilloscope.trigger_found.any())
+    pk_launches = ph.launches
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(pk_cpu, blocks, i)
+        err = session_errors(pk_frames[i], session_host(pk_cpu.tick()))
+        for k, v in err.items():
+            pk_worst[k] = (pk_worst.get(k, True) and v) if k == "trigger_equal" else max(pk_worst.get(k, 0.0), v)
+    require(pk_launches == SESSION_SIDE_TICKS,
+            f"peak trigger: kernel D launched {pk_launches} times in {SESSION_SIDE_TICKS} ticks")
+    require(all(v <= 1.0 for k, v in pk_worst.items() if k != "trigger_equal") and pk_worst["trigger_equal"],
+            f"peak trigger session vs CPU: {pk_worst}")
+    require(pk_found > 0, "peak trigger: no tick found a trigger")
+    require(pk.engine.diagnostics.counters["session.failures"] == 0, "peak trigger: a view failed")
+    launches_out["peak_hold"] = launches_out.get("peak_hold", 0) + pk_launches
+    calls_out["peak_hold"] = calls_out.get("peak_hold", 0) + SESSION_SIDE_TICKS
+    pk_spread = {"p50": float(np.percentile(pk_ms[4:], 50)), "p99": float(np.percentile(pk_ms[4:], 99))}
+    pk_cpu.close()
+
     def spread(v):
         v = v[10:]
         return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
@@ -2276,6 +2346,19 @@ def phase_session(torch, dev, launches_out, calls_out):
         for _ in range(10):
             tick()
         torch.cuda.synchronize()
+
+    # the `peak trigger` session's ticks for the profile phase, on the
+    # blocks after those it was checked on
+    pk_block = {"i": SESSION_SIDE_TICKS}
+
+    def peak_trigger_tick():
+        session_feed(pk, blocks, pk_block["i"])
+        pk_block["i"] += 1
+        return pk.tick()
+
+    def close():
+        pk.close()
+        s.close()
 
     tick_kernels_us, tick_launches, _, tick_attempts = profiled(ten_ticks, 10)
     require(sum(tick_kernels_us.values()) > 0, "session: the profiler saw no device time")
@@ -2301,6 +2384,8 @@ def phase_session(torch, dev, launches_out, calls_out):
                  "display_linear_err_of_peak": rsnt_err["display"], "bank_err_of_peak": rsnt_err["bank"]},
         "trigger_reconfigure": {"ticks": SESSION_SIDE_TICKS, "vectorscope_windows": sorted(set(windows))},
         "restored_equal": True,
+        "peak_trigger": {"ticks": SESSION_SIDE_TICKS, "tick_ms": pk_spread, "peak_hold_launches": pk_launches,
+                         "ticks_found": pk_found, "cpu_err_in_tolerances": pk_worst},
     }
     info(report)
     require(all(v <= 1.0 for k, v in worst.items() if k != "trigger_equal") and worst["trigger_equal"],
@@ -2311,12 +2396,558 @@ def phase_session(torch, dev, launches_out, calls_out):
     # at the faintest pixels (a pixel 80 dB down moves by 0.02 dB)
     require(rsnt_err["bank"] <= 2e-6 and rsnt_err["display"] <= 1e-5, f"RSNT vs CPU: {rsnt_err}")
 
-    return tick, s.close
+    return tick, peak_trigger_tick, close
 
 
-def device_kernels(prof, calls: int):
+# kernel D, the envelope-hold scan: the cases it is held to its plain loop
+# at (rows, W, samples consumed, hysteresis), three calls each with the
+# state carried; the first is the oscilloscope step's at cfg3 (a 1600-sample
+# tick in its 2048-sample bucket), the second the whole lookahead
+HOLD_CASES = [
+    ("cfg3_tick", PAIRS, 2048, OSC_HOP, 0.5),
+    ("cfg3_lookahead", PAIRS, 8192, 8192, 0.5),
+    ("rows1_w1", 1, 1, 1, 0.0),
+    ("rows33_w1600", 33, 1600, 1600, 0.0),
+    ("rows16_w8192_one", PAIRS, 8192, 1, 0.0),
+    ("rows16_w8192_none", PAIRS, 8192, 0, 0.5),
+]
+HOLD_CALLS = 3
+# the serial chain's estimate: a subtract, a compare and a select a sample,
+# each waiting on the last sample's state
+HOLD_CYCLES_PER_SAMPLE = 16
+FRAME_MS = 1000.0 / 60.0
+
+
+def hold_rows(torch, rows, w, seed, dev):
+    """Noise under a slow envelope of random phase a row: rises and falls."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(w)
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * t / max(w / 3.0, 7.0) + rng.uniform(0, 6.3, (rows, 1)))
+    return torch.tensor((env * rng.standard_normal((rows, w))).astype(np.float32), device=dev)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def phase_kernel_d(torch, dev, results):
+    """Kernel D against its plain loop on the same CUDA tensors, bit for
+    bit (fires, state, holding), at HOLD_CASES, a NaN sample, a fall at
+    sample 0, and with device scalars and a device mask; timed at cfg3's
+    tick and lookahead beside the loop, its bound and the chain estimate."""
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    def state_err(a, b) -> float:
+        """Largest |a - b|: 0 where both are NaN, inf where only one is."""
+        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+        diff = (a - b).abs().masked_fill(nan_a & nan_b, 0.0).masked_fill(nan_a ^ nan_b, float("inf"))
+        return float(diff.max()) if diff.numel() else 0.0
+
+    # the largest state error and the mismatched fire and holding bytes,
+    # over every case held below
+    worst = {"state_max_abs_err": 0.0, "fire_mismatches": 0, "holding_mismatches": 0}
+
+    def both(what, x, thr, hyst, state, holding, **kw):
+        got = ph.peak_hold_triggers(x, thr, hyst, state, holding, **kw)
+        want = ph.peak_hold_triggers_plain(x, thr, hyst, state, holding, **kw)
+        torch.cuda.synchronize()
+        err = {"state_max_abs_err": state_err(got[1], want[1]),
+               "fire_mismatches": int((got[0] != want[0]).sum()),
+               "holding_mismatches": int((got[2] != want[2]).sum())}
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+        require(err["fire_mismatches"] == 0, f"kernel D {what}: fires differ from the loop: {err}")
+        require(err["state_max_abs_err"] == 0.0, f"kernel D {what}: state differs from the loop: {err}")
+        require(err["holding_mismatches"] == 0, f"kernel D {what}: holding differs from the loop: {err}")
+        return got
+
+    clock = max_sm_clock_hz()
+    report = {"phase": "kernel_d", "bound": "fires, state and holding bit-equal to the plain loop (NaN where it is NaN)",
+              "max_sm_clock_mhz": clock / 1e6, "cases": {}}
+    thr = 0.1
+    for name, rows, w, consumed, hyst in HOLD_CASES:
+        state = torch.full((rows,), thr * thr, device=dev)
+        holding = torch.zeros((rows,), dtype=torch.bool, device=dev)
+        fired = 0
+        for call in range(HOLD_CALLS):
+            x = hold_rows(torch, rows, w, 100 * rows + call, dev)
+            fires, state, holding = both(f"{name} call {call}", x, thr, hyst, state, holding, first=w - consumed)
+            fired += int(fires.sum())
+        require(consumed < 1600 or fired > 0, f"kernel D {name}: no fire in {HOLD_CALLS} calls")
+        report["cases"][name] = {"rows": rows, "W": w, "consumed": consumed, "hysteresis": hyst, "fires": fired}
+    # a NaN sample, a row of NaN, a held peak falling at sample 0 (the
+    # boundary clamp), device scalars over rows strided out of a history,
+    # a device mask that is not a suffix
+    x = hold_rows(torch, 4, 1600, 11, dev)
+    x[1, 700] = float("nan")
+    x[2] = float("nan")
+    _, st, _ = both("nan", x, thr, 0.5, torch.full((4,), 0.01, device=dev), torch.zeros(4, dtype=torch.bool, device=dev))
+    require(bool(torch.isnan(st[2])), "kernel D: a row of NaN leaves a NaN state")
+    y = torch.full((3, 1600), 0.05, device=dev)
+    fires, _, _ = both("fall at sample 0", y, thr, 0.0, torch.full((3,), 4.0, device=dev),
+                       torch.ones(3, dtype=torch.bool, device=dev))
+    require(bool(fires[:, 0].all()), "kernel D: a fall at sample 0 fires at sample 0")
+    hist = hold_rows(torch, 2 * PAIRS, 8192, 7, dev).reshape(PAIRS, 2, 8192)
+    region = hist[:, 1, 8192 - 2048:]
+    thr_t, hyst_t = torch.tensor(0.2, device=dev), torch.tensor(0.25, device=dev)
+    st0, hold0 = torch.square(thr_t).expand(PAIRS).clone(), torch.zeros(PAIRS, dtype=torch.bool, device=dev)
+    both("device scalars, strided rows", region, thr_t, hyst_t, st0, hold0, first=2048 - OSC_HOP)
+    mask = torch.from_numpy(np.random.default_rng(3).random(2048) < 0.7).to(dev)
+    both("device mask", region, thr_t, hyst_t, st0, hold0, valid=mask)
+
+    # timed: the oscilloscope step's tick (16 rows, 1600 of 2048 consumed)
+    # and the whole lookahead (16 x 8192)
+    timed = {}
+    for name, rows, w, consumed in (("cfg3_tick", PAIRS, 2048, OSC_HOP), ("cfg3_lookahead", PAIRS, 8192, 8192)):
+        x = hold_rows(torch, rows, w, 5, dev)
+        st, hold = torch.full((rows,), thr * thr, device=dev), torch.zeros(rows, dtype=torch.bool, device=dev)
+        ms = median_ms(torch, lambda: ph.peak_hold_triggers(x, thr, 0.5, st, hold, first=w - consumed))
+        plain_ms = call_ms(torch, lambda: ph.peak_hold_triggers_plain(x, thr, 0.5, st, hold, first=w - consumed),
+                           reps=1)
+        moved = rows * consumed * 4 + rows * w + 2 * rows * (4 + 1)  # the span read, fire bytes, state in and out
+        flops = rows * consumed * 7.0
+        chain_us = consumed * HOLD_CYCLES_PER_SAMPLE / clock * 1e6
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, chain_estimate_us=chain_us, **roofline(moved, flops))
+    report["timed"] = timed
+    report["measured_err"] = worst
+    info(report)
+    tick = timed["cfg3_tick"]
+    results["peak_hold"] = dict(
+        max_abs_err=worst["state_max_abs_err"], fire_mismatches=worst["fire_mismatches"],
+        holding_mismatches=worst["holding_mismatches"], ms=tick["ms"], plain_ms=tick["plain_ms"], bound_ms=tick["bound_ms"],
+        bound_by=tick["bound_by"], library_ms=None, chain_estimate_us=tick["chain_estimate_us"],
+        lookahead_ms=timed["cfg3_lookahead"]["ms"],
+        lookahead_chain_estimate_us=timed["cfg3_lookahead"]["chain_estimate_us"],
+        lookahead_bound_ms=timed["cfg3_lookahead"]["bound_ms"],
+    )
+
+
+@contextlib.contextmanager
+def plain_peak_hold():
+    """Route the oscilloscope step's envelope-hold trigger to kernel D's
+    plain loop: the path each ENVELOPE_HOLD call is held to."""
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+    from signalizer_tpu_torch.views import oscilloscope as tv
+
+    tv.peak_hold_triggers = ph.peak_hold_triggers_plain
+    try:
+        yield
+    finally:
+        tv.peak_hold_triggers = ph.peak_hold_triggers
+
+
+def envelope_hold_calls(torch, dev, calls, launches_out, calls_out):
+    """cfg3 with the ENVELOPE_HOLD trigger (16 pairs, 96 kHz, a 1600-sample
+    tick): OSC_CALLS calls, each held to the same step with the plain loop
+    (every frame field and the fire queue bit-equal), kernel D launched
+    once a call; the call timed, under one 60 fps frame."""
+    from signalizer_tpu_torch import OscilloscopeProcessor, TriggerMode
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    kw = dict(pairs=PAIRS, device=dev, window_samples=OSC_WINDOW,
+              **osc_kwargs(trigger_mode=TriggerMode.ENVELOPE_HOLD, trigger_hysteresis=0.3))
+    hold, loop = OscilloscopeProcessor.create(**kw), OscilloscopeProcessor.create(**kw)
+    found = []
+    ph.launches = 0
+    for h in calls:
+        frame = hold.process(h, new_samples=OSC_HOP)
+        launched = ph.launches
+        with plain_peak_hold():
+            want = loop.process(h, new_samples=OSC_HOP)
+        ph.launches = launched
+        torch.cuda.synchronize()
+        for key in ("waveform", "envelope_min", "envelope_max", "colours", "gain", "trigger_found"):
+            require(torch.equal(getattr(frame, key), getattr(want, key)), f"ENVELOPE_HOLD {key} vs the loop")
+        require(torch.equal(hold.state.peak_fire_ages, loop.state.peak_fire_ages), "ENVELOPE_HOLD fire queue")
+        found.append(int(frame.trigger_found.sum()))
+    launches = ph.launches
+    require(launches == OSC_CALLS, f"ENVELOPE_HOLD: kernel D launched {launches} times in {OSC_CALLS} calls")
+    launches_out["peak_hold"] = launches_out.get("peak_hold", 0) + launches
+    calls_out["peak_hold"] = calls_out.get("peak_hold", 0) + OSC_CALLS
+    ms = call_ms(torch, lambda: hold.process(calls[0], new_samples=OSC_HOP))
+    with plain_peak_hold():
+        loop_ms = call_ms(torch, lambda: loop.process(calls[0], new_samples=OSC_HOP), reps=1)
+    require(ms < FRAME_MS, f"ENVELOPE_HOLD cfg3 call takes {ms} ms, over a {FRAME_MS:.1f} ms frame")
+    return {"calls": OSC_CALLS, "launches": launches, "pairs_found_per_call": found, "ms_per_call": ms,
+            "loop_ms_per_call": loop_ms}, lambda: hold.process(calls[0], new_samples=OSC_HOP)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device pipeline on one card
+# ---------------------------------------------------------------------------
+
+PIPE_TICKS = 3
+PIPE_FIELDS = ("results", "waveform", "envelope_min", "envelope_max", "correlation")
+CFG5_FS = 192_000.0
+CFG5_PAIRS = 4
+CFG5_T = 128
+
+
+@contextlib.contextmanager
+def plain_spectrum():
+    """Route analyze_frames to kernels A and B's plain versions."""
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+
+    kernels = ts.window_fft_mag, ts.display_map
+    ts.window_fft_mag, ts.display_map = wfm.window_fft_mag_plain, dm.display_map_plain
+    try:
+        yield
+    finally:
+        ts.window_fft_mag, ts.display_map = kernels
+
+
+def pipe_audio(rng, channels: int, n: int, fs: float) -> np.ndarray:
+    """Each pair a sine (its own frequency, both channels) in noise."""
+    t = np.arange(n) / fs
+    hz = np.repeat(np.geomspace(300.0, 0.2 * fs, channels // 2), 2)[:, None]
+    x = 0.5 * np.sin(2 * np.pi * hz * t) + 0.01 * rng.standard_normal((channels, n))
+    return x.astype(np.float32)
+
+
+def phase_pipeline(torch, dev, launches_out, calls_out):
+    """ShardedAnalysisPipeline on a one-GPU mesh, fed by push: the fused view
+    at cfg5 (bench.py:994-1050: a 4096-point SEPARATE spectrum at 192 kHz,
+    LINEAR, a LOGARITHMIC axis of 1024 px; 4 pairs x 128 frames; 1024 px),
+    and the spectrum (headline: 16 pairs x 128 frames), spectrogram (cfg4:
+    16384 points, T = 512), oscilloscope (cfg3: a 1600-sample tick) and
+    vectorscope (cfg2: 256 pairs x 4096, an 800-sample tick)
+    views, three ticks each. Each tick's step is held against the same step
+    built from the plain versions of its kernels, on the tensors the tick
+    uploaded (the vectorscope, which has no kernel, against the pipeline on
+    the CPU); launches, ms a tick (host clock to a synchronize) and the
+    device's busy share over one profiled tick."""
+    from signalizer_tpu_torch import DisplayMode, SpectrumChannels
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+    from signalizer_tpu_torch.kernels.oscilloscope import sinc_resample_matrix
+    from signalizer_tpu_torch.kernels.vectorscope import init_meter_state
+    from signalizer_tpu_torch.parallel import mesh as pm
+    from signalizer_tpu_torch.parallel.pipeline import ShardedAnalysisPipeline
+    from signalizer_tpu_torch.views.oscilloscope import init_oscilloscope_state, make_oscilloscope_constant
+
+    mesh = pm.make_analysis_mesh(1)
+    require(mesh == [dev], f"pipeline: the one-GPU mesh is {mesh}")
+    rng = np.random.default_rng(2031)
+    counters = {"window_fft_mag": (wfm, "launches"), "display_map": (dm, "launches"),
+                "banded_resample": (br, "launches")}
+    report = {"phase": "pipeline", "mesh": [str(d) for d in mesh], "ticks": PIPE_TICKS, "views": {}}
+
+    def drive(name, pipe, feed, check, expect):
+        """PIPE_TICKS ticks of ``pipe``; each uploaded batch captured for the
+        plain step; the kernels' counts from just before each tick to just
+        after; then a tick with its synchronizing operations counted (and
+        where each comes from), and one under the profiler."""
+        captured = {}
+        upload = pipe._upload
+
+        def capture(host):
+            captured["x"] = upload(host)
+            return captured["x"]
+
+        pipe._upload = capture
+        launched = dict.fromkeys(counters, 0)
+        ms = []
+        for i in range(PIPE_TICKS):
+            feed(i)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            out = pipe.tick()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k, (mod, attr) in counters.items():
+                launched[k] += getattr(mod, attr)
+            require(out is not None, f"pipeline {name}: tick {i} ran no step")
+            check(i, out, captured["x"])
+        for k, n in launched.items():
+            require(n == expect.get(k, 0) * PIPE_TICKS,
+                    f"pipeline {name}: {k} launched {n} times in {PIPE_TICKS} ticks, not {expect.get(k, 0)} a tick")
+            if n:
+                launches_out[k] = launches_out.get(k, 0) + n
+                calls_out[k] = calls_out.get(k, 0) + PIPE_TICKS
+        feed(PIPE_TICKS)
+        with SyncCounter(torch) as sc:
+            pipe.tick()
+        torch.cuda.synchronize()
+        feed(PIPE_TICKS + 1)
+        kernels_us, _, _, attempts = profiled(lambda: (pipe.tick(), torch.cuda.synchronize()), 1)
+        device_us = sum(kernels_us.values())
+        require(device_us > 0, f"pipeline {name}: the profiler saw no device time")
+        report["views"][name] = {"launches_per_tick": {k: v / PIPE_TICKS for k, v in launched.items() if v},
+                                 "ms_per_tick": ms, "device_us_profiled_tick": device_us,
+                                 "busy_share": device_us / 1e3 / statistics.median(ms),
+                                 "syncs_per_tick": sc.count, "sync_sites": dict(sc.sites),
+                                 "profile_attempts": attempts}
+        return report["views"][name]
+
+    # --- fused at cfg5 --------------------------------------------------
+    c5 = make_spectrum_constant(device=dev, **headline(sample_rate=CFG5_FS))
+    fused = ShardedAnalysisPipeline(c5, pairs=CFG5_PAIRS, mesh=mesh, view="fused", pixels=AXIS_POINTS,
+                                    frames_per_tick=CFG5_T)
+    plain_step = pm.sharded_fused_step(c5, sinc_resample_matrix(WINDOW, 0.0, WINDOW / AXIS_POINTS, AXIS_POINTS,
+                                                                device=dev), mesh, pixels=AXIS_POINTS)
+    plain = {"state": pm.init_sharded_state(c5, CFG5_PAIRS, mesh), "v": init_meter_state((CFG5_PAIRS,), device=dev)}
+    worst = {"results": 0.0}
+
+    def fused_check(i, out, x):
+        with plain_spectrum():
+            want = plain_step(plain["state"], plain["v"], x, None)
+        plain["state"], plain["v"] = want[5], want[6]
+        torch.cuda.synchronize()
+        require(tuple(out.results.shape) == (CFG5_PAIRS, CFG5_T, 2, 2, AXIS_POINTS), "cfg5 results shape")
+        require(tuple(out.waveform.shape) == (CFG5_PAIRS, CFG5_T, AXIS_POINTS), "cfg5 waveform shape")
+        for name, got in zip(PIPE_FIELDS, out[:5]):
+            require(bool(torch.isfinite(got).all()), f"cfg5 tick {i}: {name} not finite")
+        err = float((out.results - want[0]).abs().max())
+        require(err <= 2e-4, f"cfg5 tick {i}: results vs plain {err} > 2e-4")
+        worst["results"] = max(worst["results"], err)
+        for k, name in ((1, "waveform"), (2, "envelope_min"), (3, "envelope_max"), (4, "correlation")):
+            require(torch.equal(out[k], want[k]), f"cfg5 tick {i}: {name} vs plain")
+        for a, b in zip(fused.meter_state, want[6]):
+            require(torch.equal(a, b), f"cfg5 tick {i}: meters vs plain")
+        require(abs(float(out.global_peak) - float(want[7])) <= 2e-4, f"cfg5 tick {i}: global peak")
+
+    hop5 = WINDOW * CFG5_T
+    fused_report = drive("fused_cfg5", fused,
+                         lambda i: fused.push(pipe_audio(rng, 2 * CFG5_PAIRS, hop5, CFG5_FS)),
+                         fused_check, {"window_fft_mag": 1, "display_map": 1})
+    fused_report["results_max_abs_err_vs_plain"] = worst["results"]
+    fused_report["frames_per_s"] = CFG5_PAIRS * CFG5_T / (statistics.median(fused_report["ms_per_tick"]) / 1e3)
+
+    # --- spectrum at the headline geometry -------------------------------
+    # (frames a window apart: the batcher holds max(4 W, hop (T + 2))
+    # samples, less than the hop (T - 1) + W a batch spans at hop 800, so a
+    # hop-800 batch of 128 would lose its first frames)
+    c = make_spectrum_constant(device=dev, **headline())
+    spec = ShardedAnalysisPipeline(c, pairs=PAIRS, mesh=mesh, view="spectrum", frames_per_tick=T)
+    spec_plain = {"state": pm.init_sharded_state(c, PAIRS, mesh)}
+    plain_spec_step = pm.sharded_spectrum_step(c, mesh)
+
+    def spec_check(i, out, x):
+        with plain_spectrum():
+            want, spec_plain["state"], peak = plain_spec_step(spec_plain["state"], x, None)
+        err = float((out.results - want).abs().max())
+        require(err <= 2e-4, f"spectrum pipeline tick {i}: results vs plain {err} > 2e-4")
+
+    drive("spectrum", spec, lambda i: spec.push(pipe_audio(rng, 2 * PAIRS, WINDOW * T, FS)), spec_check,
+          {"window_fft_mag": 1, "display_map": 1})
+
+    # --- spectrogram at cfg4 ------------------------------------------------
+    c4 = make_spectrum_constant(device=dev, **headline(window_size=16384, configuration=SpectrumChannels.LEFT,
+                                                       display_mode=DisplayMode.COLOUR_SPECTRUM))
+    t4 = 512
+    sg = ShardedAnalysisPipeline(c4, pairs=1, mesh=mesh, view="spectrogram", frames_per_tick=t4)
+    sg_plain = {"state": pm.init_sharded_state(c4, 1, mesh)}
+    plain_sg_step = pm.sharded_spectrogram_step(c4, mesh)
+
+    def sg_check(i, out, x):
+        with plain_spectrum():
+            want, sg_plain["state"] = plain_sg_step(sg_plain["state"], x, sg._colours, sg._ratios, None)
+        diff = (out.columns.to(torch.int16) - want.to(torch.int16)).abs()
+        require(tuple(out.columns.shape) == (t4, AXIS_POINTS, 4), f"spectrogram pipeline columns {out.columns.shape}")
+        require(int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3,
+                f"spectrogram pipeline tick {i}: columns vs plain differ by {int(diff.max())}")
+
+    drive("spectrogram_cfg4", sg, lambda i: sg.push(pipe_audio(rng, 2, 16384 * t4, FS)), sg_check,
+          {"window_fft_mag": 1, "display_map": 1})
+
+    # --- oscilloscope at cfg3 ------------------------------------------------
+    oc = make_oscilloscope_constant(device=dev, **osc_kwargs())
+    osc = ShardedAnalysisPipeline(pairs=PAIRS, mesh=mesh, view="oscilloscope", osc_constant=oc,
+                                  window_samples=OSC_WINDOW, history_samples=OSC_HISTORY)
+    osc_plain = {"state": init_oscilloscope_state(oc, PAIRS)}
+    plain_osc_step = pm.sharded_oscilloscope_step(oc, mesh, pairs=PAIRS)
+
+    def osc_check(i, out, x):
+        with plain_resample():
+            new = OSC_HISTORY if i == 0 else OSC_HOP  # what the pipeline saw arrive
+            want, osc_plain["state"], level = plain_osc_step(osc_plain["state"], x, OSC_WINDOW, 0.0, new)
+        got = out.frame
+        scale = float(x.abs().max()) * max(1.0, float(got.gain.max()))
+        err = float((got.waveform - want.waveform).abs().max())
+        require(err <= 1e-5 * scale, f"oscilloscope pipeline tick {i}: waveform vs plain {err}")
+        for key in ("envelope_min", "envelope_max", "trigger_found"):
+            require(torch.equal(getattr(got, key), getattr(want, key)), f"oscilloscope pipeline tick {i}: {key}")
+        require(bool(got.trigger_found.all()), f"oscilloscope pipeline tick {i}: a pair found no trigger")
+
+    osc.push(pipe_audio(rng, 2 * PAIRS, OSC_HISTORY - OSC_HOP, OSC_FS))
+    # two launches a tick: the step takes no envelope oversampling from the
+    # pipeline, so the envelope's nearest pick (3 a pixel at 16384 samples
+    # over 8192 px) is a launch of its own beside the Lanczos resample
+    drive("oscilloscope_cfg3", osc, lambda i: osc.push(pipe_audio(rng, 2 * PAIRS, OSC_HOP, OSC_FS)), osc_check,
+          {"banded_resample": 2})
+
+    # --- vectorscope at cfg2, against the CPU ----------------------------------
+    streams, vw = 256, 4096
+    vs = ShardedAnalysisPipeline(pairs=streams, mesh=mesh, view="vectorscope", history_samples=vw)
+    vs_cpu = ShardedAnalysisPipeline(pairs=streams, mesh=["cpu"], view="vectorscope", history_samples=vw)
+    vs_audio = {}
+
+    def vs_feed(i):
+        vs_audio[i] = pipe_audio(rng, 2 * streams, vw if i == 0 else HOP, FS)
+        vs.push(vs_audio[i])
+        vs_cpu.push(vs_audio[i])
+
+    def vs_check(i, out, x):
+        want = vs_cpu.tick().frame
+        got = out.frame
+        gain = max(1.0, float(want.gain.abs().max()))
+        err = float((got.vertices.cpu() - want.vertices).abs().max())
+        require(err <= 2e-6 * gain, f"vectorscope pipeline tick {i}: vertices vs CPU {err}")
+        for key in ("balance", "correlation_bars"):
+            e = float((getattr(got, key).cpu() - getattr(want, key)).abs().max())
+            require(e <= 2e-6, f"vectorscope pipeline tick {i}: {key} vs CPU {e}")
+
+    drive("vectorscope_cfg2", vs, vs_feed, vs_check, {})
+    info(report)
+    block = pipe_audio(rng, 2 * CFG5_PAIRS, hop5, CFG5_FS)
+    return lambda: (fused.push(block), fused.tick())
+
+
+# ---------------------------------------------------------------------------
+# the front ends: the CLI and the editor
+# ---------------------------------------------------------------------------
+
+CLI_FILES = 4
+CLI_SECONDS = 1.0
+
+
+def phase_front_ends(torch, dev, launches_out, calls_out):
+    """``python -m signalizer_tpu_torch analyze-batch`` on 4 seeded WAV files
+    the phase writes (a process of its own), and ``analyze --npz`` on one of
+    them in this process (kernels A, B and C counted); then an EditorShell on
+    localhost at the factory default preset, one payload of each view and
+    the spectrogram PNG over HTTP."""
+    import shutil
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    from scipy.io import wavfile
+
+    from signalizer_tpu_torch.__main__ import main as cli
+    from signalizer_tpu_torch.editor import EditorShell
+    from signalizer_tpu_torch.engine import SignalizerEngine
+    from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+    from signalizer_tpu_torch.session import AnalysisSession
+    from signalizer_tpu_torch.stream.audio_stream import Playhead
+
+    report = {"phase": "front_ends"}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        rng = np.random.default_rng(2032)
+        n = int(FS * CLI_SECONDS)
+        files = []
+        for i in range(CLI_FILES):
+            t = np.arange(n) / FS
+            x = np.stack([0.5 * np.sin(2 * np.pi * 440.0 * (i + 1) * t), 0.3 * np.sin(2 * np.pi * 660.0 * (i + 1) * t)])
+            files.append(work / f"in{i}.wav")
+            wavfile.write(files[-1], int(FS), (x + 0.01 * rng.standard_normal(x.shape)).T.astype(np.float32))
+        repo = Path(__file__).resolve().parent
+        env = dict(__import__("os").environ, PYTHONPATH=str(repo))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "signalizer_tpu_torch", "analyze-batch", *map(str, files),
+                               "--out", str(work / "batch")], capture_output=True, text=True, env=env, cwd=work,
+                              timeout=300)
+        batch_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"analyze-batch exited {proc.returncode}: {proc.stderr[-2000:]}")
+        # the PNG renders need matplotlib, which a machine may lack: the CLI
+        # then writes none and says so
+        try:
+            import matplotlib  # noqa: F401
+            drawn = CLI_FILES
+        except ImportError:
+            drawn = 0
+            require("matplotlib is not installed" in proc.stderr, f"analyze-batch stderr: {proc.stderr[-500:]}")
+        renders = sorted(p.name for p in (work / "batch").glob("*.spectrum.png"))
+        require(len(renders) == drawn, f"analyze-batch wrote {renders}")
+        balances = [ln.split("balance")[-1].strip() for ln in proc.stdout.splitlines() if "balance" in ln]
+        require(len(balances) == CLI_FILES, f"analyze-batch printed {proc.stdout}")
+        report["analyze_batch"] = {"files": CLI_FILES, "seconds_each": CLI_SECONDS, "wall_s": batch_s,
+                                   "balances": balances, "renders": len(renders)}
+
+        for mod, attr in (wfm, "launches"), (dm, "launches"), (br, "launches"):
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        require(cli(["analyze", str(files[0]), "--out", str(work / "one"), "--npz"]) == 0, "analyze failed")
+        analyze_s = time.perf_counter() - t0
+        counts = {"window_fft_mag": wfm.launches, "display_map": dm.launches, "banded_resample": br.launches}
+        require(all(v > 0 for v in counts.values()), f"analyze: kernel launches {counts}")
+        arrays = np.load(work / "one" / "in0.arrays.npz")
+        require(sorted(arrays.files) == ["spectrogram", "spectrum", "vertices", "waveform"], f"npz {arrays.files}")
+        pngs = sorted(p.name for p in (work / "one").glob("*.png"))
+        require(len(pngs) == (4 if drawn else 0), f"analyze wrote {pngs}")
+        for k in ("spectrum", "waveform", "vertices"):
+            require(bool(np.isfinite(arrays[k]).all()), f"analyze npz {k} not finite")
+        report["analyze"] = {"wall_s": analyze_s, "launches": counts,
+                             "arrays": {k: list(arrays[k].shape) for k in arrays.files},
+                             "outputs": sorted(p.name for p in (work / "one").iterdir())}
+        for k, v in counts.items():
+            launches_out[k] = launches_out.get(k, 0) + v
+            calls_out[k] = calls_out.get(k, 0) + 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the editor at the factory default preset, on the card
+    eng = SignalizerEngine("editor", device=dev)
+    eng.editor_settings.refresh_rate_ms = 30.0
+    sess = AnalysisSession(eng, axis_points=AXIS_POINTS, pixels=AXIS_POINTS)
+    clock = {"t": 0}
+
+    def source(n):
+        i = np.arange(clock["t"], clock["t"] + n)
+        clock["t"] += n
+        x = 0.5 * np.sin(2 * np.pi * SESSION_HZ[0] * i / FS)
+        return np.stack([x, 0.7 * x]).astype(np.float32)
+
+    shell = EditorShell(sess, source=source, playhead=Playhead(bpm=120.0, is_playing=True), device=dev)
+    shell.start()
+    try:
+        def get(path):
+            with urllib.request.urlopen(shell.url.rstrip("/") + path, timeout=60) as r:
+                return r.read()
+
+        deadline = time.time() + 60
+        while json.loads(get("/api/state"))["ticks"] < 3 and time.time() < deadline:
+            time.sleep(0.05)
+        state = json.loads(get("/api/state"))
+        require(state["ticks"] >= 3, f"editor: {state['ticks']} ticks in 60 s")
+        payloads = {}
+        for view in ("spectrum", "oscilloscope", "vectorscope", "spectrogram"):
+            t0 = time.perf_counter()
+            body = get(f"/api/frame/{view}")
+            p = json.loads(body)
+            require(p.get("ready"), f"editor: {view} payload not ready")
+            payloads[view] = {"bytes": len(body), "ms": (time.perf_counter() - t0) * 1e3}
+        spec = json.loads(get("/api/frame/spectrum"))
+        require(len(spec["strips"][0]["y"]) == AXIS_POINTS, "editor: spectrum strip width")
+        osc = json.loads(get("/api/frame/oscilloscope"))
+        require(osc["shape"][-1] == AXIS_POINTS and np.isfinite(np.asarray(osc["waveform"])).all(),
+                "editor: oscilloscope payload")
+        png = get("/api/spectrogram.png")
+        require(png[:8] == b"\x89PNG\r\n\x1a\n", "editor: spectrogram PNG")
+        report["editor"] = {"ticks": state["ticks"], "payloads": payloads, "png_bytes": len(png),
+                            "diagnostics": state["diagnostics"]}
+        require(eng.diagnostics.counters["session.failures"] == 0, "editor: a view failed")
+    finally:
+        shell.stop()
+        sess.close()
+        eng.close()
+    info(report)
+
+
+def device_kernels(prof, calls: int, counts=None):
     """Device µs a call by kernel name, and the kernels launched, from a
-    ``torch.profiler`` run over ``calls`` calls."""
+    ``torch.profiler`` run over ``calls`` calls; ``counts``, where given,
+    gets the launches a call by kernel name."""
     from torch.autograd import DeviceType
 
     kernels_us = {}
@@ -2336,15 +2967,18 @@ def device_kernels(prof, calls: int):
                 kernel = kernel.split("<")[0]  # one name per kernel, whatever its template arguments
             kernel = kernel.split("(")[0][:80]
             kernels_us[kernel] = kernels_us.get(kernel, 0.0) + us / calls
+            if counts is not None:
+                counts[kernel] = counts.get(kernel, 0.0) + evt.count / calls
     return kernels_us, launched
 
 
 PROFILE_ATTEMPTS = 3
 
 
-def profiled(run, calls: int):
+def profiled(run, calls: int, counts=None):
     """``run()`` under ``torch.profiler``: device µs a call by kernel name,
-    the kernels launched, what ``run`` returned and the sessions it took.
+    the kernels launched, what ``run`` returned and the sessions it took
+    (``counts`` as for :func:`device_kernels`).
     CUPTI now and then hands a short profiler session no kernel record at
     all; such a session is run again, up to ``PROFILE_ATTEMPTS`` times."""
     from torch.profiler import ProfilerActivity, profile
@@ -2352,44 +2986,66 @@ def profiled(run, calls: int):
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = run()
-        kernels_us, launched = device_kernels(prof, calls)
+        if counts is not None:
+            counts.clear()
+        kernels_us, launched = device_kernels(prof, calls, counts)
         if kernels_us:
             break
     return kernels_us, launched, out, attempt
 
 
-def phase_profile(torch, workloads, calls: int = 20):
+def phase_profile(torch, workloads, calls: int = 20, calls_of=None, detail=()):
     """Device time per kernel and busy share of each workload's call:
     kernel times from ``torch.profiler`` (CUPTI) over ``calls`` calls, host
     wall time from the same calls run without the profiler (which slows
-    the host side)."""
+    the host side). ``calls_of`` names the workloads profiled over fewer
+    calls; the workloads in ``detail`` report every kernel, its µs and its
+    launches a call, and the launches of the last in ``detail`` that the
+    first lacks or has fewer of."""
 
-    def run(fn) -> float:
+    def run(fn, n) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(calls):
+        for _ in range(n):
             fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
-    report = {"phase": "profile", "calls": calls}
+    report = {"phase": "profile", "calls": calls, "calls_of": calls_of or {}}
     for name, fn in workloads:
-        run(fn)  # warm-up
-        wall_us = run(fn)
-        kernels_us, launched, profiled_wall_us, attempts = profiled(lambda: run(fn), calls)
+        n = (calls_of or {}).get(name, calls)
+        run(fn, n)  # warm-up
+        wall_us = run(fn, n)
+        counts = {}
+        kernels_us, launched, profiled_wall_us, attempts = profiled(lambda: run(fn, n), n, counts)
         device_us = sum(kernels_us.values())
         require(device_us > 0, f"profile {name}: the profiler saw no device time")
         top = dict(sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8])
         report[name] = {
-            "wall_us_per_call": wall_us / calls,
-            "profiled_wall_us_per_call": profiled_wall_us / calls,
+            "wall_us_per_call": wall_us / n,
+            "profiled_wall_us_per_call": profiled_wall_us / n,
             "device_us_per_call": device_us,
             "profile_attempts": attempts,
-            "busy_share": device_us * calls / wall_us,
+            "busy_share": device_us * n / wall_us,
             "device_kernels": len(kernels_us),
-            "launches_per_call": launched / calls,
+            "launches_per_call": launched / n,
             "top_kernels_us_per_call": top,
             "own_kernels_us_per_call": {k: kernels_us[k] for k in OWN_DEVICE_FUNCTIONS if k in kernels_us},
+        }
+        if name in detail:
+            report[name]["kernels"] = {k: {"us": kernels_us[k], "launches": counts[k]} for k in kernels_us}
+    if len(detail) > 1:
+        base, other = report[detail[0]]["kernels"], report[detail[-1]]["kernels"]
+        extra = {}
+        for k, v in other.items():
+            b = base.get(k, {"us": 0.0, "launches": 0.0})
+            if v["launches"] > b["launches"] or v["us"] > b["us"] + 1.0:
+                extra[k] = {"launches": v["launches"] - b["launches"], "us": v["us"] - b["us"]}
+        report[f"{detail[-1]}_minus_{detail[0]}"] = {
+            "wall_us_per_call": report[detail[-1]]["wall_us_per_call"] - report[detail[0]]["wall_us_per_call"],
+            "device_us_per_call": report[detail[-1]]["device_us_per_call"] - report[detail[0]]["device_us_per_call"],
+            "launches_per_call": report[detail[-1]]["launches_per_call"] - report[detail[0]]["launches_per_call"],
+            "kernels": extra,
         }
     info(report)
     return report
@@ -2440,18 +3096,22 @@ def main() -> int:
     proc, x, tick = phase_slice(torch, dev, launches, calls)
     halves = phase_halves_slice(torch, dev, proc, x, tick, launches, calls)
     phase_kernel_c(torch, dev, results)
-    osc, history = phase_osc_slice(torch, dev, launches, calls)
+    phase_kernel_d(torch, dev, results)
+    osc, history, hold_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
     resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
-    session_tick, session_close = phase_session(torch, dev, launches, calls)
+    session_tick, peak_trigger_tick, session_close = phase_session(torch, dev, launches, calls)
+    pipeline_tick = phase_pipeline(torch, dev, launches, calls)
+    phase_front_ends(torch, dev, launches, calls)
     profile = phase_profile(torch, [
         ("t128", lambda: proc.process(x)),
         ("t1", lambda: proc.process(tick)),
         ("halves_t128", halves),
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
+        ("osc_envelope_hold", hold_call),
         *resample_routes(torch, history),
         ("vectorscope_cfg2", lambda: scope.process(scope_x)),
         ("spectrogram_cfg4", cfg4_step),
@@ -2463,7 +3123,9 @@ def main() -> int:
         *long_rows,
         ("live_tick", live_tick),
         ("session_tick", session_tick),
-    ])
+        ("session_tick_peak_trigger", peak_trigger_tick),
+        ("pipeline_cfg5_tick", pipeline_tick),
+    ], calls_of={"pipeline_cfg5_tick": 3}, detail=("session_tick", "session_tick_peak_trigger"))
     live_close()
     session_close()
     # device time per launch on the main path: one launch per profiled call
@@ -2477,7 +3139,7 @@ def main() -> int:
     for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
                        ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
-                       ("window_fft_mag_long", "spectrum_n262144")):
+                       ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold")):
         results[name]["profile_us"] = own_us(path, name)
     # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
     # on the same rows (through their C entries), and the live tick's 16 rows

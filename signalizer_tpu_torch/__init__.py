@@ -4,8 +4,9 @@ A second package beside the JAX one: the Spectrum view (FFT path and
 resonator bank), the Oscilloscope, Vectorscope and Spectrogram views, on
 tensors on one explicit device, carried by CUDA
 kernels written for Hopper (``csrc/``) with plain PyTorch versions beside
-them, the live ingest path that feeds them from an audio stream, and the
-engine and session a user drives (``SignalizerEngine``, ``AnalysisSession``). It
+them, the live ingest path that feeds them from an audio stream, the
+engine and session a user drives (``SignalizerEngine``, ``AnalysisSession``),
+the multi-device pipeline and the front ends (CLI, editor, renderers, api). It
 imports no jax and nothing of the JAX package: the enums, windows,
 decay-pole design, parameter layer, colour and axis helpers, tracker,
 presets and host stream layer it shares with that package are its own
@@ -30,6 +31,7 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.kernels.filters`  — biquads, crossover, one-pole smoothers
 * :mod:`signalizer_tpu_torch.kernels.oscilloscope`    — triggers, spectral fundamental, resamples
 * :mod:`signalizer_tpu_torch.kernels.banded_resample` — kernel C wrapper
+* :mod:`signalizer_tpu_torch.kernels.peak_hold`       — kernel D wrapper (the envelope-hold scan)
 * :mod:`signalizer_tpu_torch.views.oscilloscope` — OscilloscopeProcessor
 * :mod:`signalizer_tpu_torch.kernels.vectorscope` — Lissajous/polar transforms, meters, autogain
 * :mod:`signalizer_tpu_torch.views.vectorscope`   — VectorscopeProcessor
@@ -51,6 +53,10 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.engine`              — SignalizerEngine: one instance, its parameters, presets and archives
 * :mod:`signalizer_tpu_torch.session`             — AnalysisSession: one UI tick of every view, fed from the engine
 * :mod:`signalizer_tpu_torch.views.fused_tick`    — run_fused_tick: spectrum, oscilloscope and vectorscope with one readback
+* :mod:`signalizer_tpu_torch.parallel`            — the mesh (a list of devices), sharded steps, ShardedAnalysisPipeline
+* :mod:`signalizer_tpu_torch.views.render`        — the offline matplotlib renderers; ``utils.png``, ``utils.readback``
+* :mod:`signalizer_tpu_torch.editor`              — EditorShell, the browser editor
+* :mod:`signalizer_tpu_torch.api`                 — the public facade; ``python -m signalizer_tpu_torch`` the CLI
 
 Importing builds nothing: the kernels compile with ``nvcc`` on first launch,
 the host runtime with ``g++`` on first use.

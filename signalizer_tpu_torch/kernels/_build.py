@@ -32,9 +32,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (every pointer and the stream as
-# c_void_p, every int as c_int, every float as c_float; each returns its
-# cudaError_t as an int)
+# c_void_p, every int as c_int or c_longlong, every float as c_float; each
+# returns its cudaError_t as an int)
 SIGNATURES = {
     # frames, window, twiddles, out, batch, channels, window_size,
     # log2_n, mode, stream
@@ -71,6 +72,10 @@ SIGNATURES = {
     "sig_banded_resample_affine": (
         _P, _P, _F, _F, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
+    # x, row_stride, valid (or null), state_in, holding_in, threshold (or
+    # null), hysteresis (or null), thr2, hysteresis value, decay, state_out,
+    # holding_out, fires, rows, W, first, stream
+    "sig_peak_hold": (_P, _L, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _I, _I, _P),
 }
 
 # what the last build in this process printed and how long it took

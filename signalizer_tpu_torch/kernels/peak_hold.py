@@ -1,0 +1,167 @@
+"""Kernel D: the envelope-hold trigger's scan.
+
+Replaces the ``lax.scan`` of
+``signalizer_tpu/kernels/oscilloscope.py::peak_hold_triggers`` (ref:
+PeakHoldProcessor, StreamPreprocessing.h:270-312). The CUDA source is
+``signalizer_tpu_torch/csrc/peak_hold.cu``; this module holds its wrapper,
+:func:`peak_hold_triggers`, and its plain PyTorch version,
+:func:`peak_hold_triggers_plain`, a Python loop over the consumed samples
+with a few torch operations a sample (the CPU path, and what the kernel is
+held to bit for bit on the card).
+
+The samples consumed are those at or after ``first`` that ``valid`` marks
+(all of them without a mask). The oscilloscope step consumes a suffix of
+its region, so it passes ``first`` as a host int: the kernel's launch then
+uploads nothing and reads nothing back. A mask goes to the kernel as a
+device tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from signalizer_tpu_torch.kernels import _build
+
+PEAK_DECAY = 0.9999  # ref: StreamPreprocessing.h:291
+
+# kernel launches since the last reset (chip_smoke.py and tests read it)
+launches = 0
+
+
+def _initial(x: torch.Tensor, threshold, state, holding):
+    if state is None:
+        state = torch.full(x.shape[:-1], 1.0, dtype=x.dtype, device=x.device) * (threshold * threshold)
+    if holding is None:
+        holding = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
+    return state, holding
+
+
+def _shift(fires: torch.Tensor) -> torch.Tensor:
+    """The fire marks "first sample that no longer qualifies"; the event
+    timestamp is the previous sample (ref: peaks.push(... - 1)); a fall at
+    sample 0 stays at sample 0 (the JAX package's boundary clamp)."""
+    boundary = fires[..., 0]
+    shifted = torch.cat([fires[..., 1:], torch.zeros_like(fires[..., :1])], dim=-1)
+    shifted[..., 0] |= boundary
+    return shifted
+
+
+def peak_hold_triggers_plain(
+    x: torch.Tensor,
+    threshold,
+    hysteresis,
+    state: torch.Tensor = None,
+    holding: torch.Tensor = None,
+    decay: float = PEAK_DECAY,
+    valid=None,
+    first: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel D: the recurrence, one sample at a
+    time, over the consumed samples only (see :func:`peak_hold_triggers`)."""
+    sq = x * x
+    w = x.shape[-1]
+    state, holding = _initial(x, threshold, state, holding)
+    thr2 = torch.as_tensor(threshold * threshold, dtype=x.dtype, device=x.device)
+    if valid is None:
+        consumed = range(max(first, 0), w)
+    else:
+        v = torch.as_tensor(valid, dtype=torch.bool).cpu().expand(w).tolist()
+        consumed = [i for i in range(max(first, 0), w) if v[i]]
+    st, hold = state, holding
+    fires = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for i in consumed:
+        s = sq[..., i]
+        delta = s - st
+        falling = delta < 0
+        fires[..., i] = falling & hold
+        hold = ~falling & (hold | (delta > hysteresis * st))
+        st = torch.where(falling, torch.maximum(thr2, st * decay), s)
+    return _shift(fires), st, hold
+
+
+def _scalar(v, name: str, dev: torch.device):
+    """A device scalar's pointer, or None for a host number."""
+    if not isinstance(v, torch.Tensor):
+        return None
+    if v.numel() != 1 or v.dtype != torch.float32 or v.device != dev:
+        raise ValueError(f"peak_hold_triggers: {name} must be a float32 scalar on {dev}, got "
+                         f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    return v.data_ptr()
+
+
+def peak_hold_triggers(
+    x: torch.Tensor,
+    threshold,
+    hysteresis,
+    state: torch.Tensor = None,
+    holding: torch.Tensor = None,
+    decay: float = PEAK_DECAY,
+    valid=None,
+    first: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Envelope-hold trigger events (ref: PeakHoldProcessor,
+    StreamPreprocessing.h:270-312).
+
+    Squared-sample peak tracker: while rising, arm when the jump exceeds
+    ``hysteresis * state``; on the first fall, fire the previous sample and
+    decay the held state by 0.9999 (floored at threshold^2).
+
+    Samples before ``first`` (a host int) and those ``valid`` ([W] bools,
+    host or device) leaves unmarked are not consumed: identity steps (state
+    unchanged, no fire). ``threshold`` and ``hysteresis`` are host numbers
+    or float32 scalars on x's device.
+
+    x [..., W] -> (fires bool [..., W], state [...], holding [...]).
+
+    CPU tensors take :func:`peak_hold_triggers_plain`; CUDA tensors launch
+    ``csrc/peak_hold.cu`` (one block a row) or raise.
+    """
+    global launches
+    if x.device.type == "cpu":
+        return peak_hold_triggers_plain(x, threshold, hysteresis, state, holding, decay, valid, first)
+    if x.device.type != "cuda":
+        raise ValueError(f"peak_hold_triggers: unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.ndim < 1 or x.shape[-1] < 1:
+        raise ValueError(f"peak_hold_triggers: x must be float32 [..., W>=1], got {x.dtype} {tuple(x.shape)}")
+    dev = x.device
+    w = x.shape[-1]
+    lead = x.shape[:-1]
+    state, holding = _initial(x, threshold, state, holding)
+    if state.shape != lead or holding.shape != lead:
+        raise ValueError(f"peak_hold_triggers: state {tuple(state.shape)} and holding "
+                         f"{tuple(holding.shape)} must be {tuple(lead)}")
+    if state.dtype != torch.float32 or holding.dtype != torch.bool:
+        raise ValueError("peak_hold_triggers: state must be float32 and holding bool")
+    if state.device != dev or holding.device != dev:
+        raise ValueError(f"peak_hold_triggers: state and holding must be on {dev}")
+    rows2d = x.reshape(-1, w) if x.ndim != 2 else x
+    if rows2d.stride(-1) != 1:
+        rows2d = rows2d.contiguous()
+    rows = rows2d.shape[0]
+    state_in, holding_in = state.contiguous(), holding.contiguous()
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool).to(dev).expand(w).contiguous()
+    thr_ptr = _scalar(threshold, "threshold", dev)
+    hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
+    # host numbers: the plain version's f32 values (thr^2 formed in float64
+    # and rounded once, as torch.as_tensor(threshold * threshold) forms it)
+    thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
+    hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
+    fires = torch.empty(x.shape, dtype=torch.bool, device=dev)
+    state_out = torch.empty_like(state_in)
+    holding_out = torch.empty_like(holding_in)
+    if rows > 0:
+        stride = rows2d.stride(0) if rows > 1 else w
+        with torch.cuda.device(dev):  # the launch goes to x's device
+            err = _build.library().sig_peak_hold(
+                rows2d.data_ptr(), stride, None if valid is None else valid.data_ptr(),
+                state_in.data_ptr(), holding_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst,
+                float(np.float32(decay)), state_out.data_ptr(), holding_out.data_ptr(), fires.data_ptr(),
+                rows, w, max(int(first), 0), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(err, "peak_hold_triggers")
+        launches += 1
+    return fires, state_out, holding_out

@@ -411,14 +411,15 @@ def osc_step(
         chunk = la if trigger_chunk is None else max(1, min(trigger_chunk, la))
         region = trig_src[..., h - chunk :]
         ns = min(max(new_samples, F32(0.0)), F32(chunk))
-        valid = np.arange(chunk, dtype=np.float32) >= F32(chunk) - ns
+        # the consumed samples are the suffix i >= chunk - ns (in float32):
+        # kernel D takes its first index as a host int (no mask to upload)
         fires, new_ph_state, new_holding = peak_hold_triggers(
             region,
             threshold,
             constant.hysteresis,
             state.peak_hold_state,
             state.peak_holding,
-            valid=torch.from_numpy(valid),
+            first=int(np.ceil(F32(chunk) - ns)),
         )
         idx = torch.arange(chunk, dtype=torch.float32, device=dev)
         age = (chunk - 1.0) - idx  # age relative to the history end

@@ -1133,3 +1133,122 @@ def test_fused_session_tick_on_cuda_is_bit_equal_to_the_per_view_tick(cuda):
             assert torch.equal(getattr(f.oscilloscope, name), getattr(p.oscilloscope, name))
         for name in ("vertices", "balance", "correlation_bars"):
             assert torch.equal(getattr(f.vectorscope, name), getattr(p.vectorscope, name))
+
+
+# ---------------------------------------------------------------------------
+# kernel D: the envelope-hold scan, bit-equal to its plain loop
+# ---------------------------------------------------------------------------
+
+
+def _hold_rows(rows, w, seed, device):
+    """Noise under a slow envelope of random phase a row: rises and falls."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(w)
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * t / max(w / 3.0, 7.0) + rng.uniform(0, 6.3, (rows, 1)))
+    return torch.tensor((env * rng.standard_normal((rows, w))).astype(np.float32), device=device)
+
+
+def _same(a, b):
+    """Equal bit for bit where both are numbers, NaN in the same places."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b)
+    )
+
+
+def _hold_both(x, thr, hyst, state, holding, **kw):
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    n = ph.launches
+    got = ph.peak_hold_triggers(x, thr, hyst, state, holding, **kw)
+    torch.cuda.synchronize()
+    assert ph.launches == n + 1
+    want = ph.peak_hold_triggers_plain(x, thr, hyst, state, holding, **kw)
+    assert torch.equal(got[0], want[0]), "fires"
+    assert _same(got[1], want[1]), "state"
+    assert torch.equal(got[2], want[2]), "holding"
+    return got
+
+
+@pytest.mark.parametrize("hysteresis", [0.0, 0.5])
+@pytest.mark.parametrize("consumed", [0, 1, 1600, "all"])
+@pytest.mark.parametrize("w", [1, 1600, 8192])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_peak_hold_kernel_is_bit_equal_to_the_loop(cuda, rows, w, consumed, hysteresis):
+    """Three calls with the state carried, each consuming the given suffix
+    (first = W - consumed) of a fresh row: fires, state and holding
+    bit-equal to the plain loop on the same tensors."""
+    n = w if consumed == "all" else min(consumed, w)
+    thr = 0.1
+    state = torch.full((rows,), thr * thr, device=cuda)
+    holding = torch.zeros((rows,), dtype=torch.bool, device=cuda)
+    fired = 0
+    for call in range(3):
+        x = _hold_rows(rows, w, 100 * rows + call, cuda)
+        fires, state, holding = _hold_both(x, thr, hysteresis, state, holding, first=w - n)
+        fired += int(fires.sum())
+        assert not bool(fires[:, : max(w - n - 1, 0)].any())
+    if n >= 1600:
+        assert fired > 0
+
+
+def test_peak_hold_kernel_device_scalars_mask_and_strided_rows(cuda):
+    """The oscilloscope step's form: threshold and hysteresis as device
+    scalars, rows strided out of a [pairs, 2, H] history; and a device mask
+    that is not a suffix."""
+    hist = _hold_rows(16 * 2, 8192, 7, cuda).reshape(16, 2, 8192)
+    region = hist[:, 1, 8192 - 4096:]
+    assert not region.is_contiguous()
+    thr = torch.tensor(0.2, device=cuda)
+    hyst = torch.tensor(0.25, device=cuda)
+    state = torch.square(thr).expand(16).clone()
+    holding = torch.zeros((16,), dtype=torch.bool, device=cuda)
+    _hold_both(region, thr, hyst, state, holding, first=4096 - 1600)
+    mask = torch.from_numpy(np.random.default_rng(3).random(4096) < 0.7).to(cuda)
+    _hold_both(region, thr, hyst, state, holding, valid=mask)
+    _hold_both(region.contiguous().reshape(4, 4, 4096), thr, hyst, state.reshape(4, 4),
+               holding.reshape(4, 4), valid=mask)
+
+
+def test_peak_hold_kernel_nan_sample_and_fall_at_sample_zero(cuda):
+    """A NaN sample passes through the state as the loop passes it; a held
+    peak that falls at sample 0 fires there (the boundary clamp)."""
+    x = _hold_rows(4, 1600, 11, cuda)
+    x[1, 700] = float("nan")
+    x[2, :] = float("nan")
+    state = torch.full((4,), 0.01, device=cuda)
+    holding = torch.zeros((4,), dtype=torch.bool, device=cuda)
+    _, st, hold = _hold_both(x, 0.1, 0.5, state, holding)
+    assert bool(torch.isnan(st[2]))
+    # a held peak: state 4.0, holding, and the first sample far below it
+    y = torch.full((3, 1600), 0.05, device=cuda)
+    fires, _, _ = _hold_both(y, 0.1, 0.0, torch.full((3,), 4.0, device=cuda),
+                             torch.ones((3,), dtype=torch.bool, device=cuda))
+    assert bool(fires[:, 0].all())
+    one, _, _ = _hold_both(y[:, :1].contiguous(), 0.1, 0.0, torch.full((3,), 4.0, device=cuda),
+                           torch.ones((3,), dtype=torch.bool, device=cuda))
+    assert bool(one.all())
+
+
+def test_envelope_hold_oscilloscope_step_launches_kernel_d(cuda):
+    """The oscilloscope step under ENVELOPE_HOLD launches kernel D once a
+    call and gives the frames of the same step with the loop."""
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+    from signalizer_tpu_torch.views.oscilloscope import OscilloscopeProcessor, TriggerMode
+
+    kw = dict(pairs=4, device=cuda, sample_rate=48000.0, pixels=256, window_samples=512.0,
+              trigger_mode=TriggerMode.ENVELOPE_HOLD, trigger_threshold=0.05, trigger_hysteresis=0.3)
+    card, loop = OscilloscopeProcessor.create(**kw), OscilloscopeProcessor.create(**kw)
+    hist = _hold_rows(8, 8192 + 3 * 800, 5, cuda).reshape(4, 2, -1)
+    for i in range(3):
+        h = hist[..., i * 800 : i * 800 + 8192].contiguous()
+        n = ph.launches
+        got = card.process(h, new_samples=800)
+        assert ph.launches == n + 1
+        tv.peak_hold_triggers = ph.peak_hold_triggers_plain
+        try:
+            want = loop.process(h, new_samples=800)
+        finally:
+            tv.peak_hold_triggers = ph.peak_hold_triggers
+        for name in ("waveform", "envelope_min", "envelope_max", "trigger_found"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(card.state.peak_fire_ages, loop.state.peak_fire_ages)

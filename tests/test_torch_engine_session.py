@@ -381,3 +381,28 @@ def test_spectrogram_feed_on_the_delivery_thread_makes_no_torch_call(monkeypatch
         assert cols.shape[0] > 0 and eng.diagnostics.counters["session.failures"] == 0
         s.close()
     assert routes == [True, False]
+
+
+def test_peak_trigger_preset_session_matches_the_jax_session():
+    """The factory preset ``peak trigger.oscilloscope`` (the ENVELOPE_HOLD
+    trigger, kernel D's path): ten ticks of bursts at the per-view
+    tolerances, the trigger found on the same ticks."""
+    from signalizer_tpu_torch.views.oscilloscope import TriggerMode
+
+    def knobs(eng):
+        assert eng.load_preset("peak trigger.oscilloscope")
+
+    js, ts = _pair(knobs)
+    assert ts.processor("oscilloscope").trigger_mode == TriggerMode.ENVELOPE_HOLD
+    blocks = _blocks(17, 10)
+    gate = (np.arange(10 * BLOCK) // 600) % 2  # 600-sample bursts
+    blocks = [b * gate[i * BLOCK : (i + 1) * BLOCK] for i, b in enumerate(blocks)]
+    found = 0
+    for tick, (jf, tf) in enumerate(_run(js, ts, blocks)):
+        _check_spectrum(jf, tf, tick)
+        _check_osc(jf, tf, tick)
+        _check_vs(jf, tf, tick)
+        found += int(tf.oscilloscope.trigger_found.any())
+    assert found > 0
+    counters = tf.diagnostics
+    assert counters["session.failures"] == 0 and counters["session.fused_ticks"] == 10

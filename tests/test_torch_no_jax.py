@@ -267,13 +267,19 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.views.content
         import signalizer_tpu_torch.state.factory_presets
         import signalizer_tpu_torch.state.sgn_import
+        import signalizer_tpu_torch.kernels.peak_hold as d
+        import signalizer_tpu_torch.parallel.pipeline
+        import signalizer_tpu_torch.views.render
+        import signalizer_tpu_torch.editor
+        import signalizer_tpu_torch.api
+        import signalizer_tpu_torch.__main__
         from signalizer_tpu_torch.kernels import _build
         assert calls == [], calls
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
         assert nb._lib is None and nb._build_error is None
         assert (a.launches, a.cluster_launches, a.long_launches, b.launches, b.remap_launches,
-                b.decay_db_launches, c.launches) == (0,) * 7
+                b.decay_db_launches, c.launches, d.launches) == (0,) * 8
         print("ok")
         """
     )
@@ -300,12 +306,13 @@ def test_build_names_the_library_by_its_sources():
 
     names = {p.name for p in _build._sources()}
     assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
-            "display_map.cu", "display_decay_db.cu", "banded_resample.cu"} <= names
+            "display_map.cu", "display_decay_db.cu", "banded_resample.cu", "peak_hold.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
         "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
+        "sig_peak_hold",
     }
 
 
@@ -360,6 +367,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
         "frame_pipeline",
         "signalizer_engine",
         "analysis_session",
+        "make_analysis_mesh",
+        "sharded_pipeline",
+        "editor_shell",
     ],
 )
 def test_default_device_is_the_gpu_and_raises_without_one(entry):
@@ -383,6 +393,9 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
     from signalizer_tpu_torch.engine import SignalizerEngine
     from signalizer_tpu_torch.session import AnalysisSession
     from signalizer_tpu_torch.views import oscilloscope as tv
+    from signalizer_tpu_torch.editor import EditorShell
+    from signalizer_tpu_torch.parallel.mesh import make_analysis_mesh
+    from signalizer_tpu_torch.parallel.pipeline import ShardedAnalysisPipeline
 
     cpu = tc.make_spectrum_constant(axis_points=32, window_size=128, device="cpu")
     static = {name: getattr(cpu, name) for name in tc.STATIC_FIELDS}
@@ -414,7 +427,68 @@ def test_default_device_is_the_gpu_and_raises_without_one(entry):
         "frame_pipeline": lambda: FramePipeline(lambda s, f: (f, s)),
         "signalizer_engine": lambda: SignalizerEngine("no-gpu"),
         "analysis_session": lambda: AnalysisSession(SignalizerEngine("no-gpu")),
+        "make_analysis_mesh": lambda: make_analysis_mesh(),
+        "sharded_pipeline": lambda: ShardedAnalysisPipeline(cpu, pairs=1),
+        "editor_shell": lambda: EditorShell(AnalysisSession(SignalizerEngine("cpu", device="cpu"),
+                                                            views=("spectrum",), axis_points=32, pixels=32)),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()
     assert tc.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pipeline_cli_editor_and_api_run_with_jax_blocked(tmp_path):
+    """With jax blocked the multi-device pipeline runs every view on a CPU
+    mesh of one and two shards, the CLI analyses WAV files
+    (``analyze-batch`` and ``analyze --npz``), an editor shell ticks and
+    serves a payload of every view and the spectrogram PNG, and the api
+    facade imports; no module of the JAX package is loaded."""
+    proc = _run(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        import json, time, urllib.request
+        import numpy as np
+        from scipy.io import wavfile
+        import signalizer_tpu_torch.api as api
+        from signalizer_tpu_torch.core.constant import make_spectrum_constant
+        from signalizer_tpu_torch.parallel.pipeline import ShardedAnalysisPipeline
+        from signalizer_tpu_torch.__main__ import main
+        rng = np.random.default_rng(0)
+        c = make_spectrum_constant(device="cpu", axis_points=64, window_size=256)
+        for mesh in (["cpu"], ["cpu", "cpu"]):
+            for view in ("fused", "spectrum", "spectrogram", "oscilloscope", "vectorscope"):
+                pipe = ShardedAnalysisPipeline(c if view in ("fused", "spectrum", "spectrogram") else None,
+                                               pairs=2, mesh=mesh, view=view, frames_per_tick=2, pixels=32,
+                                               history_samples=1024)
+                pipe.push(rng.standard_normal((4, 1024)).astype(np.float32))
+                assert pipe.tick() is not None, view
+        d = {str(tmp_path)!r}
+        for i in range(2):
+            wavfile.write(f"{{d}}/in{{i}}.wav", 48000, (0.3 * rng.standard_normal((12000, 2))).astype(np.float32))
+        assert main(["--cpu", "analyze-batch", f"{{d}}/in0.wav", f"{{d}}/in1.wav", "--out", f"{{d}}/b",
+                     "--axis-points", "64"]) == 0
+        assert main(["analyze", f"{{d}}/in0.wav", "--out", f"{{d}}/a", "--axis-points", "64", "--pixels", "64",
+                     "--npz", "--cpu"]) == 0
+        assert np.load(f"{{d}}/a/in0.arrays.npz")["waveform"].shape[-1] == 64
+        eng = api.SignalizerEngine("nojax", device="cpu")
+        eng.editor_settings.refresh_rate_ms = 30.0
+        sess = api.AnalysisSession(eng, axis_points=64, pixels=64)
+        sh = api.EditorShell(sess, source=lambda n: (0.3 * rng.standard_normal((2, n))).astype(np.float32),
+                             playhead=api.Playhead(is_playing=True), device="cpu")
+        sh.start()
+        get = lambda p: urllib.request.urlopen(sh.url.rstrip("/") + p, timeout=30).read()
+        deadline = time.time() + 60
+        while json.loads(get("/api/state"))["ticks"] < 3 and time.time() < deadline:
+            time.sleep(0.05)
+        for view in ("spectrum", "oscilloscope", "vectorscope", "spectrogram"):
+            assert json.loads(get("/api/frame/" + view))["ready"], view
+        assert get("/api/spectrogram.png")[:4] == b"\\x89PNG"
+        sh.stop(); sess.close(); eng.close()
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print("loaded:", *loaded)
+        """
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    last = proc.stdout.splitlines()[-1].split()  # the CLI printed before it
+    assert last[0] == "loaded:" and set(last[1:]) <= ALLOWED, proc.stdout

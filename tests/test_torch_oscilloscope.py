@@ -43,22 +43,27 @@ def test_zero_crossing_threshold_may_be_a_tensor():
     assert not tk.last_zero_crossing_trigger(_t(np.zeros(64, np.float32)), 0.1)[1]
 
 
-@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("with_valid", [False, True, "first"])
 @pytest.mark.parametrize("hysteresis", [0.0, 0.3])
 def test_peak_hold_triggers_equal_jax(hysteresis, with_valid):
     """Fires equal, carried state rtol 1e-6 (the same f32 operations in
     order) over two blocks; with a valid mask only the trailing 300
-    samples are consumed."""
-    rng = np.random.default_rng(int(hysteresis * 10) + with_valid)
+    samples are consumed ("first": the port's form of that mask, the
+    index of the first consumed sample, which the oscilloscope step
+    passes to kernel D)."""
+    rng = np.random.default_rng(int(hysteresis * 10) + bool(with_valid))
     x = (rng.standard_normal((2, 2, 1024)) * 0.5).astype(np.float32)
     valid = (np.arange(1024) >= 1024 - 300) if with_valid else None
     st, hold = None, None
     jst, jhold = None, None
     for block in range(2):
-        fires, st, hold = tk.peak_hold_triggers(
-            _t(x[block]), 0.1, hysteresis, st, hold,
-            valid=None if valid is None else _t(valid),
-        )
+        if with_valid == "first":
+            fires, st, hold = tk.peak_hold_triggers(_t(x[block]), 0.1, hysteresis, st, hold, first=1024 - 300)
+        else:
+            fires, st, hold = tk.peak_hold_triggers(
+                _t(x[block]), 0.1, hysteresis, st, hold,
+                valid=None if valid is None else _t(valid),
+            )
         jfires, jst, jhold = jk.peak_hold_triggers(
             jnp.asarray(x[block]), 0.1, hysteresis, jst, jhold,
             valid=None if valid is None else jnp.asarray(valid),
