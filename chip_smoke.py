@@ -43,9 +43,10 @@ Phases, each printing one informational line:
    held against the same step with its resamples on kernel C's plain
    version from the same carried state, with launch counts, finiteness,
    trigger, fundamental and silence checks; then cfg3 with the
-   ENVELOPE_HOLD trigger (kernel D, once a call), three calls each held to
-   the same step with the plain loop (every frame field and the fire queue
-   bit-equal), and the call timed: it must fit a 60 fps frame (16.7 ms);
+   ENVELOPE_HOLD trigger (kernel D's fused entry, once a call), three calls
+   each held to the same step with the trigger's plain version (every
+   frame field and the fire queue bit-equal), and the call timed: it must
+   fit a 60 fps frame (16.7 ms);
 8. kernel B's other two entries (after phase 4): the remap alone at the
    headline shape and at T=1, decay-and-dB alone on the headline's remapped
    values, at T=1, with 127 of 128 frames valid, a ragged T=127, no valid
@@ -118,8 +119,11 @@ Phases, each printing one informational line:
    change (``reconfigure``) fused against per-view, and of an engine
    serialized, closed and restored into a fresh one (the same frames);
    and a session at the factory preset ``peak trigger.oscilloscope`` (the
-   ENVELOPE_HOLD trigger: kernel D once a tick), 24 ticks against the same
-   on the CPU, with ms a tick (p50, p99) and kernel D's launches;
+   ENVELOPE_HOLD trigger: kernel D's fused entry once a tick), 24 ticks
+   against the same on the CPU, with ms a tick (p50, p99), kernel D's
+   launches, over 4 more ticks syncs a tick and their sites, and over 40
+   more ms a tick timed in turns with the main session (the median of the
+   pairwise differences);
 15. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
@@ -132,17 +136,27 @@ Phases, each printing one informational line:
    decay-and-dB alone at T = 1 and at cfg4, the two-pass form at N = 2^20
    and 2^21, the cluster form at its timed shape, the two-pass form's
    kernels on the same rows, the 200000-sample Spectrum call, one live
-   tick, one session tick, the ENVELOPE_HOLD cfg3 call and (over 3 calls)
-   the pipeline's cfg5 tick are profiled the same way;
-16. kernel D (the envelope-hold scan; after phase 6) against its plain loop
-   on the same CUDA tensors, bit for bit (fires, state, holding): 16 rows
-   with 1600 of 2048 samples consumed (cfg3's tick) and all of 8192, 1 row
-   of 1 sample, 33 rows of 1600, 16 rows of 8192 with 1 and with none
-   consumed, hysteresis 0 and 0.5, three calls each with the state
-   carried; a NaN sample and a row of NaN, a held peak falling at sample 0,
-   device scalars over rows strided out of a history, a device mask;
-   timed at cfg3's tick and lookahead beside the loop, the bound and the
-   serial chain's estimate;
+   tick, one session tick, the ENVELOPE_HOLD cfg3 call, kernel D's two
+   entries alone and (over 3 calls) the pipeline's cfg5 tick are profiled
+   the same way; a ``trigger_profile`` line sets the launches, device µs
+   and wall µs of the ENVELOPE_HOLD call and the ``peak trigger`` session
+   tick beside cfg3's ZERO_CROSSING call and the default session tick;
+16. kernel D (the envelope-hold scan; after phase 6), both entries against
+   their plain versions on the same CUDA tensors, bit for bit: the
+   function entry (fires, state, holding) against the loop and the fused
+   entry (state, holding, the fire-age queue, found, the window start)
+   against ``envelope_hold_trigger_plain``, at 16 rows with 1600 of 2048
+   samples consumed (cfg3's tick) and all of 8192, 1 row of 1 sample, 33
+   rows of 1600, 16 rows of 8192 with 1 and with none consumed, hysteresis
+   0 and 0.5, three calls each with the state carried; the fused entry also
+   with a fractional ``new_samples``, more new samples than the chunk, more
+   than 8 fires in a row, no fire, and carried ages out of order that pass
+   the history's length; a NaN sample and a row of NaN, a held peak falling
+   at sample 0, device scalars over rows strided out of a history, and (the
+   function entry) a device mask; the largest errors and the mismatched
+   bytes are printed; each entry timed at cfg3's tick and lookahead beside
+   its plain version, the bound and the serial chain's estimate, and
+   profiled alone there (phase 15);
 17. the multi-device pipeline (after phase 14): ``ShardedAnalysisPipeline``
    on a one-GPU mesh fed by ``push``, the fused view at cfg5
    (bench.py:994-1050: 4 pairs x 128 frames of a 4096-point SEPARATE
@@ -1963,6 +1977,8 @@ def phase_live(torch, dev, launches_out, calls_out):
 SESSION_TICKS = 240
 SESSION_SIDE_TICKS = 24  # the CPU comparison and each side session
 SESSION_SYNC_TICKS = 10  # the main run's last ticks: syncs counted, not timed
+PEAK_SYNC_TICKS = 4  # the `peak trigger` session's ticks with syncs counted
+PEAK_TURN_TICKS = 40  # ticks of it and of the main session, timed in turns
 SESSION_HZ = (1000.0, 1500.0)
 SESSION_FULL = WINDOW // HOP + 1  # ticks until the spectrum's window holds only audio
 SESSION_BIN_HZ = FS / WINDOW
@@ -2328,6 +2344,16 @@ def phase_session(torch, dev, launches_out, calls_out):
     calls_out["peak_hold"] = calls_out.get("peak_hold", 0) + SESSION_SIDE_TICKS
     pk_spread = {"p50": float(np.percentile(pk_ms[4:], 50)), "p99": float(np.percentile(pk_ms[4:], 99))}
     pk_cpu.close()
+    # syncs a tick of the `peak trigger` session, as the main run's last
+    # ticks count them, on the blocks after those checked above
+    pk_syncs, pk_sites = [], collections.Counter()
+    for i in range(SESSION_SIDE_TICKS, SESSION_SIDE_TICKS + PEAK_SYNC_TICKS):
+        session_feed(pk, blocks, i)
+        with SyncCounter(torch) as sc:
+            pk.tick()
+        torch.cuda.synchronize()
+        pk_syncs.append(sc.count)
+        pk_sites.update(sc.sites)
 
     def spread(v):
         v = v[10:]
@@ -2349,7 +2375,7 @@ def phase_session(torch, dev, launches_out, calls_out):
 
     # the `peak trigger` session's ticks for the profile phase, on the
     # blocks after those it was checked on
-    pk_block = {"i": SESSION_SIDE_TICKS}
+    pk_block = {"i": SESSION_SIDE_TICKS + PEAK_SYNC_TICKS}
 
     def peak_trigger_tick():
         session_feed(pk, blocks, pk_block["i"])
@@ -2359,6 +2385,20 @@ def phase_session(torch, dev, launches_out, calls_out):
     def close():
         pk.close()
         s.close()
+
+    # the default and the `peak trigger` session a tick each in turn (the
+    # order alternating), so that the host's drift falls on both alike
+    turns = {"default": [], "peak_trigger": []}
+    for i in range(PEAK_TURN_TICKS):
+        order = [("default", tick), ("peak_trigger", peak_trigger_tick)]
+        for name, fn in order if i % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    in_turns = {name: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+                for name, v in turns.items()}
+    in_turns["peak_trigger_minus_default_ms"] = float(np.median(np.subtract(turns["peak_trigger"], turns["default"])))
 
     tick_kernels_us, tick_launches, _, tick_attempts = profiled(ten_ticks, 10)
     require(sum(tick_kernels_us.values()) > 0, "session: the profiler saw no device time")
@@ -2385,7 +2425,10 @@ def phase_session(torch, dev, launches_out, calls_out):
         "trigger_reconfigure": {"ticks": SESSION_SIDE_TICKS, "vectorscope_windows": sorted(set(windows))},
         "restored_equal": True,
         "peak_trigger": {"ticks": SESSION_SIDE_TICKS, "tick_ms": pk_spread, "peak_hold_launches": pk_launches,
-                         "ticks_found": pk_found, "cpu_err_in_tolerances": pk_worst},
+                         "ticks_found": pk_found, "cpu_err_in_tolerances": pk_worst,
+                         "syncs_per_tick": {"median": float(np.median(pk_syncs)), "max": int(max(pk_syncs))},
+                         "in_turns_with_default": {"ticks": PEAK_TURN_TICKS, **in_turns},
+                         "sync_sites": {k: v / PEAK_SYNC_TICKS for k, v in pk_sites.most_common()}},
     }
     info(report)
     require(all(v <= 1.0 for k, v in worst.items() if k != "trigger_equal") and worst["trigger_equal"],
@@ -2432,110 +2475,211 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+def nan_err(torch, a, b) -> float:
+    """Largest |a - b|: 0 where both are NaN, inf where only one is."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    diff = (a - b).abs().masked_fill(nan_a & nan_b, 0.0).masked_fill(nan_a ^ nan_b, float("inf"))
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+# the fused entry's geometry: cfg3's history and window
+HOLD_HF, HOLD_WINDOW = float(OSC_HISTORY), OSC_WINDOW
+# the fused entry's queue cases: (name, rows, W, samples consumed, new
+# samples, hysteresis, signal, carried ages), three calls each
+FUSED_CASES = [
+    ("fractional_new_samples", PAIRS, 2048, OSC_HOP, OSC_HOP + 0.5, 0.5, "noise", "empty"),
+    ("new_samples_over_chunk", PAIRS, 2048, 2048, 3000.0, 0.0, "noise", "empty"),
+    ("over_8_fires", PAIRS, 8192, 8192, 8192.0, 0.0, "spikes", "empty"),
+    ("no_fire", PAIRS, 2048, OSC_HOP, float(OSC_HOP), 0.5, "quiet", "empty"),
+    ("ages_past_history", PAIRS, 2048, OSC_HOP, float(OSC_HOP), 0.5, "noise", "old"),
+]
+
+
+def hold_signal(torch, rows, w, seed, dev, kind):
+    x = hold_rows(torch, rows, w, seed, dev)
+    if kind == "quiet":
+        x *= 0.01
+    elif kind == "spikes":
+        x[:, 50::100] = 4.0  # each spike rises above the decayed peak: a fire every 100 samples
+    return x
+
+
 def phase_kernel_d(torch, dev, results):
-    """Kernel D against its plain loop on the same CUDA tensors, bit for
-    bit (fires, state, holding), at HOLD_CASES, a NaN sample, a fall at
-    sample 0, and with device scalars and a device mask; timed at cfg3's
-    tick and lookahead beside the loop, its bound and the chain estimate."""
+    """Kernel D's two entries against their plain versions on the same
+    CUDA tensors, bit for bit: the function entry (fires, state, holding)
+    against the loop at HOLD_CASES, a NaN sample, a fall at sample 0, with
+    device scalars and a device mask; the fused entry (state, holding, fire
+    ages, found, start) against ``envelope_hold_trigger_plain`` at the same
+    cases (no mask: it takes none) and at FUSED_CASES. Both timed at cfg3's
+    tick and lookahead beside their plain versions, the bound and the chain
+    estimate. Returns the profile's workloads: each entry at cfg3's tick
+    and at 16 x 8192."""
     from signalizer_tpu_torch.kernels import peak_hold as ph
 
-    def state_err(a, b) -> float:
-        """Largest |a - b|: 0 where both are NaN, inf where only one is."""
-        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
-        diff = (a - b).abs().masked_fill(nan_a & nan_b, 0.0).masked_fill(nan_a ^ nan_b, float("inf"))
-        return float(diff.max()) if diff.numel() else 0.0
-
-    # the largest state error and the mismatched fire and holding bytes,
-    # over every case held below
+    # the largest errors and the mismatched bytes, over every case held below
     worst = {"state_max_abs_err": 0.0, "fire_mismatches": 0, "holding_mismatches": 0}
+    fused_worst = {"state_max_abs_err": 0.0, "holding_mismatches": 0, "ages_max_abs_err": 0.0,
+                   "found_mismatches": 0, "start_max_abs_err": 0.0}
 
-    def both(what, x, thr, hyst, state, holding, **kw):
+    def hold_both(what, x, thr, hyst, state, holding, **kw):
         got = ph.peak_hold_triggers(x, thr, hyst, state, holding, **kw)
         want = ph.peak_hold_triggers_plain(x, thr, hyst, state, holding, **kw)
         torch.cuda.synchronize()
-        err = {"state_max_abs_err": state_err(got[1], want[1]),
+        err = {"state_max_abs_err": nan_err(torch, got[1], want[1]),
                "fire_mismatches": int((got[0] != want[0]).sum()),
                "holding_mismatches": int((got[2] != want[2]).sum())}
         for k, v in err.items():
             worst[k] = max(worst[k], v)
-        require(err["fire_mismatches"] == 0, f"kernel D {what}: fires differ from the loop: {err}")
-        require(err["state_max_abs_err"] == 0.0, f"kernel D {what}: state differs from the loop: {err}")
-        require(err["holding_mismatches"] == 0, f"kernel D {what}: holding differs from the loop: {err}")
+        require(all(v == 0 for v in err.values()), f"kernel D {what}: the function entry differs from the loop: {err}")
         return got
 
+    def fused_both(what, x, thr, hyst, state, holding, ages, **kw):
+        got = ph.envelope_hold_trigger(x, thr, hyst, state, holding, ages, **kw)
+        want = ph.envelope_hold_trigger_plain(x, thr, hyst, state, holding, ages, **kw)
+        torch.cuda.synchronize()
+        err = {"state_max_abs_err": nan_err(torch, got[0], want[0]),
+               "holding_mismatches": int((got[1] != want[1]).sum()),
+               "ages_max_abs_err": nan_err(torch, got[2], want[2]),
+               "found_mismatches": int((got[3] != want[3]).sum()),
+               "start_max_abs_err": nan_err(torch, got[4], want[4])}
+        for k, v in err.items():
+            fused_worst[k] = max(fused_worst[k], v)
+        require(all(v == 0 for v in err.values()), f"kernel D {what}: the fused entry differs from its plain version: {err}")
+        return got
+
+    def fused_kw(w, consumed, ns):
+        return dict(first=w - consumed, new_samples=ns, window=HOLD_WINDOW, hf=HOLD_HF)
+
     clock = max_sm_clock_hz()
-    report = {"phase": "kernel_d", "bound": "fires, state and holding bit-equal to the plain loop (NaN where it is NaN)",
+    report = {"phase": "kernel_d", "bound": "every output bit-equal to the plain version (NaN where it is NaN)",
               "max_sm_clock_mhz": clock / 1e6, "cases": {}}
     thr = 0.1
+    empty = lambda rows: torch.full((rows, ph.PEAK_QUEUE_SIZE), ph.FIRE_AGE_NONE, device=dev)  # noqa: E731
     for name, rows, w, consumed, hyst in HOLD_CASES:
         state = torch.full((rows,), thr * thr, device=dev)
         holding = torch.zeros((rows,), dtype=torch.bool, device=dev)
-        fired = 0
+        fstate, fholding, ages = state, holding, empty(rows)
+        fired, found = 0, 0
         for call in range(HOLD_CALLS):
             x = hold_rows(torch, rows, w, 100 * rows + call, dev)
-            fires, state, holding = both(f"{name} call {call}", x, thr, hyst, state, holding, first=w - consumed)
+            fires, state, holding = hold_both(f"{name} call {call}", x, thr, hyst, state, holding, first=w - consumed)
             fired += int(fires.sum())
+            fstate, fholding, ages, hit, _ = fused_both(f"{name} call {call}", x, thr, hyst, fstate, fholding, ages,
+                                                        **fused_kw(w, consumed, float(consumed)))
+            found += int(hit.sum())
         require(consumed < 1600 or fired > 0, f"kernel D {name}: no fire in {HOLD_CALLS} calls")
-        report["cases"][name] = {"rows": rows, "W": w, "consumed": consumed, "hysteresis": hyst, "fires": fired}
+        report["cases"][name] = {"rows": rows, "W": w, "consumed": consumed, "hysteresis": hyst, "fires": fired,
+                                 "fused_found": found}
+    for name, rows, w, consumed, ns, hyst, kind, carried in FUSED_CASES:
+        state = torch.full((rows,), thr * thr, device=dev)
+        holding = torch.zeros((rows,), dtype=torch.bool, device=dev)
+        ages = empty(rows)
+        if carried == "old":  # out of order, some past the history's length once aged
+            ages = torch.tensor([16000.0, 5.0, 1e9, 16383.0, 700.0, 1e9, 15000.0, 512.0], device=dev).repeat(rows, 1)
+        found, newest = 0, 0
+        for call in range(HOLD_CALLS):
+            x = hold_signal(torch, rows, w, 200 * rows + call, dev, kind)
+            state, holding, ages, hit, _ = fused_both(f"{name} call {call}", x, thr, hyst, state, holding, ages,
+                                                      **fused_kw(w, consumed, ns))
+            found += int(hit.sum())
+            newest = int((ages < ph.FIRE_AGE_NONE).sum(-1).min())
+        require(kind != "spikes" or newest == ph.PEAK_QUEUE_SIZE, f"kernel D {name}: the queue is not full")
+        require(kind != "quiet" or bool((ages == ph.FIRE_AGE_NONE).all()), f"kernel D {name}: a quiet row fired")
+        report["cases"][name] = {"rows": rows, "W": w, "consumed": consumed, "new_samples": ns, "hysteresis": hyst,
+                                 "signal": kind, "carried": carried, "fused_found": found}
     # a NaN sample, a row of NaN, a held peak falling at sample 0 (the
     # boundary clamp), device scalars over rows strided out of a history,
-    # a device mask that is not a suffix
+    # a device mask that is not a suffix (the function entry only)
     x = hold_rows(torch, 4, 1600, 11, dev)
     x[1, 700] = float("nan")
     x[2] = float("nan")
-    _, st, _ = both("nan", x, thr, 0.5, torch.full((4,), 0.01, device=dev), torch.zeros(4, dtype=torch.bool, device=dev))
+    st0, hold0 = torch.full((4,), 0.01, device=dev), torch.zeros(4, dtype=torch.bool, device=dev)
+    _, st, _ = hold_both("nan", x, thr, 0.5, st0, hold0)
     require(bool(torch.isnan(st[2])), "kernel D: a row of NaN leaves a NaN state")
+    st, _, _, _, _ = fused_both("nan", x, thr, 0.5, st0, hold0, empty(4), **fused_kw(1600, 1600, 1600.0))
+    require(bool(torch.isnan(st[2])), "kernel D: a row of NaN leaves a NaN state (fused entry)")
     y = torch.full((3, 1600), 0.05, device=dev)
-    fires, _, _ = both("fall at sample 0", y, thr, 0.0, torch.full((3,), 4.0, device=dev),
-                       torch.ones(3, dtype=torch.bool, device=dev))
+    st0, hold0 = torch.full((3,), 4.0, device=dev), torch.ones(3, dtype=torch.bool, device=dev)
+    fires, _, _ = hold_both("fall at sample 0", y, thr, 0.0, st0, hold0)
     require(bool(fires[:, 0].all()), "kernel D: a fall at sample 0 fires at sample 0")
+    _, _, ages, _, _ = fused_both("fall at sample 0", y, thr, 0.0, st0, hold0, empty(3), **fused_kw(1600, 1600, 1600.0))
+    require(bool((ages[:, 0] == 1599.0).all()), "kernel D: a fall at sample 0 has the age of sample 0")
     hist = hold_rows(torch, 2 * PAIRS, 8192, 7, dev).reshape(PAIRS, 2, 8192)
     region = hist[:, 1, 8192 - 2048:]
     thr_t, hyst_t = torch.tensor(0.2, device=dev), torch.tensor(0.25, device=dev)
     st0, hold0 = torch.square(thr_t).expand(PAIRS).clone(), torch.zeros(PAIRS, dtype=torch.bool, device=dev)
-    both("device scalars, strided rows", region, thr_t, hyst_t, st0, hold0, first=2048 - OSC_HOP)
+    hold_both("device scalars, strided rows", region, thr_t, hyst_t, st0, hold0, first=2048 - OSC_HOP)
+    fused_both("device scalars, strided rows", region, thr_t, hyst_t, st0, hold0, empty(PAIRS),
+               **fused_kw(2048, OSC_HOP, float(OSC_HOP)))
     mask = torch.from_numpy(np.random.default_rng(3).random(2048) < 0.7).to(dev)
-    both("device mask", region, thr_t, hyst_t, st0, hold0, valid=mask)
+    hold_both("device mask", region, thr_t, hyst_t, st0, hold0, valid=mask)
 
     # timed: the oscilloscope step's tick (16 rows, 1600 of 2048 consumed)
-    # and the whole lookahead (16 x 8192)
-    timed = {}
+    # and the whole lookahead (16 x 8192), each entry beside its plain version
+    timed, workloads = {}, []
     for name, rows, w, consumed in (("cfg3_tick", PAIRS, 2048, OSC_HOP), ("cfg3_lookahead", PAIRS, 8192, 8192)):
         x = hold_rows(torch, rows, w, 5, dev)
         st, hold = torch.full((rows,), thr * thr, device=dev), torch.zeros(rows, dtype=torch.bool, device=dev)
-        ms = median_ms(torch, lambda: ph.peak_hold_triggers(x, thr, 0.5, st, hold, first=w - consumed))
+        ages = empty(rows)
+        kw = fused_kw(w, consumed, float(consumed))
+
+        def fn_entry(x=x, st=st, hold=hold, w=w, consumed=consumed):
+            return ph.peak_hold_triggers(x, thr, 0.5, st, hold, first=w - consumed)
+
+        def fused(x=x, st=st, hold=hold, ages=ages, kw=kw):
+            return ph.envelope_hold_trigger(x, thr, 0.5, st, hold, ages, **kw)
+
         plain_ms = call_ms(torch, lambda: ph.peak_hold_triggers_plain(x, thr, 0.5, st, hold, first=w - consumed),
                            reps=1)
-        moved = rows * consumed * 4 + rows * w + 2 * rows * (4 + 1)  # the span read, fire bytes, state in and out
+        fused_plain_ms = call_ms(torch, lambda: ph.envelope_hold_trigger_plain(x, thr, 0.5, st, hold, ages, **kw),
+                                 reps=1)
+        # the span read, state in and out; fire bytes (function entry) or
+        # the queue in and out, found and start (fused entry)
+        moved = rows * consumed * 4 + 2 * rows * (4 + 1)
         flops = rows * consumed * 7.0
         chain_us = consumed * HOLD_CYCLES_PER_SAMPLE / clock * 1e6
-        timed[name] = dict(ms=ms, plain_ms=plain_ms, chain_estimate_us=chain_us, **roofline(moved, flops))
+        timed[name] = dict(
+            ms=median_ms(torch, fn_entry), plain_ms=plain_ms, **roofline(moved + rows * w, flops),
+            fused_ms=median_ms(torch, fused), fused_plain_ms=fused_plain_ms,
+            fused_bound_ms=roofline(moved + rows * (2 * 8 * 4 + 1 + 4), flops)["bound_ms"],
+            chain_estimate_us=chain_us,
+        )
+        workloads += [(f"peak_hold_{name}", fn_entry), (f"envelope_hold_{name}", fused)]
     report["timed"] = timed
-    report["measured_err"] = worst
+    report["measured_err"] = {"peak_hold_triggers": worst, "envelope_hold_trigger": fused_worst}
     info(report)
-    tick = timed["cfg3_tick"]
+    tick, look = timed["cfg3_tick"], timed["cfg3_lookahead"]
+    fused_bound = roofline(PAIRS * OSC_HOP * 4 + 2 * PAIRS * 5 + PAIRS * (2 * 8 * 4 + 5), PAIRS * OSC_HOP * 7.0)
     results["peak_hold"] = dict(
-        max_abs_err=worst["state_max_abs_err"], fire_mismatches=worst["fire_mismatches"],
-        holding_mismatches=worst["holding_mismatches"], ms=tick["ms"], plain_ms=tick["plain_ms"], bound_ms=tick["bound_ms"],
-        bound_by=tick["bound_by"], library_ms=None, chain_estimate_us=tick["chain_estimate_us"],
-        lookahead_ms=timed["cfg3_lookahead"]["ms"],
-        lookahead_chain_estimate_us=timed["cfg3_lookahead"]["chain_estimate_us"],
-        lookahead_bound_ms=timed["cfg3_lookahead"]["bound_ms"],
+        entries=["envelope_hold_trigger (main path)", "peak_hold_triggers"],
+        max_abs_err=max(worst["state_max_abs_err"], *(v for k, v in fused_worst.items() if k.endswith("err"))),
+        mismatches=worst["fire_mismatches"] + worst["holding_mismatches"] + fused_worst["holding_mismatches"]
+        + fused_worst["found_mismatches"],
+        measured_err={"peak_hold_triggers": worst, "envelope_hold_trigger": fused_worst},
+        ms=tick["fused_ms"], plain_ms=tick["fused_plain_ms"], bound_ms=fused_bound["bound_ms"],
+        bound_by=fused_bound["bound_by"], library_ms=None, chain_estimate_us=tick["chain_estimate_us"],
+        peak_hold_triggers_ms=tick["ms"], peak_hold_triggers_plain_ms=tick["plain_ms"],
+        peak_hold_triggers_bound_ms=tick["bound_ms"],
+        lookahead_ms=look["ms"], lookahead_fused_ms=look["fused_ms"],
+        lookahead_chain_estimate_us=look["chain_estimate_us"], lookahead_bound_ms=look["bound_ms"],
     )
+    return workloads
 
 
 @contextlib.contextmanager
 def plain_peak_hold():
-    """Route the oscilloscope step's envelope-hold trigger to kernel D's
-    plain loop: the path each ENVELOPE_HOLD call is held to."""
+    """Route the oscilloscope step's envelope-hold trigger (kernel D's
+    fused entry, all the step calls for it) to its plain version: the
+    plain loop and the torch operations on its fires, the path each
+    ENVELOPE_HOLD call is held to."""
     from signalizer_tpu_torch.kernels import peak_hold as ph
     from signalizer_tpu_torch.views import oscilloscope as tv
 
-    tv.peak_hold_triggers = ph.peak_hold_triggers_plain
+    tv.envelope_hold_trigger = ph.envelope_hold_trigger_plain
     try:
         yield
     finally:
-        tv.peak_hold_triggers = ph.peak_hold_triggers
+        tv.envelope_hold_trigger = ph.envelope_hold_trigger
 
 
 def envelope_hold_calls(torch, dev, calls, launches_out, calls_out):
@@ -3096,7 +3240,7 @@ def main() -> int:
     proc, x, tick = phase_slice(torch, dev, launches, calls)
     halves = phase_halves_slice(torch, dev, proc, x, tick, launches, calls)
     phase_kernel_c(torch, dev, results)
-    phase_kernel_d(torch, dev, results)
+    hold_workloads = phase_kernel_d(torch, dev, results)
     osc, history, hold_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
@@ -3112,6 +3256,7 @@ def main() -> int:
         ("halves_t128", halves),
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
         ("osc_envelope_hold", hold_call),
+        *hold_workloads,
         *resample_routes(torch, history),
         ("vectorscope_cfg2", lambda: scope.process(scope_x)),
         ("spectrogram_cfg4", cfg4_step),
@@ -3141,6 +3286,19 @@ def main() -> int:
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
                        ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold")):
         results[name]["profile_us"] = own_us(path, name)
+    # kernel D's two entries alone, at cfg3's tick and at 16 x 8192
+    results["peak_hold"]["profile_us_alone"] = {name: own_us(name, "peak_hold") for name, _ in hold_workloads}
+    # the ENVELOPE_HOLD trigger's cost in the step and the session tick:
+    # launches, device and host time a call beside the same without it
+    trigger = {}
+    for name in ("osc_cfg3", "osc_envelope_hold", "session_tick", "session_tick_peak_trigger"):
+        row = profile[name]
+        trigger[name] = {"launches_per_call": row["launches_per_call"], "device_us_per_call": row["device_us_per_call"],
+                         "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
+                         "peak_hold_us": row["own_kernels_us_per_call"].get("peak_hold_kernel", 0.0)}
+    for name, base in (("osc_envelope_hold", "osc_cfg3"), ("session_tick_peak_trigger", "session_tick")):
+        trigger[f"{name}_minus_{base}"] = {k: trigger[name][k] - trigger[base][k] for k in trigger[name]}
+    info({"phase": "trigger_profile", **trigger})
     # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
     # on the same rows (through their C entries), and the live tick's 16 rows
     cluster = results["window_fft_mag_cluster"]

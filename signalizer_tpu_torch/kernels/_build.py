@@ -76,6 +76,14 @@ SIGNATURES = {
     # null), hysteresis (or null), thr2, hysteresis value, decay, state_out,
     # holding_out, fires, rows, W, first, stream
     "sig_peak_hold": (_P, _L, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _I, _I, _P),
+    # x, row_stride, state_in, holding_in, ages_in, threshold (or null),
+    # hysteresis (or null), thr2, hysteresis value, decay, new_samples,
+    # half_m1, hf, hf_m1, half_w, hf_minus_w, state_out, holding_out,
+    # ages_out, found, start, rows, W, first, stream
+    "sig_envelope_hold": (
+        _P, _L, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+        _P, _P, _P, _P, _P, _I, _I, _I, _P,
+    ),
 }
 
 # what the last build in this process printed and how long it took

@@ -3,11 +3,18 @@
 Replaces the ``lax.scan`` of
 ``signalizer_tpu/kernels/oscilloscope.py::peak_hold_triggers`` (ref:
 PeakHoldProcessor, StreamPreprocessing.h:270-312). The CUDA source is
-``signalizer_tpu_torch/csrc/peak_hold.cu``; this module holds its wrapper,
-:func:`peak_hold_triggers`, and its plain PyTorch version,
-:func:`peak_hold_triggers_plain`, a Python loop over the consumed samples
-with a few torch operations a sample (the CPU path, and what the kernel is
-held to bit for bit on the card).
+``signalizer_tpu_torch/csrc/peak_hold.cu``, one templated kernel with two
+entries, and this module holds their wrappers and plain versions:
+
+* :func:`peak_hold_triggers` (fires, state, holding), the counterpart of
+  the JAX function, and :func:`peak_hold_triggers_plain`, a Python loop
+  over the consumed samples with a few torch operations a sample (the CPU
+  path, and what the kernel is held to bit for bit on the card);
+* :func:`envelope_hold_trigger`, the oscilloscope step's whole
+  ENVELOPE_HOLD trigger in one launch (the scan, the fire-age queue and the
+  window start; nothing as wide as the region is written), and
+  :func:`envelope_hold_trigger_plain`, the plain scan followed by the torch
+  operations the step used to run on its fires.
 
 The samples consumed are those at or after ``first`` that ``valid`` marks
 (all of them without a mask). The oscilloscope step consumes a suffix of
@@ -26,8 +33,13 @@ import torch
 from signalizer_tpu_torch.kernels import _build
 
 PEAK_DECAY = 0.9999  # ref: StreamPreprocessing.h:291
+PEAK_QUEUE_SIZE = 8  # pending envelope-hold fires tracked across steps
+# (the reference's TriggeringProcessor peak queue, StreamPreprocessing.h:78)
+FIRE_AGE_NONE = 1.0e9  # sentinel age for an empty queue slot
+F32 = np.float32
 
-# kernel launches since the last reset (chip_smoke.py and tests read it)
+# kernel launches since the last reset, by either entry (chip_smoke.py and
+# tests read it)
 launches = 0
 
 
@@ -165,3 +177,133 @@ def peak_hold_triggers(
         _build.check(err, "peak_hold_triggers")
         launches += 1
     return fires, state_out, holding_out
+
+
+def window_start(found, trigger_pos, hf, window):
+    """Center the window on the trigger, clamp it into the history, and
+    show the newest window where no trigger was found."""
+    start = trigger_pos - float((window - F32(1.0)) * F32(0.5))
+    start = torch.clamp(start, 0.0, float(hf - window))
+    return torch.where(found, start, float(hf - window))
+
+
+def envelope_hold_trigger_plain(
+    region: torch.Tensor,
+    threshold,
+    hysteresis,
+    state: torch.Tensor,
+    holding: torch.Tensor,
+    fire_ages: torch.Tensor,
+    *,
+    first: int,
+    new_samples,
+    window,
+    hf,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`envelope_hold_trigger`: the scan of
+    :func:`peak_hold_triggers_plain`, then the queue merge and the window
+    start as torch operations on its fires."""
+    chunk = region.shape[-1]
+    dev = region.device
+    new_samples, window, hf = F32(new_samples), F32(window), F32(hf)
+    fires, new_state, new_holding = peak_hold_triggers_plain(
+        region, threshold, hysteresis, state, holding, first=first
+    )
+    idx = torch.arange(chunk, dtype=torch.float32, device=dev)
+    age = (chunk - 1.0) - idx  # age relative to the history end
+    cand = torch.where(fires, age, FIRE_AGE_NONE)  # [pairs, chunk]
+    k_new = min(PEAK_QUEUE_SIZE, chunk)
+    newest = torch.topk(cand, k_new, dim=-1, largest=False, sorted=True).values
+    carried = torch.clamp(fire_ages + float(new_samples), max=FIRE_AGE_NONE)
+    merged = torch.cat([newest, carried], dim=-1)
+    new_fire_ages = torch.topk(merged, PEAK_QUEUE_SIZE, dim=-1, largest=False, sorted=True).values
+    # newest fire with its half window complete, still inside history
+    mature = (new_fire_ages >= float(window * F32(0.5) - F32(1.0))) & (new_fire_ages < float(hf))
+    age_sel = torch.amin(torch.where(mature, new_fire_ages, FIRE_AGE_NONE), dim=-1)
+    found = age_sel < FIRE_AGE_NONE
+    trigger_pos = float(hf - F32(1.0)) - torch.where(found, age_sel, 0.0)
+    start = window_start(found, trigger_pos, hf, window)
+    return new_state, new_holding, new_fire_ages, found, start
+
+
+def envelope_hold_trigger(
+    region: torch.Tensor,
+    threshold,
+    hysteresis,
+    state: torch.Tensor,
+    holding: torch.Tensor,
+    fire_ages: torch.Tensor,
+    *,
+    first: int,
+    new_samples,
+    window,
+    hf,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The oscilloscope step's ENVELOPE_HOLD trigger (ref:
+    StreamPreprocessing.h:270-312): scan the region's consumed suffix (the
+    samples at or after ``first``), keep the newest
+    ``PEAK_QUEUE_SIZE`` fire ages (those of this region and the carried
+    ones, older by ``new_samples``), and place the window on the newest
+    fire whose half window is complete.
+
+    ``region`` [pairs, chunk] f32 (unit stride within a row); ``state``
+    [pairs] f32, ``holding`` [pairs] bool, ``fire_ages`` [pairs,
+    PEAK_QUEUE_SIZE] f32 (ascending, ``FIRE_AGE_NONE`` for an empty slot);
+    ``threshold`` and ``hysteresis`` host numbers or float32 scalars on the
+    region's device; ``first`` a host int; ``new_samples``, ``window`` and
+    ``hf`` (the history length) host numbers, used as float32.
+
+    Returns (state, holding, fire_ages, found [pairs] bool, start [pairs]
+    f32). CPU tensors take :func:`envelope_hold_trigger_plain`; CUDA
+    tensors launch ``csrc/peak_hold.cu``'s fused entry (one launch, no
+    host-device copy) or raise.
+    """
+    global launches
+    if region.device.type == "cpu":
+        return envelope_hold_trigger_plain(
+            region, threshold, hysteresis, state, holding, fire_ages,
+            first=first, new_samples=new_samples, window=window, hf=hf,
+        )
+    if region.device.type != "cuda":
+        raise ValueError(f"envelope_hold_trigger: unsupported device {region.device}")
+    if region.dtype != torch.float32 or region.ndim != 2 or region.shape[-1] < 1:
+        raise ValueError(f"envelope_hold_trigger: region must be float32 [pairs, chunk>=1], got "
+                         f"{region.dtype} {tuple(region.shape)}")
+    dev = region.device
+    pairs, chunk = region.shape
+    if state.shape != (pairs,) or holding.shape != (pairs,) or fire_ages.shape != (pairs, PEAK_QUEUE_SIZE):
+        raise ValueError(f"envelope_hold_trigger: state {tuple(state.shape)}, holding {tuple(holding.shape)} "
+                         f"and fire_ages {tuple(fire_ages.shape)} must be ({pairs},), ({pairs},) and "
+                         f"({pairs}, {PEAK_QUEUE_SIZE})")
+    if state.dtype != torch.float32 or holding.dtype != torch.bool or fire_ages.dtype != torch.float32:
+        raise ValueError("envelope_hold_trigger: state and fire_ages must be float32 and holding bool")
+    if state.device != dev or holding.device != dev or fire_ages.device != dev:
+        raise ValueError(f"envelope_hold_trigger: state, holding and fire_ages must be on {dev}")
+    rows = region if region.stride(-1) == 1 else region.contiguous()
+    state_in, holding_in, ages_in = state.contiguous(), holding.contiguous(), fire_ages.contiguous()
+    thr_ptr = _scalar(threshold, "threshold", dev)
+    hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
+    thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
+    hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
+    # the host numbers as f32 values, each formed as the plain version forms it
+    new_samples, window, hf = F32(new_samples), F32(window), F32(hf)
+    state_out = torch.empty_like(state_in)
+    holding_out = torch.empty_like(holding_in)
+    ages_out = torch.empty_like(ages_in)
+    found = torch.empty((pairs,), dtype=torch.bool, device=dev)
+    start = torch.empty((pairs,), dtype=torch.float32, device=dev)
+    if pairs > 0:
+        stride = rows.stride(0) if pairs > 1 else chunk
+        with torch.cuda.device(dev):  # the launch goes to the region's device
+            err = _build.library().sig_envelope_hold(
+                rows.data_ptr(), stride, state_in.data_ptr(), holding_in.data_ptr(), ages_in.data_ptr(),
+                thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(PEAK_DECAY)), float(new_samples),
+                float(window * F32(0.5) - F32(1.0)), float(hf), float(hf - F32(1.0)),
+                float((window - F32(1.0)) * F32(0.5)), float(hf - window),
+                state_out.data_ptr(), holding_out.data_ptr(), ages_out.data_ptr(), found.data_ptr(),
+                start.data_ptr(), pairs, chunk, min(max(int(first), 0), chunk),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(err, "envelope_hold_trigger")
+        launches += 1
+    return state_out, holding_out, ages_out, found, start

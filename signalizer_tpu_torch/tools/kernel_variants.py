@@ -2,7 +2,7 @@
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
-        [--kernels abcdlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
+        [--kernels abcdhlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
         [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
@@ -17,14 +17,16 @@ library under ``build/kernel_variants/`` and timed in turns with the
 package's kernels (``repo``): all versions in order, then in reverse order,
 so that drift of the card shows as a difference between the two rounds.
 ``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
-``d``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
+``d``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
 in ``signalizer_tpu_torch/tools/variants/`` (``NAMED_VARIANTS``): the
 earlier two-pass form (``long_v1``, entry ``sig_window_fft_mag_long_v1``),
 the package's two-pass form with its pass-2 block size and waves as
 arguments (``long_general``, entry ``sig_window_fft_mag_long_general``) and the
 earlier decay-and-dB kernel (``decay_db_v1``, entry
 ``sig_display_decay_db_v1``), the earlier ones also with one part left out
-(the outputs are then wrong; the time shows what the part costs).
+(the outputs are then wrong; the time shows what the part costs), and
+kernel D with its step as a C++ select (``peak_hold_cpp_select``, the
+package's entries, timed with ``--kernels h``).
 ``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
@@ -49,7 +51,10 @@ size R of 8, 16 and 32 that fits (``t_n262144_r8_us`` ...) and, at
 N = 262144, in waves of 16 and 8 rows. The decay-and-dB entry (``d``) runs
 at the headline's remapped values (16 pairs x 128 frames x 2 rows x 1024 px,
 2 line graphs), at T = 1 and at the spectrogram's cfg4 (1 pair x 512 frames
-x 1 row, the last 3 frames invalid). Kernel C runs at three shapes of the
+x 1 row, the last 3 frames invalid). Kernel D (``h``, ``peak_hold.cu``)
+runs at cfg3's tick (16 rows, 1600 of 2048 samples consumed) and at 16 x
+8192, its function entry and, where a version has it, its fused entry
+(``h_cfg3_tick_fused_us`` ...). Kernel C runs at three shapes of the
 oscilloscope, all 16 pairs over a 16384-sample history: ``cfg3`` (Lanczos
 a = 10 with the nearest pick, 2 rows, a 1024-sample window over 8192 px),
 ``colour`` (the colour track's nearest pick, 6 rows, the same positions) and
@@ -98,7 +103,7 @@ from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
 KERNEL_SOURCES = {
     "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "d": "display_decay_db.cu",
-    "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu",
+    "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu", "h": "peak_hold.cu",
 }
 VARIANTS_DIR = Path(__file__).resolve().parent / "variants"
 # versions kept beside the tool: name -> (source in VARIANTS_DIR, nvcc defines)
@@ -110,6 +115,7 @@ NAMED_VARIANTS = {
     "decay_db_v1_no_loads": ("display_decay_db_v1.cu", ("-DSIG_DROP_LOADS",)),
     "decay_db_v1_no_db": ("display_decay_db_v1.cu", ("-DSIG_DROP_DB",)),
     "decay_db_v1_no_fold": ("display_decay_db_v1.cu", ("-DSIG_DROP_FOLD",)),
+    "peak_hold_cpp_select": ("peak_hold_cpp_select.cu", ()),
 }
 # the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
 MAX_SHARED_BYTES = 232448
@@ -118,6 +124,9 @@ TWO_PASS_SHAPES = {
     "n262144": (16, 1, 200_000), "n65536_t16": (16, 16, 48_000), "n1048576": (1, 1, 1 << 20),
     "n2097152": (1, 1, 1 << 21),
 }
+# kernel D: rows, W, samples consumed (cfg3's tick in its 2048-sample
+# bucket, and the whole 8192-sample lookahead)
+HOLD_SHAPES = {"cfg3_tick": (16, 2048, 1600), "cfg3_lookahead": (16, 8192, 8192)}
 # the decay-and-dB entry: pairs, T, rows, last invalid frames
 DECAY_SHAPES = {"headline": (16, 128, 2, 0), "t1": (16, 1, 2, 0), "cfg4": (1, 512, 1, 3)}
 LONG_WINDOW, LONG_FRAMES, LIVE_PAIRS = 48_000, 16, 8
@@ -483,6 +492,70 @@ class DecayDb:
         return line
 
 
+class PeakHold:
+    """Kernel D at HOLD_SHAPES through its C entries: the function entry
+    (``sig_peak_hold``) and, where a version has it, the fused entry
+    (``sig_envelope_hold``, the queue at cfg3's window and history)."""
+
+    def __init__(self, libs, dev):
+        self.libs, self.cases = libs, {}
+        rng = np.random.default_rng(70)
+        for shape, (rows, w, consumed) in HOLD_SHAPES.items():
+            t = np.arange(w)
+            env = 0.55 + 0.45 * np.sin(2 * np.pi * t / (w / 3.0) + rng.uniform(0, 6.3, (rows, 1)))
+            x = torch.from_numpy((env * rng.standard_normal((rows, w))).astype(np.float32)).to(dev)
+            case = types.SimpleNamespace(
+                rows=rows, w=w, first=w - consumed, consumed=consumed, x=x,
+                state=torch.full((rows,), 0.01, device=dev), holding=torch.zeros(rows, dtype=torch.bool, device=dev),
+                ages=torch.full((rows, 8), 1e9, device=dev), fires=torch.empty((rows, w), dtype=torch.bool, device=dev),
+                state_out=torch.empty(rows, device=dev), holding_out=torch.empty(rows, dtype=torch.bool, device=dev),
+                ages_out=torch.empty((rows, 8), device=dev), found=torch.empty(rows, dtype=torch.bool, device=dev),
+                start=torch.empty(rows, device=dev),
+            )
+            self.cases[shape] = case
+            self.launch("repo", case)
+            self.launch("repo", case, fused=True)
+            torch.cuda.synchronize()
+            case.want = case.fires.clone(), case.state_out.clone(), case.ages_out.clone(), case.start.clone()
+
+    def launch(self, name, case, fused=False):
+        lib, stream = self.libs[name], torch.cuda.current_stream().cuda_stream
+        head = (case.x.data_ptr(), case.w)
+        if fused:
+            err = lib.sig_envelope_hold(
+                *head, case.state.data_ptr(), case.holding.data_ptr(), case.ages.data_ptr(), None, None,
+                float(np.float32(0.01)), 0.5, float(np.float32(0.9999)), float(case.consumed), 511.0, 16384.0,
+                16383.0, 511.5, 15360.0, case.state_out.data_ptr(), case.holding_out.data_ptr(),
+                case.ages_out.data_ptr(), case.found.data_ptr(), case.start.data_ptr(), case.rows, case.w,
+                case.first, stream,
+            )
+        else:
+            err = lib.sig_peak_hold(
+                *head, None, case.state.data_ptr(), case.holding.data_ptr(), None, None, float(np.float32(0.01)),
+                0.5, float(np.float32(0.9999)), case.state_out.data_ptr(), case.holding_out.data_ptr(),
+                case.fires.data_ptr(), case.rows, case.w, case.first, stream,
+            )
+        _build.check(err, f"{name}: {'envelope_hold' if fused else 'peak_hold'}")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            line[f"h_{shape}_fires_equal_repo"] = bool(torch.equal(case.fires, case.want[0]))
+            line[f"h_{shape}_state_equal_repo"] = bool(torch.equal(case.state_out, case.want[1]))
+            line[f"h_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+            if hasattr(self.libs[name], "sig_envelope_hold"):
+                self.launch(name, case, fused=True)
+                torch.cuda.synchronize()
+                line[f"h_{shape}_fused_equal_repo"] = bool(
+                    torch.equal(case.ages_out, case.want[2]) and torch.equal(case.start, case.want[3])
+                    and torch.equal(case.state_out, case.want[1])
+                )
+                line[f"h_{shape}_fused_us"] = device_us(lambda: self.launch(name, case, fused=True), 20)
+        return line
+
+
 class Resample:
     """Kernel C at RESAMPLE_SHAPES."""
 
@@ -601,7 +674,7 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, l, t")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, h, l, t")
     parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
                         help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
@@ -632,6 +705,7 @@ def main(argv=None) -> int:
         "long_rows": ("sig_window_fft_mag_cluster",),
         "two_pass": ("sig_window_fft_mag_long", "sig_window_fft_mag_long_v1", "sig_window_fft_mag_long_general"),
         "decay_db": ("sig_display_decay_db", "sig_display_decay_db_v1"),
+        "peak_hold": ("sig_peak_hold",),
     }
     timers = {
         "spectrum": Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None,
@@ -639,6 +713,7 @@ def main(argv=None) -> int:
         "long_rows": LongRows(libs, dev) if "l" in kernels else None,
         "two_pass": TwoPass(libs, dev) if "t" in kernels else None,
         "decay_db": DecayDb(libs, dev) if "d" in kernels else None,
+        "peak_hold": PeakHold(libs, dev) if "h" in kernels else None,
     }
     resample = timers["resample"]
 

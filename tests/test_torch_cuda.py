@@ -1229,9 +1229,110 @@ def test_peak_hold_kernel_nan_sample_and_fall_at_sample_zero(cuda):
     assert bool(one.all())
 
 
+def _fused_both(x, thr, hyst, state, holding, ages, **kw):
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    n = ph.launches
+    got = ph.envelope_hold_trigger(x, thr, hyst, state, holding, ages, **kw)
+    torch.cuda.synchronize()
+    assert ph.launches == n + 1
+    want = ph.envelope_hold_trigger_plain(x, thr, hyst, state, holding, ages, **kw)
+    for name, a, b in zip(("state", "holding", "fire_ages", "found", "start"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _same(a, b) if a.is_floating_point() else torch.equal(a, b), name
+    return got
+
+
+def _empty_ages(rows, device):
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    return torch.full((rows, ph.PEAK_QUEUE_SIZE), ph.FIRE_AGE_NONE, device=device)
+
+
+@pytest.mark.parametrize("hysteresis", [0.0, 0.5])
+@pytest.mark.parametrize("consumed", [0, 1, 1600, "all"])
+@pytest.mark.parametrize("w", [1, 1600, 8192])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_peak_hold_fused_entry_is_bit_equal_to_its_plain_version(cuda, rows, w, consumed, hysteresis):
+    """The fused entry at the function entry's shapes: three calls with the
+    state and the fire-age queue carried, each consuming the given suffix
+    of a fresh row, cfg3's window and history: state, holding, ages, found
+    and start bit-equal to ``envelope_hold_trigger_plain``."""
+    n = w if consumed == "all" else min(consumed, w)
+    thr = 0.1
+    state = torch.full((rows,), thr * thr, device=cuda)
+    holding = torch.zeros((rows,), dtype=torch.bool, device=cuda)
+    ages = _empty_ages(rows, cuda)
+    for call in range(3):
+        x = _hold_rows(rows, w, 100 * rows + call, cuda)
+        state, holding, ages, _, _ = _fused_both(x, thr, hysteresis, state, holding, ages, first=w - n,
+                                                 new_samples=float(n), window=1024.0, hf=16384.0)
+
+
+@pytest.mark.parametrize(
+    "case", ["fractional", "over_chunk", "over_8_fires", "no_fire", "ages_past_history", "nan", "fall_at_0",
+             "device_scalars"],
+)
+def test_peak_hold_fused_entry_queue_cases(cuda, case):
+    """The fused entry's queue and window start: a fractional new_samples,
+    more new samples than the chunk, more than 8 fires in a chunk, no fire
+    (a queue full of 1e9), carried ages out of order that pass the
+    history's length, a NaN sample, a fall at sample 0, and the step's
+    device scalars over rows strided out of a history; three calls each,
+    bit-equal to the plain version."""
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    rows, w, ns, hyst, thr = 16, 2048, 1600.0, 0.5, 0.1
+    ages = _empty_ages(rows, cuda)
+    state = torch.full((rows,), thr * thr, device=cuda)
+    holding = torch.zeros((rows,), dtype=torch.bool, device=cuda)
+    hist = None
+    if case == "fractional":
+        ns = 1600.5
+    elif case == "over_chunk":
+        ns, hyst = 3000.0, 0.0
+    elif case == "over_8_fires":
+        w, ns, hyst = 8192, 8192.0, 0.0
+    elif case == "ages_past_history":
+        ages = torch.tensor([16000.0, 5.0, 1e9, 16383.0, 700.0, 1e9, 15000.0, 512.0], device=cuda).repeat(rows, 1)
+    elif case == "fall_at_0":
+        ns, hyst = 2048.0, 0.0
+        state, holding = torch.full((rows,), 4.0, device=cuda), torch.ones((rows,), dtype=torch.bool, device=cuda)
+    elif case == "device_scalars":
+        thr, hyst = torch.tensor(0.2, device=cuda), torch.tensor(0.25, device=cuda)
+        state = torch.square(thr).expand(rows).clone()
+        hist = _hold_rows(rows * 2, 8192, 7, cuda).reshape(rows, 2, 8192)
+    first = max(int(np.ceil(np.float32(w) - np.float32(min(ns, w)))), 0)
+    for call in range(3):
+        x = _hold_rows(rows, w, 300 + call, cuda)
+        if case == "no_fire":
+            x *= 0.01
+        elif case == "over_8_fires":
+            x[:, 50::100] = 4.0
+        elif case == "nan":
+            x[3, 1000] = float("nan")
+            x[5] = float("nan")
+        elif case == "fall_at_0":
+            x = torch.full((rows, w), 0.05, device=cuda) if call == 0 else x
+        elif case == "device_scalars":
+            x = hist[:, 1, 8192 - w:]
+            assert not x.is_contiguous()
+        state, holding, ages, found, start = _fused_both(x, thr, hyst, state, holding, ages, first=first,
+                                                         new_samples=ns, window=1024.0, hf=16384.0)
+        if case == "fall_at_0" and call == 0:
+            assert bool((ages[:, 0] == w - 1).all())
+    if case == "over_8_fires":
+        assert bool((ages < ph.FIRE_AGE_NONE).all())
+    if case == "no_fire":
+        assert bool((ages == ph.FIRE_AGE_NONE).all()) and not bool(found.any())
+    if case == "nan":
+        assert bool(torch.isnan(state[5]))
+
+
 def test_envelope_hold_oscilloscope_step_launches_kernel_d(cuda):
-    """The oscilloscope step under ENVELOPE_HOLD launches kernel D once a
-    call and gives the frames of the same step with the loop."""
+    """The oscilloscope step under ENVELOPE_HOLD launches kernel D (its
+    fused entry) once a call and gives the frames of the same step with the
+    trigger's plain version (the loop and the queue's torch operations)."""
     from signalizer_tpu_torch.kernels import peak_hold as ph
     from signalizer_tpu_torch.views.oscilloscope import OscilloscopeProcessor, TriggerMode
 
@@ -1244,11 +1345,12 @@ def test_envelope_hold_oscilloscope_step_launches_kernel_d(cuda):
         n = ph.launches
         got = card.process(h, new_samples=800)
         assert ph.launches == n + 1
-        tv.peak_hold_triggers = ph.peak_hold_triggers_plain
+        tv.envelope_hold_trigger = ph.envelope_hold_trigger_plain
         try:
             want = loop.process(h, new_samples=800)
         finally:
-            tv.peak_hold_triggers = ph.peak_hold_triggers
+            tv.envelope_hold_trigger = ph.envelope_hold_trigger
+        assert ph.launches == n + 1  # the plain path launches nothing
         for name in ("waveform", "envelope_min", "envelope_max", "trigger_found"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
         assert torch.equal(card.state.peak_fire_ages, loop.state.peak_fire_ages)

@@ -384,3 +384,243 @@ def test_rotation_table_is_float64_rounded_once(a):
     np.testing.assert_array_equal(table[: a + 1], np.cos(np.pi * m / a).astype(np.float32))
     np.testing.assert_array_equal(table[a + 1 :], np.sin(np.pi * m / a).astype(np.float32))
     assert table[0] == 1.0 and table[a + 1] == 0.0 and table[a] == -1.0
+
+
+# ---------------------------------------------------------------------------
+# kernel D (csrc/peak_hold.cu): the walker's states, the helpers' fall and
+# rise words, hold scan and fire words, the function entry's stores and the
+# fused entry's newest fires, sorting networks and window start, in numpy
+# float32 on the CPU
+# ---------------------------------------------------------------------------
+
+KD_TILE, KD_QUEUE = 768, 8
+F32 = np.float32
+
+
+def _kd_max(a, b):
+    """max.NaN.f32."""
+    return F32(np.nan) if np.isnan(a) or np.isnan(b) else max(a, b)
+
+
+def _kd_walk(x, thr2, st, first):
+    """The walker: st over the consumed span, and the st each sample
+    starts from; in each tile, the full words two samples at a time
+    (``st_pair``: L(L(x)) as max(thr2, (x * decay) * decay)), a tail word's
+    samples one at a time. ``falling`` is ``s < st`` (the plain loop takes
+    ``s - st < 0``)."""
+    decay = F32(0.9999)
+    sq = [F32(v) * F32(v) for v in x[first:]]
+    before = []
+    for base in range(0, len(sq), KD_TILE):
+        n = min(KD_TILE, len(sq) - base)
+        full = base + 32 * (n // 32)
+        for i in range(base, full, 2):
+            s0, s1 = sq[i], sq[i + 1]
+            m = st * decay
+            l1 = _kd_max(thr2, m)
+            ll = _kd_max(thr2, m * decay)
+            q = _kd_max(thr2, s0 * decay) if bool(s1 < s0) else s1
+            st1 = l1 if bool(s0 < st) else s0
+            st2 = ((ll if bool(s1 < l1) else s1) if bool(s0 < st) else q)
+            before += [st, st1]
+            st = st2
+        for i in range(full, base + n):
+            before.append(st)
+            st = _kd_max(thr2, st * decay) if bool(sq[i] < st) else sq[i]
+    return st, before
+
+
+def _kd_fires(x, before, hyst, hold, first):
+    """The helpers, a tile at a time: each word's falls and arming rises as
+    bit masks, the hold before each word by the last event of the words
+    before it, each sample's fire (a fall with the hold before it set: the
+    highest event bit below it, else the word's hold), the sample-0 clamp;
+    the bools the function entry writes (out[i - 1] = fire[i], then out[W -
+    1]) and the newest 8 fire positions the fused entry keeps."""
+    w = len(x)
+    consumed = w - first
+    out = np.ones(w, bool)  # every position must be written
+    out[: max(first - 1, 0)] = False
+    pos, fire0 = [], 0
+    for base in range(0, consumed, KD_TILE):
+        n = min(KD_TILE, consumed - base)
+        words = (n + 31) // 32
+        fall, rise = [0] * words, [0] * words
+        for r in range(n):
+            s = F32(x[first + base + r]) * F32(x[first + base + r])
+            sp = before[base + r]
+            falling = bool(s < sp)
+            if falling:
+                fall[r >> 5] |= 1 << (r & 31)
+            elif (s - sp) > hyst * sp:
+                rise[r >> 5] |= 1 << (r & 31)
+        hold_in = []
+        for k in range(words):
+            hold_in.append(hold)
+            ev = fall[k] | rise[k]
+            if ev:
+                hold = bool((rise[k] >> (ev.bit_length() - 1)) & 1)
+        tile = []
+        for k in range(words):
+            word = 0
+            for lane in range(32):
+                below = (fall[k] | rise[k]) & ((1 << lane) - 1)
+                held = bool((rise[k] >> (below.bit_length() - 1)) & 1) if below else hold_in[k]
+                if (fall[k] >> lane) & 1 and held:
+                    word |= 1 << lane
+            r = base + 32 * k
+            if first == 0 and r == 0:
+                fire0 = word & 1
+                word = (word & ~1) | ((word & 1) << 1)
+            for lane in range(32):
+                i = first + r + lane
+                if i >= 1 and 32 * k + lane < n:
+                    out[i - 1] = bool((word >> lane) & 1)
+            tile += [r + b for b in range(32) if (word >> b) & 1]
+        pos = (sorted(tile, reverse=True) + pos)[:KD_QUEUE]
+    out[w - 1] = w == 1 and first == 0 and bool(fire0)
+    return out, hold, pos
+
+
+def _kd_before(a, b):
+    return a < b or (np.isnan(b) and not np.isnan(a))
+
+
+def _kd_order(v, i, j):
+    if _kd_before(v[j], v[i]):
+        v[i], v[j] = v[j], v[i]
+
+
+SORT8 = [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2), (5, 6),
+         (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4), (5, 6)]
+BITONIC8 = [(0, 4), (1, 5), (2, 6), (3, 7), (0, 2), (1, 3), (4, 6), (5, 7), (0, 1), (2, 3), (4, 5), (6, 7)]
+
+
+def _kd_queue(pos, consumed, ages_in, ns, window, hf):
+    """The fused entry's epilogue: the newest fires' ages, the carried ages
+    sorted by Batcher's network, the bitonic merge, the window start."""
+    fresh = [F32(consumed - p) for p in pos] + [F32(1e9)] * (KD_QUEUE - len(pos))
+    old = [a + ns for a in ages_in]
+    old = [a if np.isnan(a) else min(a, F32(1e9)) for a in old]
+    for i, j in SORT8:
+        _kd_order(old, i, j)
+    v = [old[7 - q] if _kd_before(old[7 - q], fresh[q]) else fresh[q] for q in range(KD_QUEUE)]
+    for i, j in BITONIC8:
+        _kd_order(v, i, j)
+    half_m1, hf_m1 = window * F32(0.5) - F32(1.0), hf - F32(1.0)
+    sel = min([a if (a >= half_m1) & (a < hf) else F32(1e9) for a in v])
+    found = sel < F32(1e9)
+    start = min(max(hf_m1 - (sel if found else F32(0.0)) - (window - F32(1.0)) * F32(0.5), F32(0.0)), hf - window)
+    return v, found, start if found else hf - window
+
+
+def _kd_rows(rows, w, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(w)
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * t / max(w / 3.0, 7.0) + rng.uniform(0, 6.3, (rows, 1)))
+    return (env * rng.standard_normal((rows, w))).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "w,consumed,ns,hyst,case",
+    [
+        (2048, 1600, 1600.0, 0.5, "tick"),
+        (3100, 3100, 3100.0, 0.0, "five tiles"),
+        (3100, 1537, 1536.5, 0.3, "fractional"),
+        (1600, 1600, 5000.0, 0.0, "more than the chunk"),
+        (1600, 1, 1.0, 0.0, "one sample"),
+        (1600, 0, 0.0, 0.5, "none"),
+        (33, 33, 33.0, 0.0, "33"),
+        (1, 1, 1.0, 0.0, "w1"),
+        (2048, 1600, 1600.0, 0.5, "nan"),
+        (1600, 1600, 800.0, 0.0, "fall at 0"),
+        (1600, 1600, 800.0, 0.5, "quiet"),
+    ],
+)
+def test_peak_hold_words_and_queue_are_the_plain_trigger(w, consumed, ns, hyst, case):
+    """Kernel D's walk, fire words, stores and epilogue, modelled as the
+    kernel runs them, bit-equal to ``peak_hold_triggers_plain`` (fires, state, holding)
+    and ``envelope_hold_trigger_plain`` (ages, found, start), over 3 rows
+    and two calls with the state carried: more than 8 fires in a row, no
+    fire, a NaN sample, carried ages out of order and full of 1e9, ages that
+    pass the history's length."""
+    from signalizer_tpu_torch.kernels import peak_hold as ph
+
+    thr, window, hf = 0.1, F32(700.0), F32(3000.0)
+    first = w - consumed
+    state = torch.full((3,), F32(thr * thr))
+    holding = torch.zeros(3, dtype=torch.bool)
+    ages = torch.tensor([[1e9] * 8, [2990.0, 5.0, 1e9, 40.0, 1e9, 1e9, 700.0, 1e9], [1e9] * 8], dtype=torch.float32)
+    for call in range(2):
+        x = _kd_rows(3, w, 40 + call)
+        if case == "nan":
+            x[1, 1900] = np.nan
+        if case == "fall at 0":
+            x[:, 0] = 0.01
+            state, holding = torch.full((3,), 4.0), torch.ones(3, dtype=torch.bool)
+        if case == "quiet":
+            x *= 0.01
+        if case == "five tiles":
+            x[:, 50::100] = 4.0  # a spike every 100 samples rises above the decayed peak and fires
+        xt = torch.from_numpy(x)
+        fires, st_want, hold_want = ph.peak_hold_triggers_plain(xt, thr, hyst, state, holding, first=first)
+        want = ph.envelope_hold_trigger_plain(xt, thr, hyst, state, holding, ages, first=first,
+                                              new_samples=ns, window=window, hf=hf)
+        for r in range(3):
+            st, before = _kd_walk(x[r], F32(thr * thr), F32(state[r]), first)
+            out, hold, pos = _kd_fires(x[r], before, F32(hyst), bool(holding[r]), first)
+            np.testing.assert_array_equal(out, fires[r].numpy())
+            np.testing.assert_array_equal(np.float32(st), st_want[r].numpy())
+            assert hold == bool(hold_want[r])
+            v, found, start = _kd_queue(pos, consumed, list(ages[r].numpy()), F32(ns), window, hf)
+            np.testing.assert_array_equal(np.array(v, np.float32), want[2][r].numpy())
+            assert found == bool(want[3][r])
+            np.testing.assert_array_equal(np.float32(start), want[4][r].numpy())
+        state, holding, ages = want[0], want[1], want[2]
+    n_fires = int(fires.sum())
+    if case == "five tiles":
+        assert int(fires.sum(-1).max()) > 8
+    if case == "quiet":
+        assert n_fires == 0
+
+
+def test_peak_hold_pair_step_is_two_steps():
+    """``st_pair`` (csrc/peak_hold.cu) against two single steps, bit for
+    bit, over 2^20 random states, sample pairs and floors spanning
+    denormals to 1e30, with zeros, infinities and NaNs mixed in."""
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    decay = np.float32(0.9999)
+
+    def draw():
+        v = (10.0 ** rng.uniform(-40, 30, n)).astype(np.float32)
+        special = rng.random(n)
+        v[special < 0.01] = 0.0
+        v[(special >= 0.01) & (special < 0.015)] = np.inf
+        v[(special >= 0.015) & (special < 0.02)] = np.nan
+        return v
+
+    x, s0, s1, thr2 = draw(), draw(), draw(), draw()
+    thr2[rng.random(n) < 0.3] = np.float32(0.01)
+    near = rng.random(n) < 0.3  # states and samples close together, floors near the decayed state
+    s0[near] = x[near] * np.float32(0.99995)
+    s1[near] = x[near] * np.float32(0.9998)
+    thr2[near] = x[near] * np.float32(0.99985)
+
+    def maxnan(a, b):
+        return np.where(np.isnan(a) | np.isnan(b), np.float32(np.nan), np.maximum(a, b))
+
+    def step(st, s):
+        return np.where(s < st, maxnan(thr2, st * decay), s)
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        want1 = step(x, s0)
+        want2 = step(want1, s1)
+        m = x * decay
+        l1 = maxnan(thr2, m)
+        ll = maxnan(thr2, m * decay)
+        q = np.where(s1 < s0, maxnan(thr2, s0 * decay), s1)
+        st1 = np.where(s0 < x, l1, s0)
+        st2 = np.where(s0 < x, np.where(s1 < l1, ll, s1), q)
+    np.testing.assert_array_equal(st1, want1)
+    np.testing.assert_array_equal(st2, want2)

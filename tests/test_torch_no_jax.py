@@ -312,7 +312,7 @@ def test_build_names_the_library_by_its_sources():
     assert set(_build.SIGNATURES) == {
         "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
-        "sig_peak_hold",
+        "sig_peak_hold", "sig_envelope_hold",
     }
 
 
