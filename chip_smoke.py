@@ -42,7 +42,9 @@ Phases, each printing one informational line:
    (SPECTRAL) and cfg3 with the colour track, three calls each, each call
    held against the same step with its resamples on kernel C's plain
    version from the same carried state, with launch counts, finiteness,
-   trigger, fundamental and silence checks; then cfg3 with the
+   trigger, fundamental and silence checks (with the colour track, kernel E
+   once a call on the main path, and the call timed: it must fit a 60 fps
+   frame); then cfg3 with the
    ENVELOPE_HOLD trigger (kernel D's fused entry, once a call), three calls
    each held to the same step with the trigger's plain version (every
    frame field and the fire queue bit-equal), and the call timed: it must
@@ -121,9 +123,13 @@ Phases, each printing one informational line:
    and a session at the factory preset ``peak trigger.oscilloscope`` (the
    ENVELOPE_HOLD trigger: kernel D's fused entry once a tick), 24 ticks
    against the same on the CPU, with ms a tick (p50, p99), kernel D's
-   launches, over 4 more ticks syncs a tick and their sites, and over 40
-   more ms a tick timed in turns with the main session (the median of the
-   pairwise differences);
+   launches, over 4 more ticks syncs a tick and their sites; a session at
+   the factory preset ``coloured.oscilloscope`` (the spectral-energy
+   colour track: kernel E's fused entry once a tick) the same way, its
+   colours within 1e-3 of the CPU session's; and over 40 more ticks ms a
+   tick of both side sessions timed in turns with the main session (the
+   median of the pairwise differences; the coloured tick's p50 must fit a
+   60 fps frame);
 15. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
@@ -137,10 +143,14 @@ Phases, each printing one informational line:
    and 2^21, the cluster form at its timed shape, the two-pass form's
    kernels on the same rows, the 200000-sample Spectrum call, one live
    tick, one session tick, the ENVELOPE_HOLD cfg3 call, kernel D's two
-   entries alone and (over 3 calls) the pipeline's cfg5 tick are profiled
+   entries alone, the cfg3 call with the colour track, kernel E's two
+   entries alone at cfg3, the ``peak trigger`` and ``coloured`` session
+   ticks and (over 3 calls) the pipeline's cfg5 tick are profiled
    the same way; a ``trigger_profile`` line sets the launches, device µs
    and wall µs of the ENVELOPE_HOLD call and the ``peak trigger`` session
-   tick beside cfg3's ZERO_CROSSING call and the default session tick;
+   tick beside cfg3's ZERO_CROSSING call and the default session tick, and
+   a ``colour_profile`` line those of the colour track's call and session
+   tick beside the same;
 16. kernel D (the envelope-hold scan; after phase 6), both entries against
    their plain versions on the same CUDA tensors, bit for bit: the
    function entry (fires, state, holding) against the loop and the fused
@@ -169,7 +179,20 @@ Phases, each printing one informational line:
 18. the front ends: ``python -m signalizer_tpu_torch analyze-batch`` on 4
    seeded WAV files, ``analyze --npz`` on one of them (kernels A, B and C
    counted), and an ``EditorShell`` on localhost at the factory default
-   preset serving a payload of each view and the spectrogram PNG.
+   preset serving a payload of each view and the spectrogram PNG;
+19. kernel E (the colour track: the 3-band crossover, the band energies'
+   smoothers, the colour mix; after phase 16), both entries against their
+   plain versions (the doubling scans) on the same CUDA tensors and a
+   float64 oracle (scipy's ``lfilter``): the split (bands, crossover
+   state) and the fused colour track (colours, both states), at cfg3's 16
+   pairs x 2 rows x 16384 from a zero and a carried state, one pair's two
+   rows of 16384 (the session's history) and 3 x 2 x 3001 (W no multiple
+   of the chunk), two calls each with the states carried, a silent row in
+   each and a denormal row where there are four rows or more; and the
+   fused entry on bands it is given; colours within 1e-3 of the
+   plain version's, bands and states no further from the oracle than 2x
+   the plain version's own error; timed at cfg3 beside the plain version
+   and the bound, and profiled alone there (phase 15).
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -266,6 +289,14 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/peak_hold.cu",
         replaces="signalizer_tpu/kernels/oscilloscope.py:94",
     ),
+    # kernel E: the colour track's scans (lax.associative_scans, not Pallas:
+    # _recurrence_scan under three_band_split, onepole_smooth under
+    # signalizer_tpu/kernels/oscilloscope.py:726 spectral_colour_track)
+    "colour_track": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/colour_track.cu",
+        replaces="signalizer_tpu/kernels/filters.py:66",
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -277,6 +308,7 @@ DEVICE_FUNCTIONS = {
     "window_fft_mag_long": ("long_columns_kernel", "long_rows_kernel"),
     "window_fft_mag_cluster": ("window_fft_mag_cluster_kernel",),
     "peak_hold": ("peak_hold_kernel",),
+    "colour_track": ("colour_track_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -1379,6 +1411,7 @@ def call_ms(torch, fn, reps: int = 10) -> float:
 def phase_osc_slice(torch, dev, launches_out, calls_out):
     from signalizer_tpu_torch import OscilloscopeProcessor, TriggerMode
     from signalizer_tpu_torch.kernels import banded_resample as br
+    from signalizer_tpu_torch.kernels import colour_track as ct
     from signalizer_tpu_torch.kernels import oscilloscope as tk
 
     stream, freqs = make_osc_stream()
@@ -1403,9 +1436,12 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         frames = []
         walks = []  # the spectral walk's iterations (host syncs) per call
         br.launches = 0
+        colour_launches = 0  # kernel E on the main path (the plain-resample run also launches it)
         for h in calls:
             plain.state = proc.state
+            before = ct.launches
             frame = proc.process(h, new_samples=OSC_HOP)
+            colour_launches += ct.launches - before
             walks.append(tk.walk_iterations)
             with plain_resample():
                 want = plain.process(h, new_samples=OSC_HOP)
@@ -1427,6 +1463,8 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         launches = br.launches
         require(launches == OSC_CALLS * (1 + int(colour)),
                 f"{name}: kernel C launched {launches} times in {OSC_CALLS} calls")
+        require(colour_launches == OSC_CALLS * int(colour),
+                f"{name}: kernel E launched {colour_launches} times in {OSC_CALLS} calls")
         total += launches
 
         last = frames[-1]
@@ -1460,13 +1498,21 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         }
         if name == "cfg3":
             cfg3_proc = proc
+        if colour:
+            # the colour track's cost in the call: kernel E once, then kernel
+            # C's pick; it must fit a 60 fps frame
+            report["configs"][name]["colour_track_launches"] = colour_launches
+            require(ms <= FRAME_MS, f"{name} call takes {ms} ms, over a {FRAME_MS:.1f} ms frame")
+            colour_proc = proc
+            launches_out["colour_track"] = launches_out.get("colour_track", 0) + colour_launches
+            calls_out["colour_track"] = calls_out.get("colour_track", 0) + OSC_CALLS
     launches_out["banded_resample"] = total
     calls_out["banded_resample"] = 3 * OSC_CALLS  # three configurations
 
     # cfg3 with the ENVELOPE_HOLD trigger: kernel D's main path
     report["envelope_hold"], hold_call = envelope_hold_calls(torch, dev, calls, launches_out, calls_out)
     info(report)
-    return cfg3_proc, calls[0], hold_call
+    return cfg3_proc, calls[0], hold_call, lambda: colour_proc.process(calls[0], new_samples=OSC_HOP)
 
 
 # kernel A above one block's rows, timed at 16 pairs x T = 16 frames of the
@@ -2018,7 +2064,8 @@ def session_host(frame) -> dict:
     """Host copies of a session frame's outputs."""
     out = {"spectrum": frame.spectrum, "columns": frame.spectrogram_columns,
            "tracker": None if frame.tracker is None else frame.tracker["frequency"]}
-    for view, names in (("oscilloscope", ("waveform", "envelope_min", "envelope_max", "gain", "trigger_found")),
+    for view, names in (("oscilloscope", ("waveform", "envelope_min", "envelope_max", "colours", "gain",
+                                          "trigger_found")),
                         ("vectorscope", ("vertices", "balance", "correlation_bars", "gain"))):
         f = getattr(frame, view)
         for name in names:
@@ -2039,7 +2086,8 @@ def session_errors(card: dict, cpu: dict) -> dict:
     """The card frame's distance from the CPU frame, each in the unit of
     its tolerance (pass: <= 1): spectrum display atol 2e-4 (kernels A and B
     against their plain versions, tests/test_torch_cuda.py), oscilloscope
-    1e-5 x max|x| x gain (kernel C's), vectorscope 2e-6 x gain and bars
+    1e-5 x max|x| x gain (kernel C's), its colours 1e-3 (kernel E's against
+    its plain version), vectorscope 2e-6 x gain and bars
     2e-6, spectrogram bytes within 1 LSB on at most 0.1%, tracker
     frequency rtol 1e-5."""
     err = {"spectrum": float(np.abs(card["spectrum"] - cpu["spectrum"]).max()) / 2e-4}
@@ -2049,6 +2097,7 @@ def session_errors(card: dict, cpu: dict) -> dict:
     for name in ("envelope_min", "envelope_max"):
         d = float(np.abs(card[f"oscilloscope.{name}"] - cpu[f"oscilloscope.{name}"]).max()) / (1e-5 * 0.6 * gain)
         err["oscilloscope"] = max(err["oscilloscope"], d)
+    err["colours"] = float(np.abs(card["oscilloscope.colours"] - cpu["oscilloscope.colours"]).max()) / 1e-3
     vgain = max(1.0, float(np.abs(cpu["vectorscope.gain"]).max()))
     err["vectorscope"] = max(
         float(np.abs(card["vectorscope.vertices"] - cpu["vectorscope.vertices"]).max()) / (2e-6 * vgain),
@@ -2355,6 +2404,51 @@ def phase_session(torch, dev, launches_out, calls_out):
         pk_syncs.append(sc.count)
         pk_sites.update(sc.sites)
 
+    # the factory preset `coloured.oscilloscope` (the spectral-energy colour
+    # track: kernel E once a tick), against the same session on the CPU
+    from signalizer_tpu_torch.kernels import colour_track as ct
+
+    def coloured(eng):
+        require(eng.load_preset("coloured.oscilloscope"), "no factory preset coloured.oscilloscope")
+        eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform, as session_open sets it
+
+    co, co_cpu = session_open(dev, knobs=coloured), session_open("cpu", knobs=coloured)
+    co_osc = co.processor("oscilloscope")
+    require(co_osc.constant.colour_enabled, "coloured: the preset's oscilloscope has no colour track")
+    co_ms, co_frames, co_worst = [], [], {}
+    ct.launches = 0
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(co, blocks, i)
+        t0 = time.perf_counter()
+        got = co.tick()
+        torch.cuda.synchronize()
+        co_ms.append((time.perf_counter() - t0) * 1e3)
+        co_frames.append(session_host(got))
+    co_launches = ct.launches
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(co_cpu, blocks, i)
+        err = session_errors(co_frames[i], session_host(co_cpu.tick()))
+        for k, v in err.items():
+            co_worst[k] = (co_worst.get(k, True) and v) if k == "trigger_equal" else max(co_worst.get(k, 0.0), v)
+    require(co_launches == SESSION_SIDE_TICKS,
+            f"coloured: kernel E launched {co_launches} times in {SESSION_SIDE_TICKS} ticks")
+    require(all(v <= 1.0 for k, v in co_worst.items() if k != "trigger_equal") and co_worst["trigger_equal"],
+            f"coloured session vs CPU: {co_worst}")
+    last = co_frames[-1]["oscilloscope.colours"]
+    require(bool(np.isfinite(last).all()) and float(np.ptp(last)) > 0.0, "coloured: the colours do not vary")
+    require(co.engine.diagnostics.counters["session.failures"] == 0, "coloured: a view failed")
+    launches_out["colour_track"] = launches_out.get("colour_track", 0) + co_launches
+    calls_out["colour_track"] = calls_out.get("colour_track", 0) + SESSION_SIDE_TICKS
+    co_cpu.close()
+    co_syncs, co_sites = [], collections.Counter()
+    for i in range(SESSION_SIDE_TICKS, SESSION_SIDE_TICKS + PEAK_SYNC_TICKS):
+        session_feed(co, blocks, i)
+        with SyncCounter(torch) as sc:
+            co.tick()
+        torch.cuda.synchronize()
+        co_syncs.append(sc.count)
+        co_sites.update(sc.sites)
+
     def spread(v):
         v = v[10:]
         return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
@@ -2382,23 +2476,35 @@ def phase_session(torch, dev, launches_out, calls_out):
         pk_block["i"] += 1
         return pk.tick()
 
+    # the `coloured` session's ticks for the profile phase, likewise
+    co_block = {"i": SESSION_SIDE_TICKS + PEAK_SYNC_TICKS}
+
+    def coloured_tick():
+        session_feed(co, blocks, co_block["i"])
+        co_block["i"] += 1
+        return co.tick()
+
     def close():
+        co.close()
         pk.close()
         s.close()
 
-    # the default and the `peak trigger` session a tick each in turn (the
-    # order alternating), so that the host's drift falls on both alike
-    turns = {"default": [], "peak_trigger": []}
+    # the default, the `peak trigger` and the `coloured` session a tick each
+    # in turn (the order rotating), so that the host's drift falls on all alike
+    turns = {"default": [], "peak_trigger": [], "coloured": []}
+    order = [("default", tick), ("peak_trigger", peak_trigger_tick), ("coloured", coloured_tick)]
     for i in range(PEAK_TURN_TICKS):
-        order = [("default", tick), ("peak_trigger", peak_trigger_tick)]
-        for name, fn in order if i % 2 == 0 else order[::-1]:
+        for name, fn in order[i % 3:] + order[: i % 3]:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             turns[name].append((time.perf_counter() - t0) * 1e3)
     in_turns = {name: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
                 for name, v in turns.items()}
-    in_turns["peak_trigger_minus_default_ms"] = float(np.median(np.subtract(turns["peak_trigger"], turns["default"])))
+    for name in ("peak_trigger", "coloured"):
+        in_turns[f"{name}_minus_default_ms"] = float(np.median(np.subtract(turns[name], turns["default"])))
+    require(in_turns["coloured"]["p50"] <= FRAME_MS,
+            f"coloured: a tick takes {in_turns['coloured']['p50']} ms (p50), over a {FRAME_MS:.1f} ms frame")
 
     tick_kernels_us, tick_launches, _, tick_attempts = profiled(ten_ticks, 10)
     require(sum(tick_kernels_us.values()) > 0, "session: the profiler saw no device time")
@@ -2429,6 +2535,13 @@ def phase_session(torch, dev, launches_out, calls_out):
                          "syncs_per_tick": {"median": float(np.median(pk_syncs)), "max": int(max(pk_syncs))},
                          "in_turns_with_default": {"ticks": PEAK_TURN_TICKS, **in_turns},
                          "sync_sites": {k: v / PEAK_SYNC_TICKS for k, v in pk_sites.most_common()}},
+        "coloured": {"ticks": SESSION_SIDE_TICKS, "tick_ms": spread(co_ms), "colour_track_launches": co_launches,
+                     "cpu_err_in_tolerances": co_worst,
+                     "syncs_per_tick": {"median": float(np.median(co_syncs)), "max": int(max(co_syncs))},
+                     "in_turns_with_default": {"ticks": PEAK_TURN_TICKS, "p50": in_turns["coloured"]["p50"],
+                                               "p99": in_turns["coloured"]["p99"],
+                                               "minus_default_ms": in_turns["coloured_minus_default_ms"]},
+                     "sync_sites": {k: v / PEAK_SYNC_TICKS for k, v in co_sites.most_common()}},
     }
     info(report)
     require(all(v <= 1.0 for k, v in worst.items() if k != "trigger_equal") and worst["trigger_equal"],
@@ -2439,7 +2552,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     # at the faintest pixels (a pixel 80 dB down moves by 0.02 dB)
     require(rsnt_err["bank"] <= 2e-6 and rsnt_err["display"] <= 1e-5, f"RSNT vs CPU: {rsnt_err}")
 
-    return tick, peak_trigger_tick, close
+    return tick, peak_trigger_tick, coloured_tick, close
 
 
 # kernel D, the envelope-hold scan: the cases it is held to its plain loop
@@ -2664,6 +2777,160 @@ def phase_kernel_d(torch, dev, results):
         lookahead_chain_estimate_us=look["chain_estimate_us"], lookahead_bound_ms=look["bound_ms"],
     )
     return workloads
+
+
+# kernel E, the colour track: the cases it is held to its plain version and
+# the float64 oracle at (name, pairs, rows, W, carried states), two calls
+# each with the states carried; every case has a silent last row and, with
+# four rows or more, a denormal row
+COLOUR_CASES = [
+    ("cfg3_zero_state", PAIRS, 2, OSC_HISTORY, False),
+    ("cfg3_carried", PAIRS, 2, OSC_HISTORY, True),
+    ("session", 1, 2, OSC_HISTORY, True),
+    ("ragged_w3001", 3, 2, 3001, True),
+]
+COLOUR_BANDS = ((1.0, 0.1, 0.1), (0.1, 1.0, 0.1), (0.1, 0.1, 1.0))  # the constant's default band colours
+
+
+def colour_inputs(torch, pairs, rows, w, carried, seed, dev):
+    """x [pairs, rows, W] at 96 kHz: three tones and noise a row, the last
+    row silent from a zero state, the first pair's last row denormal
+    (amplitude 5e-39) where there are four rows or more; states zero or
+    small random ones; a key per pair and row."""
+    from signalizer_tpu_torch.kernels import colour_track as ct
+
+    rng = np.random.default_rng(seed)
+    n = np.arange(w)
+    x = np.zeros((pairs, rows, w), np.float32)
+    for p in range(pairs):
+        for r in range(rows):
+            amp = rng.uniform(0.05, 0.5, 3)
+            x[p, r] = sum(a * np.sin(2 * np.pi * f * (1 + 0.1 * p) * n / OSC_FS + r)
+                          for a, f in zip(amp, (120.0, 900.0, 6000.0)))
+            x[p, r] += 0.01 * rng.standard_normal(w)
+    denormal = pairs * rows >= 4
+    if denormal:
+        x[0, rows - 1] *= np.float32(1e-38)
+    x[-1, -1] = 0.0
+    z = (rng.standard_normal((pairs, rows, 8, 2)) * 0.01 * carried).astype(np.float32)
+    s = (rng.random((pairs, rows, 3)) * 0.01 * carried).astype(np.float32)
+    z[-1, -1] = 0.0
+    s[-1, -1] = 0.0
+    key = rng.random((pairs, rows, 3)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(x), ct.CrossoverState(t(z)), t(s), t(key), denormal
+
+
+def phase_kernel_e(torch, dev, results):
+    """Kernel E's two entries against their plain versions (the doubling
+    scans, on the same CUDA tensors) and the float64 oracle at
+    COLOUR_CASES: the split (bands, crossover state) and the fused colour
+    track (colours, both states), and the fused entry on bands it is given
+    (``spectral_colour_track``). Colours within 1e-3 of the plain
+    version's; bands and states no further from the oracle than 2x the
+    plain version's own error (plus one float32 rounding of the peak); a
+    silent row exactly the plain version's, its bands and states zero; a
+    denormal row not flushed. Timed at cfg3 beside the plain version and
+    the bound. Returns the profile's workloads."""
+    from signalizer_tpu_torch.kernels import colour_track as ct
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+
+    pole = float(np.exp(-1.0 / (10e-3 * OSC_FS)))  # the constant's 10 ms smoother at 96 kHz
+    bc = torch.tensor(COLOUR_BANDS, device=dev)
+    bands64 = np.asarray(COLOUR_BANDS)
+    blend = torch.tensor(0.8, device=dev)
+    worst = {"colours_vs_plain": 0.0, "bands_err": 0.0, "bands_plain_err": 0.0, "z_err": 0.0, "z_plain_err": 0.0,
+             "smooth_err": 0.0, "smooth_plain_err": 0.0}
+
+    def err(got, ref):
+        return float(np.abs(got.cpu().numpy().reshape(ref.shape) - ref).max())
+
+    def within(what, got, plain, ref, key):
+        e, pe = err(got, ref), err(plain, ref)
+        worst[key + "_err"] = max(worst[key + "_err"], e)
+        worst[key + "_plain_err"] = max(worst[key + "_plain_err"], pe)
+        floor = float(np.abs(ref).max()) * 2.0**-23
+        require(e <= 2 * pe + floor, f"kernel E {what}: {key} {e} from the oracle, the plain version {pe}")
+
+    report = {"phase": "kernel_e", "bound": "colours 1e-3 of the plain version; bands and states <= 2x the plain "
+              "version's distance from the float64 oracle", "cases": {}}
+    for name, pairs, rows, w, carried in COLOUR_CASES:
+        x, state, smooth, key, denormal = colour_inputs(torch, pairs, rows, w, carried, len(name) + w, dev)
+        b = pairs * rows
+        z64, s64 = state.z.cpu().numpy().reshape(b, 8, 2), smooth.cpu().numpy().reshape(b, 3)
+        split_z64 = z64
+        ps, pz, fs_state, pfs_state, psmooth = state, state, state, state, smooth
+        for call in range(2):
+            xc = x if call == 0 else torch.roll(x, 37, -1)
+            what = f"{name} call {call}"
+            n = ct.launches
+            bands, fs_state = ct.three_band_split(xc, OSC_FS, state=fs_state)
+            colours, ps_new, s_new = ct.colour_track(xc, OSC_FS, ps, pole, bc, key, blend, smooth)
+            require(ct.launches == n + 2, f"kernel E {what}: {ct.launches - n} launches for two calls")
+            pb, pfs_state = ct.three_band_split_plain(xc, OSC_FS, state=pfs_state)
+            pc, pz_new, ps_s = ct.colour_track_plain(xc, OSC_FS, pz, pole, bc, key, blend, psmooth)
+            torch.cuda.synchronize()
+            x64 = xc.cpu().numpy().reshape(b, w)
+            ref_b, split_z64, _, _ = ct.float64_reference(x64, OSC_FS, split_z64, 0.0, np.zeros((b, 3)), bands64,
+                                                          np.zeros((b, 3)), 0.0)
+            _, z64, sm64, _ = ct.float64_reference(x64, OSC_FS, z64, pole, s64, bands64,
+                                                   key.cpu().numpy().reshape(b, 3), 0.8)
+            s64 = sm64[..., -1]
+            within(what, bands, pb, ref_b, "bands")
+            within(what, fs_state.z, pfs_state.z, split_z64, "z")
+            within(what, ps_new.z, pz_new.z, z64, "z")
+            within(what, s_new, ps_s, s64, "smooth")
+            d = float((colours - pc).abs().max())
+            worst["colours_vs_plain"] = max(worst["colours_vs_plain"], d)
+            require(d <= 1e-3, f"kernel E {what}: colours {d} from the plain version's")
+            require(torch.equal(colours[-1, -1], pc[-1, -1]), f"kernel E {what}: the silent row's colours")
+            require(not bool(bands[-1, -1].any()) and not bool(ps_new.z[-1, -1].any())
+                    and not bool(s_new[-1, -1].any()), f"kernel E {what}: the silent row is not zero")
+            if denormal:
+                nz, pnz = int((bands[0, rows - 1] != 0).sum()), int((pb[0, rows - 1] != 0).sum())
+                require(nz == pnz > 0, f"kernel E {what}: {nz} nonzero bands in the denormal row, plain {pnz}")
+            ps, pz, smooth, psmooth = ps_new, pz_new, s_new, ps_s
+        report["cases"][name] = {"pairs": pairs, "rows": rows, "W": w, "carried": carried, "denormal_row": denormal}
+    # the fused entry on bands it is given (spectral_colour_track)
+    x, state, smooth, key, _ = colour_inputs(torch, 4, 2, 5000, True, 17, dev)
+    bands, _ = ct.three_band_split_plain(x, OSC_FS, state=state)
+    n = ct.launches
+    got, _ = tk.spectral_colour_track(bands, pole, bc, key, blend, smooth)
+    require(ct.launches == n + 1, "kernel E: spectral_colour_track did not launch it once")
+    want, _ = ct.spectral_colour_track_plain(bands, pole, bc, key, blend, smooth)
+    d = float((got - want).abs().max())
+    require(d <= 1e-3, f"kernel E: spectral_colour_track colours {d} from the plain version's")
+    report["spectral_colour_track_vs_plain"] = d
+
+    # timed at cfg3 (16 pairs x 2 rows x 16384, the fused entry) beside the
+    # plain version; the bound: x read, colours written, the states in and
+    # out; 113 float32 operations a sample (8 biquads of 9, 3 smoothers of
+    # 4, the mix of 29)
+    x, state, smooth, key, _ = colour_inputs(torch, PAIRS, 2, OSC_HISTORY, True, 5, dev)
+    rows = 2 * PAIRS
+
+    def fused():
+        return ct.colour_track(x, OSC_FS, state, pole, bc, key, blend, smooth)
+
+    def split():
+        return ct.three_band_split(x, OSC_FS, state=state)
+
+    moved = x.numel() * 4 * (1 + 3) + rows * (2 * 16 + 2 * 3) * 4 + (9 + 1) * 4 + key.numel() * 4
+    bound = roofline(moved, rows * OSC_HISTORY * 113.0)
+    plain_ms = call_ms(torch, lambda: ct.colour_track_plain(x, OSC_FS, state, pole, bc, key, blend, smooth), reps=3)
+    split_plain_ms = call_ms(torch, lambda: ct.three_band_split_plain(x, OSC_FS, state=state), reps=3)
+    report["timed_cfg3"] = {"ms": median_ms(torch, fused), "plain_ms": plain_ms, **bound,
+                            "split_ms": median_ms(torch, split), "split_plain_ms": split_plain_ms}
+    report["measured_err"] = worst
+    info(report)
+    t = report["timed_cfg3"]
+    results["colour_track"] = dict(
+        entries=["colour_track (main path)", "three_band_split", "spectral_colour_track"],
+        max_abs_err=worst["colours_vs_plain"], measured_err=worst,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        split_ms=t["split_ms"], split_plain_ms=t["split_plain_ms"],
+    )
+    return [("colour_track_cfg3", fused), ("colour_split_cfg3", split)]
 
 
 @contextlib.contextmanager
@@ -3144,8 +3411,8 @@ def phase_profile(torch, workloads, calls: int = 20, calls_of=None, detail=()):
     wall time from the same calls run without the profiler (which slows
     the host side). ``calls_of`` names the workloads profiled over fewer
     calls; the workloads in ``detail`` report every kernel, its µs and its
-    launches a call, and the launches of the last in ``detail`` that the
-    first lacks or has fewer of."""
+    launches a call, and each of the others in ``detail`` the launches
+    that the first lacks or has fewer of."""
 
     def run(fn, n) -> float:
         torch.cuda.synchronize()
@@ -3178,17 +3445,17 @@ def phase_profile(torch, workloads, calls: int = 20, calls_of=None, detail=()):
         }
         if name in detail:
             report[name]["kernels"] = {k: {"us": kernels_us[k], "launches": counts[k]} for k in kernels_us}
-    if len(detail) > 1:
-        base, other = report[detail[0]]["kernels"], report[detail[-1]]["kernels"]
+    for name in detail[1:]:
+        base, other = report[detail[0]]["kernels"], report[name]["kernels"]
         extra = {}
         for k, v in other.items():
             b = base.get(k, {"us": 0.0, "launches": 0.0})
             if v["launches"] > b["launches"] or v["us"] > b["us"] + 1.0:
                 extra[k] = {"launches": v["launches"] - b["launches"], "us": v["us"] - b["us"]}
-        report[f"{detail[-1]}_minus_{detail[0]}"] = {
-            "wall_us_per_call": report[detail[-1]]["wall_us_per_call"] - report[detail[0]]["wall_us_per_call"],
-            "device_us_per_call": report[detail[-1]]["device_us_per_call"] - report[detail[0]]["device_us_per_call"],
-            "launches_per_call": report[detail[-1]]["launches_per_call"] - report[detail[0]]["launches_per_call"],
+        report[f"{name}_minus_{detail[0]}"] = {
+            "wall_us_per_call": report[name]["wall_us_per_call"] - report[detail[0]]["wall_us_per_call"],
+            "device_us_per_call": report[name]["device_us_per_call"] - report[detail[0]]["device_us_per_call"],
+            "launches_per_call": report[name]["launches_per_call"] - report[detail[0]]["launches_per_call"],
             "kernels": extra,
         }
     info(report)
@@ -3241,13 +3508,14 @@ def main() -> int:
     halves = phase_halves_slice(torch, dev, proc, x, tick, launches, calls)
     phase_kernel_c(torch, dev, results)
     hold_workloads = phase_kernel_d(torch, dev, results)
-    osc, history, hold_call = phase_osc_slice(torch, dev, launches, calls)
+    colour_workloads = phase_kernel_e(torch, dev, results)
+    osc, history, hold_call, colour_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
     resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
-    session_tick, peak_trigger_tick, session_close = phase_session(torch, dev, launches, calls)
+    session_tick, peak_trigger_tick, coloured_tick, session_close = phase_session(torch, dev, launches, calls)
     pipeline_tick = phase_pipeline(torch, dev, launches, calls)
     phase_front_ends(torch, dev, launches, calls)
     profile = phase_profile(torch, [
@@ -3257,6 +3525,8 @@ def main() -> int:
         ("osc_cfg3", lambda: osc.process(history, new_samples=OSC_HOP)),
         ("osc_envelope_hold", hold_call),
         *hold_workloads,
+        ("osc_cfg3_colour", colour_call),
+        *colour_workloads,
         *resample_routes(torch, history),
         ("vectorscope_cfg2", lambda: scope.process(scope_x)),
         ("spectrogram_cfg4", cfg4_step),
@@ -3269,8 +3539,10 @@ def main() -> int:
         ("live_tick", live_tick),
         ("session_tick", session_tick),
         ("session_tick_peak_trigger", peak_trigger_tick),
+        ("session_tick_coloured", coloured_tick),
         ("pipeline_cfg5_tick", pipeline_tick),
-    ], calls_of={"pipeline_cfg5_tick": 3}, detail=("session_tick", "session_tick_peak_trigger"))
+    ], calls_of={"pipeline_cfg5_tick": 3},
+        detail=("session_tick", "session_tick_peak_trigger", "session_tick_coloured"))
     live_close()
     session_close()
     # device time per launch on the main path: one launch per profiled call
@@ -3284,7 +3556,8 @@ def main() -> int:
     for name, path in (("window_fft_mag", "t128"), ("display_map", "t128"), ("banded_resample", "osc_cfg3"),
                        ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
-                       ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold")):
+                       ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold"),
+                       ("colour_track", "osc_cfg3_colour")):
         results[name]["profile_us"] = own_us(path, name)
     # kernel D's two entries alone, at cfg3's tick and at 16 x 8192
     results["peak_hold"]["profile_us_alone"] = {name: own_us(name, "peak_hold") for name, _ in hold_workloads}
@@ -3299,6 +3572,19 @@ def main() -> int:
     for name, base in (("osc_envelope_hold", "osc_cfg3"), ("session_tick_peak_trigger", "session_tick")):
         trigger[f"{name}_minus_{base}"] = {k: trigger[name][k] - trigger[base][k] for k in trigger[name]}
     info({"phase": "trigger_profile", **trigger})
+    # the colour track's cost in the step and the session tick, likewise;
+    # kernel E alone (the fused entry and the split) at cfg3
+    results["colour_track"]["profile_us_alone"] = {name: own_us(name, "colour_track") for name, _ in colour_workloads}
+    results["colour_track"]["session_tick_profile_us"] = own_us("session_tick_coloured", "colour_track")
+    colour = {}
+    for name in ("osc_cfg3", "osc_cfg3_colour", "session_tick", "session_tick_coloured"):
+        row = profile[name]
+        colour[name] = {"launches_per_call": row["launches_per_call"], "device_us_per_call": row["device_us_per_call"],
+                        "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
+                        "colour_track_us": row["own_kernels_us_per_call"].get("colour_track_kernel", 0.0)}
+    for name, base in (("osc_cfg3_colour", "osc_cfg3"), ("session_tick_coloured", "session_tick")):
+        colour[f"{name}_minus_{base}"] = {k: colour[name][k] - colour[base][k] for k in colour[name]}
+    info({"phase": "colour_profile", **colour})
     # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
     # on the same rows (through their C entries), and the live tick's 16 rows
     cluster = results["window_fft_mag_cluster"]

@@ -84,6 +84,16 @@ SIGNATURES = {
         _P, _L, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _F,
         _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ),
+    # x, row_stride, table, z_in, z_out, bands, rows, W, chunk, threads,
+    # stream
+    "sig_colour_split": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x (or bands), row_stride, bands_in, table, z_in (or null), z_out (or
+    # null), smooth_in, smooth_out, band_colours, key, key_pair_stride,
+    # key_row_stride, rows_per_pair, blend (or null), blend value, colours,
+    # rows, W, chunk, threads, stream
+    "sig_colour_track": (
+        _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _F, _P, _I, _I, _I, _I, _P,
+    ),
 }
 
 # what the last build in this process printed and how long it took

@@ -142,28 +142,15 @@ def three_band_split(
     tuneCrossOver(300, 3000) at OscilloscopeDSP.inl:440).
 
     LR4 topology: each crossover is a squared Butterworth biquad. x [..., W]
-    -> bands [..., 3, W] (low, mid, high) and the new state.
+    -> bands [..., 3, W] (low, mid, high) and the new state. CPU tensors take
+    the eight doubling scans of :func:`biquad_filter`
+    (:func:`signalizer_tpu_torch.kernels.colour_track.three_band_split_plain`);
+    CUDA tensors launch kernel E's split entry
+    (:mod:`signalizer_tpu_torch.kernels.colour_track`) or raise.
     """
-    if state is None:
-        state = init_crossover_state(x.shape[:-1], x.dtype, x.device)
-    lp_lo = butterworth_lowpass(f_low, fs)
-    hp_lo = butterworth_highpass(f_low, fs)
-    lp_hi = butterworth_lowpass(f_high, fs)
-    hp_hi = butterworth_highpass(f_high, fs)
+    from signalizer_tpu_torch.kernels import colour_track  # it builds on this module
 
-    z = state.z
-    low1, z0 = biquad_filter(lp_lo, x, z[..., 0, :])
-    low, z1 = biquad_filter(lp_lo, low1, z[..., 1, :])
-    rest1, z2 = biquad_filter(hp_lo, x, z[..., 2, :])
-    rest, z3 = biquad_filter(hp_lo, rest1, z[..., 3, :])
-    mid1, z4 = biquad_filter(lp_hi, rest, z[..., 4, :])
-    mid, z5 = biquad_filter(lp_hi, mid1, z[..., 5, :])
-    high1, z6 = biquad_filter(hp_hi, rest, z[..., 6, :])
-    high, z7 = biquad_filter(hp_hi, high1, z[..., 7, :])
-
-    bands = torch.stack([low, mid, high], dim=-2)
-    new_state = CrossoverState(z=torch.stack([z0, z1, z2, z3, z4, z5, z6, z7], dim=-2))
-    return bands, new_state
+    return colour_track.three_band_split(x, fs, f_low, f_high, state)
 
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,9 @@ same shapes and semantics, on tensors on any device.
 * The envelope-hold trigger is kernel D
   (:mod:`signalizer_tpu_torch.kernels.peak_hold`): its CUDA scan for a
   CUDA tensor, its plain loop over the consumed samples for a CPU one.
+* The colour track is kernel E
+  (:mod:`signalizer_tpu_torch.kernels.colour_track`): its CUDA chunked scans
+  for a CUDA tensor, its plain doubling scans for a CPU one.
 * The spectral fundamental walk iterates acceptance to acceptance like the
   JAX ``while_loop``; each iteration tests ``any(active)`` on the host (one
   device sync per iteration, at most 280).
@@ -37,7 +40,7 @@ from signalizer_tpu_torch.kernels.banded_resample import (
     banded_resample,
     banded_resample_affine,
 )
-from signalizer_tpu_torch.kernels.filters import onepole_smooth
+from signalizer_tpu_torch.kernels import colour_track
 from signalizer_tpu_torch.kernels.peak_hold import peak_hold_triggers  # noqa: F401 — the views import it here
 
 LOOKAHEAD_SIZE = 8192  # ref: OscilloscopeParameters.h:46
@@ -394,18 +397,12 @@ def spectral_colour_track(
     rgb = sum_b s[b] * colour[b] (three products and sums, no matmul, so no
     TF32), normalized so max(r, g, b) = 1, then lerped toward the key
     colour. Returns (colours [..., W, 3], final smooth state [..., 3]).
+    CPU tensors take the plain version
+    (:func:`signalizer_tpu_torch.kernels.colour_track.spectral_colour_track_plain`);
+    CUDA tensors launch kernel E (:mod:`signalizer_tpu_torch.kernels.colour_track`)
+    or raise, the colours then a view of its channel-major output.
     """
-    sq = bands * bands  # [..., 3, W]
-    smoothed = onepole_smooth(sq, smooth_pole, smooth_state)  # [..., 3, W]
-    s = smoothed[..., :, :, None]  # [..., 3, W, 1]
-    rgb = s[..., 0, :, :] * band_colours[0] + s[..., 1, :, :] * band_colours[1]
-    rgb = rgb + s[..., 2, :, :] * band_colours[2]  # [..., W, 3]
-    peak = torch.amax(rgb, dim=-1, keepdim=True)
-    rgb = rgb / torch.clamp(peak, min=1e-20)
-    rgb = torch.where(peak > 0, rgb, 0.0)
-    key = key_colour[..., None, :]
-    out = key + (rgb - key) * blend
-    return out, smoothed[..., -1]
+    return colour_track.spectral_colour_track(bands, smooth_pole, band_colours, key_colour, blend, smooth_state)
 
 
 def sinc_resample_matrix(

@@ -1,8 +1,8 @@
-"""Time other versions of kernels A, B and C against the package's own, on
+"""Time other versions of kernels A to E against the package's own, on
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
-        [--kernels abcdhlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
+        [--kernels abcdehlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
         [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
@@ -17,7 +17,7 @@ library under ``build/kernel_variants/`` and timed in turns with the
 package's kernels (``repo``): all versions in order, then in reverse order,
 so that drift of the card shows as a difference between the two rounds.
 ``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
-``d``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
+``d``, ``e``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
 in ``signalizer_tpu_torch/tools/variants/`` (``NAMED_VARIANTS``): the
 earlier two-pass form (``long_v1``, entry ``sig_window_fft_mag_long_v1``),
 the package's two-pass form with its pass-2 block size and waves as
@@ -26,7 +26,12 @@ earlier decay-and-dB kernel (``decay_db_v1``, entry
 ``sig_display_decay_db_v1``), the earlier ones also with one part left out
 (the outputs are then wrong; the time shows what the part costs), and
 kernel D with its step as a C++ select (``peak_hold_cpp_select``, the
-package's entries, timed with ``--kernels h``).
+package's entries, timed with ``--kernels h``), and kernel E's measured
+designs (``--kernels e``): its first (``colour_v1``: a block scan a
+recurrence), the one before its reciprocal normalisation (``colour_v2``;
+``colour_v2_no_mix``, ``_no_scans``, ``_no_fixup`` with one part left out,
+``colour_v2_chunk8`` with 8 samples a thread) and a whole row a tile
+(``colour_row``).
 ``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
@@ -54,7 +59,11 @@ at the headline's remapped values (16 pairs x 128 frames x 2 rows x 1024 px,
 x 1 row, the last 3 frames invalid). Kernel D (``h``, ``peak_hold.cu``)
 runs at cfg3's tick (16 rows, 1600 of 2048 samples consumed) and at 16 x
 8192, its function entry and, where a version has it, its fused entry
-(``h_cfg3_tick_fused_us`` ...). Kernel C runs at three shapes of the
+(``h_cfg3_tick_fused_us`` ...). Kernel E (``e``, ``colour_track.cu``) runs
+its fused entry (x to colours, both states carried in) at cfg3's 16 pairs x
+2 rows x 16384 samples and at 3 pairs x 2 rows x 3001, each version with the
+host table of its own chunk length (its source's ``kChunk``, or
+``-DSIG_CHUNK``). Kernel C runs at three shapes of the
 oscilloscope, all 16 pairs over a 16384-sample history: ``cfg3`` (Lanczos
 a = 10 with the nearest pick, 2 rows, a 1024-sample window over 8192 px),
 ``colour`` (the colour track's nearest pick, 6 rows, the same positions) and
@@ -83,6 +92,7 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -97,6 +107,7 @@ from signalizer_tpu_torch import BinInterpolation, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 
@@ -104,6 +115,7 @@ PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
 KERNEL_SOURCES = {
     "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "d": "display_decay_db.cu",
     "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu", "h": "peak_hold.cu",
+    "e": "colour_track.cu",
 }
 VARIANTS_DIR = Path(__file__).resolve().parent / "variants"
 # versions kept beside the tool: name -> (source in VARIANTS_DIR, nvcc defines)
@@ -116,6 +128,13 @@ NAMED_VARIANTS = {
     "decay_db_v1_no_db": ("display_decay_db_v1.cu", ("-DSIG_DROP_DB",)),
     "decay_db_v1_no_fold": ("display_decay_db_v1.cu", ("-DSIG_DROP_FOLD",)),
     "peak_hold_cpp_select": ("peak_hold_cpp_select.cu", ()),
+    "colour_v1": ("colour_track_v1.cu", ()),
+    "colour_v2": ("colour_track_v2.cu", ()),
+    "colour_v2_no_mix": ("colour_track_v2.cu", ("-DSIG_DROP_MIX",)),
+    "colour_v2_no_scans": ("colour_track_v2.cu", ("-DSIG_DROP_SCANS",)),
+    "colour_v2_no_fixup": ("colour_track_v2.cu", ("-DSIG_DROP_FIXUP",)),
+    "colour_v2_chunk8": ("colour_track_v2.cu", ("-DSIG_CHUNK=8",)),
+    "colour_row": ("colour_track_row.cu", ()),
 }
 # the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
 MAX_SHARED_BYTES = 232448
@@ -127,6 +146,8 @@ TWO_PASS_SHAPES = {
 # kernel D: rows, W, samples consumed (cfg3's tick in its 2048-sample
 # bucket, and the whole 8192-sample lookahead)
 HOLD_SHAPES = {"cfg3_tick": (16, 2048, 1600), "cfg3_lookahead": (16, 8192, 8192)}
+# kernel E: pairs, rows, W (cfg3, and a short row no multiple of a tile)
+COLOUR_SHAPES = {"cfg3": (16, 2, 16384), "w3001": (3, 2, 3001)}
 # the decay-and-dB entry: pairs, T, rows, last invalid frames
 DECAY_SHAPES = {"headline": (16, 128, 2, 0), "t1": (16, 1, 2, 0), "cfg4": (1, 512, 1, 3)}
 LONG_WINDOW, LONG_FRAMES, LIVE_PAIRS = 48_000, 16, 8
@@ -556,6 +577,72 @@ class PeakHold:
         return line
 
 
+def colour_chunk(source: Path, defines=()) -> int:
+    """The samples a thread of a version of kernel E holds: ``-DSIG_CHUNK``,
+    else its source's ``kChunk`` (or ``SIG_CHUNK`` default)."""
+    for d in defines:
+        if d.startswith("-DSIG_CHUNK="):
+            return int(d.split("=", 1)[1])
+    text = source.read_text()
+    found = re.search(r"constexpr int kChunk = (\d+);", text) or re.search(r"#define SIG_CHUNK (\d+)", text)
+    return int(found.group(1))
+
+
+class ColourTrack:
+    """Kernel E at COLOUR_SHAPES through its fused entry
+    (``sig_colour_track``), 96 kHz, the 10 ms smoother, a key a row."""
+
+    FS = 96_000.0
+    POLE = float(np.exp(-1.0 / (10e-3 * 96_000.0)))
+
+    def __init__(self, libs, chunks, dev):
+        self.libs, self.chunks, self.dev, self.cases, self.tables = libs, chunks, dev, {}, {}
+        rng = np.random.default_rng(71)
+        for shape, (pairs, rows, w) in COLOUR_SHAPES.items():
+            n = pairs * rows
+
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+            case = types.SimpleNamespace(
+                rows=n, rows_pp=rows, w=w, x=t(rng.standard_normal((n, w)) * 0.3),
+                z=t(rng.standard_normal((n, 8, 2)) * 0.01), s=t(rng.random((n, 3)) * 0.01),
+                bc=t(np.eye(3)), key=t(rng.random((rows, 3))), blend=t(0.8),
+                colours=torch.empty((n, 3, w), device=dev), z_out=torch.empty((n, 8, 2), device=dev),
+                s_out=torch.empty((n, 3), device=dev),
+            )
+            self.cases[shape] = case
+            self.launch("repo", case)
+            torch.cuda.synchronize()
+            case.want = case.colours.clone(), case.z_out.clone(), case.s_out.clone()
+
+    def table(self, name) -> torch.Tensor:
+        chunk = self.chunks[name]
+        if chunk not in self.tables:
+            self.tables[chunk] = torch.from_numpy(
+                ct.host_table(self.FS, pole=self.POLE, chunk=chunk, threads=ct.THREADS)).to(self.dev)
+        return self.tables[chunk]
+
+    def launch(self, name, case):
+        err = self.libs[name].sig_colour_track(
+            case.x.data_ptr(), case.w, 0, self.table(name).data_ptr(), case.z.data_ptr(), case.z_out.data_ptr(),
+            case.s.data_ptr(), case.s_out.data_ptr(), case.bc.data_ptr(), case.key.data_ptr(), 0, 3, case.rows_pp,
+            case.blend.data_ptr(), 0.0, case.colours.data_ptr(), case.rows, case.w, self.chunks[name], ct.THREADS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, f"{name}: colour_track")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            got = case.colours, case.z_out, case.s_out
+            line[f"e_{shape}_max_abs_diff_repo"] = max(float((g - w).abs().max()) for g, w in zip(got, case.want))
+            line[f"e_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+        return line
+
+
 class Resample:
     """Kernel C at RESAMPLE_SHAPES."""
 
@@ -674,7 +761,7 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, h, l, t")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, e, h, l, t")
     parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
                         help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
@@ -694,11 +781,16 @@ def main(argv=None) -> int:
     kernels = set(args.kernels.lower())
     versions = dict(spec.split("=", 1) for spec in args.versions)
     libs = {"repo": build("repo", _build.CSRC, kernels)}
+    chunks = {"repo": colour_chunk(_build.CSRC / KERNEL_SOURCES["e"])}  # kernel E's samples a thread
     for name, directory in versions.items():
         libs[name] = build(name, Path(directory), kernels)
+        own = Path(directory) / KERNEL_SOURCES["e"]
+        chunks[name] = colour_chunk(own if own.is_file() else _build.CSRC / KERNEL_SOURCES["e"])
     for name in args.named:
         source, defines = NAMED_VARIANTS[name]
         libs[name] = build(name, VARIANTS_DIR, kernels, sources=[VARIANTS_DIR / source], defines=defines)
+        if source.startswith("colour_track"):
+            chunks[name] = colour_chunk(VARIANTS_DIR / source, defines)
     # each class times the versions that have its entries
     entries = {
         "spectrum": ("sig_window_fft_mag", "sig_display_map"), "resample": ("sig_banded_resample",),
@@ -706,6 +798,7 @@ def main(argv=None) -> int:
         "two_pass": ("sig_window_fft_mag_long", "sig_window_fft_mag_long_v1", "sig_window_fft_mag_long_general"),
         "decay_db": ("sig_display_decay_db", "sig_display_decay_db_v1"),
         "peak_hold": ("sig_peak_hold",),
+        "colour_track": ("sig_colour_track",),
     }
     timers = {
         "spectrum": Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None,
@@ -714,6 +807,7 @@ def main(argv=None) -> int:
         "two_pass": TwoPass(libs, dev) if "t" in kernels else None,
         "decay_db": DecayDb(libs, dev) if "d" in kernels else None,
         "peak_hold": PeakHold(libs, dev) if "h" in kernels else None,
+        "colour_track": ColourTrack(libs, chunks, dev) if "e" in kernels else None,
     }
     resample = timers["resample"]
 

@@ -19,7 +19,10 @@ render-ready pixel-space tensors.
   reads the detected cycle length back once per call (one device sync) to
   form the next window.
 * The resamples (wave, envelope pick, colour track) run on kernel C
-  (:mod:`signalizer_tpu_torch.kernels.banded_resample`).
+  (:mod:`signalizer_tpu_torch.kernels.banded_resample`); the colour track
+  itself (the crossover, the smoothed band energies and the colour mix) is
+  one launch of kernel E (:mod:`signalizer_tpu_torch.kernels.colour_track`),
+  whose channel-major colours kernel C picks from without a copy.
 """
 
 from __future__ import annotations
@@ -35,11 +38,8 @@ from signalizer_tpu_torch.core.config import OscChannels
 from signalizer_tpu_torch.params.transformatters import TimeMode
 from signalizer_tpu_torch.utils.colour import pair_key_table
 from signalizer_tpu_torch.core.constant import resolve_device
-from signalizer_tpu_torch.kernels.filters import (
-    CrossoverState,
-    init_crossover_state,
-    three_band_split,
-)
+from signalizer_tpu_torch.kernels.colour_track import colour_track
+from signalizer_tpu_torch.kernels.filters import CrossoverState, init_crossover_state
 from signalizer_tpu_torch.kernels.oscilloscope import (
     INTERPOLATION_KERNEL_SIZE,
     MEDIAN_FILTER_SIZE,
@@ -49,7 +49,6 @@ from signalizer_tpu_torch.kernels.oscilloscope import (
     nearest_resample,
     sinc_resample,
     sinc_resample_with_nearest,
-    spectral_colour_track,
     spectral_fundamental,
     trigger_phase_offset,
     zero_crossing_triggers,
@@ -121,6 +120,8 @@ class OscilloscopeConstant:
 
     # the key colours on the host, for the per-pair table (no readback)
     host_key_colours: np.ndarray = dataclasses.field(default=None, compare=False)
+    # colour_pole's value on the host, for kernel E's tables (no readback)
+    host_colour_pole: float = dataclasses.field(default=None, compare=False)
 
     @property
     def rows(self) -> int:
@@ -194,6 +195,7 @@ def make_oscilloscope_constant(
         manual_gain=t(manual_gain),
         custom_trigger_frequency=t(custom_trigger_frequency),
         host_key_colours=np.stack([key[:3], second[:3]]).astype(np.float64),
+        host_colour_pole=float(np.float32(colour_pole)),
     )
 
 
@@ -509,19 +511,21 @@ def osc_step(
 
     # --- colouring ----------------------------------------------------------
     if constant.colour_enabled:
-        bands, new_xover = three_band_split(rows, sample_rate, state=state.crossover)
-        colours, new_smooth = spectral_colour_track(
-            bands,
-            constant.colour_pole,
+        colours, new_xover, new_smooth = colour_track(
+            rows,
+            sample_rate,
+            state.crossover,
+            constant.host_colour_pole,
             constant.band_colours,
             key,
             constant.colour_blend,
             state.colour_smooth,
-        )  # [pairs, rows, H, 3]
+        )  # [pairs, rows, 3, H], channel-major
         # nearest pick of the colour track through kernel C, the rgb
-        # channels folded into its row axis: [pairs, rows*3, H]
+        # channels folded into its row axis: [pairs, rows*3, H] (a view of
+        # the kernel's output)
         nrows = colours.shape[1]
-        cflat = torch.movedim(colours, -1, 2).reshape(pairs, nrows * 3, h)
+        cflat = colours.reshape(pairs, nrows * 3, h)
         pix = nearest_resample(cflat, start_r, step, pixels)
         pix_colours = torch.movedim(pix.reshape(pairs, nrows, 3, pixels), 2, 3)
     else:

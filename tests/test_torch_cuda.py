@@ -8,11 +8,13 @@ import contextlib
 
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 
 from signalizer_tpu_torch.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import oscilloscope as tk
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
@@ -882,7 +884,9 @@ def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, in
     from the same carried state: triggers and fundamentals equal, waves
     within 1e-5 x max|x| x gain, envelopes and colours equal; kernel C
     launched once per resample (a 1024-sample window over 2048 px takes
-    the Lanczos pass with the envelope pick fused in)."""
+    the Lanczos pass with the envelope pick fused in). With the colour
+    track, kernel E launched once a call, and the colours within 1e-3 of
+    the same step with the colour track's plain version."""
     kw = dict(
         pairs=4, sample_rate=96_000.0, channel_mode=OscChannels.SEPARATE, trigger_mode=trigger,
         interpolation=interp, window_samples=1024.0, pixels=2048, lookahead=4096,
@@ -894,12 +898,26 @@ def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, in
     # one dual-output Lanczos pass (wave and envelope pick); otherwise the
     # wave and the envelope pick apart; plus the colour track's pick
     per_call = (1 if interp == tv.SubSampleInterpolation.LANCZOS else 2) + int(colour)
+    # the colour track's plain version (the doubling scans) on the card, with
+    # kernel C's plain resamples: the colours within 1e-3
+    plain_track = tv.OscilloscopeProcessor.create(device=cuda, **kw)
     for i in range(3):
         h = hist[..., i * 800 : i * 800 + 8192].contiguous()
         plain.state = proc.state
-        before = br.launches
+        plain_track.state = proc.state
+        before, colour_before = br.launches, ct.launches
         got = proc.process(h, new_samples=800)
         assert br.launches - before == per_call
+        assert ct.launches - colour_before == int(colour)  # kernel E once a call, then kernel C's pick
+        if colour:
+            tv.colour_track = ct.colour_track_plain
+            try:
+                with _plain_resample():
+                    want_track = plain_track.process(h, new_samples=800)
+            finally:
+                tv.colour_track = ct.colour_track
+            assert ct.launches - colour_before == 1
+            torch.testing.assert_close(got.colours, want_track.colours, rtol=0, atol=1e-3)
         with _plain_resample():
             want = plain.process(h, new_samples=800)
         torch.cuda.synchronize()
@@ -1354,3 +1372,158 @@ def test_envelope_hold_oscilloscope_step_launches_kernel_d(cuda):
         for name in ("waveform", "envelope_min", "envelope_max", "trigger_found"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
         assert torch.equal(card.state.peak_fire_ages, loop.state.peak_fire_ages)
+
+
+# ---------------------------------------------------------------------------
+# kernel E: the colour track
+# ---------------------------------------------------------------------------
+
+COLOUR_FS = 96_000.0
+COLOUR_POLE = float(np.exp(-1.0 / (10e-3 * COLOUR_FS)))  # the view's 10 ms smoother
+COLOUR_BANDS = np.array([[1.0, 0.1, 0.1], [0.1, 1.0, 0.1], [0.1, 0.1, 1.0]], np.float32)
+COLOUR_CASES = [
+    # (pairs, rows, W, carried state): cfg3, one pair's two rows of the
+    # session's 16384 samples (its coloured.oscilloscope draws one row), W
+    # not a multiple of the chunk, shorter than a tile, one sample
+    (16, 2, 16384, False),
+    (16, 2, 16384, True),
+    (1, 2, 16384, True),
+    (3, 2, 3001, True),
+    (2, 2, 100, False),
+    (1, 2, 1, True),
+]
+
+
+def _colour_inputs(pairs, rows, w, carried, seed, device):
+    """x [pairs, rows, W]: three tones and noise a row; the last row silent
+    (from a zero state); with 4 rows or more the first pair's last row
+    denormal (amplitude 5e-39). States zero or small random ones."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(w)
+    x = np.zeros((pairs, rows, w), np.float32)
+    for p in range(pairs):
+        for r in range(rows):
+            amp = rng.uniform(0.05, 0.5, 3)
+            x[p, r] = sum(a * np.sin(2 * np.pi * f * (1 + 0.1 * p) * n / COLOUR_FS + r)
+                          for a, f in zip(amp, (120.0, 900.0, 6000.0)))
+            x[p, r] += 0.01 * rng.standard_normal(w)
+    denormal = pairs * rows >= 4
+    if denormal:
+        x[0, rows - 1] *= np.float32(1e-38)
+    x[-1, -1] = 0.0
+    z = (rng.standard_normal((pairs, rows, 8, 2)) * 0.01 * carried).astype(np.float32)
+    s = (rng.random((pairs, rows, 3)) * 0.01 * carried).astype(np.float32)
+    z[-1, -1] = 0.0
+    s[-1, -1] = 0.0
+    key = rng.random((pairs, rows, 3)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(x), ct.CrossoverState(t(z)), t(s), t(key), denormal
+
+
+def _floor(ref):
+    """One float32 rounding of the reference's peak: where the plain
+    version's own error is 0 (W = 1), the kernel may still round once more."""
+    return float(np.abs(ref).max()) * 2.0**-23
+
+
+def _err(got, ref):
+    return float(np.abs(got.cpu().numpy().reshape(ref.shape) - ref).max())
+
+
+@pytest.mark.parametrize("pairs,rows,w,carried", COLOUR_CASES)
+def test_colour_split_kernel_matches_plain_and_the_oracle(cuda, pairs, rows, w, carried):
+    """Kernel E's split entry (``three_band_split`` on a CUDA tensor), two
+    calls with the crossover state carried: bands and state no further
+    from the float64 network than 2x the plain doubling scans' own error;
+    a silent row exactly zero; a denormal row not flushed (as many nonzero
+    bands as the plain version's)."""
+    x, state, _, _, denormal = _colour_inputs(pairs, rows, w, carried, 11 + w, cuda)
+    z64 = state.z.cpu().numpy().reshape(-1, 8, 2)
+    pstate = state
+    for call in range(2):
+        xc = x if call == 0 else torch.roll(x, 37, -1)
+        n = ct.launches
+        bands, new = ct.three_band_split(xc, COLOUR_FS, state=state)
+        assert ct.launches == n + 1
+        pb, pnew = ct.three_band_split_plain(xc, COLOUR_FS, state=pstate)
+        torch.cuda.synchronize()
+        ref, z64, _, _ = ct.float64_reference(xc.cpu().numpy().reshape(-1, w), COLOUR_FS, z64, 0.0,
+                                              np.zeros((pairs * rows, 3)), COLOUR_BANDS, np.zeros((pairs * rows, 3)), 0.0)
+        assert bands.shape == (pairs, rows, 3, w) and new.z.shape == (pairs, rows, 8, 2)
+        assert _err(bands, ref) <= 2 * _err(pb, ref) + _floor(ref)
+        assert _err(new.z, z64) <= 2 * _err(pnew.z, z64) + _floor(ref)
+        assert not bool(bands[-1, -1].any()) and not bool(new.z[-1, -1].any())
+        if denormal:
+            assert int((bands[0, rows - 1] != 0).sum()) == int((pb[0, rows - 1] != 0).sum()) > 0
+        state, pstate = new, pnew
+
+
+@pytest.mark.parametrize("pairs,rows,w,carried", COLOUR_CASES)
+def test_colour_track_kernel_matches_plain_and_the_oracle(cuda, pairs, rows, w, carried):
+    """Kernel E's fused entry (``colour_track``), a key per pair and row,
+    two calls with both states carried: colours within 1e-3 of the plain
+    version's; the crossover and smoothing states no further from the
+    float64 chain than 2x the plain version's own error; a silent row's
+    colours exactly the plain version's."""
+    x, state, smooth, key, _ = _colour_inputs(pairs, rows, w, carried, 13 + w, cuda)
+    bc, blend = torch.from_numpy(COLOUR_BANDS).to(cuda), torch.tensor(0.8, device=cuda)
+    z64, s64 = state.z.cpu().numpy().reshape(-1, 8, 2), smooth.cpu().numpy().reshape(-1, 3)
+    pstate, psmooth = state, smooth
+    for call in range(2):
+        xc = x if call == 0 else torch.roll(x, 37, -1)
+        n = ct.launches
+        colours, new, new_s = ct.colour_track(xc, COLOUR_FS, state, COLOUR_POLE, bc, key, blend, smooth)
+        assert ct.launches == n + 1
+        pc, pnew, pnew_s = ct.colour_track_plain(xc, COLOUR_FS, pstate, COLOUR_POLE, bc, key, blend, psmooth)
+        torch.cuda.synchronize()
+        _, z64, sm64, _ = ct.float64_reference(xc.cpu().numpy().reshape(-1, w), COLOUR_FS, z64, COLOUR_POLE, s64,
+                                               COLOUR_BANDS, key.cpu().numpy().reshape(-1, 3), 0.8)
+        s64 = sm64[..., -1]
+        assert colours.shape == (pairs, rows, 3, w) and colours.is_contiguous()
+        torch.testing.assert_close(colours, pc, rtol=0, atol=1e-3)
+        assert _err(new.z, z64) <= 2 * _err(pnew.z, z64) + _floor(z64)
+        assert _err(new_s, s64) <= 2 * _err(pnew_s, s64) + _floor(s64)
+        assert torch.equal(colours[-1, -1], pc[-1, -1].contiguous())
+        state, smooth, pstate, psmooth = new, new_s, pnew, pnew_s
+
+
+def test_spectral_colour_track_on_cuda_takes_bands(cuda):
+    """``spectral_colour_track`` on CUDA bands runs kernel E's fused entry
+    on them (one launch, the crossover skipped): colours ([..., W, 3], a
+    view of the channel-major output) within 1e-3 of the plain version's,
+    the state as close to the float64 smoother as 2x the plain's; a key a
+    row and a host blend."""
+    x, state, smooth, key, _ = _colour_inputs(4, 2, 5000, True, 17, cuda)
+    bands, _ = ct.three_band_split_plain(x, COLOUR_FS, state=state)
+    bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
+    n = ct.launches
+    got, gs = tk.spectral_colour_track(bands, COLOUR_POLE, bc, key[0], 0.7, smooth)
+    assert ct.launches == n + 1
+    want, ws = ct.spectral_colour_track_plain(bands, COLOUR_POLE, bc, key[0], 0.7, smooth)
+    assert got.shape == want.shape == (4, 2, 5000, 3)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    p = float(np.float32(COLOUR_POLE))
+    b64 = bands.double().cpu().numpy() ** 2
+    s64 = smooth.double().cpu().numpy()
+    ref = np.empty(s64.shape)
+    for i in np.ndindex(s64.shape):
+        ref[i] = scipy.signal.lfilter([1.0 - p], [1.0, -p], b64[i], zi=[p * s64[i]])[0][-1]
+    assert _err(gs, ref) <= 2 * _err(ws, ref) + _floor(ref)
+
+
+def test_colour_track_refuses_what_it_cannot_take(cuda):
+    """Wrong states, band colours or blend raise before any launch."""
+    x, state, smooth, key, _ = _colour_inputs(2, 2, 256, True, 3, cuda)
+    bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
+    n = ct.launches
+    with pytest.raises(ValueError, match="crossover state"):
+        ct.three_band_split(x, COLOUR_FS, state=ct.CrossoverState(state.z[:1]))
+    with pytest.raises(ValueError, match="smoothing state"):
+        ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth.cpu())
+    with pytest.raises(ValueError, match="band_colours"):
+        ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc[:2], key, 0.8, smooth)
+    with pytest.raises(ValueError, match="blend"):
+        ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc, key, torch.tensor(0.8), smooth)
+    with pytest.raises(ValueError, match="float32"):
+        ct.colour_track(x.double(), COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth)
+    assert ct.launches == n

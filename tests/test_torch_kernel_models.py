@@ -5,7 +5,9 @@ frames (bit-equal to the sequential loop), the decay-and-dB kernel's grid
 end values folded in order: bit-equal to ``decay_db``), the FFT kernel's packed real
 transform (bit-reversed radix-2 stages from the stage-ordered twiddle table,
 then the split into the real row's bins), and the resample kernel's Lanczos
-weights from three trigonometric values a pixel and a rotation table. The
+weights from three trigonometric values a pixel and a rotation table, and
+the colour track kernel's chunked scans (a numpy model, held to a float64
+oracle within twice the plain doubling scans' own error). The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -18,7 +20,9 @@ import torch
 from signalizer_tpu_torch.core.config import SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import fft_twiddles, make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
+from signalizer_tpu_torch.kernels import filters as tf
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
 
@@ -624,3 +628,170 @@ def test_peak_hold_pair_step_is_two_steps():
         st2 = np.where(s0 < x, np.where(s1 < l1, ll, s1), q)
     np.testing.assert_array_equal(st1, want1)
     np.testing.assert_array_equal(st2, want2)
+
+
+# ---------------------------------------------------------------------------
+# kernel E (csrc/colour_track.cu): the colour track's chunked scans
+# ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add: the product is exact in float64."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _madd(m, o, v):
+    """v + M o in float32 FMAs as csrc/colour_track.cu's madd orders them;
+    m [..., d, d], o and v [..., d], d = 2 (a biquad) or 1 (a one-pole)."""
+    if v.shape[-1] == 1:
+        return _fma(m[..., 0, 0], o[..., 0], v[..., 0])[..., None]
+    return np.stack([_fma(m[..., 0, 0], o[..., 0], _fma(m[..., 0, 1], o[..., 1], v[..., 0])),
+                     _fma(m[..., 1, 0], o[..., 0], _fma(m[..., 1, 1], o[..., 1], v[..., 1]))], -1)
+
+
+class KernelE:
+    """numpy model of kernel E's arithmetic for ``chunk`` samples a thread
+    and ``threads`` threads a block, reading the table the wrapper builds
+    for that geometry (every power formed in float64, rounded once): each
+    thread runs its chunk from a zero state (thread 0 from the tile's
+    carry); the chunks' end states are scanned over lanes with A^(chunk d)
+    and over warps with A^(32 chunk d); each sample is fixed up with A^j
+    (A^(j + 1) for the one-pole's output and every end state) times the
+    state its chunk starts from; tiles of chunk * threads samples carry
+    each recurrence's state."""
+
+    def __init__(self, fs, pole, chunk, threads):
+        self.chunk, self.threads = chunk, threads
+        steps = int(np.log2(threads // 32))
+        table = ct.host_table(fs, pole=pole, chunk=chunk, threads=threads)
+        n_set = 8 + 4 * (chunk + 32 + steps)
+        self.sets = []
+        for i in range(4):
+            s = table[i * n_set : (i + 1) * n_set]
+            mats = s[8:].reshape(-1, 2, 2)
+            self.sets.append((s[:8], mats[:chunk], mats[chunk : chunk + 32], mats[chunk + 32 :]))
+        p = table[4 * n_set :]
+        pw = p[4:].reshape(-1, 1, 1)
+        self.pole = (p[:4], pw[:chunk], pw[chunk : chunk + 32], pw[chunk + 32 :])
+
+    def scan(self, e, lanes, steps):
+        """e [B, threads, d]: each chunk's end from its own start -> the
+        state each chunk starts from, and the tile's end state."""
+        b, t, d = e.shape
+        e = e.reshape(b, t // 32, 32, d)
+        for k in range(5):
+            s = 1 << k
+            e = np.concatenate([e[:, :, :s], _madd(lanes[s], e[:, :, :-s], e[:, :, s:])], 2)
+        q = e[:, :, 31]
+        for k in range(len(steps)):
+            s = 1 << k
+            q = np.concatenate([q[:, :s], _madd(steps[k], q[:, :-s], q[:, s:])], 1)
+        c = np.concatenate([np.zeros_like(e[:, :, :1]), e[:, :, :-1]], 2)
+        c[:, 1:] = _madd(lanes[None, None], q[:, :-1, None], c[:, 1:])
+        return c.reshape(b, t, d), q[:, -1]
+
+    def section(self, v, which, carry, je):
+        """A biquad on the tile v [B, threads, chunk] in place; returns the
+        tile's end state and the row's end state (None outside its tile)."""
+        coef, pw, lanes, steps = self.sets[which]
+        a00, a10, bv0, bv1, b0 = coef[0], coef[2], coef[4], coef[5], coef[6]
+        s0 = np.zeros(v.shape[:2], np.float32)
+        s1 = np.zeros_like(s0)
+        s0[:, 0], s1[:, 0] = carry[:, 0], carry[:, 1]
+        ends = np.zeros(v.shape[:2] + (2,), np.float32)
+        for j in range(self.chunk):
+            x = v[:, :, j].copy()
+            v[:, :, j] = _fma(b0, x, s0)
+            s0, s1 = _fma(a00, s0, _fma(bv0, x, s1)), _fma(a10, s0, bv1 * x)
+            ends[:, je == j] = np.stack([s0, s1], -1)[:, je == j]
+        c, tile_end = self.scan(np.stack([s0, s1], -1), lanes, steps)
+        v[:, :, 0] = v[:, :, 0] + c[..., 0]
+        for j in range(1, self.chunk):
+            v[:, :, j] = _fma(pw[j - 1, 0, 0], c[..., 0], _fma(pw[j - 1, 0, 1], c[..., 1], v[:, :, j]))
+        end = None
+        holds = (je >= 0) & (je < self.chunk)
+        if holds.any():
+            t = int(np.argmax(holds))
+            end = _madd(pw[je[t]], c[:, t], ends[:, t])
+        return tile_end, end
+
+    def smooth(self, v, carry, je):
+        """The one-pole on v's squares in place; as :meth:`section`."""
+        coef, pw, lanes, steps = self.pole
+        p, q = coef[0], coef[1]
+        s = np.zeros(v.shape[:2], np.float32)
+        s[:, 0] = carry
+        for j in range(self.chunk):
+            s = _fma(p, s, (v[:, :, j] * v[:, :, j]) * q)
+            v[:, :, j] = s
+        c, tile_end = self.scan(s[..., None], lanes, steps)
+        for j in range(self.chunk):
+            v[:, :, j] = _fma(pw[j, 0, 0], c[..., 0], v[:, :, j])
+        holds = (je >= 0) & (je < self.chunk)
+        end = v[:, int(np.argmax(holds)), je[np.argmax(holds)]] if holds.any() else None
+        return tile_end[..., 0], end
+
+    def run(self, x, z, s):
+        """x [B, W], z [B, 8, 2], s [B, 3] -> bands [B, 3, W], smoothed
+        band energies [B, 3, W], z and s out."""
+        b, w = x.shape
+        tile = self.chunk * self.threads
+        carry, scarry = z.astype(np.float32).copy(), s.astype(np.float32).copy()
+        z_out, s_out = np.zeros_like(carry), np.zeros_like(scarry)
+        n = -(-w // tile) * tile
+        bands, smoothed = np.zeros((b, 3, n), np.float32), np.zeros((b, 3, n), np.float32)
+        xp = np.zeros((b, n), np.float32)
+        xp[:, :w] = x
+        for base in range(0, w, tile):
+            je = (w - 1 - base) - np.arange(self.threads) * self.chunk
+            xt = xp[:, base : base + tile].reshape(b, self.threads, self.chunk).copy()
+            lo = xt.copy()
+            mid = None
+            for sec, v in ((0, lo), (1, lo), (2, xt), (3, xt), (4, None), (5, None), (6, xt), (7, xt)):
+                if sec == 4:
+                    mid = xt.copy()
+                v = mid if v is None else v
+                carry[:, sec], end = self.section(v, sec // 2, carry[:, sec], je)
+                if end is not None:
+                    z_out[:, sec] = end
+            for k, v in enumerate((lo, mid, xt)):
+                bands[:, k, base : base + tile] = v.reshape(b, -1)
+                scarry[:, k], end = self.smooth(v, scarry[:, k], je)
+                smoothed[:, k, base : base + tile] = v.reshape(b, -1)
+                if end is not None:
+                    s_out[:, k] = end
+        return bands[..., :w], smoothed[..., :w], z_out, s_out
+
+
+@pytest.mark.parametrize("fs", [48_000.0, 96_000.0])
+@pytest.mark.parametrize("chunk,threads,w", [(16, 512, 16384), (16, 512, 3001), (4, 64, 3001),
+                                             (32, 128, 5000), (8, 256, 2047)])
+def test_colour_track_chunked_scan_holds_the_float64_oracle(fs, chunk, threads, w):
+    """Kernel E's chunked scans (the model above) at several chunk lengths
+    and block sizes, W a multiple of the tile and not a multiple of the
+    chunk, from carried states: bands, smoothed energies and every end state
+    within 2x the plain doubling scans' own distance from the float64
+    chain (each measured here on the same input)."""
+    rng = np.random.default_rng(w + chunk)
+    n = np.arange(w)
+    x = np.stack([0.4 * np.sin(2 * np.pi * f * n / fs) + 0.05 * rng.standard_normal(w)
+                  for f in (110.0, 1300.0, 7000.0)]).astype(np.float32)
+    x[2] = 0.0  # a silent row
+    z = (rng.standard_normal((3, 8, 2)) * 0.01).astype(np.float32)
+    z[2] = 0.0
+    s = (rng.random((3, 3)) * 0.01).astype(np.float32)
+    s[2] = 0.0
+    pole = float(np.exp(-1.0 / (10e-3 * fs)))
+    bands, smoothed, z_out, s_out = KernelE(fs, pole, chunk, threads).run(x, z, s)
+    ref = ct.float64_reference(x, fs, z, pole, s, np.eye(3), np.zeros((3, 3)), 1.0)
+    want = (ref[0], ref[2], ref[1], ref[2][..., -1])  # bands, smoothed, z, smoothing state
+    plain_bands, plain_z = ct.three_band_split_plain(torch.from_numpy(x), fs, state=tf.CrossoverState(torch.from_numpy(z)))
+    plain_sm = tf.onepole_smooth(plain_bands * plain_bands, torch.tensor(np.float32(pole)), torch.from_numpy(s))
+    plain = (plain_bands.numpy(), plain_sm.numpy(), plain_z.z.numpy(), plain_sm[..., -1].numpy())
+    for name, got, ref, w64 in zip(("bands", "smoothed", "z", "smooth state"), (bands, smoothed, z_out, s_out),
+                                   plain, want):
+        err = float(np.abs(got - w64).max())
+        plain_err = float(np.abs(ref - w64).max())
+        assert err <= 2 * plain_err, (name, err, plain_err)
+    # the silent row stays exactly zero
+    assert not bands[2].any() and not smoothed[2].any() and not z_out[2].any() and not s_out[2].any()
