@@ -44,7 +44,11 @@ Phases, each printing one informational line:
    version from the same carried state, with launch counts, finiteness,
    trigger, fundamental and silence checks (with the colour track, kernel E
    once a call on the main path, and the call timed: it must fit a 60 fps
-   frame); then cfg3 with the
+   frame; at cfg3b kernel F once a call, the walk's plain version in the
+   call it is held to (the median history equal too), the passes a call
+   from kernel F's device counter); the synchronizing operations of one
+   more call of each and their sites (cfg3b: as many as cfg3's, none in the
+   oscilloscope's modules); then cfg3 with the
    ENVELOPE_HOLD trigger (kernel D's fused entry, once a call), three calls
    each held to the same step with the trigger's plain version (every
    frame field and the fire queue bit-equal), and the call timed: it must
@@ -126,10 +130,19 @@ Phases, each printing one informational line:
    launches, over 4 more ticks syncs a tick and their sites; a session at
    the factory preset ``coloured.oscilloscope`` (the spectral-energy
    colour track: kernel E's fused entry once a tick) the same way, its
-   colours within 1e-3 of the CPU session's; and over 40 more ticks ms a
-   tick of both side sessions timed in turns with the main session (the
+   colours within 1e-3 of the CPU session's; a session at the factory
+   preset ``cycles.oscilloscope`` (the SPECTRAL trigger in the Cycles time
+   mode: kernel F's filtered entry once a tick), 24 ticks bit-equal to the
+   same session with the walk's plain version on the card and against the
+   CPU (fundamentals and Cycles windows within rtol 1e-5, the waveform
+   within ``CYCLES_WAVE_TOL`` x gain, the envelopes' distance reported,
+   the other views at their tolerances; the CPU's resample at the card's
+   window start within kernel C's tolerance of the card's); and over 40 more
+   ticks ms a tick of
+   the three side sessions timed in turns with the main session (the
    median of the pairwise differences; the coloured tick's p50 must fit a
-   60 fps frame);
+   60 fps frame); the main session makes 3 syncs a tick (its readbacks),
+   the `cycles` session one more (the Cycles window's readback);
 15. profile — ``torch.profiler`` over 20 T=128 and 20 T=1 calls of the
    Spectrum slice on device-resident frames and 20 cfg3 oscilloscope calls
    gives the device time per kernel; the same 20 calls timed again without
@@ -144,13 +157,15 @@ Phases, each printing one informational line:
    kernels on the same rows, the 200000-sample Spectrum call, one live
    tick, one session tick, the ENVELOPE_HOLD cfg3 call, kernel D's two
    entries alone, the cfg3 call with the colour track, kernel E's two
-   entries alone at cfg3, the ``peak trigger`` and ``coloured`` session
-   ticks and (over 3 calls) the pipeline's cfg5 tick are profiled
-   the same way; a ``trigger_profile`` line sets the launches, device µs
-   and wall µs of the ENVELOPE_HOLD call and the ``peak trigger`` session
-   tick beside cfg3's ZERO_CROSSING call and the default session tick, and
-   a ``colour_profile`` line those of the colour track's call and session
-   tick beside the same;
+   entries alone at cfg3, the cfg3b call, kernel F's filtered entry alone
+   at cfg3b and on one row, the ``peak trigger``, ``coloured`` and
+   ``cycles`` session ticks and (over 3 calls) the pipeline's cfg5 tick are
+   profiled the same way; a ``trigger_profile`` line sets the launches,
+   device µs and wall µs of the ENVELOPE_HOLD call and the ``peak trigger``
+   session tick beside cfg3's ZERO_CROSSING call and the default session
+   tick, a ``colour_profile`` line those of the colour track's call and
+   session tick beside the same, and a ``spectral_profile`` line those of
+   the cfg3b call and the ``cycles`` session tick;
 16. kernel D (the envelope-hold scan; after phase 6), both entries against
    their plain versions on the same CUDA tensors, bit for bit: the
    function entry (fires, state, holding) against the loop and the fused
@@ -192,7 +207,19 @@ Phases, each printing one informational line:
    fused entry on bands it is given; colours within 1e-3 of the
    plain version's, bands and states no further from the oracle than 2x
    the plain version's own error; timed at cfg3 beside the plain version
-   and the bound, and profiled alone there (phase 15).
+   and the bound, and profiled alone there (phase 15);
+20. kernel F (the spectral trigger's walk and median filter; after phase
+   19), both entries against their plain versions (the loop from
+   acceptance to acceptance, then ``median_record_filter``) on the same
+   CUDA tensors, bit for bit (record, passes, history): rfft bins of 1, 16
+   and 33 lookaheads of 8192 samples (sines, harmonics, chords, the last
+   row silent), threshold and hysteresis 0 and (0.1, 0.4), as host numbers
+   and device scalars, the filtered entry over three calls with a history
+   holding -1 sentinels; bins fed directly: the longest chain float32
+   allows (276 doublings from the smallest subnormal), one from the
+   smallest normal, a chain of 36 bins 4x apart, and the 280-pass cap;
+   timed at cfg3b (16 x 4094 bins) and on one row beside the plain loop,
+   the bound and the chain's estimate, and profiled alone there (phase 15).
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -297,6 +324,13 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/colour_track.cu",
         replaces="signalizer_tpu/kernels/filters.py:66",
     ),
+    # kernel F: the spectral trigger's walk (the lax.while_loop of
+    # spectral_fundamental, not Pallas) and the median filter after it
+    "spectral_walk": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/spectral_walk.cu",
+        replaces="signalizer_tpu/kernels/oscilloscope.py:280",
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -309,6 +343,7 @@ DEVICE_FUNCTIONS = {
     "window_fft_mag_cluster": ("window_fft_mag_cluster_kernel",),
     "peak_hold": ("peak_hold_kernel",),
     "colour_track": ("colour_track_kernel",),
+    "spectral_walk": ("spectral_walk_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -1412,7 +1447,7 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
     from signalizer_tpu_torch import OscilloscopeProcessor, TriggerMode
     from signalizer_tpu_torch.kernels import banded_resample as br
     from signalizer_tpu_torch.kernels import colour_track as ct
-    from signalizer_tpu_torch.kernels import oscilloscope as tk
+    from signalizer_tpu_torch.kernels import spectral_walk as sw
 
     stream, freqs = make_osc_stream()
     hist = torch.from_numpy(stream).to(dev)
@@ -1432,20 +1467,27 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         proc = OscilloscopeProcessor.create(**kw)
         plain = OscilloscopeProcessor.create(**kw)
         colour = bool(over.get("colour_enabled", False))
+        spectral = over.get("trigger_mode") == TriggerMode.SPECTRAL
         wave_err = 0.0
         frames = []
-        walks = []  # the spectral walk's iterations (host syncs) per call
+        walks = []  # kernel F's passes a call (the most of any row), from its device counter
         br.launches = 0
         colour_launches = 0  # kernel E on the main path (the plain-resample run also launches it)
+        walk_launches = 0  # kernel F likewise (the plain run takes the plain walk)
         for h in calls:
             plain.state = proc.state
-            before = ct.launches
+            before, walk_before = ct.launches, sw.launches
             frame = proc.process(h, new_samples=OSC_HOP)
             colour_launches += ct.launches - before
-            walks.append(tk.walk_iterations)
-            with plain_resample():
+            walk_launches += sw.launches - walk_before
+            passes = sw.last_passes if spectral else None
+            with plain_resample(), plain_walk():
                 want = plain.process(h, new_samples=OSC_HOP)
             torch.cuda.synchronize()
+            if spectral:
+                walks.append(int(passes.max()))
+                require(torch.equal(proc.state.median_history, plain.state.median_history),
+                        f"{name} median history vs the plain walk")
             require(frame.waveform.shape == (PAIRS, 2, OSC_PIXELS), f"{name} waveform shape")
             require(frame.colours.shape == (PAIRS, 2, OSC_PIXELS, 3), f"{name} colours shape")
             for key in ("waveform", "envelope_min", "envelope_max", "colours", "gain"):
@@ -1465,7 +1507,16 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
                 f"{name}: kernel C launched {launches} times in {OSC_CALLS} calls")
         require(colour_launches == OSC_CALLS * int(colour),
                 f"{name}: kernel E launched {colour_launches} times in {OSC_CALLS} calls")
+        require(walk_launches == OSC_CALLS * int(spectral),
+                f"{name}: kernel F launched {walk_launches} times in {OSC_CALLS} calls")
         total += launches
+        # the synchronizing operations of one more call, and their sites
+        # (the second of two: the first counter in a process also meets
+        # torch's one-time set-up)
+        for _ in range(2):
+            with SyncCounter(torch) as sc:
+                proc.process(calls[-1], new_samples=OSC_HOP)
+            torch.cuda.synchronize()
 
         last = frames[-1]
         found = last.trigger_found.cpu().numpy()
@@ -1475,7 +1526,7 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
             off = np.abs(fund[:-1] - freqs)
             require(bool((off <= bin_hz).all()), f"{name}: fundamentals {fund[:-1]} vs sines {freqs}")
             checks["max_fundamental_off_hz"] = float(off.max())
-            checks["walk_iterations_per_call"] = walks
+            checks["walk_passes_per_call"] = walks
         else:
             require(bool(found[:-1].all()) and not found[-1], f"{name}: trigger_found {found}")
             # a rising crossing of each pair's sine at the window's centre:
@@ -1493,11 +1544,23 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
             plain_ms = call_ms(torch, lambda: plain.process(calls[0], new_samples=OSC_HOP))
         report["configs"][name] = {
             "launches": launches, "max_wave_err_vs_plain": wave_err, "checks": checks,
+            "syncs_per_call": sc.count, "sync_sites": dict(sc.sites),
             "ms_per_call": ms, "plain_ms_per_call": plain_ms,
             "frames_per_s": PAIRS / (ms / 1e3), "plain_frames_per_s": PAIRS / (plain_ms / 1e3),
         }
         if name == "cfg3":
             cfg3_proc = proc
+        if spectral:
+            # no host sync in the walk: none in the oscilloscope's modules,
+            # and no more than cfg3's call makes
+            cfg3 = report["configs"]["cfg3"]
+            walk_sites = [k for k in sc.sites if k.startswith(("oscilloscope.py", "spectral_walk.py"))]
+            require(sc.count <= cfg3["syncs_per_call"] and not walk_sites,
+                    f"{name}: syncs {dict(sc.sites)}, cfg3's {cfg3['sync_sites']}")
+            report["configs"][name]["walk_launches"] = walk_launches
+            launches_out["spectral_walk"] = launches_out.get("spectral_walk", 0) + walk_launches
+            calls_out["spectral_walk"] = calls_out.get("spectral_walk", 0) + OSC_CALLS
+            spectral_proc = proc
         if colour:
             # the colour track's cost in the call: kernel E once, then kernel
             # C's pick; it must fit a 60 fps frame
@@ -1512,7 +1575,8 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
     # cfg3 with the ENVELOPE_HOLD trigger: kernel D's main path
     report["envelope_hold"], hold_call = envelope_hold_calls(torch, dev, calls, launches_out, calls_out)
     info(report)
-    return cfg3_proc, calls[0], hold_call, lambda: colour_proc.process(calls[0], new_samples=OSC_HOP)
+    return (cfg3_proc, calls[0], hold_call, lambda: colour_proc.process(calls[0], new_samples=OSC_HOP),
+            lambda: spectral_proc.process(calls[0], new_samples=OSC_HOP))
 
 
 # kernel A above one block's rows, timed at 16 pairs x T = 16 frames of the
@@ -2022,6 +2086,10 @@ def phase_live(torch, dev, launches_out, calls_out):
 # sines in a little noise
 SESSION_TICKS = 240
 SESSION_SIDE_TICKS = 24  # the CPU comparison and each side session
+# the `cycles` session's waveform against the CPU's, abs over gain: the
+# card's SPECTRAL trigger may place the window an f32 ulp or two from the
+# CPU's (see phase_session); about 3x the largest reading on the card
+CYCLES_WAVE_TOL = 1e-3
 SESSION_SYNC_TICKS = 10  # the main run's last ticks: syncs counted, not timed
 PEAK_SYNC_TICKS = 4  # the `peak trigger` session's ticks with syncs counted
 PEAK_TURN_TICKS = 40  # ticks of it and of the main session, timed in turns
@@ -2449,6 +2517,105 @@ def phase_session(torch, dev, launches_out, calls_out):
         co_syncs.append(sc.count)
         co_sites.update(sc.sites)
 
+    # the factory preset `cycles.oscilloscope` (the SPECTRAL trigger, the
+    # window locked to the detected cycles: kernel F once a tick, and the
+    # Cycles window read back), against the same session with the walk's
+    # plain version on the card (bit-equal) and on the CPU
+    from signalizer_tpu_torch.kernels import spectral_walk as sw
+    from signalizer_tpu_torch.params.transformatters import TimeMode
+
+    def cycles(eng):
+        require(eng.load_preset("cycles.oscilloscope"), "no factory preset cycles.oscilloscope")
+        eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform, as session_open sets it
+
+    cy, cy_plain, cy_cpu = (session_open(d, knobs=cycles) for d in (dev, dev, "cpu"))
+    cy_osc = cy.processor("oscilloscope")
+    require(cy_osc.trigger_mode == TriggerMode.SPECTRAL and cy_osc.time_mode == TimeMode.CYCLES,
+            "cycles: the preset's oscilloscope is not SPECTRAL in Cycles mode")
+    cy_ms, cy_frames, cy_fund, cy_windows, cy_passes, cy_calls = [], [], [], [], [], []
+    sw.launches = 0
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(cy, blocks, i)
+        cy_calls.append([])
+        with resample_log(cy_calls[-1]):
+            t0 = time.perf_counter()
+            got = cy.tick()
+            torch.cuda.synchronize()
+            cy_ms.append((time.perf_counter() - t0) * 1e3)
+        cy_frames.append(session_host(got))
+        cy_fund.append(float(got.oscilloscope.fundamental[0]))
+        cy_windows.append(cy_osc._cycle_window)
+        cy_passes.append(int(sw.last_passes.max()))
+    cy_launches = sw.launches
+    with plain_walk():
+        for i in range(SESSION_SIDE_TICKS):
+            session_feed(cy_plain, blocks, i)
+            session_equal(session_host(cy_plain.tick()), cy_frames[i], f"cycles tick {i}: kernel F vs the plain walk")
+    require(sw.launches == cy_launches, "cycles: the plain walk's session launched kernel F")
+    # against the CPU: every view within its card tolerance, the fundamental
+    # and the Cycles window within rtol 1e-5, trigger_found equal; but the
+    # card's trigger is not the CPU's (cuFFT and the CPU's transform round
+    # differently, and the Goertzel phase lock sums in another order), so
+    # the f32 window start or step, at ~16000 samples into the history, may
+    # lie an ulp or two away, and a pixel's position with them (2^-10 to
+    # 2^-9 samples). The waveform is held to CYCLES_WAVE_TOL x gain, set
+    # from the card's readings (at most 3.1e-4, on 3 of 24 ticks); the
+    # envelopes, nearest picks that such a move can flip by a whole sample,
+    # are reported. The witness: the CPU's plain resample of its own rows
+    # at the card's start and step gives the card's waveform and envelope
+    # picks within kernel C's tolerance.
+    cy_worst, cy_fund_err = {}, 0.0
+    cy_cpu_err = {"waveform": [], "envelopes": []}
+    cy_witness = {"start_diff": [], "step_diff": 0.0, "replay_err": 0.0}
+    for i in range(SESSION_SIDE_TICKS):
+        session_feed(cy_cpu, blocks, i)
+        cpu_calls = []
+        with resample_log(cpu_calls):
+            want = cy_cpu.tick()
+        host = session_host(want)
+        gain = max(1.0, float(np.abs(host["oscilloscope.gain"]).max()))
+        cy_cpu_err["waveform"].append(
+            float(np.abs(cy_frames[i]["oscilloscope.waveform"] - host["oscilloscope.waveform"]).max()) / gain)
+        cy_cpu_err["envelopes"].append(max(
+            float(np.abs(cy_frames[i][f"oscilloscope.{k}"] - host[f"oscilloscope.{k}"]).max()) / gain
+            for k in ("envelope_min", "envelope_max")))
+        err = session_errors(cy_frames[i], host)
+        err.pop("oscilloscope")
+        for k, v in err.items():
+            cy_worst[k] = (cy_worst.get(k, True) and v) if k == "trigger_equal" else max(cy_worst.get(k, 0.0), v)
+        f = float(want.oscilloscope.fundamental[0])
+        w = cy_cpu.processor("oscilloscope")._cycle_window
+        cy_fund_err = max(cy_fund_err, abs(cy_fund[i] - f) / f, abs(cy_windows[i] - w) / w)
+        wit = trigger_witness(cy_calls[i], cpu_calls)
+        cy_witness["start_diff"].append(wit["start_diff"])
+        cy_witness["step_diff"] = max(cy_witness["step_diff"], wit["step_diff"])
+        cy_witness["replay_err"] = max(cy_witness["replay_err"], wit["replay_err"])
+    require(max(cy_cpu_err["waveform"]) <= CYCLES_WAVE_TOL,
+            f"cycles session vs CPU: waveform {max(cy_cpu_err['waveform'])} x gain (tolerance {CYCLES_WAVE_TOL})")
+    require(cy_witness["replay_err"] <= 1.0,
+            f"cycles: the CPU resample at the card's start is {cy_witness['replay_err']} x kernel C's tolerance away")
+    require(cy_launches == SESSION_SIDE_TICKS,
+            f"cycles: kernel F launched {cy_launches} times in {SESSION_SIDE_TICKS} ticks")
+    require(all(v <= 1.0 for k, v in cy_worst.items() if k != "trigger_equal") and cy_worst["trigger_equal"]
+            and cy_fund_err <= 1e-5, f"cycles session vs CPU: {cy_worst}, fundamental and window {cy_fund_err}")
+    require(cy.engine.diagnostics.counters["session.failures"] == 0, "cycles: a view failed")
+    launches_out["spectral_walk"] = launches_out.get("spectral_walk", 0) + cy_launches
+    calls_out["spectral_walk"] = calls_out.get("spectral_walk", 0) + SESSION_SIDE_TICKS
+    cy_plain.close()
+    cy_cpu.close()
+    cy_syncs, cy_sites = [], collections.Counter()
+    for i in range(SESSION_SIDE_TICKS, SESSION_SIDE_TICKS + PEAK_SYNC_TICKS):
+        session_feed(cy, blocks, i)
+        with SyncCounter(torch) as sc:
+            cy.tick()
+        torch.cuda.synchronize()
+        cy_syncs.append(sc.count)
+        cy_sites.update(sc.sites)
+    # the default tick's syncs are its three readbacks; the Cycles window's
+    # readback is the one more
+    require(max(syncs[True]) == 3, f"session: {max(syncs[True])} syncs a tick, sites {dict(sites[True])}")
+    require(max(cy_syncs) == max(syncs[True]) + 1, f"cycles: {max(cy_syncs)} syncs a tick, sites {dict(cy_sites)}")
+
     def spread(v):
         v = v[10:]
         return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
@@ -2484,24 +2651,35 @@ def phase_session(torch, dev, launches_out, calls_out):
         co_block["i"] += 1
         return co.tick()
 
+    # the `cycles` session's ticks for the profile phase, likewise
+    cy_block = {"i": SESSION_SIDE_TICKS + PEAK_SYNC_TICKS}
+
+    def cycles_tick():
+        session_feed(cy, blocks, cy_block["i"])
+        cy_block["i"] += 1
+        return cy.tick()
+
     def close():
+        cy.close()
         co.close()
         pk.close()
         s.close()
 
-    # the default, the `peak trigger` and the `coloured` session a tick each
-    # in turn (the order rotating), so that the host's drift falls on all alike
-    turns = {"default": [], "peak_trigger": [], "coloured": []}
-    order = [("default", tick), ("peak_trigger", peak_trigger_tick), ("coloured", coloured_tick)]
+    # the default, the `peak trigger`, the `coloured` and the `cycles`
+    # session a tick each in turn (the order rotating), so that the host's
+    # drift falls on all alike
+    turns = {"default": [], "peak_trigger": [], "coloured": [], "cycles": []}
+    order = [("default", tick), ("peak_trigger", peak_trigger_tick), ("coloured", coloured_tick),
+             ("cycles", cycles_tick)]
     for i in range(PEAK_TURN_TICKS):
-        for name, fn in order[i % 3:] + order[: i % 3]:
+        for name, fn in order[i % 4:] + order[: i % 4]:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             turns[name].append((time.perf_counter() - t0) * 1e3)
     in_turns = {name: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
                 for name, v in turns.items()}
-    for name in ("peak_trigger", "coloured"):
+    for name in ("peak_trigger", "coloured", "cycles"):
         in_turns[f"{name}_minus_default_ms"] = float(np.median(np.subtract(turns[name], turns["default"])))
     require(in_turns["coloured"]["p50"] <= FRAME_MS,
             f"coloured: a tick takes {in_turns['coloured']['p50']} ms (p50), over a {FRAME_MS:.1f} ms frame")
@@ -2542,6 +2720,24 @@ def phase_session(torch, dev, launches_out, calls_out):
                                                "p99": in_turns["coloured"]["p99"],
                                                "minus_default_ms": in_turns["coloured_minus_default_ms"]},
                      "sync_sites": {k: v / PEAK_SYNC_TICKS for k, v in co_sites.most_common()}},
+        "cycles": {"ticks": SESSION_SIDE_TICKS, "tick_ms": spread(cy_ms), "spectral_walk_launches": cy_launches,
+                   "walk_passes": {"min": min(cy_passes), "max": max(cy_passes)},
+                   "plain_walk_equal": True, "cpu_err_in_tolerances": cy_worst,
+                   "cpu_waveform_abs_over_gain": max(cy_cpu_err["waveform"]),
+                   "cpu_waveform_tolerance_over_gain": CYCLES_WAVE_TOL,
+                   "cpu_envelopes_abs_over_gain": max(cy_cpu_err["envelopes"]),
+                   "cpu_by_tick": {"waveform_abs_over_gain": cy_cpu_err["waveform"],
+                                   "envelopes_abs_over_gain": cy_cpu_err["envelopes"],
+                                   "start_diff_samples": cy_witness["start_diff"]},
+                   "cpu_start_diff_samples": max(cy_witness["start_diff"]),
+                   "cpu_step_diff_samples": cy_witness["step_diff"],
+                   "cpu_resample_at_card_start_err_over_tol": cy_witness["replay_err"],
+                   "cpu_fundamental_window_rel_err": cy_fund_err,
+                   "syncs_per_tick": {"median": float(np.median(cy_syncs)), "max": int(max(cy_syncs))},
+                   "in_turns_with_default": {"ticks": PEAK_TURN_TICKS, "p50": in_turns["cycles"]["p50"],
+                                             "p99": in_turns["cycles"]["p99"],
+                                             "minus_default_ms": in_turns["cycles_minus_default_ms"]},
+                   "sync_sites": {k: v / PEAK_SYNC_TICKS for k, v in cy_sites.most_common()}},
     }
     info(report)
     require(all(v <= 1.0 for k, v in worst.items() if k != "trigger_equal") and worst["trigger_equal"],
@@ -2552,7 +2748,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     # at the faintest pixels (a pixel 80 dB down moves by 0.02 dB)
     require(rsnt_err["bank"] <= 2e-6 and rsnt_err["display"] <= 1e-5, f"RSNT vs CPU: {rsnt_err}")
 
-    return tick, peak_trigger_tick, coloured_tick, close
+    return tick, peak_trigger_tick, coloured_tick, cycles_tick, close
 
 
 # kernel D, the envelope-hold scan: the cases it is held to its plain loop
@@ -2931,6 +3127,249 @@ def phase_kernel_e(torch, dev, results):
         split_ms=t["split_ms"], split_plain_ms=t["split_plain_ms"],
     )
     return [("colour_track_cfg3", fused), ("colour_split_cfg3", split)]
+
+
+# kernel F, the spectral trigger's walk: the rows it is held to its plain
+# loop at (rows of rfft bins of 8192-sample lookaheads at 96 kHz: a sine a
+# row, harmonics, a second note, noise, the last row silent), each with
+# threshold and hysteresis as host numbers and as device scalars, the
+# filtered entry three calls with its history carried
+WALK_N = 8192
+WALK_ROWS = (1, PAIRS, 33)
+WALK_SETTINGS = ((0.0, 0.0), (0.1, 0.4))
+# bins fed directly: (name, chain starts, length, ratio (None: each bin the
+# next float32 above twice the last, until float32 overflows, then inf),
+# first value, hysteresis, acceptances of the first row or None)
+WALK_CHAINS = [
+    ("longest_chain", [2, 2], 0, None, 2.0 ** -149, 0.0, 276),
+    ("normal_chain", [2, 2], 0, None, 2.0 ** -126, 0.4, None),
+    ("chain_36", [2, 300], 36, 4.0, 1e-10, 0.4, None),
+    ("pass_cap", [2, 40], 300, 1.01, 1.0, -1.0, 280),
+]
+# the chain's estimate a pass: the test of a thread's 16 bins (a product
+# and a compare each), two warp reductions, a shared store, a barrier, a
+# shared load and the new incumbent's two loads, each waiting on the last
+WALK_CYCLES_PER_PASS = 200
+
+
+def walk_bins(torch, rows, seed, dev, x=None):
+    """rfft magnitudes and offsets [rows, 4097] of 8192-sample lookaheads
+    (``x`` [rows, 8192], or a sine a row from 80 Hz to 6 kHz at 96 kHz with
+    harmonics in every third row, a second note in every fourth, noise, and
+    the last row silent where there are two or more), taken on the card."""
+    from signalizer_tpu_torch.kernels import oscilloscope as tk
+
+    if x is None:
+        rng = np.random.default_rng(seed)
+        t = np.arange(WALK_N) / OSC_FS
+        x = np.zeros((rows, WALK_N), np.float32)
+        for r in range(max(rows - 1, 1)):
+            f = 80.0 * (75.0 ** (r / max(rows - 1, 1)))
+            x[r] = 0.5 * np.sin(2 * np.pi * f * t + r) + 0.003 * rng.standard_normal(WALK_N)
+            if r % 3 == 1:
+                x[r] += sum(0.3 / k * np.sin(2 * np.pi * k * f * t) for k in (2, 3, 4))
+            if r % 4 == 2:
+                x[r] += 0.4 * np.sin(2 * np.pi * 1.26 * f * t)
+    return tk.spectral_bins(torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+
+
+def walk_history(torch, rows, seed, dev):
+    """Past omegas: -1 sentinels in every other row's first half (the whole
+    last row), far values (the median taken) in every third row."""
+    rng = np.random.default_rng(seed)
+    hist = rng.uniform(2.0, 400.0, (rows, 8)).astype(np.float32)
+    hist[::2, :4] = -1.0
+    hist[1::3] = rng.uniform(1000.0, 2000.0, (len(hist[1::3]), 8))
+    hist[-1] = -1.0
+    return torch.from_numpy(hist).to(dev)
+
+
+def walk_chain(torch, starts, length, ratio, first, dev):
+    """Bins [3, 4097] fed directly (see WALK_CHAINS): noise of 1e-12 with
+    offsets in [-0.5, 0.5), a chain in each of the first two rows (offset
+    0, the bins before it zero; bin 1's offset 0.5), the last row silent."""
+    rows, m = len(starts) + 1, WALK_N // 2 + 1
+    rng = np.random.default_rng(rows)
+    mags = (rng.random((rows, m)) * 1e-12).astype(np.float32)
+    offsets = rng.uniform(-0.5, 0.5, (rows, m)).astype(np.float32)
+    offsets[:, 1] = 0.5
+    for r, start in enumerate(starts):
+        v, i = np.float32(first), start
+        mags[r, 1:i] = 0.0
+        with np.errstate(over="ignore"):
+            while (i - start < length) if ratio else np.isfinite(v):
+                mags[r, i], offsets[r, i] = v, 0.0
+                v = np.float32(v * np.float32(ratio)) if ratio else np.nextafter(np.float32(2 * v), np.float32(np.inf))
+                i += 1
+        if ratio is None:
+            mags[r, i] = np.inf
+    mags[-1] = 0.0
+    return torch.from_numpy(mags).to(dev), torch.from_numpy(offsets).to(dev)
+
+
+def phase_kernel_f(torch, dev, results):
+    """Kernel F's two entries (the walk alone; the walk and the median
+    filter, what the step calls) against their plain versions on the same
+    CUDA tensors, bit for bit: record, passes and history. At WALK_ROWS x
+    WALK_SETTINGS, host numbers and device scalars, the filtered entry over
+    three calls; at WALK_CHAINS (the longest chain float32 allows, the
+    280-pass cap). Timed at cfg3b (16 rows x 4094 bins of the oscilloscope
+    stream's lookaheads) and one row beside the plain loop, the bound and
+    the chain estimate. Returns the profile's workloads."""
+    from signalizer_tpu_torch.kernels import spectral_walk as sw
+
+    worst = {"value_max_abs_err": 0.0, "offset_max_abs_err": 0.0, "history_max_abs_err": 0.0,
+             "index_mismatches": 0, "passes_mismatches": 0}
+
+    def both(what, mags, offsets, thr, hyst, history=None):
+        n = sw.launches
+        if history is None:
+            rec, passes = sw.spectral_walk(mags, offsets, WALK_N, thr, hyst)
+            want, want_passes = sw.spectral_walk_plain(mags, offsets, WALK_N, thr, hyst)
+            hist = want_hist = None
+        else:
+            hist, rec, passes = sw.spectral_walk_filtered(mags, offsets, WALK_N, history, thr, hyst)
+            want_hist, want, want_passes = sw.spectral_walk_filtered_plain(mags, offsets, WALK_N, history, thr, hyst)
+        torch.cuda.synchronize()
+        require(sw.launches == n + 1, f"kernel F {what}: {sw.launches - n} launches")
+        err = {"value_max_abs_err": nan_err(torch, rec.value, want.value),
+               "offset_max_abs_err": nan_err(torch, rec.offset, want.offset),
+               "history_max_abs_err": 0.0 if hist is None else nan_err(torch, hist, want_hist),
+               "index_mismatches": int((rec.index != want.index).sum()),
+               "passes_mismatches": int((passes != want_passes).sum())}
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+        same = all(torch.equal(a, b) for a, b in zip(rec, want)) and torch.equal(passes, want_passes.int())
+        require(same and (hist is None or torch.equal(hist, want_hist)),
+                f"kernel F {what}: differs from its plain version: {err}")
+        return rec, passes, hist
+
+    report = {"phase": "kernel_f", "bound": "record, passes and history bit-equal to the plain loop", "cases": {}}
+    for rows in WALK_ROWS:
+        mags, offsets = walk_bins(torch, rows, rows, dev)
+        for thr, hyst in WALK_SETTINGS:
+            for scalars in ("host", "device"):
+                t, h = (thr, hyst) if scalars == "host" else (torch.tensor(thr, device=dev),
+                                                               torch.tensor(hyst, device=dev))
+                what = f"{rows} rows, threshold {thr}, hysteresis {hyst}, {scalars}"
+                _, passes, _ = both(what, mags, offsets, t, h)
+                require(int(passes.max()) > 1 and (rows == 1 or int(passes[-1]) == 1),
+                        f"kernel F {what}: passes {passes.tolist()} (the last row silent)")
+                history = walk_history(torch, rows, 7, dev)
+                for call in range(3):
+                    _, _, history = both(f"{what}, filtered call {call}", mags, offsets, t, h, history)
+                report["cases"][what] = {"passes_max": int(passes.max())}
+    for name, starts, length, ratio, first, hyst, accepted in WALK_CHAINS:
+        mags, offsets = walk_chain(torch, starts, length, ratio, first, dev)
+        _, passes, _ = both(name, mags, offsets, 0.0, hyst)
+        both(f"{name}, filtered", mags, offsets, 0.0, hyst, walk_history(torch, 3, 1, dev))
+        if accepted is not None:
+            require(int(passes[0]) == min(accepted + 1, sw.MAX_WALK_ITERATIONS),
+                    f"kernel F {name}: {int(passes[0])} passes, {accepted} acceptances expected")
+        report["cases"][name] = {"passes": passes.tolist()}
+
+    # timed: cfg3b's 16 lookaheads (the oscilloscope stream's left channels)
+    # and one of them; the view's device scalars; bound: the bins and
+    # offsets read once (bin 1 on), the history in and out, the record and
+    # the passes written
+    stream, _ = make_osc_stream()
+    clock = max_sm_clock_hz()
+    timed, workloads = {}, []
+    thr_t, hyst_t = torch.tensor(0.1, device=dev), torch.tensor(0.0, device=dev)
+    for name, rows in (("cfg3b", PAIRS), ("1x4094", 1)):
+        mags, offsets = walk_bins(torch, rows, 0, dev, x=stream[:rows, 0, OSC_HISTORY - WALK_N : OSC_HISTORY])
+        history = walk_history(torch, rows, 3, dev)
+
+        def walk(mags=mags, offsets=offsets, history=history):
+            return sw.spectral_walk_filtered(mags, offsets, WALK_N, history, thr_t, hyst_t)
+
+        _, _, passes = walk()
+        passes = int(passes.max())
+        m = WALK_N // 2 - 2
+        moved = rows * ((m + 1) * 2 * 4 + 2 * 8 * 4 + 3 * 4 + 4)
+        timed[name] = dict(
+            ms=median_ms(torch, walk), passes=passes,
+            plain_ms=call_ms(torch, lambda: sw.spectral_walk_filtered_plain(mags, offsets, WALK_N, history,
+                                                                             thr_t, hyst_t), reps=3),
+            **roofline(moved, rows * m * 15.0),
+            chain_estimate_us=passes * WALK_CYCLES_PER_PASS / clock * 1e6,
+        )
+        workloads.append((f"spectral_walk_{name}", walk))
+    report["timed"] = timed
+    report["measured_err"] = worst
+    report["max_sm_clock_mhz"] = clock / 1e6
+    info(report)
+    t = timed["cfg3b"]
+    results["spectral_walk"] = dict(
+        entries=["spectral_walk_filtered (main path)", "spectral_walk"],
+        max_abs_err=max(worst["value_max_abs_err"], worst["offset_max_abs_err"], worst["history_max_abs_err"]),
+        mismatches=worst["index_mismatches"] + worst["passes_mismatches"], measured_err=worst,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        passes_cfg3b=t["passes"], chain_estimate_us=t["chain_estimate_us"],
+        one_row_ms=timed["1x4094"]["ms"], one_row_plain_ms=timed["1x4094"]["plain_ms"],
+        one_row_chain_estimate_us=timed["1x4094"]["chain_estimate_us"],
+    )
+    return workloads
+
+
+@contextlib.contextmanager
+def resample_log(calls: list):
+    """Record each resample call of the oscilloscope step
+    (``views/oscilloscope.py``: the waveform's and the envelope's picks) in
+    ``calls`` as (function, rows, start, step, pixels, other arguments,
+    output), rows and start cloned on their device (no sync)."""
+    from signalizer_tpu_torch.views import oscilloscope as tv
+
+    names = ("sinc_resample", "sinc_resample_with_nearest", "linear_resample", "nearest_resample")
+    saved = {name: getattr(tv, name) for name in names}
+
+    def recorder(fn):
+        def call(rows, start, step, pixels, *rest):
+            out = fn(rows, start, step, pixels, *rest)
+            calls.append((fn, rows.clone(), start.clone(), step, pixels, rest, out))
+            return out
+
+        return call
+
+    for name, fn in saved.items():
+        setattr(tv, name, recorder(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(tv, name, fn)
+
+
+def trigger_witness(card_calls: list, cpu_calls: list) -> dict:
+    """Where a card tick's oscilloscope differs from the CPU's: the window
+    start and step of each resample call apart (samples), and the CPU's
+    plain resample of its own rows at the card's start and step against the
+    card's output, in kernel C's tolerance (1e-5 x max|x|; pass: <= 1)."""
+    require(len(card_calls) == len(cpu_calls) > 0, f"witness: {len(card_calls)} and {len(cpu_calls)} resample calls")
+    out = {"start_diff": 0.0, "step_diff": 0.0, "replay_err": 0.0}
+    for (fn, _, start, step, pixels, rest, got), (_, rows, cpu_start, cpu_step, _, _, _) in zip(card_calls, cpu_calls):
+        out["start_diff"] = max(out["start_diff"], float((start.cpu() - cpu_start).abs().max()))
+        out["step_diff"] = max(out["step_diff"], abs(step - cpu_step))
+        replay = fn(rows, start.cpu(), step, pixels, *rest)
+        tol = 1e-5 * max(float(rows.abs().max()), 1e-30)
+        for a, b in zip(replay if isinstance(replay, tuple) else (replay,), got if isinstance(got, tuple) else (got,)):
+            out["replay_err"] = max(out["replay_err"], float((a - b.cpu()).abs().max()) / tol)
+    return out
+
+
+@contextlib.contextmanager
+def plain_walk():
+    """Route the oscilloscope step's spectral walk (kernel F's filtered
+    entry) to its plain version: the loop and the median filter, the path
+    each SPECTRAL call is held to."""
+    from signalizer_tpu_torch.kernels import spectral_walk as sw
+    from signalizer_tpu_torch.views import oscilloscope as tv
+
+    tv.spectral_walk_filtered = sw.spectral_walk_filtered_plain
+    try:
+        yield
+    finally:
+        tv.spectral_walk_filtered = sw.spectral_walk_filtered
 
 
 @contextlib.contextmanager
@@ -3509,13 +3948,15 @@ def main() -> int:
     phase_kernel_c(torch, dev, results)
     hold_workloads = phase_kernel_d(torch, dev, results)
     colour_workloads = phase_kernel_e(torch, dev, results)
-    osc, history, hold_call, colour_call = phase_osc_slice(torch, dev, launches, calls)
+    walk_workloads = phase_kernel_f(torch, dev, results)
+    osc, history, hold_call, colour_call, spectral_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
     resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
-    session_tick, peak_trigger_tick, coloured_tick, session_close = phase_session(torch, dev, launches, calls)
+    session_tick, peak_trigger_tick, coloured_tick, cycles_tick, session_close = phase_session(
+        torch, dev, launches, calls)
     pipeline_tick = phase_pipeline(torch, dev, launches, calls)
     phase_front_ends(torch, dev, launches, calls)
     profile = phase_profile(torch, [
@@ -3527,6 +3968,8 @@ def main() -> int:
         *hold_workloads,
         ("osc_cfg3_colour", colour_call),
         *colour_workloads,
+        ("osc_cfg3b", spectral_call),
+        *walk_workloads,
         *resample_routes(torch, history),
         ("vectorscope_cfg2", lambda: scope.process(scope_x)),
         ("spectrogram_cfg4", cfg4_step),
@@ -3540,9 +3983,10 @@ def main() -> int:
         ("session_tick", session_tick),
         ("session_tick_peak_trigger", peak_trigger_tick),
         ("session_tick_coloured", coloured_tick),
+        ("session_tick_cycles", cycles_tick),
         ("pipeline_cfg5_tick", pipeline_tick),
     ], calls_of={"pipeline_cfg5_tick": 3},
-        detail=("session_tick", "session_tick_peak_trigger", "session_tick_coloured"))
+        detail=("session_tick", "session_tick_peak_trigger", "session_tick_coloured", "session_tick_cycles"))
     live_close()
     session_close()
     # device time per launch on the main path: one launch per profiled call
@@ -3557,7 +4001,7 @@ def main() -> int:
                        ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
                        ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold"),
-                       ("colour_track", "osc_cfg3_colour")):
+                       ("colour_track", "osc_cfg3_colour"), ("spectral_walk", "osc_cfg3b")):
         results[name]["profile_us"] = own_us(path, name)
     # kernel D's two entries alone, at cfg3's tick and at 16 x 8192
     results["peak_hold"]["profile_us_alone"] = {name: own_us(name, "peak_hold") for name, _ in hold_workloads}
@@ -3585,6 +4029,19 @@ def main() -> int:
     for name, base in (("osc_cfg3_colour", "osc_cfg3"), ("session_tick_coloured", "session_tick")):
         colour[f"{name}_minus_{base}"] = {k: colour[name][k] - colour[base][k] for k in colour[name]}
     info({"phase": "colour_profile", **colour})
+    # the spectral walk's cost in the step and the session tick, likewise;
+    # kernel F alone at cfg3b and on one row
+    results["spectral_walk"]["profile_us_alone"] = {name: own_us(name, "spectral_walk") for name, _ in walk_workloads}
+    results["spectral_walk"]["session_tick_profile_us"] = own_us("session_tick_cycles", "spectral_walk")
+    walk = {}
+    for name in ("osc_cfg3", "osc_cfg3b", "session_tick", "session_tick_cycles"):
+        row = profile[name]
+        walk[name] = {"launches_per_call": row["launches_per_call"], "device_us_per_call": row["device_us_per_call"],
+                      "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
+                      "spectral_walk_us": row["own_kernels_us_per_call"].get("spectral_walk_kernel", 0.0)}
+    for name, base in (("osc_cfg3b", "osc_cfg3"), ("session_tick_cycles", "session_tick")):
+        walk[f"{name}_minus_{base}"] = {k: walk[name][k] - walk[base][k] for k in walk[name]}
+    info({"phase": "spectral_profile", **walk})
     # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
     # on the same rows (through their C entries), and the live tick's 16 rows
     cluster = results["window_fft_mag_cluster"]

@@ -94,6 +94,13 @@ SIGNATURES = {
     "sig_colour_track": (
         _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _F, _P, _I, _I, _I, _I, _P,
     ),
+    # mags, mags_stride, offsets, offs_stride, threshold (or null),
+    # hysteresis (or null), thr value, inv_h value, iq value, qs, n,
+    # hist_in (or null), index, value, offset, hist_out (or null), passes,
+    # rows, m, stream
+    "sig_spectral_walk": (
+        _P, _L, _P, _L, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+    ),
 }
 
 # what the last build in this process printed and how long it took

@@ -21,15 +21,16 @@ same shapes and semantics, on tensors on any device.
 * The colour track is kernel E
   (:mod:`signalizer_tpu_torch.kernels.colour_track`): its CUDA chunked scans
   for a CUDA tensor, its plain doubling scans for a CPU one.
-* The spectral fundamental walk iterates acceptance to acceptance like the
-  JAX ``while_loop``; each iteration tests ``any(active)`` on the host (one
-  device sync per iteration, at most 280).
+* The spectral fundamental walk is kernel F
+  (:mod:`signalizer_tpu_torch.kernels.spectral_walk`): its CUDA walk for a
+  CUDA tensor (one launch, no host sync), its plain loop from acceptance to
+  acceptance for a CPU one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -42,13 +43,20 @@ from signalizer_tpu_torch.kernels.banded_resample import (
 )
 from signalizer_tpu_torch.kernels import colour_track
 from signalizer_tpu_torch.kernels.peak_hold import peak_hold_triggers  # noqa: F401 — the views import it here
+from signalizer_tpu_torch.kernels.spectral_walk import (  # noqa: F401 — the views and tests import them here
+    MAX_WALK_ITERATIONS,
+    MEDIAN_FILTER_SIZE,
+    BinRecord,
+    median_record_filter,
+    spectral_walk,
+)
 
 LOOKAHEAD_SIZE = 8192  # ref: OscilloscopeParameters.h:46
 INTERPOLATION_KERNEL_SIZE = 10  # ref: OscilloscopeParameters.h:47
-MEDIAN_FILTER_SIZE = 8  # ref: OscilloscopeDSP.inl MedianData::FilterSize
-MAX_WALK_ITERATIONS = 280  # > the 277 doublings f32's range allows
 
-# host syncs of the last spectral_fundamental call (its loop iterations)
+# passes of the last spectral_fundamental call on CPU tensors (the plain
+# loop's iterations); on CUDA tensors the passes stay on the device
+# (spectral_walk.last_passes)
 walk_iterations = 0
 
 
@@ -96,17 +104,6 @@ def last_zero_crossing_trigger(x: torch.Tensor, threshold) -> Tuple[torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-class BinRecord(NamedTuple):
-    """Fundamental candidate (ref: OscilloscopeDSP.inl BinRecord)."""
-
-    index: torch.Tensor  # int32
-    value: torch.Tensor  # f32 magnitude
-    offset: torch.Tensor  # f32 fractional bin offset
-
-    def omega(self):
-        return self.index.to(torch.float32) + self.offset
-
-
 def _quad_delta(spec: torch.Tensor) -> torch.Tensor:
     """Complex quadratic interpolation of the true peak offset per bin
     (ref: OscilloscopeDSP.inl:103-126): Re((X[w-1]-X[w+1]) /
@@ -121,6 +118,13 @@ def _quad_delta(spec: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, ratio.real, 0.0)
 
 
+def spectral_bins(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk's inputs: the rfft's magnitudes and quadratic peak offsets
+    of x [..., N], each [..., N/2 + 1]."""
+    spec = torch.fft.rfft(x, dim=-1)
+    return spec.abs(), _quad_delta(spec)
+
+
 def spectral_fundamental(
     x: torch.Tensor,
     sample_rate: float,
@@ -132,91 +136,20 @@ def spectral_fundamental(
     (ref: calculateFundamentalPeriod, OscilloscopeDSP.inl:80-225).
 
     x [..., N] real. Returns (fundamental_hz [...], cycle_samples [...],
-    BinRecord). Candidate walk: a bin must beat the incumbent by 2x (scaled
-    by 1-hysteresis); a 20x winner always takes over; a candidate within a
-    quarter semitone of the incumbent is a better estimate of the same
-    partial; a candidate harmonically related to the incumbent is rejected.
-
-    Between two acceptances the incumbent is constant, so each iteration
-    tests every later bin against it at once and takes the first accepted
-    one; the loop ends when no batch row accepted anything, a test the host
-    makes each iteration (``walk_iterations`` counts them).
+    BinRecord). The candidate walk is
+    :func:`~signalizer_tpu_torch.kernels.spectral_walk.spectral_walk`
+    (kernel F on CUDA tensors).
     """
     global walk_iterations
     n = x.shape[-1]
-    spec = torch.fft.rfft(x, dim=-1)
-    mags = spec.abs()
-    offsets = _quad_delta(spec)
-
-    quarter_semitone = 2.0 ** (0.25 / 12.0) - 1.0
-    inv_h = 1.0 - hysteresis
-
-    batch_shape = x.shape[:-1]
-    floor = torch.as_tensor(threshold, dtype=torch.float32, device=x.device) * n / 6.0
-    record = BinRecord(
-        index=torch.full(batch_shape, 1, dtype=torch.int32, device=x.device),
-        value=torch.maximum(floor, mags[..., 1]),
-        offset=offsets[..., 1],
-    )
-
-    half = n // 2
-    idxs = torch.arange(2, half, dtype=torch.int32, device=x.device)
-    vals = mags[..., 2:half]  # [..., M]
-    offs = offsets[..., 2:half]
-    omegas = idxs.to(torch.float32) + offs
-
-    def accept_mask(rec: BinRecord) -> torch.Tensor:
-        max_omega = rec.omega()[..., None]
-        vastly_better = inv_h * vals > rec.value[..., None] * 2.0
-        factor = omegas / torch.where(max_omega > 0, max_omega, 1.0)
-        sensitivity = vals / torch.clamp(rec.value[..., None], min=1e-30)
-        twenty_x = inv_h * sensitivity > 20.0
-        same_partial = torch.abs(1.0 - factor) < inv_h * quarter_semitone
-        mult_dev = torch.abs(factor - torch.floor(factor + 0.5))
-        not_harmonic = inv_h * mult_dev > quarter_semitone
-        accept_with_positive = twenty_x | same_partial | not_harmonic
-        accept = vastly_better & torch.where(max_omega > 0, accept_with_positive, True)
-        return accept & (idxs > rec.index[..., None])
-
-    it = 0
-    while it < MAX_WALK_ITERATIONS:
-        acc = accept_mask(record)
-        any_acc = acc.any(dim=-1)
-        it += 1
-        if not bool(any_acc.any()):
-            break
-        first = torch.argmax(acc.to(torch.uint8), dim=-1)  # first True
-        record = BinRecord(
-            index=torch.where(any_acc, idxs[first], record.index),
-            value=torch.where(any_acc, torch.gather(vals, -1, first[..., None])[..., 0], record.value),
-            offset=torch.where(any_acc, torch.gather(offs, -1, first[..., None])[..., 0], record.offset),
-        )
-    walk_iterations = it
+    mags, offsets = spectral_bins(x)
+    record, passes = spectral_walk(mags, offsets, n, threshold, hysteresis)
+    if passes.device.type == "cpu":
+        walk_iterations = int(passes.max()) if passes.numel() else 1
     fundamental = sample_rate * record.omega() / n
     fundamental = torch.clamp(fundamental, min=5.0)  # ref: :221 floor at 5 Hz
     cycle_samples = sample_rate / fundamental
     return fundamental, cycle_samples, record
-
-
-def median_record_filter(
-    history_omega: torch.Tensor, record: BinRecord
-) -> Tuple[torch.Tensor, BinRecord, torch.Tensor]:
-    """8-deep median-by-bin filter over detected fundamentals
-    (ref: OscilloscopeDSP.inl:187-213): the single upper-middle element of
-    the history BEFORE inserting the new detection, skipped while it is a
-    -1 sentinel. Returns (new_history, filtered record, use_median)."""
-    middle = history_omega.shape[-1] // 2
-    med = torch.sort(history_omega, dim=-1).values[..., middle]
-    omega = record.omega()
-    hist = torch.cat([history_omega[..., 1:], omega[..., None]], dim=-1)
-    use_median = (med >= 0) & (torch.abs(omega - med) > 0.5)
-    omega = torch.where(use_median, med, omega)
-    filtered = BinRecord(
-        index=torch.floor(omega).to(torch.int32),
-        value=record.value,
-        offset=omega - torch.floor(omega),
-    )
-    return hist, filtered, use_median
 
 
 def goertzel(x: torch.Tensor, radians: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Time other versions of kernels A to E against the package's own, on
+"""Time other versions of kernels A to F against the package's own, on
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
-        [--kernels abcdehlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
+        [--kernels abcdefhlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
         [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
@@ -17,7 +17,7 @@ library under ``build/kernel_variants/`` and timed in turns with the
 package's kernels (``repo``): all versions in order, then in reverse order,
 so that drift of the card shows as a difference between the two rounds.
 ``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
-``d``, ``e``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
+``d``, ``e``, ``f``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
 in ``signalizer_tpu_torch/tools/variants/`` (``NAMED_VARIANTS``): the
 earlier two-pass form (``long_v1``, entry ``sig_window_fft_mag_long_v1``),
 the package's two-pass form with its pass-2 block size and waves as
@@ -63,7 +63,9 @@ runs at cfg3's tick (16 rows, 1600 of 2048 samples consumed) and at 16 x
 its fused entry (x to colours, both states carried in) at cfg3's 16 pairs x
 2 rows x 16384 samples and at 3 pairs x 2 rows x 3001, each version with the
 host table of its own chunk length (its source's ``kChunk``, or
-``-DSIG_CHUNK``). Kernel C runs at three shapes of the
+``-DSIG_CHUNK``). Kernel F (``f``, ``spectral_walk.cu``) runs its filtered
+entry at cfg3b's 16 lookaheads of 8192 samples (4094 candidate bins each)
+and at one (``f_cfg3b_us``, ``f_1x4094_us``). Kernel C runs at three shapes of the
 oscilloscope, all 16 pairs over a 16384-sample history: ``cfg3`` (Lanczos
 a = 10 with the nearest pick, 2 rows, a 1024-sample window over 8192 px),
 ``colour`` (the colour track's nearest pick, 6 rows, the same positions) and
@@ -115,7 +117,7 @@ PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
 KERNEL_SOURCES = {
     "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "d": "display_decay_db.cu",
     "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu", "h": "peak_hold.cu",
-    "e": "colour_track.cu",
+    "e": "colour_track.cu", "f": "spectral_walk.cu",
 }
 VARIANTS_DIR = Path(__file__).resolve().parent / "variants"
 # versions kept beside the tool: name -> (source in VARIANTS_DIR, nvcc defines)
@@ -148,6 +150,9 @@ TWO_PASS_SHAPES = {
 HOLD_SHAPES = {"cfg3_tick": (16, 2048, 1600), "cfg3_lookahead": (16, 8192, 8192)}
 # kernel E: pairs, rows, W (cfg3, and a short row no multiple of a tile)
 COLOUR_SHAPES = {"cfg3": (16, 2, 16384), "w3001": (3, 2, 3001)}
+# kernel F: rows of 8192-sample lookaheads (cfg3b's 16 pairs, and one)
+WALK_SHAPES = {"cfg3b": 16, "1x4094": 1}
+WALK_N = 8192
 # the decay-and-dB entry: pairs, T, rows, last invalid frames
 DECAY_SHAPES = {"headline": (16, 128, 2, 0), "t1": (16, 1, 2, 0), "cfg4": (1, 512, 1, 3)}
 LONG_WINDOW, LONG_FRAMES, LIVE_PAIRS = 48_000, 16, 8
@@ -577,6 +582,57 @@ class PeakHold:
         return line
 
 
+class SpectralWalk:
+    """Kernel F at WALK_SHAPES through its filtered entry (``sig_spectral_walk``
+    with a history of -1 sentinels): the rfft bins of 8192-sample
+    lookaheads at 96 kHz, a sine a row (150 Hz to 4 kHz) and noise 40 dB
+    below it, threshold 0.1 and hysteresis 0 (cfg3b's) as host values."""
+
+    def __init__(self, libs, dev):
+        from signalizer_tpu_torch.kernels import oscilloscope as tk
+        from signalizer_tpu_torch.kernels import spectral_walk as sw
+
+        self.libs, self.cases = libs, {}
+        self.qs = float(np.float32(sw.QUARTER_SEMITONE))
+        rng = np.random.default_rng(71)
+        t = np.arange(WALK_N) / 96_000.0
+        for shape, rows in WALK_SHAPES.items():
+            f = np.geomspace(150.0, 4000.0, rows)[:, None]
+            x = 0.5 * np.sin(2 * np.pi * f * t) + 0.0035 * rng.standard_normal((rows, WALK_N))
+            mags, offsets = tk.spectral_bins(torch.from_numpy(x.astype(np.float32)).to(dev))
+            empty = lambda dtype=torch.float32: torch.empty(rows, dtype=dtype, device=dev)  # noqa: E731
+            case = types.SimpleNamespace(
+                rows=rows, mags=mags, offsets=offsets, hist=torch.full((rows, 8), -1.0, device=dev),
+                index=empty(torch.int32), value=empty(), offset=empty(), passes=empty(torch.int32),
+                hist_out=torch.empty((rows, 8), device=dev),
+            )
+            self.cases[shape] = case
+            self.launch("repo", case)
+            torch.cuda.synchronize()
+            case.want = [t.clone() for t in (case.index, case.value, case.offset, case.passes, case.hist_out)]
+
+    def launch(self, name, case):
+        h = WALK_N // 2 + 1
+        err = self.libs[name].sig_spectral_walk(
+            case.mags.data_ptr(), h, case.offsets.data_ptr(), h, None, None, float(np.float32(0.1)), 1.0,
+            self.qs, self.qs, float(WALK_N), case.hist.data_ptr(), case.index.data_ptr(), case.value.data_ptr(),
+            case.offset.data_ptr(), case.hist_out.data_ptr(), case.passes.data_ptr(), case.rows, WALK_N // 2 - 2,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, f"{name}: spectral_walk")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            got = (case.index, case.value, case.offset, case.passes, case.hist_out)
+            line[f"f_{shape}_equal_repo"] = all(torch.equal(a, b) for a, b in zip(got, case.want))
+            line[f"f_{shape}_passes"] = int(case.passes.max())
+            line[f"f_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+        return line
+
+
 def colour_chunk(source: Path, defines=()) -> int:
     """The samples a thread of a version of kernel E holds: ``-DSIG_CHUNK``,
     else its source's ``kChunk`` (or ``SIG_CHUNK`` default)."""
@@ -761,7 +817,7 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, e, h, l, t")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, e, f, h, l, t")
     parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
                         help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
@@ -799,6 +855,7 @@ def main(argv=None) -> int:
         "decay_db": ("sig_display_decay_db", "sig_display_decay_db_v1"),
         "peak_hold": ("sig_peak_hold",),
         "colour_track": ("sig_colour_track",),
+        "spectral_walk": ("sig_spectral_walk",),
     }
     timers = {
         "spectrum": Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None,
@@ -808,6 +865,7 @@ def main(argv=None) -> int:
         "decay_db": DecayDb(libs, dev) if "d" in kernels else None,
         "peak_hold": PeakHold(libs, dev) if "h" in kernels else None,
         "colour_track": ColourTrack(libs, chunks, dev) if "e" in kernels else None,
+        "spectral_walk": SpectralWalk(libs, dev) if "f" in kernels else None,
     }
     resample = timers["resample"]
 

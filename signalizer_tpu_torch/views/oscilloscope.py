@@ -45,11 +45,10 @@ from signalizer_tpu_torch.kernels.oscilloscope import (
     MEDIAN_FILTER_SIZE,
     BinRecord,
     linear_resample,
-    median_record_filter,
     nearest_resample,
     sinc_resample,
     sinc_resample_with_nearest,
-    spectral_fundamental,
+    spectral_bins,
     trigger_phase_offset,
     zero_crossing_triggers,
 )
@@ -59,6 +58,7 @@ from signalizer_tpu_torch.kernels.peak_hold import (
     envelope_hold_trigger,
     window_start as _window_start,
 )
+from signalizer_tpu_torch.kernels.spectral_walk import spectral_walk_filtered
 
 F32 = np.float32
 
@@ -438,10 +438,12 @@ def osc_step(
             fundamental = constant.custom_trigger_frequency.expand(pairs).to(torch.float32)
             cycles = sample_rate / fundamental
         else:
-            fundamental, cycles, record = spectral_fundamental(
-                region, sample_rate, threshold=threshold, hysteresis=constant.hysteresis
+            # the candidate walk and the median filter: kernel F in one
+            # launch (kernels/spectral_walk.py), no host sync
+            mags, offsets = spectral_bins(region)
+            new_median, record, _ = spectral_walk_filtered(
+                mags, offsets, la, state.median_history, threshold, constant.hysteresis
             )
-            new_median, record, _ = median_record_filter(state.median_history, record)
             fundamental = sample_rate * torch.clamp(record.omega(), min=5.0 * la / sample_rate) / la
             cycles = sample_rate / fundamental
         sample_offset = trigger_phase_offset(
@@ -560,9 +562,11 @@ def _cycle_feedback(fundamental: torch.Tensor, window_value: float, sample_rate:
     (ref: Oscilloscope.cpp:299-303): cycleSamples = fs / f0 in f32, window =
     value * cycleSamples + 1 floored at 128, rounded once from float64 as
     the fused multiply-add of the jitted JAX function rounds it. Returns
-    (window, cycle_samples) tensors."""
+    (window, cycle_samples) tensors. fs / f0 is one f32 division, as JAX
+    divides (a host number over a tensor would be its reciprocal times fs
+    in torch, an ulp off at times)."""
     f0 = fundamental[0]
-    cycles = float(F32(sample_rate)) / torch.clamp(f0, min=1e-9)
+    cycles = torch.full_like(f0, float(F32(sample_rate))) / torch.clamp(f0, min=1e-9)
     span = float(F32(window_value)) * torch.clamp(cycles, min=1.0).to(torch.float64) + 1.0
     window = torch.clamp(span.to(torch.float32), min=128.0)
     return window, cycles

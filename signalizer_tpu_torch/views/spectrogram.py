@@ -47,6 +47,7 @@ from signalizer_tpu_torch.stream.device_ring import (
     extract_frames,
     ring_update,
 )
+from signalizer_tpu_torch.stream.pinned import PinnedUpload
 
 # default 5-stop gradient + background (ref: SpectrumParameters.h
 # specColours defaults; exact defaults are preset-defined, these are the
@@ -151,6 +152,9 @@ class SpectrogramProcessor:
         self.constant = constant
         self.device = constant.device
         self.pairs = pairs
+        # host frames (or, ingesting on the device, new samples) go up
+        # through pinned buffers: no copy from pageable memory a pull
+        self._uploads = PinnedUpload(self.device)
         hop = max(1.0, blob_ms * 1e-3 * constant.sample_rate * (1.0 - overlap))
         if device_ingest == "auto":
             # hop-only ingest needs an integer hop (the shift ring's fixed
@@ -284,7 +288,7 @@ class SpectrogramProcessor:
         cols, self._state = spectrogram_step(
             self.constant,
             self._state,
-            torch.from_numpy(np.ascontiguousarray(stacked, dtype=np.float32)).to(self.device),
+            self._uploads.upload(stacked),
             self._colours,
             self._ratios,
             bounds=self._bounds,
@@ -299,7 +303,7 @@ class SpectrogramProcessor:
         out = []
         for unit in self._source.pull_uploads(max_frames):
             # the unit's padding beyond n_valid stays on the host
-            new = torch.from_numpy(unit.samples[..., : unit.n_valid]).to(self.device)
+            new = self._uploads.upload(unit.samples[..., : unit.n_valid])
             cols, self._ring, self._state = spectrogram_ring_step(
                 self.constant,
                 self._ring,

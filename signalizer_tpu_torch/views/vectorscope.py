@@ -3,9 +3,11 @@
 Counterpart of :mod:`signalizer_tpu.views.vectorscope` (ref:
 Source/Vectorscope/Vectorscope.cpp:268-377, VectorscopeRendering.cpp). Owns
 the meter filter states and auto-gain on one device, emits render-ready
-vertex tensors ([N, 3] point clouds) and meter readouts. The step's scalars
-(poles, gains, rotation, the new-samples count) are host floats: PyTorch
-takes them with each operation, so nothing is cached on the device.
+vertex tensors ([N, 3] point clouds) and meter readouts. The processor
+hands :func:`vs_step` its poles and user gain as float32 scalars kept on
+the device (made once with its settings) and the tick's new-samples count
+through a pinned buffer, so a step copies nothing from pageable memory; the
+peak decay and the rotation stay host floats.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.core.constant import resolve_device
+from signalizer_tpu_torch.stream.pinned import PinnedUpload
 from signalizer_tpu_torch.kernels.vectorscope import (
     VectorscopeMeterState,
     filter_coefficient,
@@ -56,12 +59,12 @@ def vs_step(
     state: VectorscopeMeterState,
     peak_env: torch.Tensor,
     frames: torch.Tensor,
-    envelope_pole: float,
-    stereo_pole: float,
-    user_gain: float,
+    envelope_pole,
+    stereo_pole,
+    user_gain,
     peak_coeff: float,
     rotation: float = 0.0,
-    new_samples: float = None,
+    new_samples=None,
     meter_frames: torch.Tensor = None,
     *,
     mode: OperationalMode,
@@ -77,8 +80,9 @@ def vs_step(
     least) the new samples — the meters integrate only those, and the
     masked full-window form spends window/new_samples times the
     transcendental work (pow/atan/cos per sample). None = integrate over
-    ``frames`` (non-overlapping feeds). The scalars are float32 values
-    given as host floats."""
+    ``frames`` (non-overlapping feeds). The scalars are float32 values:
+    host floats, or (the poles, the user gain and ``new_samples``) float32
+    scalars on the frames' device."""
     f32 = dict(dtype=frames.dtype, device=frames.device)
     new_state = update_meters(
         state, frames if meter_frames is None else meter_frames,
@@ -98,7 +102,7 @@ def vs_step(
         new_state = new_state._replace(gain=g)
         gain = g * user_gain
     else:
-        gain = torch.tensor(user_gain, **f32).expand(frames.shape[:-2])
+        gain = torch.as_tensor(user_gain, **f32).expand(frames.shape[:-2])
         new_peak_env = peak_env
     gain_b = gain[..., None]  # broadcast over the sample axis
     if mode == OperationalMode.POLAR:
@@ -149,6 +153,11 @@ class VectorscopeProcessor:
         self.frame_rate = frame_rate
         self.envelope_pole = filter_coefficient(envelope_window, sample_rate)
         self.stereo_pole = filter_coefficient(stereo_window, sample_rate)
+        # (envelope pole, stereo pole, user gain) as f32 values and as a
+        # [3] tensor on the device, remade when a value changes
+        self._scalars_key = None
+        self._scalars = None
+        self._uploads = PinnedUpload(self.device)
         self.reset()
 
     @property
@@ -202,22 +211,29 @@ class VectorscopeProcessor:
         )
         return frame
 
+    def _device_scalars(self) -> torch.Tensor:
+        """The f32 envelope pole, stereo pole and user gain as a [3]
+        tensor on the device: one copy when a value changes, none a step."""
+        key = (_f32(self.envelope_pole), _f32(self.stereo_pole), _f32(self.user_gain))
+        if key != self._scalars_key:
+            self._scalars = torch.tensor(key, dtype=torch.float32, device=self.device)
+            self._scalars_key = key
+        return self._scalars
+
     def _prep_step(self, w: int, new_samples, meter_w: int = None):
-        """Host-side scalar prep for one step over a ``w``-sample window
-        (one source of truth for every caller of :func:`vs_step`): the
-        float32 values of ``(envelope_pole, stereo_pole, user_gain,
-        peak_coeff, rotation)`` and of the clamped new-samples count.
+        """Scalar prep for one step over a ``w``-sample window (one
+        source of truth for every caller of :func:`vs_step`): ``(envelope_pole,
+        stereo_pole, user_gain, peak_coeff, rotation)`` and the clamped
+        new-samples count, each its float32 value: the first three as
+        scalars kept on the device, the count (None or) a scalar uploaded
+        through a pinned buffer, the peak decay and rotation host floats.
         ``meter_w``: width of the meter slice the count must clamp to
         (defaults to the display window width)."""
+        env, stereo, gain = self._device_scalars()
         # peak autogain decay scaled per visible buffer per frame
         # (ref: VectorscopeRendering.cpp:839-842)
-        scalars = (
-            _f32(self.envelope_pole),
-            _f32(self.stereo_pole),
-            _f32(self.user_gain),
-            _f32(self.envelope_pole ** (w / self.frame_rate)),
-            _f32(self.rotation),
-        )
+        scalars = (env, stereo, gain, _f32(self.envelope_pole ** (w / self.frame_rate)), _f32(self.rotation))
         if new_samples is not None:
             new_samples = _f32(min(float(new_samples), float(w if meter_w is None else meter_w)))
+            new_samples = self._uploads.upload(new_samples)
         return scalars, new_samples

@@ -17,6 +17,7 @@ from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import oscilloscope as tk
+from signalizer_tpu_torch.kernels import spectral_walk as sw
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 from signalizer_tpu_torch.kernels.spectrum import (
     analyze_frames,
@@ -1527,3 +1528,254 @@ def test_colour_track_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         ct.colour_track(x.double(), COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth)
     assert ct.launches == n
+
+
+# ---------------------------------------------------------------------------
+# kernel F: the spectral trigger's walk
+# ---------------------------------------------------------------------------
+
+WALK_N = 8192  # the oscilloscope's lookahead: 4094 candidate bins
+WALK_QS = 2.0 ** (0.25 / 12.0) - 1.0
+
+
+def _walk_bins(rows, seed, device, n=WALK_N):
+    """The rfft's magnitudes and offsets of ``rows`` lookaheads at 96 kHz,
+    taken on the card: a sine a row (80 Hz to 6 kHz, with harmonics in
+    every third row, a second note in every fourth) and noise; the last
+    row silent where there are two or more."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 96_000.0
+    x = np.zeros((rows, n), np.float32)
+    for r in range(max(rows - 1, 1)):
+        f = 80.0 * (75.0 ** (r / max(rows - 1, 1)))
+        x[r] = 0.5 * np.sin(2 * np.pi * f * t + r) + 0.003 * rng.standard_normal(n)
+        if r % 3 == 1:
+            x[r] += sum(0.3 / k * np.sin(2 * np.pi * k * f * t) for k in (2, 3, 4))
+        if r % 4 == 2:
+            x[r] += 0.4 * np.sin(2 * np.pi * 1.26 * f * t)
+    return tk.spectral_bins(torch.from_numpy(x).to(device))
+
+
+def _walk_history(rows, seed, device):
+    """Past omegas: -1 sentinels in every other row's first half, far
+    values (the median taken) in every third row."""
+    rng = np.random.default_rng(seed)
+    hist = rng.uniform(2.0, 400.0, (rows, 8)).astype(np.float32)
+    hist[::2, :4] = -1.0
+    hist[1::3] = rng.uniform(1000.0, 2000.0, (len(hist[1::3]), 8))
+    hist[-1] = -1.0
+    return torch.from_numpy(hist).to(device)
+
+
+def _chain(rows, starts, length, ratio, first, device, m=WALK_N // 2 + 1):
+    """Bins fed directly: noise of 1e-12 (offsets in [-0.5, 0.5)), and from
+    ``starts[r]`` in row r ``length`` bins each ``ratio`` times the last (or,
+    with ``ratio`` None, each the next float32 above twice the last, until
+    float32 overflows, then one inf bin), from ``first``, the bins before
+    it zero; bin 1's offset 0.5. The last row is silent."""
+    rng = np.random.default_rng(rows)
+    mags = (rng.random((rows, m)) * 1e-12).astype(np.float32)
+    offsets = rng.uniform(-0.5, 0.5, (rows, m)).astype(np.float32)
+    offsets[:, 1] = 0.5
+    for r in range(rows - 1):
+        v, i = np.float32(first), starts[r]
+        mags[r, 1:i] = 0.0
+        with np.errstate(over="ignore"):
+            while (i - starts[r] < length) if ratio else np.isfinite(v):
+                mags[r, i], offsets[r, i] = v, 0.0
+                v = np.float32(v * np.float32(ratio)) if ratio else np.nextafter(np.float32(2 * v), np.float32(np.inf))
+                i += 1
+        if ratio is None:
+            mags[r, i] = np.inf
+    mags[-1] = 0.0
+    return torch.from_numpy(mags).to(device), torch.from_numpy(offsets).to(device)
+
+
+def _walk_both(mags, offsets, n, threshold, hysteresis, history=None):
+    """Kernel F (one launch) and its plain version on the same tensors:
+    every output bit-equal."""
+    before = sw.launches
+    if history is None:
+        rec, passes = sw.spectral_walk(mags, offsets, n, threshold, hysteresis)
+        want, want_passes = sw.spectral_walk_plain(mags, offsets, n, threshold, hysteresis)
+        hist = want_hist = None
+    else:
+        hist, rec, passes = sw.spectral_walk_filtered(mags, offsets, n, history, threshold, hysteresis)
+        want_hist, want, want_passes = sw.spectral_walk_filtered_plain(mags, offsets, n, history, threshold,
+                                                                     hysteresis)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1 and sw.last_passes is passes
+    for name, a, b in zip(rec._fields, rec, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (name, a, b)
+    assert torch.equal(passes, want_passes.to(torch.int32)), (passes, want_passes)
+    if history is not None:
+        assert torch.equal(hist, want_hist)
+    return rec, passes, hist
+
+
+@pytest.mark.parametrize("scalars", ["host", "device"])
+@pytest.mark.parametrize("threshold,hysteresis", [(0.0, 0.0), (0.1, 0.4)])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_spectral_walk_kernel_is_bit_equal_to_the_plain_loop(cuda, rows, threshold, hysteresis, scalars):
+    """Kernel F's two entries against the plain loop (and the median filter)
+    on the card, bit for bit: record, passes and history, the filtered
+    entry over three calls with the history carried; the last row silent,
+    -1 sentinels in the history; threshold and hysteresis as host numbers
+    and as device scalars."""
+    mags, offsets = _walk_bins(rows, rows, cuda)
+    thr, hyst = threshold, hysteresis
+    if scalars == "device":
+        thr, hyst = torch.tensor(threshold, device=cuda), torch.tensor(hysteresis, device=cuda)
+    _, passes, _ = _walk_both(mags, offsets, WALK_N, thr, hyst)
+    assert int(passes.max()) > 1 and (rows == 1 or int(passes[-1]) == 1)
+    history = _walk_history(rows, 7, cuda)
+    for _ in range(3):
+        _, _, history = _walk_both(mags, offsets, WALK_N, thr, hyst, history)
+
+
+@pytest.mark.parametrize(
+    "case,starts,length,ratio,first,hysteresis,accepted",
+    [
+        # the longest chain float32 allows: 276 doublings from 2^-149
+        ("longest_chain", [2, 2], 0, None, 2.0**-149, 0.0, 276),
+        ("normal_chain", [2, 2], 0, None, 2.0**-126, 0.4, None),
+        ("chain_36", [2, 300], 36, 4.0, 1e-10, 0.4, None),
+        # 1 - hysteresis = 2: a rising run of 300 bins reaches the 280-pass cap
+        ("pass_cap", [2, 40], 300, 1.01, 1.0, -1.0, 280),
+    ],
+)
+def test_spectral_walk_kernel_long_chains(cuda, case, starts, length, ratio, first, hysteresis, accepted):
+    """Bins fed directly, two chains and a silent row: both entries bit-equal
+    to the plain loop, the longest chain (276 acceptances, 277 passes) and
+    the cap (280 passes) included."""
+    mags, offsets = _chain(3, starts, length, ratio, first, cuda)
+    _, passes, _ = _walk_both(mags, offsets, WALK_N, 0.0, hysteresis)
+    _walk_both(mags, offsets, WALK_N, 0.0, hysteresis, _walk_history(3, 1, cuda))
+    if accepted is not None:
+        assert int(passes[0]) == min(accepted + 1, sw.MAX_WALK_ITERATIONS)
+    assert int(passes[-1]) == 1
+
+
+def test_spectral_walk_kernel_batch_shapes_strides_and_sizes(cuda):
+    """Leading dimensions [2, 3], rows strided out of a wider tensor, bins
+    past n // 2 (unread), the largest lookahead the kernel takes (n =
+    16389) and lookaheads under 6 samples (no candidate bin)."""
+    mags, offsets = _walk_bins(6, 3, cuda)
+    _walk_both(mags.reshape(2, 3, -1), offsets.reshape(2, 3, -1), WALK_N, 0.1, 0.2,
+               _walk_history(6, 2, cuda).reshape(2, 3, 8))
+    wide_m, wide_o = torch.zeros((6, 5000), device=cuda), torch.zeros((6, 5000), device=cuda)
+    wide_m[:, :4097], wide_o[:, :4097] = mags, offsets
+    _walk_both(wide_m[:, :4097], wide_o[:, :4097], WALK_N, 0.0, 0.0)
+    _walk_both(wide_m, wide_o, WALK_N, 0.0, 0.0)
+    for n in (16389, 5, 4):
+        big_m, big_o = _walk_bins(3, n, cuda, n=n)
+        _walk_both(big_m, big_o, n, 0.0, 0.3, _walk_history(3, 4, cuda))
+
+
+def test_spectral_oscilloscope_step_launches_kernel_f(cuda):
+    """The oscilloscope step under the SPECTRAL trigger launches kernel F's
+    filtered entry once a call and gives the frames of the same step with
+    the walk's plain version (fundamental, waves and the median history
+    equal)."""
+    from signalizer_tpu_torch.views.oscilloscope import OscilloscopeProcessor, TriggerMode
+
+    kw = dict(pairs=4, device=cuda, sample_rate=96_000.0, pixels=1024, window_samples=1024.0,
+              trigger_mode=TriggerMode.SPECTRAL, trigger_threshold=0.05, trigger_hysteresis=0.2)
+    card, loop = OscilloscopeProcessor.create(**kw), OscilloscopeProcessor.create(**kw)
+    hist = torch.from_numpy(_osc_history(4, 16384 + 3 * 1600, seed=3)).to(cuda)
+    for i in range(3):
+        h = hist[..., i * 1600 : i * 1600 + 16384].contiguous()
+        n = sw.launches
+        got = card.process(h, new_samples=1600)
+        assert sw.launches == n + 1
+        tv.spectral_walk_filtered = sw.spectral_walk_filtered_plain
+        try:
+            want = loop.process(h, new_samples=1600)
+        finally:
+            tv.spectral_walk_filtered = sw.spectral_walk_filtered
+        assert sw.launches == n + 1  # the plain path launches nothing
+        for name in ("fundamental", "waveform", "envelope_min", "envelope_max", "trigger_found", "gain"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(card.state.median_history, loop.state.median_history)
+
+
+def test_spectral_walk_refuses_what_it_cannot_take(cuda):
+    """Other dtypes, shapes, devices, too many bins and a wrong history
+    raise before any launch."""
+    mags, offsets = _walk_bins(2, 1, cuda)
+    hist = _walk_history(2, 1, cuda)
+    n = sw.launches
+    with pytest.raises(ValueError, match="float32"):
+        sw.spectral_walk(mags.double(), offsets.double(), WALK_N)
+    with pytest.raises(ValueError, match="one shape"):
+        sw.spectral_walk(mags, offsets[:1], WALK_N)
+    with pytest.raises(ValueError, match=r"\[\.\.\., >= 8192\]"):
+        sw.spectral_walk(mags, offsets, 2 * WALK_N)
+    with pytest.raises(ValueError, match="at most 8192"):
+        big = torch.zeros((1, 9000), device=cuda)
+        sw.spectral_walk(big, big, 2 * 8195)
+    with pytest.raises(ValueError, match="history"):
+        sw.spectral_walk_filtered(mags, offsets, WALK_N, hist[:, :4])
+    with pytest.raises(ValueError, match="threshold"):
+        sw.spectral_walk(mags, offsets, WALK_N, torch.tensor([0.1, 0.2], device=cuda))
+    with pytest.raises(ValueError, match="hysteresis"):
+        sw.spectral_walk(mags, offsets, WALK_N, 0.0, torch.tensor(0.1))
+    assert sw.launches == n
+
+
+# ---------------------------------------------------------------------------
+# the session's uploads without a pageable copy
+# ---------------------------------------------------------------------------
+
+
+def test_pinned_upload_on_cuda_neither_syncs_nor_overwrites(cuda):
+    """Ten uploads back to back through two pinned buffers, a large one
+    between small ones, make no synchronizing call (the sync debug mode
+    raises on one), and each device tensor keeps its own values."""
+    from signalizer_tpu_torch.stream.pinned import PinnedUpload
+
+    up = PinnedUpload(cuda)
+    arrays = [np.full((1 << 20) if i % 3 == 1 else (3,), i, np.float32) for i in range(10)]
+    arrays.append(np.float32(800.0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [up.upload(a) for a in arrays]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for a, g in zip(arrays, got):
+        assert g.device.type == "cuda" and g.shape == np.shape(a)
+        np.testing.assert_array_equal(g.cpu().numpy(), a)
+
+
+def test_session_tick_on_cuda_syncs_only_for_its_readbacks(cuda):
+    """The factory default session tick makes three synchronizing calls,
+    its readbacks (the spectrum row, the tracker's bins, the spectrogram's
+    columns), and no copy from pageable memory; ``cycles.oscilloscope``
+    one more, the Cycles window's readback."""
+    import warnings
+
+    from signalizer_tpu_torch.engine import SignalizerEngine
+    from signalizer_tpu_torch.session import AnalysisSession
+    from signalizer_tpu_torch.stream.audio_stream import Playhead
+
+    x = (0.5 * np.sin(2 * np.pi * 1000 * np.arange(20 * 800) / 48000)).astype(np.float32)
+    for preset, expected in (("default", 3), ("cycles.oscilloscope", 4)):
+        eng = SignalizerEngine("syncs", device=cuda)
+        if preset != "default":
+            assert eng.load_preset(preset)
+        eng.spectrum.frequency_tracker.set_normalized(1 / 3)
+        s = AnalysisSession(eng, axis_points=256, pixels=256, cursor_fraction=1000 / 24000)
+        counts = []
+        for i in range(20):
+            s.feed(np.stack([x, x])[:, 800 * i : 800 * (i + 1)], Playhead(steady_clock=800 * (i + 1)))
+            with warnings.catch_warnings(record=True) as log:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    s.tick()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts.append(sum("synchroniz" in str(w.message) for w in log))
+        s.close()
+        assert max(counts[10:]) == expected, (preset, counts)

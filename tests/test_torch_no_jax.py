@@ -269,6 +269,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.state.sgn_import
         import signalizer_tpu_torch.kernels.peak_hold as d
         import signalizer_tpu_torch.kernels.colour_track as e
+        import signalizer_tpu_torch.kernels.spectral_walk as f
+        import signalizer_tpu_torch.stream.pinned
         import signalizer_tpu_torch.parallel.pipeline
         import signalizer_tpu_torch.views.render
         import signalizer_tpu_torch.editor
@@ -280,7 +282,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         assert _build.library.cache_info().currsize == 0
         assert nb._lib is None and nb._build_error is None
         assert (a.launches, a.cluster_launches, a.long_launches, b.launches, b.remap_launches,
-                b.decay_db_launches, c.launches, d.launches, e.launches) == (0,) * 9
+                b.decay_db_launches, c.launches, d.launches, e.launches, f.launches) == (0,) * 10
+        assert f.last_passes is None
         assert e._device_table.cache_info().currsize == 0
         print("ok")
         """
@@ -308,13 +311,14 @@ def test_build_names_the_library_by_its_sources():
 
     names = {p.name for p in _build._sources()}
     assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
-            "display_map.cu", "display_decay_db.cu", "banded_resample.cu", "peak_hold.cu", "colour_track.cu"} <= names
+            "display_map.cu", "display_decay_db.cu", "banded_resample.cu", "peak_hold.cu", "colour_track.cu",
+            "spectral_walk.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
         "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
-        "sig_peak_hold", "sig_envelope_hold", "sig_colour_split", "sig_colour_track",
+        "sig_peak_hold", "sig_envelope_hold", "sig_colour_split", "sig_colour_track", "sig_spectral_walk",
     }
 
 
