@@ -75,8 +75,9 @@ Phases, each printing one informational line:
 11. the resonator Spectrum at the headline constant, 16 pairs: six ticks of
    800 samples and a backlog of T=16 chunks of 512 with the last 3 invalid
    (bench.py:1052-1114), each call against the same step with the plain
-   ``decay_db`` tail on the same tensors, the two tones' pixels, and the
-   invalid chunks' guarantees;
+   ``decay_db`` tail and kernel H's plain loop on the same tensors (the
+   bank bit-equal; kernel H once a call), the two tones' pixels, and the
+   invalid chunks' guarantees; then kernel H (phase 22);
 12. kernel A on rows above 32768 points (COMPLEX above 16384): the cluster
    form (a thread-block cluster a row, to 131072 points, COMPLEX 65536)
    against its plain version at N = 65536 and 131072, COMPLEX at 32768 and
@@ -219,7 +220,31 @@ Phases, each printing one informational line:
    allows (276 doublings from the smallest subnormal), one from the
    smallest normal, a chain of 36 bins 4x apart, and the 280-pass cap;
    timed at cfg3b (16 x 4094 bins) and on one row beside the plain loop,
-   the bound and the chain's estimate, and profiled alone there (phase 15).
+   the bound and the chain's estimate, and profiled alone there (phase 15);
+21. kernel G (the PHASE display tail: the mid row's decay, the phase
+   smoothing, the dB map; after phase 11) against its plain version (the
+   loops over T) on the same CUDA tensors: the headline in PHASE at T = 128
+   and T = 1, with its last 3 frames invalid, cfg4's 1 pair x 512 frames,
+   a ragged P = 1001, K = 1, 2 and 11 line graphs; both states bit-equal
+   (row 1 of the magnitude untouched), the display within 1e-5; timed at
+   the headline, T = 1 and cfg4 beside the plain loops and the bound; then
+   the PHASE Spectrum at the headline through ``SpectrumProcessor`` (three
+   T = 128 and three T = 1 calls: kernels A and G once a call, B never,
+   against stage 1 and the plain tail, states bit-equal) and the
+   spectrogram's cfg4 step in PHASE with its host mask (kernel G once, the
+   columns within a byte of the plain tail's), each with 0 syncs, timed;
+22. kernel H (the resonator bank's chunk recurrence and readouts) against
+   its plain loop on the same drives: the cfg6 tick and backlog (the last 3
+   chunks invalid) from the bank's state, with and without a readout after
+   every chunk (state bit-equal, readouts within 1e-6 of each row's peak),
+   timed at the backlog beside the plain loop and the bound; a PHASE bank at
+   the headline constant (kernels H and G once a call, against the plain
+   scan and tail); the RSNT session (phase 14) runs H once a bank call and
+   its tick is timed. The profile phase adds the PHASE calls, G and H
+   alone, the PHASE backlog and the RSNT session tick, and a
+   ``tail_profile`` line sets their launches (the PHASE T = 128 call at
+   most 70, the cfg6 backlog 25, the tick 12), device µs and wall µs beside
+   the default session tick's.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -331,6 +356,21 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/spectral_walk.cu",
         replaces="signalizer_tpu/kernels/oscilloscope.py:280",
     ),
+    # kernel G: the PHASE display tail (the lax.scan of the phase smoothing
+    # and peak_decay_scan's lax.associative_scan, peak_decay.py:93, under
+    # post_process; not Pallas)
+    "phase_decay_db": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/phase_decay_db.cu",
+        replaces="signalizer_tpu/kernels/spectrum.py:575",
+    ),
+    # kernel H: the resonator bank's chunk recurrence and readout (the
+    # lax.scan of resonate_chunks; not Pallas)
+    "resonator_scan": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/resonator_scan.cu",
+        replaces="signalizer_tpu/kernels/resonator.py:313",
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -344,6 +384,8 @@ DEVICE_FUNCTIONS = {
     "peak_hold": ("peak_hold_kernel",),
     "colour_track": ("colour_track_kernel",),
     "spectral_walk": ("spectral_walk_kernel",),
+    "phase_decay_db": ("phase_decay_db_kernel",),
+    "resonator_scan": ("resonator_scan_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -804,6 +846,169 @@ def phase_halves_slice(torch, dev, proc, x, tick, launches_out, calls_out):
     return lambda: ts.post_process(c, scratch, ts.spectrum_values(c, x))
 
 
+# kernel G's cases against its plain version: name -> (pairs, T, K, P, mask)
+PHASE_CASES = {
+    "headline_t128": (PAIRS, T, 2, AXIS_POINTS, None),
+    "headline_t1": (PAIRS, 1, 2, AXIS_POINTS, None),
+    "headline_last_frames_invalid": (PAIRS, T, 2, AXIS_POINTS, "last"),
+    "cfg4_1x512": (1, 512, 2, AXIS_POINTS, "last"),
+    "ragged_p1001": (3, 9, 2, 1001, "some"),
+    "k1": (2, 7, 1, 256, None),
+    "k2": (2, 7, 2, 256, "some"),
+    "k11": (2, 33, 11, 200, "some"),
+}
+
+
+def phase_kernel_g(torch, dev, results, launches_out, calls_out):
+    """Kernel G (the PHASE display tail) against its plain version on the
+    same CUDA tensors in every case of ``PHASE_CASES`` (states bit-equal,
+    display within 1e-5); then the PHASE Spectrum at the headline geometry
+    through ``SpectrumProcessor`` (three T = 128 and three T = 1 calls,
+    kernel A and kernel G once a call, against stage 1 and the plain tail
+    from the same state) and the spectrogram's cfg4 step in PHASE (1 pair x
+    T = 512, a host mask), each with its synchronizing calls counted and
+    timed. Returns the calls the profile phase profiles."""
+    from signalizer_tpu_torch import DisplayMode, SpectrumChannels, SpectrumProcessor
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+    from signalizer_tpu_torch.kernels.colormap import gradient_bounds, normalize_ratios, spectrogram_columns
+    from signalizer_tpu_torch.views import spectrogram as tv
+
+    report = {"phase": "kernel_g", "bound": "states bit-equal to the plain loop, display <= 1e-5", "cases": {}}
+    rng = np.random.default_rng(2032)
+
+    def inputs(pairs, t, k, p, mask):
+        c = make_spectrum_constant(device=dev, **headline(axis_points=p, configuration=SpectrumChannels.PHASE,
+                                                          num_line_graphs=k))
+        mid = np.abs(rng.standard_normal((pairs, t, p))) * 0.3
+        vals = np.stack([mid, rng.random((pairs, t, p))], axis=-2).astype(np.float32)
+        mag = (rng.random((pairs, k, 2, p)) * 0.05).astype(np.float32)
+        phase = (rng.random((pairs, k, p)) * 0.05).astype(np.float32)
+        valid = None
+        if mask == "last":
+            valid = np.ones(t, bool)
+            valid[-3:] = False
+        elif mask == "some":
+            valid = rng.random(t) > 0.3
+        return c, *(torch.from_numpy(a).to(dev) for a in (vals, mag, phase)), valid
+
+    def state_of(mag, phase):
+        return ts.LineGraphState(mag.clone(), phase.clone())
+
+    for name, case in PHASE_CASES.items():
+        c, vals, mag, phase, valid = inputs(*case)
+        s_kernel, s_plain = state_of(mag, phase), state_of(mag, phase)
+        got = pd.phase_decay_db(c, s_kernel, vals, valid)
+        want = pd.phase_decay_db_plain(c, s_plain, vals, valid)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(got.shape == want.shape, f"kernel G {name}: shape {tuple(got.shape)}")
+        require(err <= 1e-5, f"kernel G {name}: display error {err} > 1e-5")
+        require(torch.equal(s_kernel.magnitude, s_plain.magnitude) and torch.equal(s_kernel.phase, s_plain.phase),
+                f"kernel G {name}: states differ from the plain loop")
+        require(torch.equal(s_kernel.magnitude[:, :, 1], mag[:, :, 1]), f"kernel G {name}: row 1 moved")
+        report["cases"][name] = {"shape": list(vals.shape), "line_graphs": c.num_line_graphs,
+                                 "valid_frames": None if valid is None else int(valid.sum()),
+                                 "max_abs_err": err, "states_bit_equal": True}
+        if name in ("headline_t128", "headline_t1", "cfg4_1x512"):
+            scratch = state_of(mag, phase)
+            ms = median_ms(torch, lambda: pd.phase_decay_db(c, scratch, vals, valid))
+            plain_ms = median_ms(torch, lambda: pd.phase_decay_db_plain(c, scratch, vals, valid), reps=5, inner=1)
+            # each value read once, each output written once, the states
+            # read and written once; ~30 flops an output, as kernel B's
+            # decay-and-dB (the decay, the smoothing, a divide, a log, a scale)
+            bound = roofline(nbytes(vals, got, c.slope_map) + 2 * nbytes(mag[:, :, 0], phase), 30.0 * got.numel())
+            report["cases"][name].update(ms=ms, plain_ms=plain_ms, **bound)
+            if name == "headline_t128":
+                results["phase_decay_db"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
+                alone = (lambda c=c, scratch=scratch, vals=vals, valid=valid:
+                         pd.phase_decay_db(c, scratch, vals, valid))
+            else:
+                results.setdefault("phase_decay_db", {})
+                results["phase_decay_db"][f"{name}_ms"] = ms
+                results["phase_decay_db"][f"{name}_plain_ms"] = plain_ms
+                results["phase_decay_db"][f"{name}_bound_ms"] = bound["bound_ms"]
+    info(report)
+
+    # the main path: the PHASE Spectrum at the headline geometry, as a user
+    # calls it; counts set to 0 just before, read just after
+    proc = SpectrumProcessor.create(pairs=PAIRS, device=dev, **headline(configuration=SpectrumChannels.PHASE))
+    c = proc.constant
+    x = _frames(torch, (PAIRS, 4 * T, 2, WINDOW), seed=45, dev=dev)
+    calls = [x[:, i * T : (i + 1) * T].contiguous() for i in range(3)]
+    calls += [x[:, 3 * T + i : 3 * T + i + 1].contiguous() for i in range(3)]
+    plain = ts.init_line_graph_state(c, (PAIRS,))
+    worst, outs = 0.0, []
+    wfm.launches = dm.launches = dm.decay_db_launches = pd.launches = 0
+    for frames in calls:
+        outs.append(proc.process(frames))
+    counted = {"window_fft_mag": wfm.launches, "display_map": dm.launches,
+               "display_decay_db": dm.decay_db_launches, "phase_decay_db": pd.launches}
+    require(counted == {"window_fft_mag": 6, "display_map": 0, "display_decay_db": 0, "phase_decay_db": 6},
+            f"PHASE headline calls launched {counted}")
+    for frames, out in zip(calls, outs):
+        want = pd.phase_decay_db_plain(c, plain, ts.spectrum_values(c, frames))
+        torch.cuda.synchronize()
+        require(out.shape == (PAIRS, frames.shape[1], 2, 2, AXIS_POINTS) and bool(torch.isfinite(out).all()),
+                "PHASE headline output")
+        worst = max(worst, float((out - want).abs().max()))
+    require(worst <= 1e-5, f"PHASE headline calls vs the plain tail: {worst} > 1e-5")
+    require(torch.equal(proc.state.magnitude, plain.magnitude) and torch.equal(proc.state.phase, plain.phase),
+            "PHASE headline states differ from the plain tail's")
+    launches_out["phase_decay_db"] = counted["phase_decay_db"]
+    calls_out["phase_decay_db"] = len(calls)
+    x128, x1 = calls[0], calls[3]
+    syncs = {}
+    for name, frames in (("t128", x128), ("t1", x1)):
+        with SyncCounter(torch) as sc:
+            proc.process(frames)
+        torch.cuda.synchronize()
+        syncs[name] = sc.count
+        require(sc.count == 0, f"PHASE headline {name} call: {sc.count} syncs at {dict(sc.sites)}")
+
+    # the spectrogram's cfg4 step in PHASE, with the host mask of the bench
+    c4 = make_spectrum_constant(device=dev, **headline(
+        window_size=16384, configuration=SpectrumChannels.PHASE, display_mode=DisplayMode.COLOUR_SPECTRUM))
+    frames4 = _frames(torch, (1, 512, 2, 16384), seed=46, dev=dev)
+    valid4 = np.ones(512, bool)
+    valid4[-3:] = False
+    colours = torch.from_numpy(tv.DEFAULT_GRADIENT[None]).to(dev)
+    ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
+    bounds = gradient_bounds(ratios)
+    s4, p4 = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
+    pd.launches = 0
+    cols, _ = tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
+    g4 = pd.launches
+    want4 = pd.phase_decay_db_plain(c4, p4, ts.spectrum_values(c4, frames4), valid4)
+    want_cols = spectrogram_columns(want4[:, :, 0, 0, :], colours, ratios)
+    torch.cuda.synchronize()
+    require(g4 == 1, f"cfg4 PHASE step: kernel G launched {g4} times")
+    diff = (cols.to(torch.int16) - want_cols.to(torch.int16)).abs()
+    require(int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3,
+            f"cfg4 PHASE columns vs the plain tail: max byte difference {int(diff.max())}")
+    require(torch.equal(s4.magnitude, p4.magnitude) and torch.equal(s4.phase, p4.phase),
+            "cfg4 PHASE states differ from the plain tail's")
+    with SyncCounter(torch) as sc:
+        tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
+    torch.cuda.synchronize()
+    syncs["cfg4"] = sc.count
+    require(sc.count == 0, f"cfg4 PHASE step: {sc.count} syncs at {dict(sc.sites)}")
+
+    def cfg4():
+        return tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
+
+    info({
+        "phase": "phase_slice", "launches": counted, "max_abs_err_vs_plain_tail": worst, "syncs": syncs,
+        "t128_call_ms": call_ms(torch, lambda: proc.process(x128)), "t1_call_ms": call_ms(torch, lambda: proc.process(x1)),
+        "cfg4_step_ms": call_ms(torch, cfg4), "cfg4_byte_differences": float((diff != 0).float().mean()),
+    })
+    return [("phase_t128", lambda: proc.process(x128)), ("phase_t1", lambda: proc.process(x1)),
+            ("phase_cfg4", cfg4), ("phase_decay_db_t128", alone)]
+
+
 def phase_vectorscope(torch, dev):
     """VectorscopeProcessor at the vectorscope bench geometry
     (bench.py:743-767, cfg2): 256 stereo streams x 4096 samples, envelope
@@ -1025,14 +1230,18 @@ def phase_spectrogram(torch, dev):
     return cfg4_call, tick, windows_copy
 
 
-def phase_resonator(torch, dev, launches_out, calls_out):
+def phase_resonator(torch, dev, launches_out, calls_out, results):
     """ResonatorSpectrumProcessor over the Spectrum headline constant, 16
     pairs: ticks of one 800-sample chunk, then the bench's backlog shape
     (bench.py:1052-1114, cfg6: T = 16 chunks of 512) with the last 3 chunks
     invalid; each call held against the same step with the display tail on
-    the plain ``decay_db``, on the same CUDA tensors."""
+    the plain ``decay_db`` and the recurrence on kernel H's plain loop, on
+    the same CUDA tensors (the bank bit-equal); kernel H once a call. Then
+    kernel H's phase (:func:`phase_kernel_h`)."""
     from signalizer_tpu_torch import ResonatorSpectrumProcessor
     from signalizer_tpu_torch.kernels import display_map as dm
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.kernels import resonator_scan as rs
     from signalizer_tpu_torch.kernels import spectrum as ts
 
     proc = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline())
@@ -1054,30 +1263,38 @@ def phase_resonator(torch, dev, launches_out, calls_out):
     calls.append((x[..., 4800:].reshape(PAIRS, 2, 16, 512), backlog_valid))
 
     worst = 0.0
-    dm.decay_db_launches = 0
+    dm.decay_db_launches = rs.launches = 0
+    scan_launches = 0
     for blocks, valid in calls:
         plain.load_state(proc.res_state, ts.LineGraphState(*(t.clone() for t in proc.graph_state)))
+        before = rs.launches
         out = proc.process_chunks(blocks, valid=valid)
-        counted = dm.decay_db_launches
-        tail = ts.display_decay_db
-        ts.display_decay_db = dm.decay_db  # the plain tail, on the same CUDA tensors
+        scan_launches += rs.launches - before
+        counted = (dm.decay_db_launches, rs.launches)
+        # the plain tail and the plain scan, on the same CUDA tensors
+        tail, scan = ts.display_decay_db, rz.resonator_scan
+        ts.display_decay_db, rz.resonator_scan = dm.decay_db, rs.resonator_scan_plain
         try:
             want = plain.process_chunks(blocks, valid=valid)
         finally:
-            ts.display_decay_db = tail
+            ts.display_decay_db, rz.resonator_scan = tail, scan
         torch.cuda.synchronize()
-        require(dm.decay_db_launches == counted, "the plain tail launched the kernel")
+        require((dm.decay_db_launches, rs.launches) == counted, "the plain tail or scan launched a kernel")
         require(out.shape == (PAIRS, 1, 2, 2, AXIS_POINTS) and bool(torch.isfinite(out).all()), "resonator output")
-        require(torch.equal(proc.res_state, plain.res_state), "resonator bank differs between the two tails")
+        require(torch.equal(proc.res_state, plain.res_state), "resonator bank differs from the plain scan's")
         require(torch.equal(proc.graph_state.magnitude, plain.graph_state.magnitude),
                 "resonator graph state differs from the plain tail's")
         worst = max(worst, float((out - want).abs().max()))
         require(bool((out[-1] == float(c.clip_db)).all()), "silent pair reads clip_db")
     launches = dm.decay_db_launches
     require(launches == len(calls), f"decay_db launched {launches} times in {len(calls)} calls")
+    require(scan_launches == len(calls), f"kernel H launched {scan_launches} times in {len(calls)} calls")
     require(worst <= 1e-5, f"resonator display vs the plain tail {worst} > 1e-5")
     launches_out["display_decay_db"] = launches
     calls_out["display_decay_db"] = len(calls)
+    launches_out["resonator_scan"] = scan_launches
+    calls_out["resonator_scan"] = len(calls)
+    h_report = phase_kernel_h(torch, dev, proc, calls, results)
     main = out[0, 0, 0].cpu().numpy()  # LineMain [rows, P]
     peaks = [int(np.argmax(main[0])), int(np.argmax(main[1]))]
     require(abs(peaks[0] - px[0]) <= 1 and abs(peaks[1] - px[1]) <= 1, f"two tones peak at {peaks}, not {px}")
@@ -1121,9 +1338,103 @@ def phase_resonator(torch, dev, launches_out, calls_out):
         "max_abs_err_vs_plain_tail": worst, "two_tone_pixels": peaks,
         "ramp_mb": {"w800": nbytes(plan.drive_matrix) / 1e6, "w512": nbytes(proc.block_plan(512).drive_matrix) / 1e6},
         "tick_ms": tick_ms, "backlog_t16_ms": backlog_ms, "readouts_per_s_backlog": PAIRS * 16 / (backlog_ms / 1e3),
-        "tick_drive_product": drive,
+        "tick_drive_product": drive, "resonator_scan_launches": scan_launches,
     })
-    return (lambda: proc.process_chunks(tick)), (lambda: proc.process_chunks(blocks, valid=backlog_valid))
+    return [("resonator_tick", lambda: proc.process_chunks(tick)),
+            ("resonator_backlog_t16", lambda: proc.process_chunks(blocks, valid=backlog_valid)), *h_report]
+
+
+def scan_args(torch, proc, state, blocks, valid, emit=False):
+    """Kernel H's arguments for a resonator processor's call on ``blocks``
+    [pairs, 2, T, W] from ``state``, formed as ``rsnt_chunks`` forms them
+    (the channel mix, then the drives' one matrix product)."""
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.views.spectrum import _mix_rsnt
+
+    plan = proc.block_plan(blocks.shape[-1])
+    mixed = _mix_rsnt(proc.constant.configuration, blocks)
+    drives = rz._drive(plan.drive_matrix, mixed, proc.resonator.num_pixels, proc.resonator.vectors)
+    return (state, drives, plan.decay[..., 0], plan.decay[..., 1], proc.resonator.combine, proc.resonator.gain,
+            valid, emit)
+
+
+def phase_kernel_h(torch, dev, proc, calls, results):
+    """Kernel H (the resonator bank's chunk recurrence and readouts) against
+    its plain loop on the same drives: the cfg6 tick and backlog (the last 3
+    chunks invalid) from the bank's state, both with a readout after every
+    chunk, and a PHASE bank at the headline constant on the backlog (kernel
+    H and kernel G once a call, against the plain scan and tail); the state
+    bit-equal, the readouts within 1e-6 of each row's peak. Timed at the
+    backlog beside the plain loop. Returns the calls the profile phase
+    profiles."""
+    from signalizer_tpu_torch import ResonatorSpectrumProcessor, SpectrumChannels
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.kernels import resonator_scan as rs
+    from signalizer_tpu_torch.kernels import spectrum as ts
+
+    report = {"phase": "kernel_h", "bound": "state bit-equal to the plain loop, readouts <= 1e-6 of each row's peak",
+              "cases": {}}
+    state0 = proc.res_state.clone()
+    for (blocks, valid), name in ((calls[0], "cfg6_tick"), (calls[-1], "cfg6_backlog_last3_invalid")):
+        for emit in (False, True):
+            args = scan_args(torch, proc, state0, blocks, valid, emit)
+            got, want = rs.resonator_scan(*args), rs.resonator_scan_plain(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(got.state, want.state), f"kernel H {name}: state differs from the plain loop")
+            require(torch.equal(state0, proc.res_state), f"kernel H {name}: the input state moved")
+            errs = {k: row_rel_err(getattr(got, k), getattr(want, k))
+                    for k in ("re", "im", "magnitude") + (("readouts",) if emit else ())}
+            require(max(errs.values()) <= 1e-6, f"kernel H {name}: readouts {errs} > 1e-6 of the peak")
+            key = name + ("_readouts" if emit else "")
+            report["cases"][key] = {"drives": list(args[1].shape), "state_bit_equal": True, "err_of_peak": errs}
+            if name.startswith("cfg6_backlog") and not emit:
+                ms = median_ms(torch, lambda: rs.resonator_scan(*args))
+                plain_ms = median_ms(torch, lambda: rs.resonator_scan_plain(*args))
+                b, p, v = args[0].shape[0] * args[0].shape[1], args[0].shape[2], args[0].shape[3]
+                t = args[1].shape[2]
+                # the drives read once, the state read and written once, the
+                # readouts written once; 8 flops a step a vector, 4v + 4 a readout
+                bound = roofline(nbytes(args[1], got.re, got.im, got.magnitude) + 2 * nbytes(args[0]),
+                                 8.0 * b * t * p * v + (4.0 * v + 4.0) * b * p)
+                results["resonator_scan"] = dict(
+                    max_abs_err=max(float((getattr(got, k) - getattr(want, k)).abs().max())
+                                    for k in ("re", "im", "magnitude")),
+                    ms=ms, plain_ms=plain_ms, **bound, library_ms=None,
+                )
+                report["cases"][key].update(ms=ms, plain_ms=plain_ms, **bound)
+                alone = (lambda args=args: rs.resonator_scan(*args))
+
+    # the PHASE configuration: the bank's (re, im) readouts feed kernel G
+    ph = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline(configuration=SpectrumChannels.PHASE))
+    ref = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline(configuration=SpectrumChannels.PHASE))
+    for blocks, valid in (calls[0], calls[-1], calls[-1]):
+        ref.load_state(ph.res_state.clone(), ts.LineGraphState(*(t.clone() for t in ph.graph_state)))
+        before = (rs.launches, pd.launches)
+        out = ph.process_chunks(blocks, valid=valid)
+        after = (rs.launches, pd.launches)
+        scan, tail = rz.resonator_scan, ts.phase_decay_db
+        rz.resonator_scan, ts.phase_decay_db = rs.resonator_scan_plain, pd.phase_decay_db_plain
+        try:
+            want = ref.process_chunks(blocks, valid=valid)
+        finally:
+            rz.resonator_scan, ts.phase_decay_db = scan, tail
+        torch.cuda.synchronize()
+        require(tuple(b - a for a, b in zip(before, after)) == (1, 1), "PHASE bank: kernels H and G not once each")
+        require((rs.launches, pd.launches) == after, "the plain scan or tail launched a kernel")
+        require(torch.equal(ph.res_state, ref.res_state), "PHASE bank differs from the plain scan's")
+        require(torch.equal(ph.graph_state.magnitude, ref.graph_state.magnitude)
+                and torch.equal(ph.graph_state.phase, ref.graph_state.phase), "PHASE bank's tail states differ")
+        err = float((out - want).abs().max())
+        require(err <= 1e-5, f"PHASE bank display vs the plain scan and tail: {err} > 1e-5")
+        report["cases"].setdefault("phase_bank", {"calls": 0, "max_abs_err": 0.0})
+        report["cases"]["phase_bank"]["calls"] += 1
+        report["cases"]["phase_bank"]["max_abs_err"] = max(report["cases"]["phase_bank"]["max_abs_err"], err)
+    blocks, valid = calls[-1]
+    report["phase_backlog_ms"] = call_ms(torch, lambda: ph.process_chunks(blocks, valid=valid))
+    info(report)
+    return [("resonator_scan_backlog", alone),
+            ("resonator_phase_backlog_t16", lambda: ph.process_chunks(blocks, valid=valid))]
 
 
 def make_stream(pairs: int, n_frames: int):
@@ -2316,8 +2627,10 @@ def phase_session(torch, dev, launches_out, calls_out):
             worst[k] = (worst.get(k, True) and v) if k == "trigger_equal" else max(worst.get(k, 0.0), v)
     cpu.close()
 
-    # RSNT: the resonator bank on the continuous stream, the display
-    # kernel's decay-and-dB entry; against a CPU RSNT session
+    # RSNT: the resonator bank on the continuous stream, kernel H and the
+    # display kernel's decay-and-dB entry; against a CPU RSNT session
+    from signalizer_tpu_torch.kernels import resonator_scan as rscan
+
     def rsnt(eng):
         eng.spectrum.algorithm.set_normalized(1.0)
 
@@ -2330,7 +2643,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         return process_chunks(blocks, valid)
 
     bank_proc.process_chunks = counted
-    dm.decay_db_launches = 0
+    dm.decay_db_launches = rscan.launches = 0
     rsnt_err = {"display_db_map": 0.0, "display": 0.0, "bank": 0.0}
     lower, dyr = (float(v) for v in rs.processor("spectrum").constant.display_scalars[1:3])
     clip = float(rs.processor("spectrum").constant.clip_db)
@@ -2352,16 +2665,33 @@ def phase_session(torch, dev, launches_out, calls_out):
         if i >= SESSION_FULL:
             px = int(np.argmax(got.spectrum[0, 0]))
             require(abs(px - sine_px) <= 1, f"RSNT tick {i}: peak pixel {px}, the sine at {sine_px}")
-    rsnt_launches = dm.decay_db_launches
-    # one launch a call of the bank, made on each tick with a whole
+    rsnt_launches, rsnt_scans, rsnt_bank_calls = dm.decay_db_launches, rscan.launches, len(rsnt_calls)
+    # one launch of each a call of the bank, made on each tick with a whole
     # 1024-sample chunk pending
-    require(rsnt_launches == len(rsnt_calls), f"RSNT: decay-and-dB launched {rsnt_launches} times "
-            f"in {len(rsnt_calls)} calls")
+    require(rsnt_launches == rsnt_bank_calls, f"RSNT: decay-and-dB launched {rsnt_launches} times "
+            f"in {rsnt_bank_calls} calls")
+    require(rsnt_scans == rsnt_bank_calls, f"RSNT: kernel H launched {rsnt_scans} times in {rsnt_bank_calls} calls")
     require(rs.engine.diagnostics.counters["session.failures"] == 0, "RSNT: a view failed")
     launches_out["display_decay_db"] = rsnt_launches
     calls_out["display_decay_db"] = SESSION_SIDE_TICKS
-    rs.close()
     rs_cpu.close()
+    # the RSNT tick timed over 20 more ticks, then its syncs counted
+    rsnt_block = {"i": SESSION_SIDE_TICKS}
+
+    def rsnt_tick():
+        session_feed(rs, blocks, rsnt_block["i"])
+        rsnt_block["i"] += 1
+        return rs.tick()
+
+    rsnt_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        rsnt_tick()
+        torch.cuda.synchronize()
+        rsnt_ms.append((time.perf_counter() - t0) * 1e3)
+    with SyncCounter(torch) as rsnt_sc:
+        rsnt_tick()
+    torch.cuda.synchronize()
 
     # ZERO_CROSSING trigger, RMS vectorscope autogain, the vectorscope's
     # window knob moved half way (reconfigure): fused and per-view in step
@@ -2660,6 +2990,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         return cy.tick()
 
     def close():
+        rs.close()
         cy.close()
         co.close()
         pk.close()
@@ -2703,7 +3034,10 @@ def phase_session(torch, dev, launches_out, calls_out):
         "sine_pixel": sine_px, "tracker_hz": {"min": min(tracked), "max": max(tracked)},
         "fused_equals_per_view": True,
         "cpu_ticks": SESSION_SIDE_TICKS, "cpu_err_in_tolerances": worst,
-        "rsnt": {"ticks": SESSION_SIDE_TICKS, "bank_calls": len(rsnt_calls), "decay_db_launches": rsnt_launches,
+        "rsnt": {"ticks": SESSION_SIDE_TICKS, "bank_calls": rsnt_bank_calls, "decay_db_launches": rsnt_launches,
+                 "resonator_scan_launches": rsnt_scans, "tick_ms": {"p50": float(np.percentile(rsnt_ms, 50)),
+                                                                    "p99": float(np.percentile(rsnt_ms, 99))},
+                 "syncs_per_tick": rsnt_sc.count, "sync_sites": dict(rsnt_sc.sites),
                  "display_db_map_max_abs_err": rsnt_err["display_db_map"],
                  "display_linear_err_of_peak": rsnt_err["display"], "bank_err_of_peak": rsnt_err["bank"]},
         "trigger_reconfigure": {"ticks": SESSION_SIDE_TICKS, "vectorscope_windows": sorted(set(windows))},
@@ -2748,7 +3082,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     # at the faintest pixels (a pixel 80 dB down moves by 0.02 dB)
     require(rsnt_err["bank"] <= 2e-6 and rsnt_err["display"] <= 1e-5, f"RSNT vs CPU: {rsnt_err}")
 
-    return tick, peak_trigger_tick, coloured_tick, cycles_tick, close
+    return tick, peak_trigger_tick, coloured_tick, cycles_tick, rsnt_tick, close
 
 
 # kernel D, the envelope-hold scan: the cases it is held to its plain loop
@@ -3952,10 +4286,11 @@ def main() -> int:
     osc, history, hold_call, colour_call, spectral_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
-    resonator_tick, resonator_backlog = phase_resonator(torch, dev, launches, calls)
+    resonator_workloads = phase_resonator(torch, dev, launches, calls, results)
+    phase_workloads = phase_kernel_g(torch, dev, results, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
-    session_tick, peak_trigger_tick, coloured_tick, cycles_tick, session_close = phase_session(
+    session_tick, peak_trigger_tick, coloured_tick, cycles_tick, rsnt_tick, session_close = phase_session(
         torch, dev, launches, calls)
     pipeline_tick = phase_pipeline(torch, dev, launches, calls)
     phase_front_ends(torch, dev, launches, calls)
@@ -3975,8 +4310,8 @@ def main() -> int:
         ("spectrogram_cfg4", cfg4_step),
         ("spectrogram_pull", spectrogram_tick),
         ("ring_windows_copy", windows_copy),
-        ("resonator_tick", resonator_tick),
-        ("resonator_backlog_t16", resonator_backlog),
+        *resonator_workloads,
+        *phase_workloads,
         *decay_db_calls,
         *long_rows,
         ("live_tick", live_tick),
@@ -3984,6 +4319,7 @@ def main() -> int:
         ("session_tick_peak_trigger", peak_trigger_tick),
         ("session_tick_coloured", coloured_tick),
         ("session_tick_cycles", cycles_tick),
+        ("session_tick_rsnt", rsnt_tick),
         ("pipeline_cfg5_tick", pipeline_tick),
     ], calls_of={"pipeline_cfg5_tick": 3},
         detail=("session_tick", "session_tick_peak_trigger", "session_tick_coloured", "session_tick_cycles"))
@@ -4001,7 +4337,8 @@ def main() -> int:
                        ("display_remap", "halves_t128"), ("display_decay_db", "halves_t128"),
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
                        ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold"),
-                       ("colour_track", "osc_cfg3_colour"), ("spectral_walk", "osc_cfg3b")):
+                       ("colour_track", "osc_cfg3_colour"), ("spectral_walk", "osc_cfg3b"),
+                       ("phase_decay_db", "phase_t128"), ("resonator_scan", "resonator_backlog_t16")):
         results[name]["profile_us"] = own_us(path, name)
     # kernel D's two entries alone, at cfg3's tick and at 16 x 8192
     results["peak_hold"]["profile_us_alone"] = {name: own_us(name, "peak_hold") for name, _ in hold_workloads}
@@ -4042,6 +4379,29 @@ def main() -> int:
     for name, base in (("osc_cfg3b", "osc_cfg3"), ("session_tick_cycles", "session_tick")):
         walk[f"{name}_minus_{base}"] = {k: walk[name][k] - walk[base][k] for k in walk[name]}
     info({"phase": "spectral_profile", **walk})
+    # the two tails' calls: launches, device and host time a call, kernels
+    # G and H in them and alone
+    results["phase_decay_db"]["profile_us_alone"] = own_us("phase_decay_db_t128", "phase_decay_db")
+    results["phase_decay_db"]["profile_us_t1"] = own_us("phase_t1", "phase_decay_db")
+    results["phase_decay_db"]["profile_us_cfg4"] = own_us("phase_cfg4", "phase_decay_db")
+    results["resonator_scan"]["profile_us_alone"] = own_us("resonator_scan_backlog", "resonator_scan")
+    results["resonator_scan"]["profile_us_tick"] = own_us("resonator_tick", "resonator_scan")
+    results["resonator_scan"]["session_tick_profile_us"] = own_us("session_tick_rsnt", "resonator_scan")
+    tails = {}
+    for name in ("phase_t128", "phase_t1", "phase_cfg4", "resonator_tick", "resonator_backlog_t16",
+                 "resonator_phase_backlog_t16", "session_tick", "session_tick_rsnt"):
+        row = profile[name]
+        tails[name] = {"launches_per_call": row["launches_per_call"], "device_us_per_call": row["device_us_per_call"],
+                       "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
+                       "phase_decay_db_us": row["own_kernels_us_per_call"].get("phase_decay_db_kernel", 0.0),
+                       "resonator_scan_us": row["own_kernels_us_per_call"].get("resonator_scan_kernel", 0.0),
+                       "top_kernels_us_per_call": row["top_kernels_us_per_call"]}
+    require(tails["phase_t128"]["launches_per_call"] <= 70, f"PHASE T=128 call: {tails['phase_t128']['launches_per_call']} launches")
+    require(tails["resonator_backlog_t16"]["launches_per_call"] <= 25,
+            f"cfg6 backlog: {tails['resonator_backlog_t16']['launches_per_call']} launches")
+    require(tails["resonator_tick"]["launches_per_call"] <= 12,
+            f"cfg6 tick: {tails['resonator_tick']['launches_per_call']} launches")
+    info({"phase": "tail_profile", **tails})
     # the cluster form with 2, 4 and 8 blocks a row and the two-pass kernels
     # on the same rows (through their C entries), and the live tick's 16 rows
     cluster = results["window_fft_mag_cluster"]

@@ -101,6 +101,13 @@ SIGNATURES = {
     "sig_spectral_walk": (
         _P, _L, _P, _L, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P,
     ),
+    # vals, slope_map, decay_poles, phase_poles, display_scalars, valid (or
+    # null), magnitude, phase, out, pairs, T, K, rows, P, helpers, stream
+    "sig_phase_decay_db": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # state, drives, decay_re, decay_im, valid (or null), combine, gain,
+    # state_out, re, im, mag, readouts (or null), B, T, P, V, decay_stride,
+    # stream
+    "sig_resonator_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # what the last build in this process printed and how long it took

@@ -11,8 +11,8 @@ package evaluates it as an associative scan (the TPU has no cheap
 sequential loop); here it is the plain loop over T, one vectorized step per
 frame. On the magnitude path the display kernel
 (:mod:`signalizer_tpu_torch.kernels.display_map`) runs the same loop per
-thread, and this module is the plain version it is held against; the PHASE
-path uses it directly.
+thread, and this module is the plain version it is held against, as it is
+for kernel G's PHASE tail (:mod:`~signalizer_tpu_torch.kernels.phase_decay_db`).
 """
 
 from __future__ import annotations

@@ -1,0 +1,153 @@
+"""Kernel G: the Spectrum's PHASE display tail.
+
+Replaces the compiled loops of ``post_process``'s PHASE branch
+(``signalizer_tpu/kernels/spectrum.py:551-584``): the mid row's peak decay
+(``peak_decay_scan``, a ``lax.associative_scan``), the one-pole phase
+smoothing toward ``cancel * mag`` with ``pole ** 0.3`` (a ``lax.scan``), and
+the dB map of both rows (ref: TransformDSP.inl:1336-1341, :1395-1419). The
+CUDA source is ``signalizer_tpu_torch/csrc/phase_decay_db.cu``; this module
+holds its wrapper, :func:`phase_decay_db`, and its plain version,
+:func:`phase_decay_db_plain`, the loops over T that ran in ``post_process``
+before, which the CPU runs and the kernel is held to.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import torch
+
+from signalizer_tpu_torch.core.constant import SpectrumConstant
+from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.kernels.display_map import _db_map
+from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
+from signalizer_tpu_torch.stream.pinned import device_mask
+
+# kernel launches since the last reset (chip_smoke.py and tests read it)
+launches = 0
+# the kernel's layout (csrc/phase_decay_db.cu): a block is 32 pixels of a
+# line graph, walked by R threads each ("helpers", R = 1, 2, 4 or 8); the
+# wrapper takes the fewest that give the grid HELPER_WARPS warps, at most
+# one a frame
+LANES = 32
+HELPER_WARPS = 2048
+
+
+def helpers_for(pairs: int, t: int, k: int, p: int) -> int:
+    """Threads a pixel for a call on [pairs, T] frames of P pixels and K
+    line graphs: 1 at the headline's T = 1, 2 at its T = 128, 8 at the
+    spectrogram's 1 pair x 512 frames."""
+    tiles = -(-p // LANES) * k * pairs
+    r = 1
+    while 2 * r <= min(8, t) and tiles * r < HELPER_WARPS:
+        r *= 2
+    return r
+
+
+_phase_poles = weakref.WeakKeyDictionary()  # constant -> its phase poles, formed once
+
+
+def phase_poles(constant: SpectrumConstant) -> torch.Tensor:
+    """The phase smoothing's poles [K, 1]: the decay poles to the power 0.3,
+    by one torch expression for both versions, so that they share its
+    rounding; formed once a constant, on its device."""
+    pp = _phase_poles.get(constant)
+    if pp is None:
+        pp = _phase_poles[constant] = constant.decay_poles[:, None] ** 0.3
+    return pp
+
+
+def phase_decay_db_plain(constant: SpectrumConstant, state, vals: torch.Tensor, valid=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`phase_decay_db`: the decay loop
+    (:func:`~signalizer_tpu_torch.kernels.peak_decay.peak_decay_scan`) on the
+    halved mid row, the smoothing loop over T, the dB map of both rows."""
+    poles = constant.decay_poles  # [K]
+    seq = vals[..., :, None, :, :]  # [..., T, 1, rows, P]
+    mag_seq = seq[..., 0:1, :] * 0.5  # ref: consts::half at :1407
+    cancel_seq = seq[..., 1:2, :]
+    decayed, new_mag_state = peak_decay_scan(
+        state.magnitude[..., 0:1, :], mag_seq, poles[:, None, None],
+        time_axis=-4, valid=valid,
+    )
+    # phase smoothing: one-pole toward (cancel * mag) with pole^0.3
+    # (ref: TransformDSP.inl:1395-1419)
+    target = torch.movedim(cancel_seq[..., 0, :] * mag_seq[..., 0, :], -3, 0)  # [T, ..., K, P]
+    pp = phase_poles(constant)
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=vals.device)
+    carry = state.phase
+    phases = []
+    for t in range(target.shape[0]):
+        out = target[t] + pp * (carry - target[t])
+        carry = out if valid is None else torch.where(valid[t], out, carry)
+        phases.append(carry)
+    phases = torch.stack(phases, dim=-3)  # [..., T, K, P]
+    mag_db = _db_map(constant, decayed[..., 0, :])
+    phase_db = _db_map(constant, phases)
+    results = torch.stack([mag_db, phase_db], dim=-2)  # [..., T, K, rows=2, P]
+    state.magnitude[..., 0:1, :] = new_mag_state
+    state.phase.copy_(carry)
+    return results
+
+
+def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=None) -> torch.Tensor:
+    """The PHASE tail: values ``vals`` [..., T, 2, P] f32 (the mid magnitude
+    and the cancellation, from ``spectrum_values``) against the
+    :class:`~signalizer_tpu_torch.kernels.spectrum.LineGraphState` ``state``
+    (``magnitude`` [..., K, rows, P], of which only row 0 is read and
+    written; ``phase`` [..., K, P]), both updated in place; ``valid``
+    (optional [T] bool, host values or a tensor on the values' device)
+    marks padded frames that leave the states untouched. Returns
+    [..., T, K, 2, P]. CPU tensors take :func:`phase_decay_db_plain`; CUDA
+    tensors launch ``sig_phase_decay_db`` of ``csrc/phase_decay_db.cu`` once
+    (a host mask goes up through a pinned buffer: no sync) or raise."""
+    global launches
+    if vals.device.type == "cpu":
+        return phase_decay_db_plain(constant, state, vals, valid)
+    c = constant
+    k, p = c.num_line_graphs, c.axis_points
+    if vals.device.type != "cuda" or c.device != vals.device:
+        raise ValueError(f"phase_decay_db: values on {vals.device}, constant on {c.device}")
+    if vals.dtype != torch.float32 or vals.ndim < 3 or vals.shape[-2:] != (2, p):
+        raise ValueError(f"phase_decay_db: values must be float32 [..., T, 2, {p}], got {vals.dtype} {tuple(vals.shape)}")
+    vals = vals.contiguous()
+    lead, t = tuple(vals.shape[:-3]), vals.shape[-3]
+    mag, ph = state.magnitude, state.phase
+    rows = mag.shape[-2] if mag.ndim >= 2 else 0
+    for name, x, shape in (("magnitude", mag, lead + (k, rows, p)), ("phase", ph, lead + (k, p))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() or x.device != vals.device:
+            raise ValueError(f"phase_decay_db: state.{name} must be contiguous float32 {shape} on {vals.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if rows < 1:
+        raise ValueError("phase_decay_db: state.magnitude has no row")
+    out = torch.empty(lead + (t, k, 2, p), dtype=torch.float32, device=vals.device)
+    if out.numel() == 0:
+        return out
+    pairs = 1
+    for d in lead:
+        pairs *= d
+    v = None if valid is None else device_mask(valid, t, vals.device)
+    pp = phase_poles(c)
+    lib = _build.library()
+    with torch.cuda.device(vals.device):
+        err = lib.sig_phase_decay_db(
+            vals.data_ptr(),
+            c.slope_map.data_ptr(),
+            c.decay_poles.data_ptr(),
+            pp.data_ptr(),
+            c.display_scalars.data_ptr(),
+            None if v is None else v.data_ptr(),
+            mag.data_ptr(),
+            ph.data_ptr(),
+            out.data_ptr(),
+            pairs,
+            t,
+            k,
+            rows,
+            p,
+            helpers_for(pairs, t, k, p),
+            torch.cuda.current_stream(vals.device).cuda_stream,
+        )
+    _build.check(err, "phase_decay_db")
+    launches += 1
+    return out

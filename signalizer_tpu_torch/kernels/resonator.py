@@ -24,8 +24,10 @@ so a whole W-sample block is one product of the input against a precomputed
 [P*V, W] pole-power ramp: a plain float32 matrix product
 (``torch.matmul``, full float32, never TF32), not a length-W sequential
 dependency. States stay exact (the same recurrence, evaluated
-associatively). Complex values are kept as (re, im) float32 pairs at every
-boundary, as the JAX package keeps them. The design math is host numpy in
+associatively). Over T chunks the state recurrence and the readout are
+kernel H on a GPU (:mod:`~signalizer_tpu_torch.kernels.resonator_scan`).
+Complex values are kept as (re, im) float32 pairs at every boundary, as
+the JAX package keeps them. The design math is host numpy in
 float64, copied with its arithmetic unchanged; tests hold it bit-equal to
 the original.
 """
@@ -40,6 +42,7 @@ import torch
 
 from signalizer_tpu_torch.core.constant import resolve_device
 from signalizer_tpu_torch.core.windows import WindowType, window_coefficients
+from signalizer_tpu_torch.kernels.resonator_scan import ScanResult, _advance, readout_complex_plain, resonator_scan
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -279,15 +282,6 @@ def _drive(ramp2: torch.Tensor, x: torch.Tensor, p: int, v: int) -> torch.Tensor
     return torch.mm(x.reshape(-1, x.shape[-1]), ramp2.t()).reshape(x.shape[:-1] + (p, v, 2))
 
 
-def _advance(state: torch.Tensor, drive: torch.Tensor, decay_re, decay_im) -> torch.Tensor:
-    """z * c^W + drive on (re, im) pairs."""
-    zr, zi = state[..., 0], state[..., 1]
-    return torch.stack(
-        [zr * decay_re - zi * decay_im + drive[..., 0], zr * decay_im + zi * decay_re + drive[..., 1]],
-        dim=-1,
-    )
-
-
 def resonate_block(
     constant: ResonatorConstant,
     state: torch.Tensor,
@@ -320,13 +314,14 @@ def resonate_chunks(
     The production streaming path (ref: continuous resonate over blob
     chunks, TransformDSP.inl:1163-1211): a render tick consumes every
     pending chunk. One matrix product gives all T chunks' drives; the
-    T-step recurrence ``z = z * c^W + drive_t`` then runs elementwise on
-    pairs, in order, skipping chunks that are not valid.
+    T-step recurrence ``z = z * c^W + drive_t`` then runs in order,
+    skipping chunks that are not valid (on a GPU: kernel H, one launch,
+    :func:`~signalizer_tpu_torch.kernels.resonator_scan.resonator_scan`).
 
     Args:
       chunks: [..., T, W] — T sequential blocks per batch element.
-      valid: optional [T] bool (host values); False chunks leave the state
-        untouched (padding to a fixed T).
+      valid: optional [T] bool; False chunks leave the state untouched
+        (padding to a fixed T).
       plan: precomputed ramp for W (recommended: without it the ramp is
         recomputed on the device every call).
       emit_readouts: also return the windowed magnitude readout after
@@ -335,21 +330,27 @@ def resonate_chunks(
 
     Returns final state, or ``(final_state, readouts)``.
     """
-    t = chunks.shape[-2]
+    scan = resonate_and_read(constant, state, chunks, valid, plan, emit_readouts)
+    return (scan.state, scan.readouts) if emit_readouts else scan.state
+
+
+def resonate_and_read(
+    constant: ResonatorConstant,
+    state: torch.Tensor,
+    chunks: torch.Tensor,
+    valid=None,
+    plan: ResonatorBlockPlan = None,
+    emit_readouts: bool = False,
+) -> ScanResult:
+    """:func:`resonate_chunks` and the windowed readout of the final state
+    (``re``, ``im`` and the magnitude [..., P], as
+    :func:`resonator_readout_complex` and :func:`resonator_readout` give
+    them) in one :class:`~signalizer_tpu_torch.kernels.resonator_scan.ScanResult`."""
     ramp2, decay_re, decay_im = _ramp(constant, chunks.shape[-1], plan)
     drives = _drive(ramp2, chunks, constant.num_pixels, constant.vectors)  # [..., T, P, V, 2]
-    steps = np.ones(t, bool) if valid is None else np.asarray(valid, bool).reshape(-1)
-    if steps.shape[0] != t:
-        raise ValueError(f"valid has {steps.shape[0]} entries for T={t}")
-    ys = []
-    for i in range(t):
-        if steps[i]:
-            state = _advance(state, drives[..., i, :, :, :], decay_re, decay_im)
-        if emit_readouts:
-            ys.append(resonator_readout(constant, state))
-    if emit_readouts:
-        return state, torch.stack(ys, dim=0)
-    return state
+    return resonator_scan(
+        state, drives, decay_re, decay_im, constant.combine, constant.gain, valid, emit_readouts
+    )
 
 
 def resonator_readout_complex(
@@ -360,8 +361,7 @@ def resonator_readout_complex(
     branch of mapResonatingSystem consumes these,
     TransformDSP.inl:1111-1127). Normalized by the bank gain. The sum over
     the 2K+1 vectors is an elementwise multiply and a sum (no matmul)."""
-    z = (state * constant.combine[:, None]).sum(-2)  # [..., P, 2]
-    return z[..., 0] * constant.gain, z[..., 1] * constant.gain
+    return readout_complex_plain(state, constant.combine, constant.gain)
 
 
 def resonator_readout(constant: ResonatorConstant, state: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,11 @@ beside it:
   — ``_remap_mag``, peak decay over T and K, dB map.
 
 A CPU tensor runs the plain versions, a CUDA tensor the kernels. PHASE
-needs complex interpolation, a first-maximum argbin and phase smoothing,
-which no kernel carries (the JAX package ran them as XLA ops too): on
-either device its tail is the plain code below, fed by stage 1's complex
-output. For the magnitude modes, :func:`spectrum_values` and
+needs complex interpolation and a first-maximum argbin, which no kernel
+carries (the JAX package ran them as XLA ops too): on either device its
+values are the plain code below, fed by stage 1's complex output; its
+decay, phase smoothing and dB map are kernel G on a GPU
+(:mod:`~signalizer_tpu_torch.kernels.phase_decay_db`). For the magnitude modes, :func:`spectrum_values` and
 :func:`post_process` are the two halves of the tail, each its own entry of
 the display kernel on a CUDA tensor
 (:func:`~signalizer_tpu_torch.kernels.display_map.display_remap`,
@@ -48,7 +49,7 @@ from signalizer_tpu_torch.kernels.display_map import (  # noqa: F401 — re-expo
     display_map,
     display_remap,
 )
-from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
+from signalizer_tpu_torch.kernels.phase_decay_db import phase_decay_db
 from signalizer_tpu_torch.kernels.window_fft_mag import (  # noqa: F401 — re-exported
     _half_spectrum,
     _pack_channels,
@@ -187,43 +188,18 @@ def post_process(
 
     ``vals`` [..., T, rows, P] are time-ordered linear display values (from
     :func:`spectrum_values`); ``state = max(pole * state, new)`` (ref:
-    TransformDSP.inl:1336-1341) runs as a loop over T. ``valid`` (optional
-    [T] bool) marks padded frames that leave every filter state untouched.
-    ``state``'s tensors are updated in place and returned in the result.
-    ``decay_domain`` is accepted for parity with the JAX package and
-    ignored: the port has the linear semantics only.
+    TransformDSP.inl:1336-1341) runs over T, on a GPU in one launch: kernel
+    B's decay-and-dB entry, or in PHASE kernel G (with the phase
+    smoothing, :func:`~signalizer_tpu_torch.kernels.phase_decay_db.phase_decay_db`).
+    ``valid`` (optional [T] bool) marks padded frames that leave every
+    filter state untouched. ``state``'s tensors are updated in place and
+    returned in the result. ``decay_domain`` is accepted for parity with
+    the JAX package and ignored: the port has the linear semantics only.
     """
     del decay_domain
-    if constant.configuration != SpectrumChannels.PHASE:
-        results = display_decay_db(constant, state.magnitude, vals.contiguous(), valid)
-        return SpectrumResult(results, state)
-
-    poles = constant.decay_poles  # [K]
-    seq = vals[..., :, None, :, :]  # [..., T, 1, rows, P]
-    mag_seq = seq[..., 0:1, :] * 0.5  # ref: consts::half at :1407
-    cancel_seq = seq[..., 1:2, :]
-    decayed, new_mag_state = peak_decay_scan(
-        state.magnitude[..., 0:1, :], mag_seq, poles[:, None, None],
-        time_axis=-4, valid=valid,
-    )
-    # phase smoothing: one-pole toward (cancel * mag) with pole^0.3
-    # (ref: TransformDSP.inl:1395-1419)
-    target = torch.movedim(cancel_seq[..., 0, :] * mag_seq[..., 0, :], -3, 0)  # [T, ..., K, P]
-    phase_pole = poles[:, None] ** 0.3
-    if valid is not None:
-        valid = torch.as_tensor(valid, dtype=torch.bool, device=vals.device)
-    carry = state.phase
-    phases = []
-    for t in range(target.shape[0]):
-        out = target[t] + phase_pole * (carry - target[t])
-        carry = out if valid is None else torch.where(valid[t], out, carry)
-        phases.append(carry)
-    phases = torch.stack(phases, dim=-3)  # [..., T, K, P]
-    mag_db = _db_map(constant, decayed[..., 0, :])
-    phase_db = _db_map(constant, phases)
-    results = torch.stack([mag_db, phase_db], dim=-2)  # [..., T, K, rows=2, P]
-    state.magnitude[..., 0:1, :] = new_mag_state
-    state.phase.copy_(carry)
+    if constant.configuration == SpectrumChannels.PHASE:
+        return SpectrumResult(phase_decay_db(constant, state, vals, valid), state)
+    results = display_decay_db(constant, state.magnitude, vals.contiguous(), valid)
     return SpectrumResult(results, state)
 
 

@@ -47,3 +47,26 @@ class PinnedUpload:
         out = staged.to(self.device, non_blocking=True)
         self._events[i].record(torch.cuda.current_stream(self.device))
         return out
+
+
+_mask_uploads: dict = {}  # device -> the PinnedUpload its masks go up through
+
+
+def device_mask(valid, n: int, device) -> torch.Tensor:
+    """``valid`` ([n] bool) as a contiguous [n] float32 mask on ``device``,
+    1.0 where valid: a tensor already there is cast on the device; host
+    values (a sequence, an array or a CPU tensor) go up through a
+    :class:`PinnedUpload` kept for the device, so that no call waits for
+    the stream."""
+    device = torch.device(device)
+    if isinstance(valid, torch.Tensor) and valid.device == device:
+        mask = valid.reshape(-1).to(torch.float32).contiguous()
+    else:
+        host = np.asarray(valid.cpu() if isinstance(valid, torch.Tensor) else valid, dtype=bool).reshape(-1)
+        uploader = _mask_uploads.get(device)
+        if uploader is None:
+            uploader = _mask_uploads[device] = PinnedUpload(device)
+        mask = uploader.upload(host.astype(np.float32))
+    if mask.numel() != n:
+        raise ValueError(f"valid has {mask.numel()} entries for T={n}")
+    return mask

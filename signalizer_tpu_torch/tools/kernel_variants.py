@@ -2,7 +2,7 @@
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
-        [--kernels abcdefhlt] [--named VARIANT ...] [--flat-twiddles NAME ...]
+        [--kernels abcdefghlrt] [--named VARIANT ...] [--flat-twiddles NAME ...]
         [--wrapper] [--out FILE]
 
 Each ``DIR`` holds another version of ``window_fft_mag.cu``,
@@ -17,7 +17,7 @@ library under ``build/kernel_variants/`` and timed in turns with the
 package's kernels (``repo``): all versions in order, then in reverse order,
 so that drift of the card shows as a difference between the two rounds.
 ``--kernels`` picks which kernels are timed (any of ``a``, ``b``, ``c``,
-``d``, ``e``, ``f``, ``h``, ``l``, ``t``; the default is ``abc``). ``--named`` adds versions kept
+``d``, ``e``, ``f``, ``g``, ``h``, ``l``, ``r``, ``t``; the default is ``abc``). ``--named`` adds versions kept
 in ``signalizer_tpu_torch/tools/variants/`` (``NAMED_VARIANTS``): the
 earlier two-pass form (``long_v1``, entry ``sig_window_fft_mag_long_v1``),
 the package's two-pass form with its pass-2 block size and waves as
@@ -31,7 +31,10 @@ designs (``--kernels e``): its first (``colour_v1``: a block scan a
 recurrence), the one before its reciprocal normalisation (``colour_v2``;
 ``colour_v2_no_mix``, ``_no_scans``, ``_no_fixup`` with one part left out,
 ``colour_v2_chunk8`` with 8 samples a thread) and a whole row a tile
-(``colour_row``).
+(``colour_row``), and kernel G's first design (``phase_decay_db_v1``: a
+thread per 4 pixels mapping every frame itself) and second
+(``phase_decay_db_v2``: the package's helpers, a branch a frame;
+``--kernels g``).
 ``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
@@ -65,7 +68,14 @@ its fused entry (x to colours, both states carried in) at cfg3's 16 pairs x
 host table of its own chunk length (its source's ``kChunk``, or
 ``-DSIG_CHUNK``). Kernel F (``f``, ``spectral_walk.cu``) runs its filtered
 entry at cfg3b's 16 lookaheads of 8192 samples (4094 candidate bins each)
-and at one (``f_cfg3b_us``, ``f_1x4094_us``). Kernel C runs at three shapes of the
+and at one (``f_cfg3b_us``, ``f_1x4094_us``). Kernel G (``g``,
+``phase_decay_db.cu``) runs at the headline in PHASE (16 pairs x 128
+frames and x 1, 2 line graphs, 1024 px) and at the spectrogram's cfg4 (1
+pair x 512 frames, the last 3 invalid), with the wrapper's helpers a pixel
+and with each of 1, 2, 4 and 8 (``g_headline_r4_us`` ...); kernel H (``r``,
+``resonator_scan.cu``) at the cfg6 backlog (32 banks x 16 chunks of 512,
+1024 px, the last 3 invalid; with and without a readout a chunk) and
+tick (one chunk of 800). Kernel C runs at three shapes of the
 oscilloscope, all 16 pairs over a 16384-sample history: ``cfg3`` (Lanczos
 a = 10 with the nearest pick, 2 rows, a 1024-sample window over 8192 px),
 ``colour`` (the colour track's nearest pick, 6 rows, the same positions) and
@@ -117,7 +127,7 @@ PAIRS, FRAMES, WINDOW, PIXELS = 16, 128, 4096, 1024
 KERNEL_SOURCES = {
     "a": "window_fft_mag.cu", "b": "display_map.cu", "c": "banded_resample.cu", "d": "display_decay_db.cu",
     "l": "window_fft_mag_cluster.cu", "t": "window_fft_mag_long.cu", "h": "peak_hold.cu",
-    "e": "colour_track.cu", "f": "spectral_walk.cu",
+    "e": "colour_track.cu", "f": "spectral_walk.cu", "g": "phase_decay_db.cu", "r": "resonator_scan.cu",
 }
 VARIANTS_DIR = Path(__file__).resolve().parent / "variants"
 # versions kept beside the tool: name -> (source in VARIANTS_DIR, nvcc defines)
@@ -137,6 +147,8 @@ NAMED_VARIANTS = {
     "colour_v2_no_fixup": ("colour_track_v2.cu", ("-DSIG_DROP_FIXUP",)),
     "colour_v2_chunk8": ("colour_track_v2.cu", ("-DSIG_CHUNK=8",)),
     "colour_row": ("colour_track_row.cu", ()),
+    "phase_decay_db_v1": ("phase_decay_db_v1.cu", ()),
+    "phase_decay_db_v2": ("phase_decay_db_v2.cu", ()),
 }
 # the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
 MAX_SHARED_BYTES = 232448
@@ -184,7 +196,16 @@ V1_SIGNATURES = {
     "sig_window_fft_mag_long_v1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sig_window_fft_mag_long_general": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "sig_display_decay_db_v1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sig_phase_decay_db_v1": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
+# kernel G: pairs, T, last invalid frames (the headline in PHASE at T = 128
+# and 1, the spectrogram's cfg4 in PHASE), 2 line graphs over 1024 px
+PHASE_SHAPES = {"headline": (16, 128, 0), "t1": (16, 1, 0), "cfg4": (1, 512, 3)}
+# kernel H: banks (pairs x rows), chunks, last invalid chunks, readouts
+# after every chunk (the cfg6 backlog and tick, 16 pairs x 2 rows, 1024 px,
+# a Hann window's 3 vectors)
+SCAN_SHAPES = {"cfg6_backlog": (32, 16, 3, False), "cfg6_backlog_readouts": (32, 16, 3, True),
+               "cfg6_tick": (32, 1, 0, False)}
 
 
 def build(name: str, directory: Path, kernels, sources=None, defines=()) -> ctypes.CDLL:
@@ -633,6 +654,129 @@ class SpectralWalk:
         return line
 
 
+class PhaseDecay:
+    """Kernel G at PHASE_SHAPES through its C entry, the package's with
+    every count of helpers a pixel (1, 2, 4, 8; ``g_<shape>_r<R>_us``) beside
+    the wrapper's choice (``g_<shape>_us``), a first design's
+    (``sig_phase_decay_db_v1``) as it is."""
+
+    def __init__(self, libs, dev):
+        from signalizer_tpu_torch.kernels import phase_decay_db as pd
+
+        self.libs, self.cases, self.pd = libs, {}, pd
+        c = make_spectrum_constant(
+            device=dev, axis_points=PIXELS, window_size=WINDOW, sample_rate=48_000.0,
+            configuration=SpectrumChannels.PHASE, bin_interpolation=BinInterpolation.LINEAR,
+            view_scaling=ViewScaling.LOGARITHMIC,
+        )
+        self.c, self.pp = c, pd.phase_poles(c)
+        rng = np.random.default_rng(61)
+        for shape, (pairs, t, invalid) in PHASE_SHAPES.items():
+            k = c.num_line_graphs
+            valid = None
+            if invalid:
+                valid = torch.ones(t, device=dev)
+                valid[-invalid:] = 0.0
+            mid = np.abs(rng.standard_normal((pairs, t, PIXELS))) * 0.3
+            case = types.SimpleNamespace(
+                pairs=pairs, t=t, k=k, valid=valid,
+                vals=torch.from_numpy(np.stack([mid, rng.random((pairs, t, PIXELS))], -2).astype(np.float32)).to(dev),
+                mag0=torch.from_numpy((rng.random((pairs, k, 2, PIXELS)) * 0.05).astype(np.float32)).to(dev),
+                ph0=torch.from_numpy((rng.random((pairs, k, PIXELS)) * 0.05).astype(np.float32)).to(dev),
+                out=torch.empty((pairs, t, k, 2, PIXELS), device=dev),
+            )
+            case.mag, case.ph = case.mag0.clone(), case.ph0.clone()
+            self.cases[shape] = case
+            self.launch("repo", case)
+            torch.cuda.synchronize()
+            case.want = (case.out.clone(), case.mag.clone(), case.ph.clone())
+
+    def launch(self, name, case, helpers=None):
+        lib, c = self.libs[name], self.c
+        args = (case.vals.data_ptr(), c.slope_map.data_ptr(), c.decay_poles.data_ptr(), self.pp.data_ptr(),
+                c.display_scalars.data_ptr(), None if case.valid is None else case.valid.data_ptr(),
+                case.mag.data_ptr(), case.ph.data_ptr(), case.out.data_ptr(), case.pairs, case.t, case.k, 2, PIXELS)
+        stream = torch.cuda.current_stream().cuda_stream
+        if hasattr(lib, "sig_phase_decay_db_v1"):
+            err = lib.sig_phase_decay_db_v1(*args, stream)
+        else:
+            r = self.pd.helpers_for(case.pairs, case.t, case.k, PIXELS) if helpers is None else helpers
+            err = lib.sig_phase_decay_db(*args, r, stream)
+        _build.check(err, f"{name}: phase_decay_db")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            case.mag.copy_(case.mag0)
+            case.ph.copy_(case.ph0)
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            line[f"g_{shape}_max_abs_diff_vs_repo"] = float((case.out - case.want[0]).abs().max())
+            line[f"g_{shape}_states_equal_repo"] = bool(torch.equal(case.mag, case.want[1])
+                                                        and torch.equal(case.ph, case.want[2]))
+            reps = 10 if case.t > 1 else 50
+            line[f"g_{shape}_us"] = device_us(lambda: self.launch(name, case), reps)
+            if hasattr(self.libs[name], "sig_phase_decay_db"):
+                for r in (1, 2, 4, 8):
+                    if r <= case.t:
+                        line[f"g_{shape}_r{r}_us"] = device_us(lambda r=r: self.launch(name, case, r), reps)
+        return line
+
+
+class ResonatorScan:
+    """Kernel H at SCAN_SHAPES through its C entry, on drives formed as
+    ``resonate_chunks`` forms them (the plan's c^W read in place)."""
+
+    def __init__(self, libs, dev):
+        from signalizer_tpu_torch.kernels import resonator as rz
+
+        self.libs, self.cases = libs, {}
+        bank = rz.make_resonator_constant(np.geomspace(20.0, 20000.0, PIXELS), 48_000.0, WINDOW, device=dev)
+        self.bank = bank
+        rng = np.random.default_rng(62)
+        for shape, (b, t, invalid, readouts) in SCAN_SHAPES.items():
+            w = 800 if t == 1 else 512
+            plan = rz.make_block_plan(bank, w)
+            chunks = torch.from_numpy((rng.standard_normal((b, t, w)) * 0.3).astype(np.float32)).to(dev)
+            valid = None
+            if invalid:
+                valid = torch.ones(t, device=dev)
+                valid[-invalid:] = 0.0
+            case = types.SimpleNamespace(
+                b=b, t=t, valid=valid, plan=plan,
+                drives=rz._drive(plan.drive_matrix, chunks, PIXELS, bank.vectors),
+                state=torch.from_numpy((rng.standard_normal((b, PIXELS, bank.vectors, 2))).astype(np.float32)).to(dev),
+                out=[torch.empty((b, PIXELS, bank.vectors, 2), device=dev)]
+                + [torch.empty((b, PIXELS), device=dev) for _ in range(3)]
+                + [torch.empty((t, b, PIXELS), device=dev) if readouts else None],
+            )
+            self.cases[shape] = case
+            self.launch("repo", case)
+            torch.cuda.synchronize()
+            case.want = [None if x is None else x.clone() for x in case.out]
+
+    def launch(self, name, case):
+        bank, decay = self.bank, case.plan.decay
+        err = self.libs[name].sig_resonator_scan(
+            case.state.data_ptr(), case.drives.data_ptr(), decay.data_ptr(), decay.data_ptr() + 4,
+            None if case.valid is None else case.valid.data_ptr(), bank.combine.data_ptr(), bank.gain.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in case.out), case.b, case.t, PIXELS, bank.vectors, 2,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, f"{name}: resonator_scan")
+
+    def measure(self, name) -> dict:
+        line = {}
+        for shape, case in self.cases.items():
+            self.launch(name, case)
+            torch.cuda.synchronize()
+            line[f"r_{shape}_state_equal_repo"] = bool(torch.equal(case.out[0], case.want[0]))
+            line[f"r_{shape}_max_abs_diff_vs_repo"] = max(
+                float((x - y).abs().max()) for x, y in zip(case.out[1:], case.want[1:]) if x is not None)
+            line[f"r_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+        return line
+
+
 def colour_chunk(source: Path, defines=()) -> int:
     """The samples a thread of a version of kernel E holds: ``-DSIG_CHUNK``,
     else its source's ``kChunk`` (or ``SIG_CHUNK`` default)."""
@@ -817,7 +961,7 @@ class Resample:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
-    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, e, f, h, l, t")
+    parser.add_argument("--kernels", default="abc", help="which kernels to time: any of a, b, c, d, e, f, g, h, l, r, t")
     parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
                         help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
@@ -856,6 +1000,8 @@ def main(argv=None) -> int:
         "peak_hold": ("sig_peak_hold",),
         "colour_track": ("sig_colour_track",),
         "spectral_walk": ("sig_spectral_walk",),
+        "phase_decay": ("sig_phase_decay_db", "sig_phase_decay_db_v1"),
+        "resonator_scan": ("sig_resonator_scan",),
     }
     timers = {
         "spectrum": Spectrum(libs, dev, args.flat_twiddles) if kernels & {"a", "b"} else None,
@@ -866,6 +1012,8 @@ def main(argv=None) -> int:
         "peak_hold": PeakHold(libs, dev) if "h" in kernels else None,
         "colour_track": ColourTrack(libs, chunks, dev) if "e" in kernels else None,
         "spectral_walk": SpectralWalk(libs, dev) if "f" in kernels else None,
+        "phase_decay": PhaseDecay(libs, dev) if "g" in kernels else None,
+        "resonator_scan": ResonatorScan(libs, dev) if "r" in kernels else None,
     }
     resample = timers["resample"]
 

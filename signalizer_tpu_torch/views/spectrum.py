@@ -33,9 +33,7 @@ from signalizer_tpu_torch.kernels.resonator import (
     init_resonator_state,
     make_block_plan,
     make_resonator_constant,
-    resonate_chunks,
-    resonator_readout,
-    resonator_readout_complex,
+    resonate_and_read,
 )
 from signalizer_tpu_torch.kernels.spectrum import (
     LineGraphState,
@@ -163,22 +161,23 @@ def rsnt_chunks(
     updated in place by one decay step whatever ``valid`` says, as in the
     JAX package: the step displays the bank as it stands."""
     mixed = _mix_rsnt(constant.configuration, blocks)  # [pairs, rows, T, W]
-    st = resonate_chunks(resonator, res_state, mixed, valid=valid, plan=plan)
+    # the recurrence and the final state's readout: kernel H on a GPU
+    scan = resonate_and_read(resonator, res_state, mixed, valid=valid, plan=plan)
+    st = scan.state
     if constant.configuration == SpectrumChannels.PHASE:
         # post_process's PHASE contract is rows = (mid magnitude,
         # cancellation in [0, 1]) — built from the COMPLEX per-channel
         # states exactly like the reference's RSNT Phase branch
         # (mapResonatingSystem, TransformDSP.inl:1111-1127): mid =
         # |L| + |R|, cancellation = 1 - |L + R| / mid.
-        re, im = resonator_readout_complex(resonator, st)  # [pairs, 2, P]
-        mag = torch.sqrt(re * re + im * im)
+        re, im, mag = scan.re, scan.im, scan.magnitude  # [pairs, 2, P]
         mid = mag[:, 0] + mag[:, 1]
         sre, sim = re[:, 0] + re[:, 1], im[:, 0] + im[:, 1]
         interference = torch.sqrt(sre * sre + sim * sim)
         cancel = 1.0 - torch.where(mid > 0, interference / torch.clamp(mid, min=1e-30), 0.0)
         vals = torch.stack([mid, cancel], dim=1)  # [pairs, 2, P]
     else:
-        vals = resonator_readout(resonator, st)  # [pairs, rows, P]
+        vals = scan.magnitude  # [pairs, rows, P]
     result = post_process(constant, graph_state, vals[:, None])
     return result.results, st, result.state
 
@@ -188,7 +187,8 @@ class ResonatorSpectrumProcessor:
     (ref: TransformAlgorithm::RSNT). Consumes a *continuous* sample stream
     (no framing); per block: channel-mode mix -> resonate -> windowed
     readout -> peak decay -> dB, on the constant's device (on a GPU the
-    decay and the dB map are the display kernel's decay-and-dB entry).
+    recurrence and the readout are kernel H, the decay and the dB map the
+    display kernel's decay-and-dB entry, or kernel G in PHASE).
 
     Channel packing per resonatingDispatch: Mid = L + R and Side = L - R
     (the RSNT path does NOT halve, unlike the FFT path's prepareTransform).

@@ -1779,3 +1779,282 @@ def test_session_tick_on_cuda_syncs_only_for_its_readbacks(cuda):
             counts.append(sum("synchroniz" in str(w.message) for w in log))
         s.close()
         assert max(counts[10:]) == expected, (preset, counts)
+
+
+# kernel G's cases: name -> (pairs, T, K, P, mask): the Spectrum headline in
+# PHASE at T = 128 and 1, its last frames padded, the spectrogram's cfg4
+# geometry (1 pair x 512 frames), a ragged P, 1 and 11 line graphs
+PHASE_CASES = {
+    "headline_t128": (16, 128, 2, 1024, None),
+    "headline_t1": (16, 1, 2, 1024, None),
+    "headline_last_padded": (16, 128, 2, 1024, "last"),
+    "cfg4": (1, 512, 2, 1024, "last"),
+    "ragged_p": (3, 9, 2, 1001, "some"),
+    "k1": (2, 7, 1, 256, None),
+    "k11": (2, 33, 11, 200, "some"),
+}
+
+
+def _phase_inputs(case, device, seed):
+    """A PHASE constant and (vals, magnitude, phase, valid) on ``device``."""
+    pairs, t, k, p, mask = PHASE_CASES[case]
+    c = make_spectrum_constant(axis_points=p, window_size=4096, configuration=SpectrumChannels.PHASE,
+                               view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=k, device=device)
+    rng = np.random.default_rng(seed)
+    mid = np.abs(rng.standard_normal((pairs, t, p))) * 0.3
+    vals = np.stack([mid, rng.random((pairs, t, p))], axis=-2).astype(np.float32)
+    mag = (rng.random((pairs, k, 2, p)) * 0.05).astype(np.float32)
+    phase = (rng.random((pairs, k, p)) * 0.05).astype(np.float32)
+    valid = None
+    if mask == "last":
+        valid = np.ones(t, bool)
+        valid[-3:] = False
+    elif mask == "some":
+        valid = rng.random(t) > 0.3
+    return c, *(torch.from_numpy(a).to(device) for a in (vals, mag, phase)), valid
+
+
+@pytest.mark.parametrize("case", list(PHASE_CASES))
+def test_phase_decay_kernel_is_bit_equal_to_the_plain_loop(cuda, case):
+    """Kernel G vs its plain version on the same CUDA tensors: both states
+    bit-equal (row 1 of the magnitude untouched), the display within atol
+    1e-5 (the bound of kernel B's decay-and-dB entry: an IEEE division and
+    a logf against torch's), one launch a call, a host mask as a device one."""
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+
+    c, vals, mag, phase, valid = _phase_inputs(case, cuda, seed=len(case))
+    k_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
+    p_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
+    before = pd.launches
+    got = pd.phase_decay_db(c, k_state, vals, valid)
+    want = pd.phase_decay_db_plain(c, p_state, vals, valid)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    assert got.shape == want.shape == vals.shape[:2] + (c.num_line_graphs, 2, c.axis_points)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(k_state.magnitude, p_state.magnitude) and torch.equal(k_state.phase, p_state.phase)
+    assert torch.equal(k_state.magnitude[:, :, 1], mag[:, :, 1])
+    if valid is not None:
+        again = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
+        torch.testing.assert_close(pd.phase_decay_db(c, again, vals, torch.from_numpy(valid).to(cuda)), got,
+                                   rtol=0, atol=0)
+        assert torch.equal(again.magnitude, k_state.magnitude) and torch.equal(again.phase, k_state.phase)
+
+
+def test_phase_decay_kernel_nan_zero_subnormal_and_no_sync(cuda):
+    """NaN values propagate into the states as torch.maximum propagates them
+    (fmaxf would drop them), zeros and subnormals are kept as the plain loop
+    keeps them, and a call with a host mask makes no synchronizing call."""
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+
+    c, vals, mag, phase, _ = _phase_inputs("k1", cuda, seed=3)
+    vals[0, 2, 0, :5] = float("nan")
+    vals[1, 3, 1, 7:9] = float("nan")
+    vals[0, :, :, 20:40] = 0.0
+    vals[1, :, 0, 40:60] = 1e-40
+    mag[1, :, 0, 40:60] = 0.0
+    states = [init_line_graph_state(c, (2,))._replace(magnitude=mag.clone(), phase=phase.clone()) for _ in range(2)]
+    valid = [True, True, True, True, False, True, True]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pd.phase_decay_db(c, states[0], vals, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = pd.phase_decay_db_plain(c, states[1], vals, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5, equal_nan=True)
+    for a, b in zip(states[0], states[1]):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)) and bool(torch.isnan(a).any())
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert 0 < float(states[0].magnitude[1, 0, 0, 40]) < 1e-38  # a subnormal, not flushed
+
+
+def test_phase_post_process_and_processor_launch_kernel_g(cuda):
+    """The PHASE Spectrum on the card: kernel A then kernel G, once each a
+    call (kernel B never), equal to stage 1 and the plain tail on the same
+    tensors, and the resonator's PHASE bank through kernel G too."""
+    from signalizer_tpu_torch import SpectrumProcessor
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+    from signalizer_tpu_torch.views.spectrum import ResonatorSpectrumProcessor
+
+    kw = dict(axis_points=256, window_size=1024, configuration=SpectrumChannels.PHASE,
+              view_scaling=ViewScaling.LOGARITHMIC)
+    proc = SpectrumProcessor.create(pairs=2, device=cuda, **kw)
+    plain = init_line_graph_state(proc.constant, (2,))
+    frames = _frames((2, 5, 2, 1024), seed=12, device=cuda)
+    for x in (frames, frames[:, :1].contiguous()):
+        counts = (wfm.launches, dm.launches, dm.decay_db_launches, pd.launches)
+        got = proc.process(x)
+        after = (wfm.launches, dm.launches, dm.decay_db_launches, pd.launches)
+        want = pd.phase_decay_db_plain(proc.constant, plain, spectrum_values(proc.constant, x))
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(counts, after)) == (1, 0, 0, 1)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        assert torch.equal(proc._state.magnitude, plain.magnitude) and torch.equal(proc._state.phase, plain.phase)
+    bank = ResonatorSpectrumProcessor.create(pairs=2, device=cuda, **kw)
+    before = pd.launches
+    out = bank.process(_frames((2, 2, 800), seed=13, device=cuda))
+    assert pd.launches == before + 1 and out.shape == (2, 1, 2, 2, 256) and bool(torch.isfinite(out).all())
+
+
+def test_phase_decay_refuses_what_it_cannot_take(cuda):
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+
+    c, vals, mag, phase, _ = _phase_inputs("k1", cuda, seed=4)
+    state = init_line_graph_state(c, (2,))
+    with pytest.raises(ValueError, match="float32"):
+        pd.phase_decay_db(c, state, vals[..., :1, :])
+    with pytest.raises(ValueError, match="state.magnitude"):
+        pd.phase_decay_db(c, state._replace(magnitude=mag[:1]), vals)
+    with pytest.raises(ValueError, match="state.phase"):
+        pd.phase_decay_db(c, state._replace(phase=phase.transpose(-1, -2).contiguous()), vals)
+    with pytest.raises(ValueError, match="valid has 3 entries"):
+        pd.phase_decay_db(c, state, vals, [True] * 3)
+
+
+# kernel H's cases: name -> (pairs x rows, T, P, window, mask, readouts): the
+# cfg6 tick (16 pairs x 2 rows, one 800-sample chunk) and backlog (16
+# chunks of 512, the last 3 invalid), with readouts, and the other vector
+# counts on a smaller bank
+SCAN_CASES = {
+    "cfg6_tick": ((16, 2), 1, 1024, "HANN", None, False),
+    "cfg6_backlog_last_invalid": ((16, 2), 16, 1024, "HANN", "last", False),
+    "cfg6_backlog_readouts": ((16, 2), 16, 1024, "HANN", "last", True),
+    "v1_readouts": ((3, 1), 7, 300, "RECTANGULAR", "some", True),
+    "v5": ((2, 2), 5, 130, "BLACKMAN", None, False),
+    "v9_readouts": ((2, 2), 9, 257, "FLAT_TOP", "some", True),
+}
+
+
+def _scan_inputs(case, device):
+    """A resonator constant, its plan and (state, chunks, valid, emit) on
+    ``device`` for one of SCAN_CASES."""
+    from signalizer_tpu_torch.core.windows import WindowType
+    from signalizer_tpu_torch.kernels import resonator as rz
+
+    lead, t, p, window, mask, emit = SCAN_CASES[case]
+    w = 800 if t == 1 else 512
+    bank = rz.make_resonator_constant(np.geomspace(30.0, 20000.0, p), 48000.0, 4096, device=device,
+                                      window_type=WindowType[window])
+    rng = np.random.default_rng(len(case) + t)
+    chunks = torch.from_numpy((rng.standard_normal(lead + (t, w)) * 0.3).astype(np.float32)).to(device)
+    state = torch.from_numpy((rng.standard_normal(lead + (p, bank.vectors, 2)) * 2.0).astype(np.float32)).to(device)
+    valid = None
+    if mask == "last":
+        valid = np.ones(t, bool)
+        valid[-3:] = False
+    elif mask == "some":
+        valid = rng.random(t) > 0.3
+    return bank, rz.make_block_plan(bank, w), state, chunks, valid, emit
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_resonator_scan_kernel_is_bit_equal_to_the_plain_loop(cuda, case):
+    """Kernel H vs its plain loop on the same drives: the state bit-equal,
+    the readouts (re, im, magnitude, and after every chunk) within 1e-6 of
+    each row's peak (the sum over the vectors in another order than
+    torch's), one launch a call, the input state unchanged."""
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.kernels import resonator_scan as rs
+
+    bank, plan, state, chunks, valid, emit = _scan_inputs(case, cuda)
+    state0 = state.clone()
+    drives = rz._drive(plan.drive_matrix, chunks, bank.num_pixels, bank.vectors)
+    args = (state, drives, plan.decay[..., 0], plan.decay[..., 1], bank.combine, bank.gain, valid, emit)
+    before = rs.launches
+    got = rs.resonator_scan(*args)
+    want = rs.resonator_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert rs.launches == before + 1 and torch.equal(state, state0)
+    assert torch.equal(got.state, want.state)
+    for name in ("re", "im", "magnitude") + (("readouts",) if emit else ()):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape
+        assert _row_rel_err(g, w) <= 1e-6, name
+    assert (got.readouts is None) == (not emit)
+    if valid is not None and emit:
+        bad = int(np.flatnonzero(~valid)[-1])
+        assert bad == 0 or torch.equal(got.readouts[bad], got.readouts[bad - 1])
+
+
+def test_resonator_scan_runs_once_per_bank_call_without_a_sync(cuda):
+    """The resonator Spectrum on the card in SEPARATE and in PHASE: kernel H
+    once a bank call (a tick, and a backlog with a host mask: no
+    synchronizing call in the scan), the bank bit-equal to the plain loop
+    on the same drives, the display against the CPU processor."""
+    from signalizer_tpu_torch.kernels import resonator_scan as rs
+    from signalizer_tpu_torch.views.spectrum import ResonatorSpectrumProcessor
+
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((2, 2, 800 + 8 * 512)) * 0.3).astype(np.float32)
+    valid = [True] * 5 + [False] * 3
+    for cfg in (SpectrumChannels.SEPARATE, SpectrumChannels.PHASE):
+        kw = dict(pairs=2, axis_points=256, window_size=1024, configuration=cfg, view_scaling=ViewScaling.LOGARITHMIC)
+        card = ResonatorSpectrumProcessor.create(device=cuda, **kw)
+        cpu = ResonatorSpectrumProcessor.create(device="cpu", **kw)
+        for blocks, v in ((x[..., :800][:, :, None], None), (x[..., 800:].reshape(2, 2, 8, 512), valid)):
+            blocks_on_card = torch.from_numpy(np.ascontiguousarray(blocks)).to(cuda)
+            bank0 = card.res_state.clone()
+            args = _scan_args(card, bank0, blocks_on_card, v)
+            before = rs.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                scan = rs.resonator_scan(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            plain = rs.resonator_scan_plain(*args)
+            got = card.process_chunks(blocks_on_card, valid=v)
+            want = cpu.process_chunks(blocks, valid=v)
+            torch.cuda.synchronize()
+            assert rs.launches == before + 2
+            assert torch.equal(scan.state, plain.state) and torch.equal(card.res_state, scan.state)
+            peak = float(cpu.res_state.abs().max())
+            torch.testing.assert_close(card.res_state.cpu(), cpu.res_state, rtol=0, atol=2e-6 * peak)
+            if cfg == SpectrumChannels.SEPARATE:
+                torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+            else:  # the magnitude row as SEPARATE's; the phase row in linear units at 2e-3, as PHASE is held
+                torch.testing.assert_close(got[..., 0, :].cpu(), want[..., 0, :], rtol=0, atol=1e-4)
+                np.testing.assert_allclose(_undb(card.constant, got[..., 1, :].cpu()),
+                                           _undb(card.constant, want[..., 1, :]), atol=2e-3)
+
+
+def _undb(c, results):
+    """Display values back to linear units (clip_db -> 0)."""
+    lower, dyr = (float(v) for v in c.display_scalars[1:3])
+    lin = np.exp(np.asarray(results, np.float64) / dyr) * lower
+    return np.where(np.asarray(results) == float(c.clip_db), 0.0, lin)
+
+
+def _scan_args(proc, state, blocks, valid):
+    """kernel H's arguments for a resonator processor's call on ``blocks``
+    [pairs, 2, T, W] from ``state``, as rsnt_chunks forms them."""
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.views.spectrum import _mix_rsnt
+
+    plan = proc.block_plan(blocks.shape[-1])
+    mixed = _mix_rsnt(proc.constant.configuration, blocks)
+    drives = rz._drive(plan.drive_matrix, mixed, proc.resonator.num_pixels, proc.resonator.vectors)
+    return (state, drives, plan.decay[..., 0], plan.decay[..., 1], proc.resonator.combine, proc.resonator.gain,
+            valid)
+
+
+def test_resonator_scan_refuses_what_it_cannot_take(cuda):
+    from signalizer_tpu_torch.kernels import resonator as rz
+    from signalizer_tpu_torch.kernels import resonator_scan as rs
+
+    bank, plan, state, chunks, _, _ = _scan_inputs("v5", cuda)
+    drives = rz._drive(plan.drive_matrix, chunks, bank.num_pixels, bank.vectors)
+    d_re, d_im = plan.decay[..., 0], plan.decay[..., 1]
+    with pytest.raises(ValueError, match="state"):
+        rs.resonator_scan(state[:1], drives, d_re, d_im, bank.combine, bank.gain)
+    with pytest.raises(ValueError, match="vectors"):
+        rs.resonator_scan(state[..., :2, :], drives[..., :2, :], d_re[:, :2], d_im[:, :2], bank.combine[:2],
+                          bank.gain)
+    with pytest.raises(ValueError, match="valid has 4 entries"):
+        rs.resonator_scan(state, drives, d_re, d_im, bank.combine, bank.gain, [True] * 4)
+    # separate contiguous c^W tensors take the stride-1 form
+    got = rs.resonator_scan(state, drives, d_re.contiguous(), d_im.contiguous(), bank.combine, bank.gain)
+    want = rs.resonator_scan(state, drives, d_re, d_im, bank.combine, bank.gain)
+    assert torch.equal(got.state, want.state) and torch.equal(got.magnitude, want.magnitude)

@@ -113,6 +113,44 @@ def test_vectorscope_spectrogram_and_resonator_run_with_jax_blocked():
     assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
 
 
+def test_phase_tail_and_resonator_scan_run_with_jax_blocked():
+    """With jax blocked the plain versions of kernels G and H run on the CPU
+    (the PHASE Spectrum, the PHASE and SEPARATE resonator banks, the scan
+    with its readouts), count no launch, upload no mask, and no module of
+    the JAX package is loaded."""
+    proc = _run(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import signalizer_tpu_torch as st
+        from signalizer_tpu_torch.kernels import phase_decay_db as g, resonator_scan as h
+        from signalizer_tpu_torch.kernels.resonator import init_resonator_state, resonate_chunks
+        from signalizer_tpu_torch.stream import pinned
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2, 3, 2, 256)).astype(np.float32)
+        p = st.SpectrumProcessor.create(pairs=2, device="cpu", axis_points=64, window_size=256,
+                                        configuration=st.SpectrumChannels.PHASE)
+        out = p.process(x)
+        assert tuple(out.shape) == (2, 3, 2, 2, 64) and np.isfinite(out.numpy()).all()
+        for cfg in (st.SpectrumChannels.PHASE, st.SpectrumChannels.SEPARATE):
+            rs = st.ResonatorSpectrumProcessor.create(pairs=2, device="cpu", axis_points=64, window_size=256,
+                                                      configuration=cfg)
+            out = rs.process_chunks(x[:, 0].reshape(2, 2, 2, 128), valid=[True, False])
+            assert tuple(out.shape) == (2, 1, 2, 2, 64) and np.isfinite(out.numpy()).all()
+        state, ys = resonate_chunks(rs.resonator, init_resonator_state(rs.resonator, (2,)),
+                                    rs._blocks(x[:, 0]).reshape(2, 4, 128), valid=[True] * 3 + [False],
+                                    plan=rs.block_plan(128), emit_readouts=True)
+        assert tuple(ys.shape) == (4, 2, 64) and bool((ys[3] == ys[2]).all())
+        assert (g.launches, h.launches) == (0, 0) and pinned._mask_uploads == {}
+        loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
+        print(" ".join(loaded))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert set(proc.stdout.split()) <= ALLOWED, proc.stdout
+
+
 def test_live_path_runs_with_jax_blocked():
     """With jax blocked the live ingest path runs on the CPU: a threaded
     16-channel stream with a second instance mixed in through the host and
@@ -270,6 +308,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.kernels.peak_hold as d
         import signalizer_tpu_torch.kernels.colour_track as e
         import signalizer_tpu_torch.kernels.spectral_walk as f
+        import signalizer_tpu_torch.kernels.phase_decay_db as g
+        import signalizer_tpu_torch.kernels.resonator_scan as h
         import signalizer_tpu_torch.stream.pinned
         import signalizer_tpu_torch.parallel.pipeline
         import signalizer_tpu_torch.views.render
@@ -282,7 +322,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         assert _build.library.cache_info().currsize == 0
         assert nb._lib is None and nb._build_error is None
         assert (a.launches, a.cluster_launches, a.long_launches, b.launches, b.remap_launches,
-                b.decay_db_launches, c.launches, d.launches, e.launches, f.launches) == (0,) * 10
+                b.decay_db_launches, c.launches, d.launches, e.launches, f.launches, g.launches,
+                h.launches) == (0,) * 12
+        assert signalizer_tpu_torch.stream.pinned._mask_uploads == {}
         assert f.last_passes is None
         assert e._device_table.cache_info().currsize == 0
         print("ok")
@@ -312,13 +354,14 @@ def test_build_names_the_library_by_its_sources():
     names = {p.name for p in _build._sources()}
     assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
             "display_map.cu", "display_decay_db.cu", "banded_resample.cu", "peak_hold.cu", "colour_track.cu",
-            "spectral_walk.cu"} <= names
+            "spectral_walk.cu", "phase_decay_db.cu", "resonator_scan.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
         "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
         "sig_peak_hold", "sig_envelope_hold", "sig_colour_split", "sig_colour_track", "sig_spectral_walk",
+        "sig_phase_decay_db", "sig_resonator_scan",
     }
 
 
