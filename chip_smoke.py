@@ -207,8 +207,9 @@ Phases, each printing one informational line:
    each and a denormal row where there are four rows or more; and the
    fused entry on bands it is given; colours within 1e-3 of the
    plain version's, bands and states no further from the oracle than 2x
-   the plain version's own error; timed at cfg3 beside the plain version
-   and the bound, and profiled alone there (phase 15);
+   the plain version's own error; each case's row split (``colour_plan``:
+   threads, blocks a cluster) reported; timed at cfg3 beside the plain
+   version and the bound, and profiled alone there (phase 15);
 20. kernel F (the spectral trigger's walk and median filter; after phase
    19), both entries against their plain versions (the loop from
    acceptance to acceptance, then ``median_record_filter``) on the same
@@ -226,8 +227,10 @@ Phases, each printing one informational line:
    loops over T) on the same CUDA tensors: the headline in PHASE at T = 128
    and T = 1, with its last 3 frames invalid, cfg4's 1 pair x 512 frames,
    a ragged P = 1001, K = 1, 2 and 11 line graphs; both states bit-equal
-   (row 1 of the magnitude untouched), the display within 1e-5; timed at
-   the headline, T = 1 and cfg4 beside the plain loops and the bound; then
+   (row 1 of the magnitude untouched), the display within 1e-5; each
+   case's plan (``phase_plan``: frames a chunk, chunks; cfg4 in 16 chunks
+   behind a walk pass, T = 1 by the tick kernel) reported; timed at the
+   headline, T = 1 and cfg4 beside the plain loops and the bound; then
    the PHASE Spectrum at the headline through ``SpectrumProcessor`` (three
    T = 128 and three T = 1 calls: kernels A and G once a call, B never,
    against stage 1 and the plain tail, states bit-equal) and the
@@ -241,7 +244,8 @@ Phases, each printing one informational line:
    the headline constant (kernels H and G once a call, against the plain
    scan and tail); the RSNT session (phase 14) runs H once a bank call and
    its tick is timed. The profile phase adds the PHASE calls, G and H
-   alone, the PHASE backlog and the RSNT session tick, and a
+   alone (G by the device functions each call runs), the PHASE backlog and
+   the RSNT session tick, and a
    ``tail_profile`` line sets their launches (the PHASE T = 128 call at
    most 70, the cfg6 backlog 25, the tick 12), device µs and wall µs beside
    the default session tick's.
@@ -384,7 +388,7 @@ DEVICE_FUNCTIONS = {
     "peak_hold": ("peak_hold_kernel",),
     "colour_track": ("colour_track_kernel",),
     "spectral_walk": ("spectral_walk_kernel",),
-    "phase_decay_db": ("phase_decay_db_kernel",),
+    "phase_decay_db": ("phase_decay_db_kernel", "phase_walk_kernel", "phase_tick_kernel"),
     "resonator_scan": ("resonator_scan_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
@@ -912,7 +916,10 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
         require(torch.equal(s_kernel.magnitude[:, :, 1], mag[:, :, 1]), f"kernel G {name}: row 1 moved")
         report["cases"][name] = {"shape": list(vals.shape), "line_graphs": c.num_line_graphs,
                                  "valid_frames": None if valid is None else int(valid.sum()),
-                                 "max_abs_err": err, "states_bit_equal": True}
+                                 "max_abs_err": err, "states_bit_equal": True,
+                                 "plan": pd.phase_plan(vals.shape[0], vals.shape[1], c.num_line_graphs,
+                                                       c.axis_points, torch.cuda.get_device_properties(dev)
+                                                       .multi_processor_count)}
         if name in ("headline_t128", "headline_t1", "cfg4_1x512"):
             scratch = state_of(mag, phase)
             ms = median_ms(torch, lambda: pd.phase_decay_db(c, scratch, vals, valid))
@@ -3420,7 +3427,9 @@ def phase_kernel_e(torch, dev, results):
                 nz, pnz = int((bands[0, rows - 1] != 0).sum()), int((pb[0, rows - 1] != 0).sum())
                 require(nz == pnz > 0, f"kernel E {what}: {nz} nonzero bands in the denormal row, plain {pnz}")
             ps, pz, smooth, psmooth = ps_new, pz_new, s_new, ps_s
-        report["cases"][name] = {"pairs": pairs, "rows": rows, "W": w, "carried": carried, "denormal_row": denormal}
+        report["cases"][name] = {"pairs": pairs, "rows": rows, "W": w, "carried": carried, "denormal_row": denormal,
+                                 "geometry": ct.colour_plan(b, w, torch.cuda.get_device_properties(dev)
+                                                            .multi_processor_count)}
     # the fused entry on bands it is given (spectral_colour_track)
     x, state, smooth, key, _ = colour_inputs(torch, 4, 2, 5000, True, 17, dev)
     bands, _ = ct.three_band_split_plain(x, OSC_FS, state=state)
@@ -4338,8 +4347,12 @@ def main() -> int:
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
                        ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold"),
                        ("colour_track", "osc_cfg3_colour"), ("spectral_walk", "osc_cfg3b"),
-                       ("phase_decay_db", "phase_t128"), ("resonator_scan", "resonator_backlog_t16")):
+                       ("resonator_scan", "resonator_backlog_t16")):
         results[name]["profile_us"] = own_us(path, name)
+    # kernel G's device functions by the call's T: the mapping pass at T =
+    # 128, the tick kernel at T = 1, the walk pass and the mapping pass at cfg4
+    g_map, g_walk, g_tick = DEVICE_FUNCTIONS["phase_decay_db"]
+    results["phase_decay_db"]["profile_us"] = own_us("phase_t128", "phase_decay_db", (g_map,))
     # kernel D's two entries alone, at cfg3's tick and at 16 x 8192
     results["peak_hold"]["profile_us_alone"] = {name: own_us(name, "peak_hold") for name, _ in hold_workloads}
     # the ENVELOPE_HOLD trigger's cost in the step and the session tick:
@@ -4381,9 +4394,9 @@ def main() -> int:
     info({"phase": "spectral_profile", **walk})
     # the two tails' calls: launches, device and host time a call, kernels
     # G and H in them and alone
-    results["phase_decay_db"]["profile_us_alone"] = own_us("phase_decay_db_t128", "phase_decay_db")
-    results["phase_decay_db"]["profile_us_t1"] = own_us("phase_t1", "phase_decay_db")
-    results["phase_decay_db"]["profile_us_cfg4"] = own_us("phase_cfg4", "phase_decay_db")
+    results["phase_decay_db"]["profile_us_alone"] = own_us("phase_decay_db_t128", "phase_decay_db", (g_map,))
+    results["phase_decay_db"]["profile_us_t1"] = own_us("phase_t1", "phase_decay_db", (g_tick,))
+    results["phase_decay_db"]["profile_us_cfg4"] = own_us("phase_cfg4", "phase_decay_db", (g_walk, g_map))
     results["resonator_scan"]["profile_us_alone"] = own_us("resonator_scan_backlog", "resonator_scan")
     results["resonator_scan"]["profile_us_tick"] = own_us("resonator_tick", "resonator_scan")
     results["resonator_scan"]["session_tick_profile_us"] = own_us("session_tick_rsnt", "resonator_scan")
@@ -4393,7 +4406,8 @@ def main() -> int:
         row = profile[name]
         tails[name] = {"launches_per_call": row["launches_per_call"], "device_us_per_call": row["device_us_per_call"],
                        "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
-                       "phase_decay_db_us": row["own_kernels_us_per_call"].get("phase_decay_db_kernel", 0.0),
+                       "phase_decay_db_us": sum(row["own_kernels_us_per_call"].get(fn, 0.0)
+                                                for fn in DEVICE_FUNCTIONS["phase_decay_db"]),
                        "resonator_scan_us": row["own_kernels_us_per_call"].get("resonator_scan_kernel", 0.0),
                        "top_kernels_us_per_call": row["top_kernels_us_per_call"]}
     require(tails["phase_t128"]["launches_per_call"] <= 70, f"PHASE T=128 call: {tails['phase_t128']['launches_per_call']} launches")

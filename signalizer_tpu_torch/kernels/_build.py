@@ -85,14 +85,14 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ),
     # x, row_stride, table, z_in, z_out, bands, rows, W, chunk, threads,
-    # stream
-    "sig_colour_split": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # cluster, stream
+    "sig_colour_split": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x (or bands), row_stride, bands_in, table, z_in (or null), z_out (or
     # null), smooth_in, smooth_out, band_colours, key, key_pair_stride,
     # key_row_stride, rows_per_pair, blend (or null), blend value, colours,
-    # rows, W, chunk, threads, stream
+    # rows, W, chunk, threads, cluster, stream
     "sig_colour_track": (
-        _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _F, _P, _I, _I, _I, _I, _P,
+        _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _F, _P, _I, _I, _I, _I, _I, _P,
     ),
     # mags, mags_stride, offsets, offs_stride, threshold (or null),
     # hysteresis (or null), thr value, inv_h value, iq value, qs, n,
@@ -102,8 +102,9 @@ SIGNATURES = {
         _P, _L, _P, _L, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P,
     ),
     # vals, slope_map, decay_poles, phase_poles, display_scalars, valid (or
-    # null), magnitude, phase, out, pairs, T, K, rows, P, helpers, stream
-    "sig_phase_decay_db": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # null), magnitude, phase, out, starts (or null), pairs, T, K, rows, P,
+    # chunk_frames, stream
+    "sig_phase_decay_db": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # state, drives, decay_re, decay_im, valid (or null), combine, gain,
     # state_out, re, im, mag, readouts (or null), B, T, P, V, decay_stride,
     # stream

@@ -20,9 +20,11 @@ read and the plain versions:
   fused entry reading bands in place of x), returning [..., W, 3] as a view.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
-raise. The kernel solves each recurrence as a chunked scan: a thread runs
-``CHUNK`` samples from a zero state, the chunks' end states are combined
-across the block with powers of the recurrence's matrix, and each sample is
+raise. The kernel solves each recurrence as a chunked scan, a row split
+across a thread-block cluster (:func:`colour_plan` picks its size and the
+block's threads): a thread runs ``CHUNK`` samples from a zero state, the
+chunks' end states are combined across the block and then across the
+cluster's blocks with powers of the recurrence's matrix, and each sample is
 fixed up with the power of its distance from the chunk's start.
 :func:`host_table` forms every power in float64 from the float32
 coefficients the plain code uses and rounds it once to float32; the table
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.kernels.display_map import _multiprocessors
 from signalizer_tpu_torch.kernels.filters import (
     CrossoverState,
     biquad_filter,
@@ -48,10 +51,20 @@ from signalizer_tpu_torch.kernels.filters import (
     onepole_smooth,
 )
 
-# the kernel's geometry (csrc/colour_track.cu kChunk, kThreads): samples a
-# thread holds and threads a block; a tile is their product
+# the kernel's geometry (csrc/colour_track.cu kChunk, kThreads,
+# kMaxCluster, kClusterWarps, kSteps): samples a thread holds, threads a
+# block at most (a block's segment of the row is its threads times CHUNK
+# samples), blocks a row at most (a cluster; above 8 a non-portable one),
+# warps a cluster at most (one a lane of the scan over them) and that
+# scan's steps
 CHUNK = 16
 THREADS = 512
+MAX_CLUSTER = 16
+CLUSTER_WARPS = 32
+STEPS = 5
+# the most blocks a row the plan takes: a cluster of 16 (non-portable)
+# measured slower than one of 8 at a session's 2 rows of 16384 samples
+PLAN_CLUSTER = 8
 WARP = 32
 F32 = np.float32
 
@@ -71,37 +84,79 @@ def crossover_coeffs(fs: float, f_low: float = 300.0, f_high: float = 3000.0):
     )
 
 
-def _powers(m: np.ndarray, chunk: int, threads: int) -> list:
-    """m^1..m^chunk, m^(chunk k) for k = 0..31 and m^(32 chunk 2^k) for
-    each warp-scan step, in float64 (binary powers), each rounded once to
-    float32 and flattened."""
-    steps = int(np.log2(threads // WARP))
-    exps = list(range(1, chunk + 1)) + [chunk * k for k in range(WARP)] + [WARP * chunk * 2**k for k in range(steps)]
+def exponents(chunk: int = CHUNK, steps: int = STEPS) -> list:
+    """The powers of a recurrence's matrix the table holds, in order: m^1..
+    m^chunk (a sample's fix-up), m^(chunk l) for l = 0..31 (the lanes'
+    scan) and m^(32 chunk 2^k) for k < ``steps`` (the scan over warps: the
+    kernel's STEPS cover a cluster's 32 warps; the earlier designs kept for
+    ``tools/kernel_variants.py``, a row in one block of 512 threads, took 4)."""
+    return (list(range(1, chunk + 1)) + [chunk * k for k in range(WARP)]
+            + [WARP * chunk * 2**k for k in range(steps)])
+
+
+def _powers(m: np.ndarray, exps: list) -> list:
+    """m^e for each e in ``exps``, in float64 (binary powers), each rounded
+    once to float32 and flattened."""
     return [np.linalg.matrix_power(m, e).astype(F32).ravel() for e in exps]
 
 
 def host_table(fs, f_low: float = 300.0, f_high: float = 3000.0, pole: float = 0.0,
-               chunk: int = CHUNK, threads: int = THREADS) -> np.ndarray:
+               chunk: int = CHUNK, steps: int = STEPS) -> np.ndarray:
     """The table kernel E reads (csrc/colour_track.cu, ``kTable`` floats):
     for each of the four biquads [-a1, 1, -a2, 0, bv0, bv1, b0, 0] (the
     companion matrix and the input vector of :func:`biquad_filter`, in
-    float32 as it forms them) followed by its powers (:func:`_powers`, 2×2
+    float32 as it forms them) followed by its powers (:func:`exponents`, 2×2
     row-major), zeros where ``fs`` is None (bands given, no split); then
     the pole block [p, 1 - p, 0, 0] (p in float32, 1 - p rounded as the
     plain code's float32 subtraction) with p's powers."""
+    exps = exponents(chunk, steps)
     parts = []
     for c in crossover_coeffs(fs, f_low, f_high) if fs is not None else [None] * 4:
         if c is None:
-            parts.append(np.zeros(8 + 4 * len(_powers(np.eye(2), chunk, threads)), F32))
+            parts.append(np.zeros(8 + 4 * len(exps), F32))
             continue
         b0, b1, b2, a1, a2 = (float(v) for v in c)
         a = np.array([[-a1, 1.0], [-a2, 0.0]], F32)
         parts.append(np.concatenate([a.ravel(), [F32(b1 - a1 * b0), F32(b2 - a2 * b0), F32(b0), 0.0]]))
-        parts += _powers(a.astype(np.float64), chunk, threads)
+        parts += _powers(a.astype(np.float64), exps)
     p = F32(pole)
     parts.append(np.array([p, F32(1.0) - p, 0.0, 0.0], F32))
-    parts += _powers(np.array([[float(p)]]), chunk, threads)
+    parts += _powers(np.array([[float(p)]]), exps)
     return np.concatenate(parts).astype(F32)
+
+
+@functools.lru_cache(maxsize=None)
+def colour_plan(rows: int, w: int, sms: int, chunk: int = CHUNK) -> Tuple[int, int]:
+    """``(threads, cluster)`` for ``rows`` rows of ``w`` samples on a card of
+    ``sms`` multiprocessors. A row that fits one block's segment (THREADS
+    ``chunk`` samples) takes one block: its threads hold a chunk each
+    either way, and a cluster only adds a cluster barrier a round (on an
+    H100, 3 × 2 × 3001 ran faster in one block than in 2 or 6). A longer
+    row takes the least power of two of blocks that gives the rows an SM's
+    block each, at most PLAN_CLUSTER. Then the threads of
+    :func:`colour_threads`."""
+    cluster = 1
+    if w > THREADS * chunk:
+        while cluster < PLAN_CLUSTER and rows * cluster < sms:
+            cluster *= 2
+    return colour_threads(w, cluster, chunk), cluster
+
+
+def colour_threads(w: int, cluster: int, chunk: int = CHUNK) -> int:
+    """The fewest threads a block (a power of two, 32 to THREADS, the
+    cluster at most CLUSTER_WARPS warps) whose ``cluster`` segments cover a
+    row of ``w`` samples, else the most: the row is then walked in tiles of
+    the cluster's span."""
+    limit = min(THREADS, CLUSTER_WARPS // max(cluster, 1) * WARP)
+    threads = WARP
+    while 2 * threads <= limit and cluster * threads * chunk < w:
+        threads *= 2
+    return threads
+
+
+def _geometry(dev: torch.device, rows: int, w: int) -> Tuple[int, int]:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return colour_plan(rows, w, _multiprocessors(index))
 
 
 @functools.lru_cache(maxsize=32)
@@ -291,7 +346,7 @@ def _launch_track(src: torch.Tensor, row_stride: int, lead, w: int, bands_in: bo
                 src.data_ptr(), row_stride, int(bands_in), table.data_ptr(),
                 None if bands_in else z_in.data_ptr(), None if bands_in else z_out.data_ptr(),
                 s_in.data_ptr(), s_out.data_ptr(), bc.data_ptr(), key.data_ptr(), key.stride(0), key.stride(1),
-                rows_pp, blend_ptr, blend_value, colours.data_ptr(), n, w, CHUNK, THREADS,
+                rows_pp, blend_ptr, blend_value, colours.data_ptr(), n, w, CHUNK, *_geometry(dev, n, w),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(err, name)
@@ -325,7 +380,8 @@ def three_band_split(
         with torch.cuda.device(dev):
             err = _build.library().sig_colour_split(
                 rows.data_ptr(), stride, table.data_ptr(), z_in.data_ptr(), z_out.data_ptr(), bands.data_ptr(),
-                rows.shape[0], w, CHUNK, THREADS, torch.cuda.current_stream(dev).cuda_stream,
+                rows.shape[0], w, CHUNK, *_geometry(dev, rows.shape[0], w),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(err, "three_band_split")
         launches += 1

@@ -13,35 +13,45 @@ before, which the CPU runs and the kernel is held to.
 
 from __future__ import annotations
 
+import functools
 import weakref
 
 import torch
 
 from signalizer_tpu_torch.core.constant import SpectrumConstant
 from signalizer_tpu_torch.kernels import _build
-from signalizer_tpu_torch.kernels.display_map import _db_map
+from signalizer_tpu_torch.kernels.display_map import _db_map, _multiprocessors
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 from signalizer_tpu_torch.stream.pinned import device_mask
 
-# kernel launches since the last reset (chip_smoke.py and tests read it)
+# kernel launches since the last reset (chip_smoke.py and tests read it):
+# one a wrapper call, of one or two kernels
 launches = 0
-# the kernel's layout (csrc/phase_decay_db.cu): a block is 32 pixels of a
-# line graph, walked by R threads each ("helpers", R = 1, 2, 4 or 8); the
-# wrapper takes the fewest that give the grid HELPER_WARPS warps, at most
-# one a frame
-LANES = 32
-HELPER_WARPS = 2048
+# the kernel's layout (csrc/phase_decay_db.cu kTile, kGroup, kWalkFrames): a
+# block is TILE pixels of a pair and up to GROUP line graphs over a chunk of
+# T; T in more than one chunk takes a walk pass first, WALK_FRAMES frames a
+# stage, so a chunk is a multiple of it
+TILE = 32
+GROUP = 8
+WALK_FRAMES = 32
 
 
-def helpers_for(pairs: int, t: int, k: int, p: int) -> int:
-    """Threads a pixel for a call on [pairs, T] frames of P pixels and K
-    line graphs: 1 at the headline's T = 1, 2 at its T = 128, 8 at the
-    spectrogram's 1 pair x 512 frames."""
-    tiles = -(-p // LANES) * k * pairs
-    r = 1
-    while 2 * r <= min(8, t) and tiles * r < HELPER_WARPS:
-        r *= 2
-    return r
+@functools.lru_cache(maxsize=None)
+def phase_plan(pairs: int, t: int, k: int, p: int, sms: int) -> tuple:
+    """``(frames a chunk, chunks)`` for the kernel on ``vals`` [pairs, t, 2,
+    p] with ``k`` line graphs on a card of ``sms`` multiprocessors: all of T
+    in one chunk (one launch) where the pixel tiles, line-graph groups and
+    pairs give two blocks an SM or more, else T halved until they do, each
+    chunk a multiple of WALK_FRAMES frames (a walk pass first writes each
+    chunk's start)."""
+    blocks = -(-p // TILE) * -(-k // GROUP) * pairs
+    chunks = 1
+    while blocks * chunks < 2 * sms and 2 * chunks * WALK_FRAMES <= t:
+        chunks *= 2
+    if chunks == 1:
+        return t, 1
+    frames = -(-t // (chunks * WALK_FRAMES)) * WALK_FRAMES
+    return frames, -(-t // frames)
 
 
 _phase_poles = weakref.WeakKeyDictionary()  # constant -> its phase poles, formed once
@@ -100,7 +110,9 @@ def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=
     marks padded frames that leave the states untouched. Returns
     [..., T, K, 2, P]. CPU tensors take :func:`phase_decay_db_plain`; CUDA
     tensors launch ``sig_phase_decay_db`` of ``csrc/phase_decay_db.cu`` once
-    (a host mask goes up through a pinned buffer: no sync) or raise."""
+    (a host mask goes up through a pinned buffer: no sync), T in the
+    chunks of :func:`phase_plan` (one kernel for one chunk; a walk pass
+    first for more), or raise."""
     global launches
     if vals.device.type == "cpu":
         return phase_decay_db_plain(constant, state, vals, valid)
@@ -126,6 +138,11 @@ def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=
     pairs = 1
     for d in lead:
         pairs *= d
+    dev = vals.device.index if vals.device.index is not None else torch.cuda.current_device()
+    frames, chunks = phase_plan(pairs, t, k, p, _multiprocessors(dev))
+    starts = None
+    if chunks > 1:
+        starts = torch.empty((pairs, chunks, k, 2, p), dtype=torch.float32, device=vals.device)
     v = None if valid is None else device_mask(valid, t, vals.device)
     pp = phase_poles(c)
     lib = _build.library()
@@ -140,12 +157,13 @@ def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=
             mag.data_ptr(),
             ph.data_ptr(),
             out.data_ptr(),
+            None if starts is None else starts.data_ptr(),
             pairs,
             t,
             k,
             rows,
             p,
-            helpers_for(pairs, t, k, p),
+            frames,
             torch.cuda.current_stream(vals.device).cuda_stream,
         )
     _build.check(err, "phase_decay_db")

@@ -1,4 +1,4 @@
-"""Time other versions of kernels A to F against the package's own, on
+"""Time other versions of kernels A to H against the package's own, on
 one GPU, at the shapes the main paths give them.
 
     python -m signalizer_tpu_torch.tools.kernel_variants [NAME=DIR ...]
@@ -30,11 +30,13 @@ package's entries, timed with ``--kernels h``), and kernel E's measured
 designs (``--kernels e``): its first (``colour_v1``: a block scan a
 recurrence), the one before its reciprocal normalisation (``colour_v2``;
 ``colour_v2_no_mix``, ``_no_scans``, ``_no_fixup`` with one part left out,
-``colour_v2_chunk8`` with 8 samples a thread) and a whole row a tile
-(``colour_row``), and kernel G's first design (``phase_decay_db_v1``: a
-thread per 4 pixels mapping every frame itself) and second
-(``phase_decay_db_v2``: the package's helpers, a branch a frame;
-``--kernels g``).
+``colour_v2_chunk8`` with 8 samples a thread), a whole row a tile
+(``colour_row``) and one block of 512 threads a row (``colour_v3``, the
+design before the row was split across a cluster); and kernel G's first design
+(``phase_decay_db_v1``: a thread per 4 pixels mapping every frame itself),
+second (``phase_decay_db_v2``: R helper threads a pixel, a branch a
+frame) and third (``phase_decay_db_v3``: the helpers with a branch-free
+ring, before the walk-then-map layout; ``--kernels g``).
 ``--flat-twiddles``
 names versions of kernel A that read the flat ``exp(-2*pi*i*k/N)``, k < N/2
 table instead of the stage-ordered one. A version of kernel C without the
@@ -64,15 +66,20 @@ runs at cfg3's tick (16 rows, 1600 of 2048 samples consumed) and at 16 x
 8192, its function entry and, where a version has it, its fused entry
 (``h_cfg3_tick_fused_us`` ...). Kernel E (``e``, ``colour_track.cu``) runs
 its fused entry (x to colours, both states carried in) at cfg3's 16 pairs x
-2 rows x 16384 samples and at 3 pairs x 2 rows x 3001, each version with the
-host table of its own chunk length (its source's ``kChunk``, or
-``-DSIG_CHUNK``). Kernel F (``f``, ``spectral_walk.cu``) runs its filtered
+2 rows x 16384 samples, a coloured session's 1 pair x 2 rows x 16384 and 3
+pairs x 2 rows x 3001, each version with the host table of its own chunk
+length (its source's ``kChunk``, or ``-DSIG_CHUNK``) and layout; the
+package's with ``colour_plan``'s cluster and with the sizes of
+``COLOUR_CLUSTERS`` (``e_cfg3_c4_us`` ...). Kernel F (``f``, ``spectral_walk.cu``) runs its filtered
 entry at cfg3b's 16 lookaheads of 8192 samples (4094 candidate bins each)
 and at one (``f_cfg3b_us``, ``f_1x4094_us``). Kernel G (``g``,
 ``phase_decay_db.cu``) runs at the headline in PHASE (16 pairs x 128
 frames and x 1, 2 line graphs, 1024 px) and at the spectrogram's cfg4 (1
-pair x 512 frames, the last 3 invalid), with the wrapper's helpers a pixel
-and with each of 1, 2, 4 and 8 (``g_headline_r4_us`` ...); kernel H (``r``,
+pair x 512 frames, the last 3 invalid), with the wrapper's ``phase_plan``
+and with T in chunks of 32, 64 and 128 frames or one chunk
+(``g_cfg4_f32_us`` ...); the designs with helper threads with their
+helpers a pixel and with each of 1, 2, 4 and 8 (``g_headline_r4_us``
+...); kernel H (``r``,
 ``resonator_scan.cu``) at the cfg6 backlog (32 banks x 16 chunks of 512,
 1024 px, the last 3 invalid; with and without a readout a chunk) and
 tick (one chunk of 800). Kernel C runs at three shapes of the
@@ -92,7 +99,10 @@ operations and handed to the ``pos`` entry, the parts a wrapper is made of
 (argument checks, an allocation, the device context, the stream lookup by
 a Stream object and by the raw handle, the two output views, the bare ctypes
 call), and the wrapper of every version whose directory holds
-its own ``banded_resample.py``, run against that version's library.
+its own ``banded_resample.py``, run against that version's library. With
+``--kernels e`` it adds the same for kernel E's wrapper ``colour_track`` at
+cfg3 and 1 x 2 x 16384, the package's and each version's own
+``colour_track.py`` in turns, and the plan's lookup alone.
 
 Prints one JSON line per version and round, after the card's name and power
 limit.
@@ -147,8 +157,10 @@ NAMED_VARIANTS = {
     "colour_v2_no_fixup": ("colour_track_v2.cu", ("-DSIG_DROP_FIXUP",)),
     "colour_v2_chunk8": ("colour_track_v2.cu", ("-DSIG_CHUNK=8",)),
     "colour_row": ("colour_track_row.cu", ()),
+    "colour_v3": ("colour_track_v3.cu", ()),
     "phase_decay_db_v1": ("phase_decay_db_v1.cu", ()),
     "phase_decay_db_v2": ("phase_decay_db_v2.cu", ()),
+    "phase_decay_db_v3": ("phase_decay_db_v3.cu", ()),
 }
 # the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
 MAX_SHARED_BYTES = 232448
@@ -160,8 +172,11 @@ TWO_PASS_SHAPES = {
 # kernel D: rows, W, samples consumed (cfg3's tick in its 2048-sample
 # bucket, and the whole 8192-sample lookahead)
 HOLD_SHAPES = {"cfg3_tick": (16, 2048, 1600), "cfg3_lookahead": (16, 8192, 8192)}
-# kernel E: pairs, rows, W (cfg3, and a short row no multiple of a tile)
-COLOUR_SHAPES = {"cfg3": (16, 2, 16384), "w3001": (3, 2, 3001)}
+# kernel E: pairs, rows, W (cfg3, a coloured session's one pair, and a
+# short row no multiple of a tile)
+COLOUR_SHAPES = {"cfg3": (16, 2, 16384), "session": (1, 2, 16384), "w3001": (3, 2, 3001)}
+# kernel E's cluster sizes timed beside the plan's, by shape
+COLOUR_CLUSTERS = {"cfg3": (2, 4, 16), "session": (4, 16), "w3001": (2, 6)}
 # kernel F: rows of 8192-sample lookaheads (cfg3b's 16 pairs, and one)
 WALK_SHAPES = {"cfg3b": 16, "1x4094": 1}
 WALK_N = 8192
@@ -190,6 +205,16 @@ AFFINE_STEP_POINTER = (
 )
 # the versions whose affine entry takes that pointer, by name
 _affine_step_pointer = set()
+# kernel E's and G's entries as their earlier designs took them: E a row a
+# block (no cluster argument), G with R helper threads a pixel (no start
+# scratch, no chunk length)
+COLOUR_ONE_BLOCK = {
+    "sig_colour_split": _build.SIGNATURES["sig_colour_split"][:-2] + (ctypes.c_void_p,),
+    "sig_colour_track": _build.SIGNATURES["sig_colour_track"][:-2] + (ctypes.c_void_p,),
+}
+PHASE_HELPERS = _build.SIGNATURES["sig_phase_decay_db"][:9] + _build.SIGNATURES["sig_phase_decay_db"][10:]
+# the versions built with those entries, by name
+_colour_one_block, _phase_helpers = set(), set()
 # the named variants' entries: the arguments their kernels took then
 _P, _I = ctypes.c_void_p, ctypes.c_int
 V1_SIGNATURES = {
@@ -234,6 +259,13 @@ def build(name: str, directory: Path, kernels, sources=None, defines=()) -> ctyp
     elif any(Path(f).name == "banded_resample.cu" and "const float* step;" in Path(f).read_text() for f in sources):
         signatures["sig_banded_resample_affine"] = AFFINE_STEP_POINTER
         _affine_step_pointer.add(name)
+    texts = {Path(f).name: Path(f).read_text() for f in sources}
+    if any(n.startswith("colour_track") and "int cluster," not in t for n, t in texts.items()):
+        signatures.update(COLOUR_ONE_BLOCK)
+        _colour_one_block.add(name)
+    if any(n.startswith("phase_decay_db") and "int helpers" in t for n, t in texts.items()):
+        signatures["sig_phase_decay_db"] = PHASE_HELPERS
+        _phase_helpers.add(name)
     for entry, argtypes in signatures.items():
         if hasattr(lib, entry):
             fn = getattr(lib, entry)
@@ -654,16 +686,30 @@ class SpectralWalk:
         return line
 
 
+def helpers_v3(pairs: int, t: int, k: int, p: int) -> int:
+    """The helper threads a pixel the second and third designs took (their
+    wrapper's ``helpers_for``): the fewest that give the grid 2048 warps, at
+    most 8 and at most T."""
+    tiles = -(-p // 32) * k * pairs
+    r = 1
+    while 2 * r <= min(8, t) and tiles * r < 2048:
+        r *= 2
+    return r
+
+
 class PhaseDecay:
-    """Kernel G at PHASE_SHAPES through its C entry, the package's with
-    every count of helpers a pixel (1, 2, 4, 8; ``g_<shape>_r<R>_us``) beside
-    the wrapper's choice (``g_<shape>_us``), a first design's
+    """Kernel G at PHASE_SHAPES through its C entry: the package's with the
+    wrapper's plan (``g_<shape>_us``) and with T in chunks of 32, 64 and 128
+    frames or one chunk (``g_<shape>_f<frames>_us``); the designs with R
+    helper threads a pixel with the helpers they picked and with each of 1,
+    2, 4 and 8 (``g_<shape>_r<R>_us``); the first design
     (``sig_phase_decay_db_v1``) as it is."""
 
     def __init__(self, libs, dev):
         from signalizer_tpu_torch.kernels import phase_decay_db as pd
 
         self.libs, self.cases, self.pd = libs, {}, pd
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
         c = make_spectrum_constant(
             device=dev, axis_points=PIXELS, window_size=WINDOW, sample_rate=48_000.0,
             configuration=SpectrumChannels.PHASE, bin_interpolation=BinInterpolation.LINEAR,
@@ -684,6 +730,7 @@ class PhaseDecay:
                 mag0=torch.from_numpy((rng.random((pairs, k, 2, PIXELS)) * 0.05).astype(np.float32)).to(dev),
                 ph0=torch.from_numpy((rng.random((pairs, k, PIXELS)) * 0.05).astype(np.float32)).to(dev),
                 out=torch.empty((pairs, t, k, 2, PIXELS), device=dev),
+                starts=torch.empty((pairs, t, k, 2, PIXELS), device=dev),
             )
             case.mag, case.ph = case.mag0.clone(), case.ph0.clone()
             self.cases[shape] = case
@@ -691,21 +738,27 @@ class PhaseDecay:
             torch.cuda.synchronize()
             case.want = (case.out.clone(), case.mag.clone(), case.ph.clone())
 
-    def launch(self, name, case, helpers=None):
+    def launch(self, name, case, helpers=None, frames=None):
         lib, c = self.libs[name], self.c
         args = (case.vals.data_ptr(), c.slope_map.data_ptr(), c.decay_poles.data_ptr(), self.pp.data_ptr(),
                 c.display_scalars.data_ptr(), None if case.valid is None else case.valid.data_ptr(),
-                case.mag.data_ptr(), case.ph.data_ptr(), case.out.data_ptr(), case.pairs, case.t, case.k, 2, PIXELS)
+                case.mag.data_ptr(), case.ph.data_ptr(), case.out.data_ptr())
+        dims = (case.pairs, case.t, case.k, 2, PIXELS)
         stream = torch.cuda.current_stream().cuda_stream
         if hasattr(lib, "sig_phase_decay_db_v1"):
-            err = lib.sig_phase_decay_db_v1(*args, stream)
+            err = lib.sig_phase_decay_db_v1(*args, *dims, stream)
+        elif name in _phase_helpers:
+            r = helpers_v3(case.pairs, case.t, case.k, PIXELS) if helpers is None else helpers
+            err = lib.sig_phase_decay_db(*args, *dims, r, stream)
         else:
-            r = self.pd.helpers_for(case.pairs, case.t, case.k, PIXELS) if helpers is None else helpers
-            err = lib.sig_phase_decay_db(*args, r, stream)
+            if frames is None:
+                frames, _ = self.pd.phase_plan(case.pairs, case.t, case.k, PIXELS, self.sms)
+            err = lib.sig_phase_decay_db(*args, case.starts.data_ptr(), *dims, frames, stream)
         _build.check(err, f"{name}: phase_decay_db")
 
     def measure(self, name) -> dict:
         line = {}
+        lib = self.libs[name]
         for shape, case in self.cases.items():
             case.mag.copy_(case.mag0)
             case.ph.copy_(case.ph0)
@@ -716,10 +769,15 @@ class PhaseDecay:
                                                         and torch.equal(case.ph, case.want[2]))
             reps = 10 if case.t > 1 else 50
             line[f"g_{shape}_us"] = device_us(lambda: self.launch(name, case), reps)
-            if hasattr(self.libs[name], "sig_phase_decay_db"):
+            line[f"g_{shape}_launch_host_us"] = host_us(lambda: self.launch(name, case))
+            if name in _phase_helpers:
                 for r in (1, 2, 4, 8):
                     if r <= case.t:
                         line[f"g_{shape}_r{r}_us"] = device_us(lambda r=r: self.launch(name, case, r), reps)
+            elif hasattr(lib, "sig_phase_decay_db"):
+                for f in sorted({32, 64, 128, case.t}):
+                    if f < case.t or f == case.t > 1:
+                        line[f"g_{shape}_f{f}_us"] = device_us(lambda f=f: self.launch(name, case, frames=f), reps)
         return line
 
 
@@ -790,13 +848,17 @@ def colour_chunk(source: Path, defines=()) -> int:
 
 class ColourTrack:
     """Kernel E at COLOUR_SHAPES through its fused entry
-    (``sig_colour_track``), 96 kHz, the 10 ms smoother, a key a row."""
+    (``sig_colour_track``), 96 kHz, the 10 ms smoother, a key a row: the
+    package's with the wrapper's plan (``e_<shape>_us``) and with the
+    cluster sizes of COLOUR_CLUSTERS (``e_<shape>_c<S>_us``), the designs
+    that run a row in one block as they are."""
 
     FS = 96_000.0
     POLE = float(np.exp(-1.0 / (10e-3 * 96_000.0)))
 
     def __init__(self, libs, chunks, dev):
         self.libs, self.chunks, self.dev, self.cases, self.tables = libs, chunks, dev, {}, {}
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
         rng = np.random.default_rng(71)
         for shape, (pairs, rows, w) in COLOUR_SHAPES.items():
             n = pairs * rows
@@ -817,17 +879,24 @@ class ColourTrack:
             case.want = case.colours.clone(), case.z_out.clone(), case.s_out.clone()
 
     def table(self, name) -> torch.Tensor:
-        chunk = self.chunks[name]
-        if chunk not in self.tables:
-            self.tables[chunk] = torch.from_numpy(
-                ct.host_table(self.FS, pole=self.POLE, chunk=chunk, threads=ct.THREADS)).to(self.dev)
-        return self.tables[chunk]
+        key = self.chunks[name], name in _colour_one_block
+        if key not in self.tables:
+            self.tables[key] = torch.from_numpy(
+                ct.host_table(self.FS, pole=self.POLE, chunk=key[0],
+                              steps=int(np.log2(ct.THREADS // ct.WARP)) if key[1] else ct.STEPS)).to(self.dev)
+        return self.tables[key]
 
-    def launch(self, name, case):
+    def launch(self, name, case, cluster=None):
+        if name in _colour_one_block:
+            geometry = (ct.THREADS,)
+        elif cluster is None:
+            geometry = ct.colour_plan(case.rows, case.w, self.sms, self.chunks[name])
+        else:
+            geometry = (ct.colour_threads(case.w, cluster, self.chunks[name]), cluster)
         err = self.libs[name].sig_colour_track(
             case.x.data_ptr(), case.w, 0, self.table(name).data_ptr(), case.z.data_ptr(), case.z_out.data_ptr(),
             case.s.data_ptr(), case.s_out.data_ptr(), case.bc.data_ptr(), case.key.data_ptr(), 0, 3, case.rows_pp,
-            case.blend.data_ptr(), 0.0, case.colours.data_ptr(), case.rows, case.w, self.chunks[name], ct.THREADS,
+            case.blend.data_ptr(), 0.0, case.colours.data_ptr(), case.rows, case.w, self.chunks[name], *geometry,
             torch.cuda.current_stream().cuda_stream,
         )
         _build.check(err, f"{name}: colour_track")
@@ -840,6 +909,47 @@ class ColourTrack:
             got = case.colours, case.z_out, case.s_out
             line[f"e_{shape}_max_abs_diff_repo"] = max(float((g - w).abs().max()) for g, w in zip(got, case.want))
             line[f"e_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+            line[f"e_{shape}_launch_host_us"] = host_us(lambda: self.launch(name, case))
+            if name not in _colour_one_block:
+                line[f"e_{shape}_geometry"] = list(ct.colour_plan(case.rows, case.w, self.sms, self.chunks[name]))
+                for cluster in COLOUR_CLUSTERS[shape]:
+                    line[f"e_{shape}_c{cluster}_us"] = device_us(lambda c=cluster: self.launch(name, case, c), 20)
+        return line
+
+    def wrapper_host_us(self, versions: dict) -> dict:
+        """Host microseconds per call of kernel E's wrapper ``colour_track``
+        at cfg3 and a session's 1 x 2 x 16384: the package's and that of
+        every version whose directory holds its own ``colour_track.py``
+        (run against that version's library), all in order then in
+        reverse, twice (``<name>_<shape>_r<round>``); and the plan's lookup
+        alone (``part_geometry_<shape>``)."""
+        wrappers = {"repo": ct}
+        for name, directory in versions.items():
+            source = Path(directory) / "colour_track.py"
+            if not source.is_file():
+                continue
+            spec = importlib.util.spec_from_file_location(f"kernel_variants_colour_{name}", source)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            module._build = types.SimpleNamespace(library=lambda lib=self.libs[name]: lib, check=_build.check)
+            wrappers[name] = module
+        line = {"wrapper": "host us per colour_track call"}
+        for shape in ("cfg3", "session"):
+            case = self.cases[shape]
+            pairs = case.rows // case.rows_pp
+            args = (case.x.view(pairs, case.rows_pp, case.w), self.FS,
+                    ct.CrossoverState(z=case.z.view(pairs, case.rows_pp, 8, 2)), self.POLE, case.bc, case.key,
+                    case.blend, case.s.view(pairs, case.rows_pp, 3))
+            want = ct.colour_track(*args)[0]
+            for name, module in wrappers.items():
+                got = module.colour_track(*args)[0]
+                torch.cuda.synchronize()
+                line[f"{name}_{shape}_max_abs_diff_vs_repo"] = float((got - want).abs().max())
+            names = list(wrappers)
+            for rnd, order in enumerate((names, names[::-1], names, names[::-1])):
+                for name in order:
+                    line[f"{name}_{shape}_r{rnd}"] = host_us(lambda m=wrappers[name]: m.colour_track(*args))
+            line[f"part_geometry_{shape}"] = host_us(lambda: ct._geometry(self.dev, case.rows, case.w))
         return line
 
 
@@ -965,7 +1075,8 @@ def main(argv=None) -> int:
     parser.add_argument("--named", nargs="*", default=[], choices=sorted(NAMED_VARIANTS), metavar="VARIANT",
                         help="versions kept in tools/variants/")
     parser.add_argument("--flat-twiddles", nargs="*", default=[], metavar="NAME")
-    parser.add_argument("--wrapper", action="store_true", help="also time kernel C's wrapper on the host clock")
+    parser.add_argument("--wrapper", action="store_true",
+                        help="also time kernel C's and kernel E's wrappers on the host clock")
     parser.add_argument("--out", default=None, help="also append the JSON lines to this file")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1028,10 +1139,11 @@ def main(argv=None) -> int:
             line["card"] = smi
             lines.append(line)
             print(json.dumps(line), flush=True)
-    if args.wrapper and resample:
-        line = dict(resample.wrapper_host_us(versions), card=smi)
-        lines.append(line)
-        print(json.dumps(line), flush=True)
+    for timer in (resample, timers["colour_track"]) if args.wrapper else ():
+        if timer is not None:
+            line = dict(timer.wrapper_host_us(versions), card=smi)
+            lines.append(line)
+            print(json.dumps(line), flush=True)
     if args.out:
         with open(args.out, "a") as fh:
             fh.writelines(json.dumps(line) + "\n" for line in lines)

@@ -1,5 +1,6 @@
-"""Time the PHASE display tail's and the resonator bank's calls of one or
-more checkouts, on one GPU.
+"""Time the calls that carry kernels E, G and H (the colour track, the
+PHASE display tail and the resonator bank) in one or more checkouts, on
+one GPU.
 
     python -m signalizer_tpu_torch.tools.tail_calls [TREE ...]
 
@@ -24,10 +25,23 @@ The calls, each through the public entry a user calls, at full width:
   invalid); ``rsnt_phase_backlog`` the backlog in PHASE;
 * ``rsnt_session_tick``: ``AnalysisSession.tick()`` at the factory default
   preset with the Spectrum's algorithm set to RSNT, four views at 1024 px,
-  800-sample blocks of a seeded pair of sines in noise.
+  800-sample blocks of a seeded pair of sines in noise;
+* ``osc_cfg3_colour``: ``OscilloscopeProcessor.process`` at cfg3
+  (``bench.py:769-822``: 16 SEPARATE pairs at 96 kHz, a 16384-sample
+  history, ZERO_CROSSING, LANCZOS of a 1024-sample window to 8192 px,
+  PEAK_DECAY) with the colour track on, 1600 new samples a call;
+* ``coloured_session_tick``: a tick of the same session as
+  ``rsnt_session_tick`` at the factory preset ``coloured.oscilloscope``;
+* ``colour_cfg3`` and ``colour_session``: kernel E's wrapper alone,
+  ``colour_track`` on cfg3's 16 pairs x 2 rows x 16384 samples and on a
+  coloured session's 1 pair x 2 rows, 96 kHz, the 10 ms smoother, carried
+  states, a key a row, the blend a device scalar.
 
 For each: ms a call (host clock up to a ``torch.cuda.synchronize()``, the
-median of ``CALLS`` calls after a warm-up), the device kernels launched
+median of ``CALLS`` calls after a warm-up), ``queued_us`` (µs a call of
+``QUEUED`` calls queued back to back and one synchronize, the median of 5
+such runs: the host path of a call whose kernels are shorter than it,
+what an event pair around queued calls times), the device kernels launched
 and their µs a call (``torch.profiler`` over ``PROFILED`` calls; CUPTI now
 and then hands a short session no kernel record, which is run again up to
 3 times), the top kernels, and the synchronizing operations of one call
@@ -50,17 +64,23 @@ from pathlib import Path
 import numpy as np
 
 FS, WINDOW, AXIS_POINTS, PAIRS, HOP = 48_000.0, 4096, 1024, 16, 800
-CALLS, PROFILED = 40, 20
-FIELDS = ("ms", "launches", "device_us")
+OSC_FS, OSC_HISTORY, OSC_PIXELS, OSC_HOP = 96_000.0, 16384, 8192, 1600
+CALLS, PROFILED, QUEUED = 40, 20, 100
+FIELDS = ("ms", "queued_us", "launches", "device_us")
 
 
 def _calls(torch, dev):
     """``[(name, fn)]``: each call at full width, its inputs on the card."""
     from signalizer_tpu_torch import (
+        AutoGain,
         BinInterpolation,
+        OscChannels,
+        OscilloscopeProcessor,
         ResonatorSpectrumProcessor,
         SpectrumChannels,
         SpectrumProcessor,
+        SubSampleInterpolation,
+        TriggerMode,
         ViewScaling,
     )
     from signalizer_tpu_torch.core.config import DisplayMode
@@ -103,6 +123,33 @@ def _calls(torch, dev):
     valid6 = np.ones(16, bool)
     valid6[-3:] = False
 
+    osc = OscilloscopeProcessor.create(
+        pairs=PAIRS, device=dev, sample_rate=OSC_FS, channel_mode=OscChannels.SEPARATE,
+        trigger_mode=TriggerMode.ZERO_CROSSING, interpolation=SubSampleInterpolation.LANCZOS, pixels=OSC_PIXELS,
+        lookahead=8192, trigger_threshold=0.1, autogain=AutoGain.PEAK_DECAY, window_samples=1024.0,
+        colour_enabled=True,
+    )
+    n = np.arange(OSC_HISTORY)
+    tones = np.sin(2 * np.pi * np.geomspace(150.0, 4000.0, PAIRS)[:, None, None] * n / OSC_FS + [[0.0], [0.3]])
+    history = torch.from_numpy((0.5 * tones + 0.005 * rng.standard_normal(tones.shape)).astype(np.float32)).to(dev)
+
+    from signalizer_tpu_torch.kernels import colour_track as ct
+
+    def colour(pairs):
+        x = frames((pairs, 2, OSC_HISTORY))
+        state = ct.CrossoverState(z=frames((pairs, 2, 8, 2)) * 0.01)
+        smooth, key = frames((pairs, 2, 3)).abs() * 0.01, frames((pairs, 2, 3)).abs()
+        bc = torch.from_numpy(rng.random((3, 3)).astype(np.float32)).to(dev)
+        blend, pole = torch.tensor(0.8, device=dev), float(np.exp(-1.0 / (10e-3 * OSC_FS)))
+        return lambda: ct.colour_track(x, OSC_FS, state, pole, bc, key, blend, smooth)
+
+    def rsnt(eng):
+        eng.spectrum.algorithm.set_normalized(1.0)  # RSNT
+
+    def coloured(eng):
+        if not eng.load_preset("coloured.oscilloscope"):
+            raise SystemExit("tail_calls: no factory preset coloured.oscilloscope")
+
     return [
         ("phase_t128", lambda: phase.process(x128)),
         ("phase_t1", lambda: phase.process(x1)),
@@ -110,20 +157,24 @@ def _calls(torch, dev):
         ("rsnt_tick", lambda: bank.process_chunks(tick)),
         ("rsnt_backlog", lambda: bank.process_chunks(backlog, valid=valid6)),
         ("rsnt_phase_backlog", lambda: bank_phase.process_chunks(backlog, valid=valid6)),
-        ("rsnt_session_tick", _rsnt_session(dev)),
+        ("rsnt_session_tick", _session(dev, rsnt)),
+        ("osc_cfg3_colour", lambda: osc.process(history, new_samples=OSC_HOP)),
+        ("coloured_session_tick", _session(dev, coloured)),
+        ("colour_cfg3", colour(PAIRS)),
+        ("colour_session", colour(1)),
     ]
 
 
-def _rsnt_session(dev):
-    """A tick of an RSNT session at the factory default, fed a new block each
-    call."""
+def _session(dev, knobs):
+    """A tick of a session at the factory default changed by ``knobs(engine)``,
+    fed a new block each call."""
     from signalizer_tpu_torch.engine import SignalizerEngine
     from signalizer_tpu_torch.session import AnalysisSession
     from signalizer_tpu_torch.stream.audio_stream import Playhead
 
     eng = SignalizerEngine("tail_calls", device=dev)
     eng.spectrum.frequency_tracker.set_normalized(1 / 3)  # transform
-    eng.spectrum.algorithm.set_normalized(1.0)  # RSNT
+    knobs(eng)
     s = AnalysisSession(eng, axis_points=AXIS_POINTS, pixels=AXIS_POINTS, cursor_fraction=1000.0 / (FS / 2))
     rng = np.random.default_rng(2024)
     n = 64
@@ -208,10 +259,18 @@ def run() -> dict:
             fn()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+        queued = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(QUEUED):
+                fn()
+            torch.cuda.synchronize()
+            queued.append((time.perf_counter() - t0) * 1e6 / QUEUED)
         us, launches = _kernels(torch, fn, PROFILED)
         top = dict(sorted(us.items(), key=lambda kv: -kv[1])[:6])
         sites = _syncs(torch, fn)
         out[name] = {"ms": float(np.median(ms)), "ms_p90": float(np.percentile(ms, 90)),
+                     "queued_us": float(np.median(queued)),
                      "launches": launches, "device_us": sum(us.values()), "syncs": sum(sites.values()),
                      "sync_sites": sites, "top_kernels_us": top}
     out["card"] = subprocess.run(

@@ -163,17 +163,22 @@ def _cu_constants():
 
 
 def test_host_table_matches_the_kernel_source():
-    """The wrapper's chunk and threads are the kernel's kChunk and kThreads,
-    and the table has the kernel's kTable floats: four sets of 8 + 4 (kChunk
-    + 32 + kLogWarps) and a pole block of 4 + kChunk + 32 + kLogWarps."""
+    """The wrapper's chunk, largest block, largest cluster, warps a cluster
+    and scan steps are the kernel's kChunk, kThreads, kMaxCluster,
+    kClusterWarps and kSteps (a block's segment is at most kThreads x
+    kChunk samples; the scan over a cluster's warps takes one a lane), and
+    the table has the kernel's kTable floats: four sets of 8 + 4 kPowers and
+    a pole block of 4 + kPowers, kPowers = kChunk + 32 + kSteps."""
     k = _cu_constants()
-    assert (ct.CHUNK, ct.THREADS) == (k["kChunk"], k["kThreads"])
-    assert 2 ** k["kLogWarps"] == k["kThreads"] // 32
-    n_set = 8 + 4 * (k["kChunk"] + 32 + k["kLogWarps"])
-    n_pole = 4 + k["kChunk"] + 32 + k["kLogWarps"]
+    assert (ct.CHUNK, ct.THREADS, ct.MAX_CLUSTER, ct.CLUSTER_WARPS, ct.STEPS) == (
+        k["kChunk"], k["kThreads"], k["kMaxCluster"], k["kClusterWarps"], k["kSteps"])
+    assert ct.THREADS * ct.CHUNK == 8192  # the longest segment a block takes
+    assert 2 ** k["kSteps"] == k["kClusterWarps"] == 32
+    powers = k["kChunk"] + 32 + k["kSteps"]
+    assert len(ct.exponents()) == powers
     for fs in (48_000.0, 96_000.0, None):
         table = ct.host_table(fs, pole=0.999)
-        assert table.shape == (4 * n_set + n_pole,) and table.dtype == np.float32
+        assert table.shape == (4 * (8 + 4 * powers) + 4 + powers,) and table.dtype == np.float32
         assert np.isfinite(table).all()
 
 
@@ -181,12 +186,14 @@ def test_host_table_matches_the_kernel_source():
 def test_host_table_holds_the_plain_coefficients_and_float64_powers(fs):
     """Each set starts with the companion matrix, bv and b0 as
     biquad_filter forms them in float32; every power is the float64 power
-    of those float32 entries rounded once; the pole block likewise."""
-    chunk, threads = ct.CHUNK, ct.THREADS
-    steps = int(np.log2(threads // 32))
-    n_set = 8 + 4 * (chunk + 32 + steps)
+    of those float32 entries rounded once, in the kernel's order (fix-ups,
+    lanes, warp multiples, the scans' steps); the pole block likewise."""
+    chunk = ct.CHUNK
+    exps = ct.exponents()
+    assert exps == (list(range(1, chunk + 1)) + [chunk * k for k in range(32)]
+                    + [32 * chunk * 2**k for k in range(ct.STEPS)])
+    n_set = 8 + 4 * len(exps)
     table = ct.host_table(fs, pole=0.99896)
-    exps = list(range(1, chunk + 1)) + [chunk * k for k in range(32)] + [32 * chunk * 2**k for k in range(steps)]
     for i, c in enumerate(ct.crossover_coeffs(fs)):
         blk = table[i * n_set : (i + 1) * n_set]
         a = np.array([[-c.a1, 1.0], [-c.a2, 0.0]], np.float32)
@@ -202,3 +209,8 @@ def test_host_table_holds_the_plain_coefficients_and_float64_powers(fs):
     assert pole[0] == p and pole[1] == np.float32(1.0) - p
     for n, e in enumerate(exps):
         assert pole[4 + n] == np.float32(float(p) ** e), e
+    # one block of 512 threads a row (the designs kept for
+    # tools/kernel_variants.py): the warp scan's 4 steps
+    old = ct.host_table(fs, pole=0.99896, steps=4)
+    assert len(old) == 4 * (8 + 4 * (chunk + 32 + 4)) + 4 + chunk + 32 + 4
+    assert np.array_equal(old[:8 + 4 * (chunk + 36)], table[:8 + 4 * (chunk + 36)])

@@ -1530,6 +1530,67 @@ def test_colour_track_refuses_what_it_cannot_take(cuda):
     assert ct.launches == n
 
 
+# kernel E's forced geometries: (blocks a row, W): every cluster size of
+# the plans, non-portable 16 included, a row shorter than a segment and
+# rows longer than the cluster's span (walked in tiles)
+COLOUR_CLUSTER_CASES = [(1, 16384), (2, 16384), (8, 16384), (16, 16384), (16, 3001), (2, 300), (2, 40000),
+                        (16, 200_000)]
+
+
+@pytest.mark.parametrize("cluster,w", COLOUR_CLUSTER_CASES)
+def test_colour_track_kernel_every_cluster_size(cuda, monkeypatch, cluster, w):
+    """Kernel E with its row split across ``cluster`` blocks (the plan
+    replaced by a fixed one, the fewest threads covering the row): both
+    entries over two carried calls within the bounds of the cases above
+    (colours 1e-3 of the plain version's, bands and states <= 2x the plain
+    version's distance from the float64 chain), the silent row exact."""
+    monkeypatch.setattr(ct, "colour_plan", lambda rows, w, sms: (ct.colour_threads(w, cluster), cluster))
+    x, state, smooth, key, _ = _colour_inputs(1, 2, w, True, 19 + cluster, cuda)
+    bc, blend = torch.from_numpy(COLOUR_BANDS).to(cuda), torch.tensor(0.8, device=cuda)
+    z64, s64 = state.z.cpu().numpy().reshape(-1, 8, 2), smooth.cpu().numpy().reshape(-1, 3)
+    split_z64 = z64
+    fs_state, pfs_state, pstate, psmooth = state, state, state, smooth
+    for call in range(2):
+        xc = x if call == 0 else torch.roll(x, 37, -1)
+        n = ct.launches
+        bands, fs_state = ct.three_band_split(xc, COLOUR_FS, state=fs_state)
+        colours, new, new_s = ct.colour_track(xc, COLOUR_FS, state, COLOUR_POLE, bc, key, blend, smooth)
+        assert ct.launches == n + 2
+        pb, pfs_state = ct.three_band_split_plain(xc, COLOUR_FS, state=pfs_state)
+        pc, pnew, pnew_s = ct.colour_track_plain(xc, COLOUR_FS, pstate, COLOUR_POLE, bc, key, blend, psmooth)
+        torch.cuda.synchronize()
+        x64 = xc.cpu().numpy().reshape(-1, w)
+        ref, split_z64, _, _ = ct.float64_reference(x64, COLOUR_FS, split_z64, 0.0, np.zeros((2, 3)), COLOUR_BANDS,
+                                                    np.zeros((2, 3)), 0.0)
+        _, z64, sm64, _ = ct.float64_reference(x64, COLOUR_FS, z64, COLOUR_POLE, s64, COLOUR_BANDS,
+                                               key.cpu().numpy().reshape(-1, 3), 0.8)
+        s64 = sm64[..., -1]
+        assert _err(bands, ref) <= 2 * _err(pb, ref) + _floor(ref)
+        assert _err(fs_state.z, split_z64) <= 2 * _err(pfs_state.z, split_z64) + _floor(ref)
+        torch.testing.assert_close(colours, pc, rtol=0, atol=1e-3)
+        assert _err(new.z, z64) <= 2 * _err(pnew.z, z64) + _floor(z64)
+        assert _err(new_s, s64) <= 2 * _err(pnew_s, s64) + _floor(s64)
+        assert torch.equal(colours[-1, -1], pc[-1, -1].contiguous()) and not bool(bands[-1, -1].any())
+        state, smooth, pstate, psmooth = new, new_s, pnew, pnew_s
+
+
+@pytest.mark.parametrize("threads,cluster", [(32, 17), (32, 0), (1024, 1), (48, 2), (512, 4)])
+def test_colour_track_refuses_a_cluster_it_cannot_launch(cuda, monkeypatch, threads, cluster):
+    """A geometry the kernel cannot take (more than 16 blocks a cluster, no
+    block, more than 512 threads, threads no power of two, more than 32
+    warps a cluster) raises from the launch: nothing falls back to one
+    block a row."""
+    monkeypatch.setattr(ct, "colour_plan", lambda rows, w, sms: (threads, cluster))
+    x, state, smooth, key, _ = _colour_inputs(1, 2, 4096, True, 5, cuda)
+    bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
+    n = ct.launches
+    with pytest.raises(RuntimeError, match="colour_track"):
+        ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth)
+    with pytest.raises(RuntimeError, match="three_band_split"):
+        ct.three_band_split(x, COLOUR_FS, state=state)
+    assert ct.launches == n
+
+
 # ---------------------------------------------------------------------------
 # kernel F: the spectral trigger's walk
 # ---------------------------------------------------------------------------
@@ -1792,7 +1853,13 @@ PHASE_CASES = {
     "ragged_p": (3, 9, 2, 1001, "some"),
     "k1": (2, 7, 1, 256, None),
     "k11": (2, 33, 11, 200, "some"),
+    "t100_ragged_chunks": (2, 100, 2, 1024, "some"),
+    "k11_ragged_p_long": (1, 70, 11, 1001, "last"),
 }
+# each case by one chunk (one kernel) and, where T is longer, by chunks of
+# 32 and 64 frames (the walk pass first)
+PHASE_PLANS = [(case, frames) for case, (_, t, _, _, _) in PHASE_CASES.items() for frames in (None, 32, 64)
+               if frames is None or t > frames]
 
 
 def _phase_inputs(case, device, seed):
@@ -1839,6 +1906,30 @@ def test_phase_decay_kernel_is_bit_equal_to_the_plain_loop(cuda, case):
         torch.testing.assert_close(pd.phase_decay_db(c, again, vals, torch.from_numpy(valid).to(cuda)), got,
                                    rtol=0, atol=0)
         assert torch.equal(again.magnitude, k_state.magnitude) and torch.equal(again.phase, k_state.phase)
+
+
+@pytest.mark.parametrize("case,frames", PHASE_PLANS)
+def test_phase_decay_kernel_one_and_two_pass_plans(cuda, monkeypatch, case, frames):
+    """Kernel G with its plan replaced by T in one chunk (the mapping pass
+    alone) or in chunks of ``frames`` frames (a walk pass writing each
+    chunk's start, then the mapping pass from those starts): the states bit
+    equal to the plain loop's and the display within 1e-5 either way, one
+    wrapper call counted."""
+    from signalizer_tpu_torch.kernels import phase_decay_db as pd
+
+    t = PHASE_CASES[case][1]
+    plan = (t, 1) if frames is None else (frames, -(-t // frames))
+    monkeypatch.setattr(pd, "phase_plan", lambda pairs, t, k, p, sms: plan)
+    c, vals, mag, phase, valid = _phase_inputs(case, cuda, seed=7 + len(case))
+    k_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
+    p_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
+    before = pd.launches
+    got = pd.phase_decay_db(c, k_state, vals, valid)
+    want = pd.phase_decay_db_plain(c, p_state, vals, valid)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(k_state.magnitude, p_state.magnitude) and torch.equal(k_state.phase, p_state.phase)
 
 
 def test_phase_decay_kernel_nan_zero_subnormal_and_no_sync(cuda):

@@ -6,8 +6,10 @@ end values folded in order: bit-equal to ``decay_db``), the FFT kernel's packed 
 transform (bit-reversed radix-2 stages from the stage-ordered twiddle table,
 then the split into the real row's bins), and the resample kernel's Lanczos
 weights from three trigonometric values a pixel and a rotation table, and
-the colour track kernel's chunked scans (a numpy model, held to a float64
-oracle within twice the plain doubling scans' own error). The
+the colour track kernel's chunked scans split across a thread-block
+cluster (a numpy model, held to a float64 oracle within twice the plain
+doubling scans' own error), and the PHASE tail kernel's walk-then-map plan
+(bit-equal to its plain loops). The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -23,6 +25,9 @@ from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import filters as tf
+from signalizer_tpu_torch.kernels import phase_decay_db as pd
+from signalizer_tpu_torch.kernels import spectrum as ts
+from signalizer_tpu_torch.kernels.display_map import _db_map
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
 
@@ -650,44 +655,51 @@ def _madd(m, o, v):
 
 
 class KernelE:
-    """numpy model of kernel E's arithmetic for ``chunk`` samples a thread
-    and ``threads`` threads a block, reading the table the wrapper builds
-    for that geometry (every power formed in float64, rounded once): each
-    thread runs its chunk from a zero state (thread 0 from the tile's
-    carry); the chunks' end states are scanned over lanes with A^(chunk d)
-    and over warps with A^(32 chunk d); each sample is fixed up with A^j
-    (A^(j + 1) for the one-pole's output and every end state) times the
-    state its chunk starts from; tiles of chunk * threads samples carry
-    each recurrence's state."""
+    """numpy model of kernel E's arithmetic for ``chunk`` samples a thread,
+    ``threads`` threads a block and a row split across ``cluster`` blocks
+    (at most 32 warps in all), reading the table the wrapper builds for that
+    chunk (every power formed in float64, rounded once): each thread runs
+    its chunk from a zero state (the tile's first thread from its carry);
+    the chunks' end states are scanned over lanes with A^(chunk d), then the
+    ends of the cluster's warps, block after block, with A^(32 chunk 2^k);
+    each sample is fixed up with A^j (A^(j + 1) for the one-pole's output
+    and every end state) times the state its chunk starts from; tiles of
+    cluster x segment samples carry each recurrence's state."""
 
-    def __init__(self, fs, pole, chunk, threads):
-        self.chunk, self.threads = chunk, threads
-        steps = int(np.log2(threads // 32))
-        table = ct.host_table(fs, pole=pole, chunk=chunk, threads=threads)
-        n_set = 8 + 4 * (chunk + 32 + steps)
+    def __init__(self, fs, pole, chunk, threads, cluster=1):
+        self.chunk, self.threads, self.cluster = chunk, threads, cluster
+        self.warps = threads // 32
+        assert cluster * self.warps <= ct.CLUSTER_WARPS
+        table = ct.host_table(fs, pole=pole, chunk=chunk)
+        n = len(ct.exponents(chunk))
         self.sets = []
         for i in range(4):
-            s = table[i * n_set : (i + 1) * n_set]
-            mats = s[8:].reshape(-1, 2, 2)
-            self.sets.append((s[:8], mats[:chunk], mats[chunk : chunk + 32], mats[chunk + 32 :]))
-        p = table[4 * n_set :]
-        pw = p[4:].reshape(-1, 1, 1)
-        self.pole = (p[:4], pw[:chunk], pw[chunk : chunk + 32], pw[chunk + 32 :])
+            blk = table[i * (8 + 4 * n) : (i + 1) * (8 + 4 * n)]
+            self.sets.append((blk[:8],) + self._split(blk[8:].reshape(-1, 2, 2)))
+        p = table[4 * (8 + 4 * n) :]
+        self.pole = (p[:4],) + self._split(p[4:].reshape(-1, 1, 1))
+
+    def _split(self, mats):
+        """(fix-ups, lanes, steps)"""
+        c = self.chunk
+        return mats[:c], mats[c : c + 32], mats[c + 32 :]
 
     def scan(self, e, lanes, steps):
-        """e [B, threads, d]: each chunk's end from its own start -> the
-        state each chunk starts from, and the tile's end state."""
+        """e [B, cluster x threads, d]: each chunk's end from its own start
+        -> the state each chunk starts from, and the tile's end state."""
         b, t, d = e.shape
-        e = e.reshape(b, t // 32, 32, d)
+        n = self.cluster * self.warps
+        e = e.reshape(b, n, 32, d)
         for k in range(5):
             s = 1 << k
             e = np.concatenate([e[:, :, :s], _madd(lanes[s], e[:, :, :-s], e[:, :, s:])], 2)
-        q = e[:, :, 31]
-        for k in range(len(steps)):
+        q = e[:, :, 31]  # [B, cluster's warps, d]
+        for k in range(int(np.ceil(np.log2(n)))):
             s = 1 << k
             q = np.concatenate([q[:, :s], _madd(steps[k], q[:, :-s], q[:, s:])], 1)
+        prefix = np.concatenate([np.zeros_like(q[:, :1]), q[:, :-1]], 1)  # entering each warp
         c = np.concatenate([np.zeros_like(e[:, :, :1]), e[:, :, :-1]], 2)
-        c[:, 1:] = _madd(lanes[None, None], q[:, :-1, None], c[:, 1:])
+        c = _madd(lanes[None, None], prefix[:, :, None], c)
         return c.reshape(b, t, d), q[:, -1]
 
     def section(self, v, which, carry, je):
@@ -735,7 +747,8 @@ class KernelE:
         """x [B, W], z [B, 8, 2], s [B, 3] -> bands [B, 3, W], smoothed
         band energies [B, 3, W], z and s out."""
         b, w = x.shape
-        tile = self.chunk * self.threads
+        threads = self.cluster * self.threads  # the tile's threads, block after block
+        tile = self.chunk * threads
         carry, scarry = z.astype(np.float32).copy(), s.astype(np.float32).copy()
         z_out, s_out = np.zeros_like(carry), np.zeros_like(scarry)
         n = -(-w // tile) * tile
@@ -743,8 +756,8 @@ class KernelE:
         xp = np.zeros((b, n), np.float32)
         xp[:, :w] = x
         for base in range(0, w, tile):
-            je = (w - 1 - base) - np.arange(self.threads) * self.chunk
-            xt = xp[:, base : base + tile].reshape(b, self.threads, self.chunk).copy()
+            je = (w - 1 - base) - np.arange(threads) * self.chunk
+            xt = xp[:, base : base + tile].reshape(b, threads, self.chunk).copy()
             lo = xt.copy()
             mid = None
             for sec, v in ((0, lo), (1, lo), (2, xt), (3, xt), (4, None), (5, None), (6, xt), (7, xt)):
@@ -763,16 +776,12 @@ class KernelE:
         return bands[..., :w], smoothed[..., :w], z_out, s_out
 
 
-@pytest.mark.parametrize("fs", [48_000.0, 96_000.0])
-@pytest.mark.parametrize("chunk,threads,w", [(16, 512, 16384), (16, 512, 3001), (4, 64, 3001),
-                                             (32, 128, 5000), (8, 256, 2047)])
-def test_colour_track_chunked_scan_holds_the_float64_oracle(fs, chunk, threads, w):
-    """Kernel E's chunked scans (the model above) at several chunk lengths
-    and block sizes, W a multiple of the tile and not a multiple of the
-    chunk, from carried states: bands, smoothed energies and every end state
-    within 2x the plain doubling scans' own distance from the float64
-    chain (each measured here on the same input)."""
-    rng = np.random.default_rng(w + chunk)
+def _colour_model_against_the_oracle(fs, chunk, threads, w, cluster=1):
+    """Kernel E's model on three rows (tones and noise, a silent one) from
+    carried states: bands, smoothed energies and every end state within 2x
+    the plain doubling scans' own distance from the float64 chain (each
+    measured here on the same input); the silent row exactly zero."""
+    rng = np.random.default_rng(w + chunk + cluster)
     n = np.arange(w)
     x = np.stack([0.4 * np.sin(2 * np.pi * f * n / fs) + 0.05 * rng.standard_normal(w)
                   for f in (110.0, 1300.0, 7000.0)]).astype(np.float32)
@@ -782,7 +791,7 @@ def test_colour_track_chunked_scan_holds_the_float64_oracle(fs, chunk, threads, 
     s = (rng.random((3, 3)) * 0.01).astype(np.float32)
     s[2] = 0.0
     pole = float(np.exp(-1.0 / (10e-3 * fs)))
-    bands, smoothed, z_out, s_out = KernelE(fs, pole, chunk, threads).run(x, z, s)
+    bands, smoothed, z_out, s_out = KernelE(fs, pole, chunk, threads, cluster).run(x, z, s)
     ref = ct.float64_reference(x, fs, z, pole, s, np.eye(3), np.zeros((3, 3)), 1.0)
     want = (ref[0], ref[2], ref[1], ref[2][..., -1])  # bands, smoothed, z, smoothing state
     plain_bands, plain_z = ct.three_band_split_plain(torch.from_numpy(x), fs, state=tf.CrossoverState(torch.from_numpy(z)))
@@ -795,3 +804,172 @@ def test_colour_track_chunked_scan_holds_the_float64_oracle(fs, chunk, threads, 
         assert err <= 2 * plain_err, (name, err, plain_err)
     # the silent row stays exactly zero
     assert not bands[2].any() and not smoothed[2].any() and not z_out[2].any() and not s_out[2].any()
+
+
+@pytest.mark.parametrize("fs", [48_000.0, 96_000.0])
+@pytest.mark.parametrize("chunk,threads,w", [(16, 512, 16384), (16, 512, 3001), (4, 64, 3001),
+                                             (32, 128, 5000), (8, 256, 2047)])
+def test_colour_track_chunked_scan_holds_the_float64_oracle(fs, chunk, threads, w):
+    """Kernel E's chunked scans (the model above) in one block a row, at
+    several chunk lengths and block sizes, W a multiple of the tile and not
+    a multiple of the chunk, from carried states: bands, smoothed energies
+    and every end state within 2x the plain doubling scans' own distance
+    from the float64 chain (each measured here on the same input)."""
+    _colour_model_against_the_oracle(fs, chunk, threads, w)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("segments", [1.0, 0.7, 2.4])
+def test_colour_track_cluster_scan_holds_the_float64_oracle(cluster, segments):
+    """The same with a row split across ``cluster`` blocks of 32 threads (a
+    segment of 512 samples each), W the cluster's span times ``segments``:
+    a whole span, a row that leaves blocks idle or short, and a row walked
+    in three tiles; at 96 kHz, within the same bound."""
+    w = int(round(cluster * 32 * ct.CHUNK * segments))
+    _colour_model_against_the_oracle(96_000.0, ct.CHUNK, 32, w, cluster)
+
+
+def test_colour_plan_covers_the_card():
+    """The plan spreads few long rows over many SMs: cfg3's 32 rows of 16384
+    samples take 8 blocks of 128 threads a row (256 blocks), a coloured
+    session's 2 rows 8 blocks of 128 (16 blocks); a row that fits one
+    block's segment (8192 samples) takes one block, the fewest threads
+    covering it: 6 rows of 3001 samples one block of 256. A cluster never
+    has more than 32 warps, and the cluster's span covers the row where 32
+    warps can (16384 samples), else it is walked in tiles."""
+    assert ct.colour_plan(32, 16384, 132) == (128, 8)
+    assert ct.colour_plan(2, 16384, 132) == (128, 8)
+    assert ct.colour_plan(6, 3001, 132) == (256, 1)
+    assert ct.colour_plan(2, 8192, 132) == (512, 1)
+    assert ct.colour_plan(2, 8193, 132) == (128, 8)
+    assert ct.colour_plan(4, 100, 132) == (32, 1)
+    for rows, w in ((1, 1), (3, 700), (33, 16384), (2, 200_000), (256, 4096), (1, 100_000)):
+        threads, cluster = ct.colour_plan(rows, w, 132)
+        assert 1 <= cluster <= ct.PLAN_CLUSTER <= ct.MAX_CLUSTER
+        assert 32 <= threads <= ct.THREADS and threads & (threads - 1) == 0
+        assert cluster * threads // 32 <= ct.CLUSTER_WARPS
+        assert cluster == 1 or w > ct.THREADS * ct.CHUNK
+        span = cluster * threads * ct.CHUNK
+        assert span >= w or 2 * threads > min(ct.THREADS, ct.CLUSTER_WARPS // cluster * 32)
+
+
+# ---------------------------------------------------------------------------
+# kernel G (csrc/phase_decay_db.cu): the PHASE tail, T split into chunks
+# ---------------------------------------------------------------------------
+
+
+def _phase_walk(vals, s, ph, pole, pp, valid, t0, t1):
+    """Kernel G's walk over frames [t0, t1) of ``vals`` [pairs, T, 2, P]
+    from (s, ph) [pairs, K, P], each operation rounded on its own as the
+    kernel's: returns the state after each frame, stacked [pairs, n, K, P]."""
+    ss, phs = [], []
+    for t in range(t0, t1):
+        m = vals[:, t, 0][:, None] * 0.5
+        tgt = vals[:, t, 1][:, None] * m
+        s_new = torch.maximum(pole * s, m)
+        ph_new = tgt + pp * (ph - tgt)
+        if valid is None or valid[t]:
+            s, ph = s_new, ph_new
+        ss.append(s)
+        phs.append(ph)
+    return torch.stack(ss, 1), torch.stack(phs, 1)
+
+
+def phase_plan_model(c, state, vals, valid, frames):
+    """Kernel G's two passes, as the kernel lays them out, T in chunks of
+    ``frames``: the walk pass writes chunk 0's start from the state, then
+    walks frames [0, (chunks - 1) frames) in stages of WALK_FRAMES and
+    writes chunk c's start at the end of the stage that ends at c frames;
+    the mapping pass walks each chunk again from its start, and its last
+    chunk's end is the new state. Returns (s, ph) [pairs, T, K, P] and the
+    end (s, ph)."""
+    t = vals.shape[1]
+    chunks = 1 if frames >= t else -(-t // frames)
+    pole, pp = c.decay_poles[:, None], pd.phase_poles(c)
+    s, ph = state.magnitude[:, :, 0], state.phase
+    starts = [(s, ph)]
+    for st in range((chunks - 1) * frames // pd.WALK_FRAMES if chunks > 1 else 0):
+        ss, phs = _phase_walk(vals, s, ph, pole, pp, valid, st * pd.WALK_FRAMES, (st + 1) * pd.WALK_FRAMES)
+        s, ph = ss[:, -1], phs[:, -1]
+        if (st + 1) * pd.WALK_FRAMES % frames == 0:
+            starts.append((s, ph))
+    assert len(starts) == chunks
+    runs = [_phase_walk(vals, *starts[i], pole, pp, valid, i * frames, min(t, (i + 1) * frames))
+            for i in range(chunks)]
+    s_all, ph_all = torch.cat([r[0] for r in runs], 1), torch.cat([r[1] for r in runs], 1)
+    return s_all, ph_all, s_all[:, -1], ph_all[:, -1]
+
+
+def kernel_db(c, v):
+    """Kernel G's dB map: the product by slope / lower, formed once a pixel."""
+    lower, dyr, clip = (float(x) for x in c.display_scalars[1:4])
+    x = v * (c.slope_map / torch.tensor(lower, dtype=torch.float32))
+    return torch.where(x > 0, torch.log(torch.clamp(x, min=1e-38)) * dyr, torch.tensor(clip))
+
+
+PHASE_MODEL_CASES = [
+    (t, frames, mask, (1, 2, 11)[i % 3])
+    for i, (t, frames, mask) in enumerate(
+        (t, frames, mask) for t in (1, 7, 128, 512) for frames in (None, 32, 64, 96)
+        for mask in (None, "last", "some") if frames is None or frames < t
+    )
+]
+
+
+@pytest.mark.parametrize("t,frames,mask,k", PHASE_MODEL_CASES)
+def test_phase_plan_model_is_bit_equal_to_the_plain_loop(t, frames, mask, k):
+    """Kernel G's walk-then-map plan (the model above: chunk starts from a
+    walk, each chunk walked again from its start) against
+    ``phase_decay_db_plain``: every frame's (s, ph) mapped by the plain dB
+    map bit for bit equal to the plain tail's display, both states bit-equal;
+    the kernel's dB map (slope / lower formed once) within 1e-5 of it."""
+    p, pairs = 40, 2
+    c = make_spectrum_constant(axis_points=p, window_size=256, configuration=SpectrumChannels.PHASE,
+                               view_scaling=ViewScaling.LOGARITHMIC, num_line_graphs=k, device="cpu")
+    rng = np.random.default_rng(t + k)
+    mid = np.abs(rng.standard_normal((pairs, t, p))) * 0.3
+    vals = torch.from_numpy(np.stack([mid, rng.random((pairs, t, p))], -2).astype(np.float32))
+    mag = torch.from_numpy((rng.random((pairs, k, 2, p)) * 0.05).astype(np.float32))
+    phase = torch.from_numpy((rng.random((pairs, k, p)) * 0.05).astype(np.float32))
+    valid = None
+    if mask == "last":
+        valid = np.ones(t, bool)
+        valid[-3:] = False
+    elif mask == "some":
+        valid = rng.random(t) > 0.3
+    plain = ts.LineGraphState(mag.clone(), phase.clone())
+    want = pd.phase_decay_db_plain(c, plain, vals, valid)
+    s, ph, s_end, ph_end = phase_plan_model(c, ts.LineGraphState(mag, phase), vals, valid,
+                                            t if frames is None else frames)
+    got = torch.stack([_db_map(c, s), _db_map(c, ph)], -2)  # [pairs, T, K, 2, P]
+    assert torch.equal(got, want)
+    assert torch.equal(s_end, plain.magnitude[:, :, 0]) and torch.equal(ph_end, plain.phase)
+    kernel = torch.stack([kernel_db(c, s), kernel_db(c, ph)], -2)
+    torch.testing.assert_close(kernel, want, rtol=0, atol=1e-5)
+
+
+def test_phase_plan_covers_the_card():
+    """The headline (16 pairs x 128 frames x 1024 px, K = 2) is one chunk:
+    32 tiles x 16 pairs = 512 blocks, two or more an SM of 132; the
+    spectrogram's cfg4 (1 pair x 512 frames) takes 16 chunks of 32 frames,
+    32 x 16 = 512 blocks; T = 1 one chunk; 11 line graphs take two groups."""
+    assert pd.phase_plan(16, 128, 2, 1024, 132) == (128, 1)
+    assert pd.phase_plan(1, 512, 2, 1024, 132) == (32, 16)
+    assert pd.phase_plan(16, 1, 2, 1024, 132) == (1, 1)
+    assert pd.phase_plan(2, 33, 11, 200, 132) == (33, 1)
+    for pairs, t in ((16, 128), (1, 512)):
+        frames, chunks = pd.phase_plan(pairs, t, 2, 1024, 132)
+        assert -(-1024 // pd.TILE) * pairs * chunks >= 2 * 132
+
+
+@pytest.mark.parametrize("python_name,kernel_name", [("TILE", "kTile"), ("GROUP", "kGroup"),
+                                                     ("WALK_FRAMES", "kWalkFrames")])
+def test_phase_plan_constants_are_the_kernels(python_name, kernel_name):
+    """The wrapper plans kernel G's layout from copies of the kernel's
+    constants: each copy equals its constant in csrc/phase_decay_db.cu."""
+    import re
+    from pathlib import Path
+
+    source = (Path(pd.__file__).resolve().parent.parent / "csrc" / "phase_decay_db.cu").read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+    assert getattr(pd, python_name) == consts[kernel_name]

@@ -220,22 +220,33 @@ def test_post_process_dispatches_phase_to_kernel_g(monkeypatch):
     assert pd.launches == 0
 
 
-@pytest.mark.parametrize("t", [1, 5, 8, 33, 512])
-def test_kernel_layout_maps_every_frame_once(t):
-    """Kernel G's layout, modelled in numpy: R helper threads a pixel each
-    walk the whole recurrence and map the frames t with (slot & (R - 1)) ==
-    helper, slot = t % 8 in the ring of 8 frames in flight; so every frame
-    is mapped by exactly one helper, for each R the wrapper may pick. The
-    wrapper picks 1 helper at T = 1, 2 at the headline's T = 128 and 8 at
-    the spectrogram's 1 pair x 512 frames, never more than T."""
-    ahead = 8
-    for r in (1, 2, 4, 8):
+@pytest.mark.parametrize("sms", [2, 132])
+@pytest.mark.parametrize("t", [1, 5, 8, 33, 100, 512])
+def test_phase_plan_maps_every_frame_once(t, sms):
+    """Kernel G's plan (``phase_plan``), modelled as the kernel lays it
+    out: T in chunks of ``frames`` frames, the mapping pass's block of
+    chunk c walking frames [c frames, min(T, (c + 1) frames)) and the walk
+    pass's blocks frames [0, (chunks - 1) frames) in stages of WALK_FRAMES,
+    writing chunk c's start after stage (c frames / WALK_FRAMES) - 1. Every
+    frame is mapped by one chunk, every chunk's start is written once (chunk
+    0's from the state), and T is split only into whole walk stages, until
+    the grid gives two blocks an SM or the chunks would be shorter than a
+    stage."""
+    for pairs, k, p in ((1, 2, 1024), (16, 2, 1024), (2, 11, 200)):
+        frames, chunks = pd.phase_plan(pairs, t, k, p, sms)
+        assert chunks == (1 if frames >= t else -(-t // frames))
         mapped = np.zeros(t, int)
-        for h in range(r):
-            for t0 in range(0, t, ahead):
-                for i in range(ahead):
-                    if t0 + i < t and (i & (r - 1)) == h:
-                        mapped[t0 + i] += 1
-        assert (mapped == 1).all(), (r, mapped)
-        assert pd.helpers_for(1, t, 2, 1024) <= max(t, 1)
-    assert (pd.helpers_for(16, 1, 2, 1024), pd.helpers_for(16, 128, 2, 1024), pd.helpers_for(1, 512, 2, 1024)) == (1, 2, 8)
+        for c in range(chunks):
+            mapped[c * frames : min(t, (c + 1) * frames)] += 1
+        assert (mapped == 1).all(), (frames, chunks)
+        if chunks == 1:
+            assert frames == t
+            continue
+        assert frames % pd.WALK_FRAMES == 0
+        written = [0]
+        for st in range((chunks - 1) * frames // pd.WALK_FRAMES):
+            if (st + 1) * pd.WALK_FRAMES % frames == 0:
+                written.append((st + 1) * pd.WALK_FRAMES // frames)
+        assert written == list(range(chunks))
+        blocks = -(-p // pd.TILE) * -(-k // pd.GROUP) * pairs
+        assert blocks * (chunks // 2) < 2 * sms  # split no further than the card needs
