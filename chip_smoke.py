@@ -211,17 +211,25 @@ Phases, each printing one informational line:
    threads, blocks a cluster) reported; timed at cfg3 beside the plain
    version and the bound, and profiled alone there (phase 15);
 20. kernel F (the spectral trigger's walk and median filter; after phase
-   19), both entries against their plain versions (the loop from
-   acceptance to acceptance, then ``median_record_filter``) on the same
-   CUDA tensors, bit for bit (record, passes, history): rfft bins of 1, 16
-   and 33 lookaheads of 8192 samples (sines, harmonics, chords, the last
-   row silent), threshold and hysteresis 0 and (0.1, 0.4), as host numbers
-   and device scalars, the filtered entry over three calls with a history
-   holding -1 sentinels; bins fed directly: the longest chain float32
-   allows (276 doublings from the smallest subnormal), one from the
-   smallest normal, a chain of 36 bins 4x apart, and the 280-pass cap;
-   timed at cfg3b (16 x 4094 bins) and on one row beside the plain loop,
-   the bound and the chain's estimate, and profiled alone there (phase 15);
+   19), its four entries against their plain versions on the same CUDA
+   tensors, bit for bit (record, passes, history): the spectrum entries
+   (which form each bin's magnitude and quadratic offset from the rfft)
+   against ``spec.abs()``, ``_quad_delta`` and the plain loop, the bins
+   entries against the plain loop (then ``median_record_filter``): the
+   rfft of 1, 16 and 33 lookaheads of 8192 samples (sines, harmonics,
+   chords, the last row silent), threshold and hysteresis 0 and (0.1,
+   0.4), as host numbers and device scalars, the filtered entries over
+   three calls with a history holding -1 sentinels; spectra with zeros,
+   NaN, +-inf and (1, -1) denominators, every other row of a batch, and
+   the 280-pass cap through a real spectrum rising 1.01 a bin; bins fed
+   directly: the longest chain float32 allows (276 doublings from the
+   smallest subnormal), one from the smallest normal, a chain of 36 bins
+   4x apart, and the 280-pass cap; the spectrum entry timed at cfg3b (16
+   x 4094 bins) and on one row beside the plain version, the bound, the
+   chain's estimate (its passes times a pass's device cost, profiled at
+   the 280-pass cap in phase 15) and the first design
+   (``tools/variants/spectral_walk_v1.cu``) after the torch operations
+   that formed its bins, in turns, and profiled alone there (phase 15);
 21. kernel G (the PHASE display tail: the mid row's decay, the phase
    smoothing, the dB map; after phase 11) against its plain version (the
    loops over T) on the same CUDA tensors: the headline in PHASE at T = 128
@@ -431,6 +439,11 @@ def median_ms(torch, fn, reps: int = REPS, inner: int = 4) -> float:
     each over ``inner`` calls queued back to back (so that a kernel longer
     than its wrapper's host time is timed without the gap before it),
     divided by ``inner``."""
+    return statistics.median(event_ms(torch, fn, reps, inner))
+
+
+def event_ms(torch, fn, reps: int = REPS, inner: int = 4) -> list:
+    """The ``reps`` timings that :func:`median_ms` takes the median of."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -444,7 +457,7 @@ def median_ms(torch, fn, reps: int = REPS, inner: int = 4) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    return times
 
 
 def roofline(bytes_moved: float, flops: float) -> dict:
@@ -1792,12 +1805,14 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         br.launches = 0
         colour_launches = 0  # kernel E on the main path (the plain-resample run also launches it)
         walk_launches = 0  # kernel F likewise (the plain run takes the plain walk)
+        spectrum_launches = 0  # of which through its spectrum entry (the rfft in)
         for h in calls:
             plain.state = proc.state
-            before, walk_before = ct.launches, sw.launches
+            before, walk_before, spectrum_before = ct.launches, sw.launches, sw.spectrum_launches
             frame = proc.process(h, new_samples=OSC_HOP)
             colour_launches += ct.launches - before
             walk_launches += sw.launches - walk_before
+            spectrum_launches += sw.spectrum_launches - spectrum_before
             passes = sw.last_passes if spectral else None
             with plain_resample(), plain_walk():
                 want = plain.process(h, new_samples=OSC_HOP)
@@ -1825,8 +1840,9 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
                 f"{name}: kernel C launched {launches} times in {OSC_CALLS} calls")
         require(colour_launches == OSC_CALLS * int(colour),
                 f"{name}: kernel E launched {colour_launches} times in {OSC_CALLS} calls")
-        require(walk_launches == OSC_CALLS * int(spectral),
-                f"{name}: kernel F launched {walk_launches} times in {OSC_CALLS} calls")
+        require(walk_launches == spectrum_launches == OSC_CALLS * int(spectral),
+                f"{name}: kernel F launched {walk_launches} times ({spectrum_launches} through its spectrum "
+                f"entry) in {OSC_CALLS} calls")
         total += launches
         # the synchronizing operations of one more call, and their sites
         # (the second of two: the first counter in a process also meets
@@ -2870,7 +2886,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     require(cy_osc.trigger_mode == TriggerMode.SPECTRAL and cy_osc.time_mode == TimeMode.CYCLES,
             "cycles: the preset's oscilloscope is not SPECTRAL in Cycles mode")
     cy_ms, cy_frames, cy_fund, cy_windows, cy_passes, cy_calls = [], [], [], [], [], []
-    sw.launches = 0
+    sw.launches = sw.spectrum_launches = 0
     for i in range(SESSION_SIDE_TICKS):
         session_feed(cy, blocks, i)
         cy_calls.append([])
@@ -2884,6 +2900,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         cy_windows.append(cy_osc._cycle_window)
         cy_passes.append(int(sw.last_passes.max()))
     cy_launches = sw.launches
+    require(sw.spectrum_launches == cy_launches, "cycles: kernel F launched other than through its spectrum entry")
     with plain_walk():
         for i in range(SESSION_SIDE_TICKS):
             session_feed(cy_plain, blocks, i)
@@ -3479,6 +3496,12 @@ def phase_kernel_e(torch, dev, results):
 # filtered entry three calls with its history carried
 WALK_N = 8192
 WALK_ROWS = (1, PAIRS, 33)
+# before the spectrum stage (PERF.md §5, §6, NVIDIA H100 80GB HBM3, 700.00
+# W): the cfg3b call's launches, F's device µs in it and in a
+# cycles.oscilloscope tick, and spectral_bins' torch launches after the rfft
+# and their device µs at cfg3b (kernel_variants --kernels f)
+SPECTRAL_PARENT = {"osc_cfg3b_launches_per_call": 89.95, "spectral_walk_us_osc_cfg3b": 7.85,
+                   "spectral_walk_us_session_tick_cycles": 9.66, "tail_launches": 13, "tail_us_cfg3b": 20.51}
 WALK_SETTINGS = ((0.0, 0.0), (0.1, 0.4))
 # bins fed directly: (name, chain starts, length, ratio (None: each bin the
 # next float32 above twice the last, until float32 overflows, then inf),
@@ -3489,31 +3512,61 @@ WALK_CHAINS = [
     ("chain_36", [2, 300], 36, 4.0, 1e-10, 0.4, None),
     ("pass_cap", [2, 40], 300, 1.01, 1.0, -1.0, 280),
 ]
-# the chain's estimate a pass: the test of a thread's 16 bins (a product
-# and a compare each), two warp reductions, a shared store, a barrier, a
-# shared load and the new incumbent's two loads, each waiting on the last
-WALK_CYCLES_PER_PASS = 200
+def walk_x(rows, seed):
+    """[rows, 8192] lookaheads: a sine a row from 80 Hz to 6 kHz at 96 kHz
+    with harmonics in every third row, a second note in every fourth, noise,
+    and the last row silent where there are two or more."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(WALK_N) / OSC_FS
+    x = np.zeros((rows, WALK_N), np.float32)
+    for r in range(max(rows - 1, 1)):
+        f = 80.0 * (75.0 ** (r / max(rows - 1, 1)))
+        x[r] = 0.5 * np.sin(2 * np.pi * f * t + r) + 0.003 * rng.standard_normal(WALK_N)
+        if r % 3 == 1:
+            x[r] += sum(0.3 / k * np.sin(2 * np.pi * k * f * t) for k in (2, 3, 4))
+        if r % 4 == 2:
+            x[r] += 0.4 * np.sin(2 * np.pi * 1.26 * f * t)
+    return x
 
 
-def walk_bins(torch, rows, seed, dev, x=None):
-    """rfft magnitudes and offsets [rows, 4097] of 8192-sample lookaheads
-    (``x`` [rows, 8192], or a sine a row from 80 Hz to 6 kHz at 96 kHz with
-    harmonics in every third row, a second note in every fourth, noise, and
-    the last row silent where there are two or more), taken on the card."""
-    from signalizer_tpu_torch.kernels import oscilloscope as tk
+def walk_spectrum(torch, rows, seed, dev, x=None):
+    """The rfft [rows, 4097] complex64 of ``x`` [rows, 8192] (or of
+    :func:`walk_x`), taken on the card."""
+    x = walk_x(rows, seed) if x is None else x
+    return torch.fft.rfft(torch.from_numpy(np.ascontiguousarray(x)).to(dev), dim=-1)
 
-    if x is None:
-        rng = np.random.default_rng(seed)
-        t = np.arange(WALK_N) / OSC_FS
-        x = np.zeros((rows, WALK_N), np.float32)
-        for r in range(max(rows - 1, 1)):
-            f = 80.0 * (75.0 ** (r / max(rows - 1, 1)))
-            x[r] = 0.5 * np.sin(2 * np.pi * f * t + r) + 0.003 * rng.standard_normal(WALK_N)
-            if r % 3 == 1:
-                x[r] += sum(0.3 / k * np.sin(2 * np.pi * k * f * t) for k in (2, 3, 4))
-            if r % 4 == 2:
-                x[r] += 0.4 * np.sin(2 * np.pi * 1.26 * f * t)
-    return tk.spectral_bins(torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+
+def walk_special(torch, dev):
+    """Rows of a sine's rfft with zeros, NaN, +-inf and neighbours whose
+    denominator is (1, -1) on and around the strongest bin (where the walk
+    reads them), NaN at bin 1 in one row, inf beside it in another, the
+    last row silent."""
+    spec = walk_spectrum(torch, 9, 5, dev)
+    peak = (spec.abs()[:, 2:-1].argmax(-1) + 2).tolist()
+    nan, inf = float("nan"), float("inf")
+    edits = [
+        [(0, 0.0), (1, 0.0), (2, 0.0)], [(0, complex(nan, 0.0))], [(1, complex(inf, 0.0))],
+        [(-1, complex(0.0, -inf)), (1, complex(-inf, 1.0))],
+        [(-1, 0.0), (0, complex(0.5, -0.5)), (1, 0.0)], [(-2, 0.0), (-1, complex(50.0, -50.0)), (0, 0.0)],
+    ]
+    for r, row_edits in enumerate(edits):
+        for d, v in row_edits:
+            spec[r, peak[r] + d] = v
+    spec[6, 1] = complex(nan, 1.0)
+    spec[7, 0] = complex(inf, 0.0)
+    spec[7, 2] = complex(1.0, nan)
+    return spec
+
+
+def walk_rising(torch, dev):
+    """A real spectrum [3, 4097]: alternating signs, magnitudes rising 1.01
+    a bin over 300 bins from bin 2 and from bin 40 (each bin's offset (r -
+    1) / (r + 1)), the last row silent: at hysteresis -1 the 280-pass cap."""
+    spec = np.zeros((3, WALK_N // 2 + 1), np.complex64)
+    for r, start in enumerate((2, 40)):
+        j = np.arange(start, start + 300)
+        spec[r, j] = ((-1.0) ** j) * np.float32(1.01) ** (j - start)
+    return torch.from_numpy(spec).to(dev)
 
 
 def walk_history(torch, rows, seed, dev):
@@ -3550,107 +3603,182 @@ def walk_chain(torch, starts, length, ratio, first, dev):
     return torch.from_numpy(mags).to(dev), torch.from_numpy(offsets).to(dev)
 
 
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (NaN payloads and the sign of zero included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def walk_v1(torch):
+    """Kernel F's first design (``tools/variants/spectral_walk_v1.cu``,
+    the bins entry alone), built with the package's flags: the yardstick the
+    spectrum entry is timed beside, not a route of the port."""
+    from signalizer_tpu_torch.tools import kernel_variants as kv
+
+    source, defines = kv.NAMED_VARIANTS["spectral_walk_v1"]
+    return kv.build("spectral_walk_v1", kv.VARIANTS_DIR, "f", sources=[kv.VARIANTS_DIR / source], defines=defines)
+
+
 def phase_kernel_f(torch, dev, results):
-    """Kernel F's two entries (the walk alone; the walk and the median
-    filter, what the step calls) against their plain versions on the same
-    CUDA tensors, bit for bit: record, passes and history. At WALK_ROWS x
-    WALK_SETTINGS, host numbers and device scalars, the filtered entry over
-    three calls; at WALK_CHAINS (the longest chain float32 allows, the
-    280-pass cap). Timed at cfg3b (16 rows x 4094 bins of the oscilloscope
-    stream's lookaheads) and one row beside the plain loop, the bound and
-    the chain estimate. Returns the profile's workloads."""
+    """Kernel F's four entries against their plain versions on the same
+    CUDA tensors, bit for bit: record, passes and history. The spectrum
+    entries (the main path: the rfft in, each bin's magnitude and offset
+    formed in the kernel) and the bins entries at WALK_ROWS x
+    WALK_SETTINGS, host numbers and device scalars, the filtered entries
+    over three calls; the spectrum entries on special values, every other
+    row of a batch and the 280-pass cap through a real spectrum; the bins
+    entries at WALK_CHAINS (the longest chain float32 allows, the 280-pass
+    cap). The filtered spectrum entry timed at cfg3b (16 rows x 4094 bins
+    of the oscilloscope stream's lookaheads) and one row beside its plain
+    version, the bound and, in turns, the first design after the torch
+    operations that formed its bins. Returns the profile's workloads."""
     from signalizer_tpu_torch.kernels import spectral_walk as sw
+    from signalizer_tpu_torch.kernels import _build
 
     worst = {"value_max_abs_err": 0.0, "offset_max_abs_err": 0.0, "history_max_abs_err": 0.0,
-             "index_mismatches": 0, "passes_mismatches": 0}
+             "index_mismatches": 0, "passes_mismatches": 0, "bit_mismatches": 0}
 
-    def both(what, mags, offsets, thr, hyst, history=None):
-        n = sw.launches
-        if history is None:
-            rec, passes = sw.spectral_walk(mags, offsets, WALK_N, thr, hyst)
-            want, want_passes = sw.spectral_walk_plain(mags, offsets, WALK_N, thr, hyst)
+    def both(what, src, thr, hyst, history=None, offsets=None):
+        n, ns = sw.launches, sw.spectrum_launches
+        spectrum = offsets is None
+        if spectrum and history is None:
+            rec, passes = sw.spectral_walk_spectrum(src, WALK_N, thr, hyst)
+            want, want_passes = sw.spectral_walk_spectrum_plain(src, WALK_N, thr, hyst)
+            hist = want_hist = None
+        elif spectrum:
+            hist, rec, passes = sw.spectral_walk_filtered_spectrum(src, WALK_N, history, thr, hyst)
+            want_hist, want, want_passes = sw.spectral_walk_filtered_spectrum_plain(src, WALK_N, history, thr, hyst)
+        elif history is None:
+            rec, passes = sw.spectral_walk(src, offsets, WALK_N, thr, hyst)
+            want, want_passes = sw.spectral_walk_plain(src, offsets, WALK_N, thr, hyst)
             hist = want_hist = None
         else:
-            hist, rec, passes = sw.spectral_walk_filtered(mags, offsets, WALK_N, history, thr, hyst)
-            want_hist, want, want_passes = sw.spectral_walk_filtered_plain(mags, offsets, WALK_N, history, thr, hyst)
+            hist, rec, passes = sw.spectral_walk_filtered(src, offsets, WALK_N, history, thr, hyst)
+            want_hist, want, want_passes = sw.spectral_walk_filtered_plain(src, offsets, WALK_N, history, thr, hyst)
         torch.cuda.synchronize()
-        require(sw.launches == n + 1, f"kernel F {what}: {sw.launches - n} launches")
+        require(sw.launches == n + 1 and sw.spectrum_launches == ns + int(spectrum),
+                f"kernel F {what}: {sw.launches - n} launches")
         err = {"value_max_abs_err": nan_err(torch, rec.value, want.value),
                "offset_max_abs_err": nan_err(torch, rec.offset, want.offset),
                "history_max_abs_err": 0.0 if hist is None else nan_err(torch, hist, want_hist),
                "index_mismatches": int((rec.index != want.index).sum()),
                "passes_mismatches": int((passes != want_passes).sum())}
+        same = (all(bits_equal(torch, a, b) for a, b in zip(rec, want))
+                and torch.equal(passes, want_passes.int()) and (hist is None or bits_equal(torch, hist, want_hist)))
+        err["bit_mismatches"] = int(not same)
         for k, v in err.items():
             worst[k] = max(worst[k], v)
-        same = all(torch.equal(a, b) for a, b in zip(rec, want)) and torch.equal(passes, want_passes.int())
-        require(same and (hist is None or torch.equal(hist, want_hist)),
-                f"kernel F {what}: differs from its plain version: {err}")
+        require(same, f"kernel F {what}: differs from its plain version: {err}")
         return rec, passes, hist
 
-    report = {"phase": "kernel_f", "bound": "record, passes and history bit-equal to the plain loop", "cases": {}}
+    report = {"phase": "kernel_f", "bound": "record, passes and history bit-equal to the plain versions",
+              "cases": {}}
     for rows in WALK_ROWS:
-        mags, offsets = walk_bins(torch, rows, rows, dev)
+        spec = walk_spectrum(torch, rows, rows, dev)
+        mags, offsets = spec.abs(), sw._quad_delta(spec)
         for thr, hyst in WALK_SETTINGS:
             for scalars in ("host", "device"):
                 t, h = (thr, hyst) if scalars == "host" else (torch.tensor(thr, device=dev),
                                                                torch.tensor(hyst, device=dev))
                 what = f"{rows} rows, threshold {thr}, hysteresis {hyst}, {scalars}"
-                _, passes, _ = both(what, mags, offsets, t, h)
-                require(int(passes.max()) > 1 and (rows == 1 or int(passes[-1]) == 1),
-                        f"kernel F {what}: passes {passes.tolist()} (the last row silent)")
-                history = walk_history(torch, rows, 7, dev)
-                for call in range(3):
-                    _, _, history = both(f"{what}, filtered call {call}", mags, offsets, t, h, history)
+                for entry, src, offs in (("spectrum", spec, None), ("bins", mags, offsets)):
+                    _, passes, _ = both(f"{entry}, {what}", src, t, h, offsets=offs)
+                    require(int(passes.max()) > 1 and (rows == 1 or int(passes[-1]) == 1),
+                            f"kernel F {entry}, {what}: passes {passes.tolist()} (the last row silent)")
+                    history = walk_history(torch, rows, 7, dev)
+                    for call in range(3):
+                        _, _, history = both(f"{entry}, {what}, filtered call {call}", src, t, h, history, offs)
                 report["cases"][what] = {"passes_max": int(passes.max())}
+    special, rising = walk_special(torch, dev), walk_rising(torch, dev)
+    batch = walk_spectrum(torch, 12, 3, dev)
+    for thr, hyst in WALK_SETTINGS:
+        both(f"special values, threshold {thr}", special, thr, hyst)
+        both(f"special values, threshold {thr}, filtered", special, thr, hyst, walk_history(torch, 9, 3, dev))
+    both("every other row", batch[::2], 0.1, 0.0, walk_history(torch, 6, 5, dev))
+    _, passes, _ = both("pass cap, real spectrum", rising, 0.0, -1.0)
+    require(passes.tolist() == [sw.MAX_WALK_ITERATIONS, sw.MAX_WALK_ITERATIONS, 1],
+            f"kernel F: the rising spectrum took {passes.tolist()} passes")
+    both("pass cap, real spectrum, filtered", rising, 0.0, -1.0, walk_history(torch, 3, 1, dev))
+    report["cases"]["spectrum_pass_cap"] = {"passes": passes.tolist()}
     for name, starts, length, ratio, first, hyst, accepted in WALK_CHAINS:
         mags, offsets = walk_chain(torch, starts, length, ratio, first, dev)
-        _, passes, _ = both(name, mags, offsets, 0.0, hyst)
-        both(f"{name}, filtered", mags, offsets, 0.0, hyst, walk_history(torch, 3, 1, dev))
+        _, passes, _ = both(name, mags, 0.0, hyst, offsets=offsets)
+        both(f"{name}, filtered", mags, 0.0, hyst, walk_history(torch, 3, 1, dev), offsets)
         if accepted is not None:
             require(int(passes[0]) == min(accepted + 1, sw.MAX_WALK_ITERATIONS),
                     f"kernel F {name}: {int(passes[0])} passes, {accepted} acceptances expected")
         report["cases"][name] = {"passes": passes.tolist()}
 
     # timed: cfg3b's 16 lookaheads (the oscilloscope stream's left channels)
-    # and one of them; the view's device scalars; bound: the bins and
-    # offsets read once (bin 1 on), the history in and out, the record and
-    # the passes written
+    # and one of them, the view's device scalars; beside the first design
+    # after spectral_bins' torch operations (what the step ran before the
+    # spectrum stage), in turns (ms: the median of the walk's two turns'
+    # timings); bound: the half spectrum read once, the history in and out,
+    # the record and the passes written; per bin |X| and the offset (~40 f32
+    # operations). The chain's estimate (phase 15): the passes times a
+    # pass's device cost, profiled on one row of the rising spectrum (280
+    # passes) against its silent row (one pass)
+    cap_row, one_row = rising[0:1].contiguous(), rising[2:3].contiguous()
     stream, _ = make_osc_stream()
-    clock = max_sm_clock_hz()
-    timed, workloads = {}, []
+    v1 = walk_v1(torch)
+    timed = {}
+    workloads = [("spectral_walk_pass_cap", lambda: sw.spectral_walk_spectrum(cap_row, WALK_N, 0.0, -1.0)),
+                 ("spectral_walk_one_pass", lambda: sw.spectral_walk_spectrum(one_row, WALK_N, 0.0, -1.0))]
     thr_t, hyst_t = torch.tensor(0.1, device=dev), torch.tensor(0.0, device=dev)
+    qs = float(np.float32(sw.QUARTER_SEMITONE))
     for name, rows in (("cfg3b", PAIRS), ("1x4094", 1)):
-        mags, offsets = walk_bins(torch, rows, 0, dev, x=stream[:rows, 0, OSC_HISTORY - WALK_N : OSC_HISTORY])
+        spec = walk_spectrum(torch, rows, 0, dev, x=stream[:rows, 0, OSC_HISTORY - WALK_N : OSC_HISTORY])
         history = walk_history(torch, rows, 3, dev)
+        out = [torch.empty(rows, dtype=dt, device=dev) for dt in (torch.int32, torch.float32, torch.float32,
+                                                                   torch.int32)]
+        hist_out = torch.empty_like(history)
 
-        def walk(mags=mags, offsets=offsets, history=history):
-            return sw.spectral_walk_filtered(mags, offsets, WALK_N, history, thr_t, hyst_t)
+        def walk(spec=spec, history=history):
+            return sw.spectral_walk_filtered_spectrum(spec, WALK_N, history, thr_t, hyst_t)
 
-        _, _, passes = walk()
-        passes = int(passes.max())
+        def v1_after_tail(spec=spec, history=history, out=out, hist_out=hist_out, rows=rows):
+            mags, offsets = spec.abs(), sw._quad_delta(spec)
+            h = WALK_N // 2 + 1
+            err = v1.sig_spectral_walk(
+                mags.data_ptr(), h, offsets.data_ptr(), h, thr_t.data_ptr(), hyst_t.data_ptr(), 0.0, 0.0, 0.0, qs,
+                float(WALK_N), history.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                hist_out.data_ptr(), out[3].data_ptr(), rows, WALK_N // 2 - 2, torch.cuda.current_stream().cuda_stream)
+            _build.check(err, "spectral_walk_v1")
+
+        want_hist, want, want_passes = walk()
+        v1_after_tail()
+        torch.cuda.synchronize()
+        require(all(bits_equal(torch, a, b) for a, b in zip(out, (*want, want_passes)))
+                and bits_equal(torch, hist_out, want_hist), f"kernel F {name}: the first design differs")
+        passes = int(want_passes.max())
         m = WALK_N // 2 - 2
-        moved = rows * ((m + 1) * 2 * 4 + 2 * 8 * 4 + 3 * 4 + 4)
+        moved = rows * ((m + 3) * 8 + 2 * 8 * 4 + 3 * 4 + 4)
+        samples = [event_ms(torch, fn) for fn in (walk, v1_after_tail, v1_after_tail, walk)]
         timed[name] = dict(
-            ms=median_ms(torch, walk), passes=passes,
-            plain_ms=call_ms(torch, lambda: sw.spectral_walk_filtered_plain(mags, offsets, WALK_N, history,
-                                                                             thr_t, hyst_t), reps=3),
-            **roofline(moved, rows * m * 15.0),
-            chain_estimate_us=passes * WALK_CYCLES_PER_PASS / clock * 1e6,
+            ms=statistics.median(samples[0] + samples[3]), passes=passes,
+            turns_ms=[statistics.median(t) for t in samples],
+            plain_ms=call_ms(torch, lambda: sw.spectral_walk_filtered_spectrum_plain(spec, WALK_N, history, thr_t,
+                                                                                      hyst_t), reps=3),
+            **roofline(moved, rows * (m + 3) * 40.0),
         )
-        workloads.append((f"spectral_walk_{name}", walk))
+        workloads += [(f"spectral_walk_{name}", walk), (f"spectral_walk_v1_tail_{name}", v1_after_tail)]
     report["timed"] = timed
     report["measured_err"] = worst
-    report["max_sm_clock_mhz"] = clock / 1e6
     info(report)
     t = timed["cfg3b"]
     results["spectral_walk"] = dict(
-        entries=["spectral_walk_filtered (main path)", "spectral_walk"],
+        entries=["spectral_walk_filtered_spectrum (main path)", "spectral_walk_spectrum", "spectral_walk_filtered",
+                 "spectral_walk"],
         max_abs_err=max(worst["value_max_abs_err"], worst["offset_max_abs_err"], worst["history_max_abs_err"]),
-        mismatches=worst["index_mismatches"] + worst["passes_mismatches"], measured_err=worst,
-        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-        passes_cfg3b=t["passes"], chain_estimate_us=t["chain_estimate_us"],
+        mismatches=worst["index_mismatches"] + worst["passes_mismatches"] + worst["bit_mismatches"],
+        measured_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=None, passes_cfg3b=t["passes"], turns_ms_cfg3b=t["turns_ms"],
         one_row_ms=timed["1x4094"]["ms"], one_row_plain_ms=timed["1x4094"]["plain_ms"],
-        one_row_chain_estimate_us=timed["1x4094"]["chain_estimate_us"],
+        one_row_turns_ms=timed["1x4094"]["turns_ms"], one_row_passes=timed["1x4094"]["passes"],
+        pass_cap_passes=sw.MAX_WALK_ITERATIONS,
     )
     return workloads
 
@@ -3703,16 +3831,17 @@ def trigger_witness(card_calls: list, cpu_calls: list) -> dict:
 @contextlib.contextmanager
 def plain_walk():
     """Route the oscilloscope step's spectral walk (kernel F's filtered
-    entry) to its plain version: the loop and the median filter, the path
-    each SPECTRAL call is held to."""
+    spectrum entry) to its plain version: the magnitudes and offsets by
+    torch operations, the loop and the median filter, the path each
+    SPECTRAL call is held to."""
     from signalizer_tpu_torch.kernels import spectral_walk as sw
     from signalizer_tpu_torch.views import oscilloscope as tv
 
-    tv.spectral_walk_filtered = sw.spectral_walk_filtered_plain
+    tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum_plain
     try:
         yield
     finally:
-        tv.spectral_walk_filtered = sw.spectral_walk_filtered
+        tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum
 
 
 @contextlib.contextmanager
@@ -4382,6 +4511,11 @@ def main() -> int:
     # the spectral walk's cost in the step and the session tick, likewise;
     # kernel F alone at cfg3b and on one row
     results["spectral_walk"]["profile_us_alone"] = {name: own_us(name, "spectral_walk") for name, _ in walk_workloads}
+    walk_row = results["spectral_walk"]
+    walk_row["pass_us"] = (walk_row["profile_us_alone"]["spectral_walk_pass_cap"]
+                           - walk_row["profile_us_alone"]["spectral_walk_one_pass"]) / (walk_row["pass_cap_passes"] - 1)
+    walk_row["chain_estimate_us"] = walk_row["passes_cfg3b"] * walk_row["pass_us"]
+    walk_row["one_row_chain_estimate_us"] = walk_row["one_row_passes"] * walk_row["pass_us"]
     results["spectral_walk"]["session_tick_profile_us"] = own_us("session_tick_cycles", "spectral_walk")
     walk = {}
     for name in ("osc_cfg3", "osc_cfg3b", "session_tick", "session_tick_cycles"):
@@ -4391,6 +4525,12 @@ def main() -> int:
                       "spectral_walk_us": row["own_kernels_us_per_call"].get("spectral_walk_kernel", 0.0)}
     for name, base in (("osc_cfg3b", "osc_cfg3"), ("session_tick_cycles", "session_tick")):
         walk[f"{name}_minus_{base}"] = {k: walk[name][k] - walk[base][k] for k in walk[name]}
+    # the same before kernel F formed its bins itself (PERF.md §5 and §6,
+    # on NVIDIA H100 80GB HBM3, 700.00 W): the cfg3b call's launches and F's
+    # device µs in it and in a cycles tick, spectral_bins' 13 launches
+    walk["parent"] = SPECTRAL_PARENT
+    walk["launches_per_call_vs_parent"] = {
+        "osc_cfg3b": walk["osc_cfg3b"]["launches_per_call"] - SPECTRAL_PARENT["osc_cfg3b_launches_per_call"]}
     info({"phase": "spectral_profile", **walk})
     # the two tails' calls: launches, device and host time a call, kernels
     # G and H in them and alone

@@ -101,6 +101,12 @@ SIGNATURES = {
     "sig_spectral_walk": (
         _P, _L, _P, _L, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P,
     ),
+    # spec, spec_stride, threshold (or null), hysteresis (or null), thr
+    # value, inv_h value, iq value, qs, n, hist_in (or null), index, value,
+    # offset, hist_out (or null), passes, rows, m, stream
+    "sig_spectral_walk_spectrum": (
+        _P, _L, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+    ),
     # vals, slope_map, decay_poles, phase_poles, display_scalars, valid (or
     # null), magnitude, phase, out, starts (or null), pairs, T, K, rows, P,
     # chunk_frames, stream

@@ -22,9 +22,10 @@ same shapes and semantics, on tensors on any device.
   (:mod:`signalizer_tpu_torch.kernels.colour_track`): its CUDA chunked scans
   for a CUDA tensor, its plain doubling scans for a CPU one.
 * The spectral fundamental walk is kernel F
-  (:mod:`signalizer_tpu_torch.kernels.spectral_walk`): its CUDA walk for a
-  CUDA tensor (one launch, no host sync), its plain loop from acceptance to
-  acceptance for a CPU one.
+  (:mod:`signalizer_tpu_torch.kernels.spectral_walk`): on a CUDA tensor its
+  CUDA walk reads the rfft itself (one launch after the rfft, no host
+  sync); on a CPU one its plain version, the magnitudes and offsets by
+  torch operations and the loop from acceptance to acceptance.
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ from signalizer_tpu_torch.kernels.spectral_walk import (  # noqa: F401 — the v
     MAX_WALK_ITERATIONS,
     MEDIAN_FILTER_SIZE,
     BinRecord,
+    _quad_delta,
     median_record_filter,
-    spectral_walk,
+    spectral_walk_spectrum,
 )
 
 LOOKAHEAD_SIZE = 8192  # ref: OscilloscopeParameters.h:46
@@ -104,23 +106,10 @@ def last_zero_crossing_trigger(x: torch.Tensor, threshold) -> Tuple[torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _quad_delta(spec: torch.Tensor) -> torch.Tensor:
-    """Complex quadratic interpolation of the true peak offset per bin
-    (ref: OscilloscopeDSP.inl:103-126): Re((X[w-1]-X[w+1]) /
-    (2 X[w] - X[w-1] - X[w+1])), with bin 0 mirroring bin 1. The guard is
-    the reference's ``(denom.real + denom.imag) != 0``, as the JAX code has
-    it."""
-    xm1 = torch.cat([spec[..., 1:2], spec[..., :-1]], dim=-1)
-    x1 = torch.roll(spec, -1, dims=-1)
-    denom = spec * 2.0 - xm1 - x1
-    ok = (denom.real + denom.imag) != 0
-    ratio = (xm1 - x1) / torch.where(ok, denom, torch.ones_like(denom))
-    return torch.where(ok, ratio.real, 0.0)
-
-
 def spectral_bins(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The walk's inputs: the rfft's magnitudes and quadratic peak offsets
-    of x [..., N], each [..., N/2 + 1]."""
+    """The bins entries' inputs: the rfft's magnitudes and quadratic peak
+    offsets of x [..., N], each [..., N/2 + 1] (the spectrum entries form
+    them from the rfft inside kernel F)."""
     spec = torch.fft.rfft(x, dim=-1)
     return spec.abs(), _quad_delta(spec)
 
@@ -136,14 +125,13 @@ def spectral_fundamental(
     (ref: calculateFundamentalPeriod, OscilloscopeDSP.inl:80-225).
 
     x [..., N] real. Returns (fundamental_hz [...], cycle_samples [...],
-    BinRecord). The candidate walk is
-    :func:`~signalizer_tpu_torch.kernels.spectral_walk.spectral_walk`
-    (kernel F on CUDA tensors).
+    BinRecord). The candidate walk on the rfft is
+    :func:`~signalizer_tpu_torch.kernels.spectral_walk.spectral_walk_spectrum`
+    (kernel F on CUDA tensors, which forms the magnitudes and offsets).
     """
     global walk_iterations
     n = x.shape[-1]
-    mags, offsets = spectral_bins(x)
-    record, passes = spectral_walk(mags, offsets, n, threshold, hysteresis)
+    record, passes = spectral_walk_spectrum(torch.fft.rfft(x, dim=-1), n, threshold, hysteresis)
     if passes.device.type == "cpu":
         walk_iterations = int(passes.max()) if passes.numel() else 1
     fundamental = sample_rate * record.omega() / n

@@ -2,28 +2,35 @@
 
 Replaces the ``lax.while_loop`` of
 ``signalizer_tpu/kernels/oscilloscope.py::spectral_fundamental`` (ref:
-calculateFundamentalPeriod, OscilloscopeDSP.inl:134-184) and, in its fused
-entry, ``median_record_filter`` (ref: OscilloscopeDSP.inl:187-213). The CUDA
-source is ``signalizer_tpu_torch/csrc/spectral_walk.cu``, one templated
-kernel with two entries, and this module holds their wrappers and plain
-versions:
+calculateFundamentalPeriod, OscilloscopeDSP.inl:134-184), the per-bin
+``jnp.abs(spec)`` and ``_quad_delta`` that feed it, and, in its filtered
+entries, ``median_record_filter`` (ref: OscilloscopeDSP.inl:187-213). The
+CUDA source is ``signalizer_tpu_torch/csrc/spectral_walk.cu``, one templated
+kernel with two load stages and four entries, and this module holds their
+wrappers and plain versions:
 
-* :func:`spectral_walk`, the walk alone (the fundamental candidate and the
-  passes each row took), what
+* :func:`spectral_walk_spectrum`, the walk on the rfft's half spectrum of
+  an ``n``-sample lookahead, ``[..., >= n // 2 + 1]`` complex64: the kernel
+  forms each bin's magnitude and quadratic offset itself. What
   :func:`~signalizer_tpu_torch.kernels.oscilloscope.spectral_fundamental`
-  calls, and :func:`spectral_walk_plain`, the loop from acceptance to
-  acceptance that tests ``any(active)`` on the host every pass (the CPU
-  path, and what the kernel is held to bit for bit on the card);
-* :func:`spectral_walk_filtered`, the walk and the 8-deep median filter in
-  one launch (what the oscilloscope step's SPECTRAL trigger calls), and
-  :func:`spectral_walk_filtered_plain`, the plain loop followed by
+  calls; :func:`spectral_walk_spectrum_plain` is ``spec.abs()``,
+  :func:`_quad_delta` and the plain loop.
+* :func:`spectral_walk_filtered_spectrum`, the same and the 8-deep median
+  filter in one launch (what the oscilloscope step's SPECTRAL trigger
+  calls), and :func:`spectral_walk_filtered_spectrum_plain`.
+* :func:`spectral_walk` and :func:`spectral_walk_filtered`, the walk (and
+  the filter) on magnitudes and quadratic offsets ``[..., >= n // 2]`` f32
+  formed by the caller, and their plain versions
+  :func:`spectral_walk_plain`, the loop from acceptance to acceptance that
+  tests ``any(active)`` on the host every pass, and
+  :func:`spectral_walk_filtered_plain`, that loop followed by
   :func:`median_record_filter`.
 
-Both take the rfft's magnitudes and quadratic offsets of an ``n``-sample
-lookahead, ``[..., >= n // 2]`` f32: bin 1 is the first incumbent, bins 2 ..
-n/2 - 1 the candidates. ``threshold`` and ``hysteresis`` are host numbers or
-float32 scalars on the bins' device. A launch copies nothing between host
-and device and reads nothing back: the passes stay on the device.
+Bin 1 is the first incumbent, bins 2 .. n/2 - 1 the candidates.
+``threshold`` and ``hysteresis`` are host numbers or float32 scalars on the
+input's device. Each plain version is what its kernel is held to bit for
+bit on the card. A launch copies nothing between host and device and reads
+nothing back: the passes stay on the device.
 """
 
 from __future__ import annotations
@@ -38,14 +45,16 @@ from signalizer_tpu_torch.kernels import _build
 MAX_WALK_ITERATIONS = 280  # > the 277 doublings f32's range allows
 MEDIAN_FILTER_SIZE = 8  # ref: OscilloscopeDSP.inl MedianData::FilterSize
 QUARTER_SEMITONE = 2.0 ** (0.25 / 12.0) - 1.0
-# the kernel's geometry (csrc/spectral_walk.cu kPer, kMaxThreads): candidate
-# bins a row at most, n // 2 - 2 <= MAX_BINS
-MAX_BINS = 16 * 512
+# the kernel's limit (csrc/spectral_walk.cu kMaxBins): candidate bins a row
+# at most, n // 2 - 2 <= MAX_BINS
+MAX_BINS = 8192
 F32 = np.float32
 
-# kernel launches since the last reset, by either entry (chip_smoke.py and
-# tests read it), and the passes [...] int32 of the last launch, on the device
+# kernel launches since the last reset, by any entry, and by the two
+# spectrum entries alone (chip_smoke.py and tests read them), and the passes
+# [...] int32 of the last launch, on the device
 launches = 0
+spectrum_launches = 0
 last_passes = None
 
 
@@ -58,6 +67,20 @@ class BinRecord(NamedTuple):
 
     def omega(self):
         return self.index.to(torch.float32) + self.offset
+
+
+def _quad_delta(spec: torch.Tensor) -> torch.Tensor:
+    """Complex quadratic interpolation of the true peak offset per bin
+    (ref: OscilloscopeDSP.inl:103-126): Re((X[w-1]-X[w+1]) /
+    (2 X[w] - X[w-1] - X[w+1])), with bin 0 mirroring bin 1. The guard is
+    the reference's ``(denom.real + denom.imag) != 0``, as the JAX code has
+    it."""
+    xm1 = torch.cat([spec[..., 1:2], spec[..., :-1]], dim=-1)
+    x1 = torch.roll(spec, -1, dims=-1)
+    denom = spec * 2.0 - xm1 - x1
+    ok = (denom.real + denom.imag) != 0
+    ratio = (xm1 - x1) / torch.where(ok, denom, torch.ones_like(denom))
+    return torch.where(ok, ratio.real, 0.0)
 
 
 def spectral_walk_plain(
@@ -145,6 +168,24 @@ def spectral_walk_filtered_plain(
     return hist, filtered, passes
 
 
+def spectral_walk_spectrum_plain(
+    spec: torch.Tensor, n: int, threshold=0.0, hysteresis=0.0
+) -> Tuple[BinRecord, torch.Tensor]:
+    """Plain PyTorch version of :func:`spectral_walk_spectrum`: the
+    magnitudes (``spec.abs()``) and quadratic offsets (:func:`_quad_delta`)
+    of the whole row, then :func:`spectral_walk_plain`."""
+    return spectral_walk_plain(spec.abs(), _quad_delta(spec), n, threshold, hysteresis)
+
+
+def spectral_walk_filtered_spectrum_plain(
+    spec: torch.Tensor, n: int, history: torch.Tensor, threshold=0.0, hysteresis=0.0
+) -> Tuple[torch.Tensor, BinRecord, torch.Tensor]:
+    """Plain PyTorch version of :func:`spectral_walk_filtered_spectrum`: the
+    magnitudes and offsets as :func:`spectral_walk_spectrum_plain` forms
+    them, then :func:`spectral_walk_filtered_plain`."""
+    return spectral_walk_filtered_plain(spec.abs(), _quad_delta(spec), n, history, threshold, hysteresis)
+
+
 def _scalar(v, name: str, dev: torch.device):
     """A device scalar's pointer, or None for a host number."""
     if not isinstance(v, torch.Tensor):
@@ -161,29 +202,37 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _launch(mags, offsets, n, threshold, hysteresis, history):
-    global launches, last_passes
-    what = "spectral_walk" if history is None else "spectral_walk_filtered"
-    if mags.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {mags.device}")
-    dev = mags.device
+def _launch(what, src, n, threshold, hysteresis, history, offsets=None):
+    """One launch of an entry: the spectrum stage on ``src`` [..., >= n // 2
+    + 1] complex64 (``offsets`` None), or the bins stage on ``src`` (the
+    magnitudes) and ``offsets`` [..., >= n // 2] f32."""
+    global launches, spectrum_launches, last_passes
+    if src.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {src.device}")
+    dev = src.device
     half = n // 2
     m = max(half - 2, 0)
-    if mags.dtype != torch.float32 or offsets.dtype != torch.float32 or offsets.shape != mags.shape:
-        raise ValueError(f"{what}: mags and offsets must be float32 of one shape, got {mags.dtype} "
-                         f"{tuple(mags.shape)} and {offsets.dtype} {tuple(offsets.shape)}")
-    if mags.ndim < 1 or mags.shape[-1] < max(half, 2) or offsets.device != dev:
-        raise ValueError(f"{what}: mags and offsets must be [..., >= {max(half, 2)}] on {dev}, got "
-                         f"{tuple(mags.shape)} on {mags.device} and {offsets.device}")
+    spectrum = offsets is None
+    if spectrum:
+        if src.dtype != torch.complex64:
+            raise ValueError(f"{what}: spec must be complex64, got {src.dtype}")
+        if src.ndim < 1 or src.shape[-1] < m + 3:
+            raise ValueError(f"{what}: spec must be [..., >= {m + 3}] (n = {n}), got {tuple(src.shape)}")
+    else:
+        if src.dtype != torch.float32 or offsets.dtype != torch.float32 or offsets.shape != src.shape:
+            raise ValueError(f"{what}: mags and offsets must be float32 of one shape, got {src.dtype} "
+                             f"{tuple(src.shape)} and {offsets.dtype} {tuple(offsets.shape)}")
+        if src.ndim < 1 or src.shape[-1] < max(half, 2) or offsets.device != dev:
+            raise ValueError(f"{what}: mags and offsets must be [..., >= {max(half, 2)}] on {dev}, got "
+                             f"{tuple(src.shape)} on {src.device} and {offsets.device}")
     if m > MAX_BINS:
         raise ValueError(f"{what}: {m} candidate bins (n = {n}); the kernel takes at most {MAX_BINS} (n <= "
                          f"{2 * MAX_BINS + 5})")
-    lead = mags.shape[:-1]
+    lead = src.shape[:-1]
     if history is not None and (history.shape != (*lead, MEDIAN_FILTER_SIZE) or history.dtype != torch.float32
                                 or history.device != dev):
         raise ValueError(f"{what}: history must be float32 {(*lead, MEDIAN_FILTER_SIZE)} on {dev}, got "
                          f"{history.dtype} {tuple(history.shape)} on {history.device}")
-    m2, o2 = _rows(mags), _rows(offsets)
     thr_ptr = _scalar(threshold, "threshold", dev)
     hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
     # host numbers: the plain version's f32 values, each formed in float64
@@ -200,20 +249,26 @@ def _launch(mags, offsets, n, threshold, hysteresis, history):
     if history is not None:
         hist_in = history.contiguous()
         hist_out = torch.empty_like(hist_in)
-    rows = m2.shape[0]
+    rows2 = _rows(src)
+    rows = rows2.shape[0]
     if rows > 0:
-        with torch.cuda.device(dev):  # the launch goes to the bins' device
-            err = _build.library().sig_spectral_walk(
-                m2.data_ptr(), m2.stride(0) if rows > 1 else m2.shape[-1],
-                o2.data_ptr(), o2.stride(0) if rows > 1 else o2.shape[-1],
-                thr_ptr, hyst_ptr, thr, inv_h, iq, float(F32(QUARTER_SEMITONE)), float(F32(n)),
+        lib = _build.library()
+        stride = lambda t: t.stride(0) if rows > 1 else t.shape[-1]  # noqa: E731
+        tail = (thr_ptr, hyst_ptr, thr, inv_h, iq, float(F32(QUARTER_SEMITONE)), float(F32(n)),
                 None if hist_in is None else hist_in.data_ptr(),
                 index.data_ptr(), value.data_ptr(), offset.data_ptr(),
-                None if hist_out is None else hist_out.data_ptr(), passes.data_ptr(),
-                rows, m, torch.cuda.current_stream(dev).cuda_stream,
-            )
+                None if hist_out is None else hist_out.data_ptr(), passes.data_ptr(), rows, m)
+        with torch.cuda.device(dev):  # the launch goes to the input's device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if spectrum:
+                err = lib.sig_spectral_walk_spectrum(rows2.data_ptr(), stride(rows2), *tail, stream)
+            else:
+                o2 = _rows(offsets)
+                err = lib.sig_spectral_walk(rows2.data_ptr(), stride(rows2), o2.data_ptr(), stride(o2), *tail,
+                                            stream)
         _build.check(err, what)
         launches += 1
+        spectrum_launches += spectrum
     last_passes = passes
     return BinRecord(index, value, offset), hist_out, passes
 
@@ -237,7 +292,7 @@ def spectral_walk(
     """
     if mags.device.type == "cpu":
         return spectral_walk_plain(mags, offsets, n, threshold, hysteresis)
-    record, _, passes = _launch(mags, offsets, n, threshold, hysteresis, None)
+    record, _, passes = _launch("spectral_walk", mags, n, threshold, hysteresis, None, offsets)
     return record, passes
 
 
@@ -253,5 +308,38 @@ def spectral_walk_filtered(
     copy) or raise."""
     if mags.device.type == "cpu":
         return spectral_walk_filtered_plain(mags, offsets, n, history, threshold, hysteresis)
-    record, hist, passes = _launch(mags, offsets, n, threshold, hysteresis, history)
+    record, hist, passes = _launch("spectral_walk_filtered", mags, n, threshold, hysteresis, history, offsets)
+    return hist, record, passes
+
+
+def spectral_walk_spectrum(
+    spec: torch.Tensor, n: int, threshold=0.0, hysteresis=0.0
+) -> Tuple[BinRecord, torch.Tensor]:
+    """:func:`spectral_walk` on the rfft's half spectrum ``spec`` [...,
+    >= n // 2 + 1] complex64 of an ``n``-sample lookahead (n >= 4): each
+    bin's magnitude and quadratic offset are formed from ``spec`` as
+    ``spec.abs()`` and :func:`_quad_delta` form them. Returns (BinRecord
+    [...], passes [...] int32). CPU tensors take
+    :func:`spectral_walk_spectrum_plain`; CUDA tensors launch
+    ``csrc/spectral_walk.cu``'s spectrum stage (one launch, no host-device
+    copy) or raise."""
+    if spec.device.type == "cpu":
+        return spectral_walk_spectrum_plain(spec, n, threshold, hysteresis)
+    record, _, passes = _launch("spectral_walk_spectrum", spec, n, threshold, hysteresis, None)
+    return record, passes
+
+
+def spectral_walk_filtered_spectrum(
+    spec: torch.Tensor, n: int, history: torch.Tensor, threshold=0.0, hysteresis=0.0
+) -> Tuple[torch.Tensor, BinRecord, torch.Tensor]:
+    """The oscilloscope step's SPECTRAL trigger search on the rfft's half
+    spectrum: :func:`spectral_walk_spectrum`, then
+    :func:`median_record_filter` over ``history`` [..., 8] f32. Returns (new
+    history [..., 8], the filtered BinRecord [...], passes [...] int32). CPU
+    tensors take :func:`spectral_walk_filtered_spectrum_plain`; CUDA tensors
+    launch ``csrc/spectral_walk.cu``'s filtered spectrum entry (one launch,
+    no host-device copy) or raise."""
+    if spec.device.type == "cpu":
+        return spectral_walk_filtered_spectrum_plain(spec, n, history, threshold, hysteresis)
+    record, hist, passes = _launch("spectral_walk_filtered_spectrum", spec, n, threshold, hysteresis, history)
     return hist, record, passes

@@ -70,9 +70,20 @@ its fused entry (x to colours, both states carried in) at cfg3's 16 pairs x
 pairs x 2 rows x 3001, each version with the host table of its own chunk
 length (its source's ``kChunk``, or ``-DSIG_CHUNK``) and layout; the
 package's with ``colour_plan``'s cluster and with the sizes of
-``COLOUR_CLUSTERS`` (``e_cfg3_c4_us`` ...). Kernel F (``f``, ``spectral_walk.cu``) runs its filtered
-entry at cfg3b's 16 lookaheads of 8192 samples (4094 candidate bins each)
-and at one (``f_cfg3b_us``, ``f_1x4094_us``). Kernel G (``g``,
+``COLOUR_CLUSTERS`` (``e_cfg3_c4_us`` ...). Kernel F (``f``, ``spectral_walk.cu``) runs at cfg3b's 16 lookaheads
+of 8192 samples (4094 candidate bins each) and at one: a version's spectrum
+entry on the rfft (``f_cfg3b_spectrum_us``; unfiltered ``_spectrum_walk_us``), its bins
+entry on ``spectral_bins``' magnitudes and offsets (``f_cfg3b_us``;
+unfiltered ``_walk_us``; after the torch operations that form them, in one
+graph, ``_with_tail_us``), each output held against the plain version, and
+each route with the rfft before it as the main path runs it
+(``f_cfg3b_rfft_spectrum_us``, ``f_cfg3b_rfft_with_tail_us``); a
+line after the rounds gives those torch operations alone
+(``f_cfg3b_tail_us``) and their kernels' device µs and launches from the
+profiler. ``--named
+spectral_walk_v1`` is the first design (bins entry only),
+``spectral_walk_v1_load_only`` and ``_one_pass`` the same with no pass or
+at most one. Kernel G (``g``,
 ``phase_decay_db.cu``) runs at the headline in PHASE (16 pairs x 128
 frames and x 1, 2 line graphs, 1024 px) and at the spectrogram's cfg4 (1
 pair x 512 frames, the last 3 invalid), with the wrapper's ``phase_plan``
@@ -161,6 +172,9 @@ NAMED_VARIANTS = {
     "phase_decay_db_v1": ("phase_decay_db_v1.cu", ()),
     "phase_decay_db_v2": ("phase_decay_db_v2.cu", ()),
     "phase_decay_db_v3": ("phase_decay_db_v3.cu", ()),
+    "spectral_walk_v1": ("spectral_walk_v1.cu", ()),
+    "spectral_walk_v1_load_only": ("spectral_walk_v1.cu", ("-DSIG_LOAD_ONLY",)),
+    "spectral_walk_v1_one_pass": ("spectral_walk_v1.cu", ("-DSIG_ONE_PASS",)),
 }
 # the most shared memory a block may opt in to on sm_90 (long_general's R fits it)
 MAX_SHARED_BYTES = 232448
@@ -636,53 +650,120 @@ class PeakHold:
 
 
 class SpectralWalk:
-    """Kernel F at WALK_SHAPES through its filtered entry (``sig_spectral_walk``
-    with a history of -1 sentinels): the rfft bins of 8192-sample
-    lookaheads at 96 kHz, a sine a row (150 Hz to 4 kHz) and noise 40 dB
-    below it, threshold 0.1 and hysteresis 0 (cfg3b's) as host values."""
+    """Kernel F at WALK_SHAPES, filtered (a history of -1 sentinels),
+    threshold 0.1 and hysteresis 0 (cfg3b's) as host values: the rfft of
+    8192-sample lookaheads at 96 kHz, a sine a row (150 Hz to 4 kHz) and
+    noise 40 dB below it. A version with the spectrum entry
+    (``sig_spectral_walk_spectrum``) runs on the rfft itself; a version with the bins
+    entry (``sig_spectral_walk``) on the magnitudes and offsets that
+    ``spectral_bins``' torch operations form, alone and after those
+    operations in one graph (the main path before the spectrum stage), and
+    unfiltered. Each output is held against the plain version's."""
 
     def __init__(self, libs, dev):
-        from signalizer_tpu_torch.kernels import oscilloscope as tk
         from signalizer_tpu_torch.kernels import spectral_walk as sw
 
-        self.libs, self.cases = libs, {}
+        self.libs, self.cases, self.sw = libs, {}, sw
         self.qs = float(np.float32(sw.QUARTER_SEMITONE))
         rng = np.random.default_rng(71)
         t = np.arange(WALK_N) / 96_000.0
         for shape, rows in WALK_SHAPES.items():
             f = np.geomspace(150.0, 4000.0, rows)[:, None]
             x = 0.5 * np.sin(2 * np.pi * f * t) + 0.0035 * rng.standard_normal((rows, WALK_N))
-            mags, offsets = tk.spectral_bins(torch.from_numpy(x.astype(np.float32)).to(dev))
+            x = torch.from_numpy(x.astype(np.float32)).to(dev)
+            spec = torch.fft.rfft(x, dim=-1)
             empty = lambda dtype=torch.float32: torch.empty(rows, dtype=dtype, device=dev)  # noqa: E731
+            hist = torch.full((rows, 8), -1.0, device=dev)
             case = types.SimpleNamespace(
-                rows=rows, mags=mags, offsets=offsets, hist=torch.full((rows, 8), -1.0, device=dev),
+                rows=rows, x=x, spec=spec, mags=spec.abs(), offsets=sw._quad_delta(spec), hist=hist,
                 index=empty(torch.int32), value=empty(), offset=empty(), passes=empty(torch.int32),
                 hist_out=torch.empty((rows, 8), device=dev),
             )
+            want_hist, want, want_passes = sw.spectral_walk_filtered_spectrum_plain(spec, WALK_N, hist, 0.1, 0.0)
+            case.want = [*want, want_passes.int(), want_hist]
             self.cases[shape] = case
-            self.launch("repo", case)
-            torch.cuda.synchronize()
-            case.want = [t.clone() for t in (case.index, case.value, case.offset, case.passes, case.hist_out)]
 
-    def launch(self, name, case):
+    def _tail(self, case, hist=True):
+        return (None, None, float(np.float32(0.1)), 1.0, self.qs, self.qs,
+                float(WALK_N), case.hist.data_ptr() if hist else None, case.index.data_ptr(),
+                case.value.data_ptr(), case.offset.data_ptr(), case.hist_out.data_ptr() if hist else None,
+                case.passes.data_ptr(), case.rows, WALK_N // 2 - 2)
+
+    def launch(self, name, case, hist=True, mags=None, offsets=None):
+        """The bins entry on ``mags`` and ``offsets`` (the case's own by
+        default)."""
+        mags = case.mags if mags is None else mags
+        offsets = case.offsets if offsets is None else offsets
         h = WALK_N // 2 + 1
         err = self.libs[name].sig_spectral_walk(
-            case.mags.data_ptr(), h, case.offsets.data_ptr(), h, None, None, float(np.float32(0.1)), 1.0,
-            self.qs, self.qs, float(WALK_N), case.hist.data_ptr(), case.index.data_ptr(), case.value.data_ptr(),
-            case.offset.data_ptr(), case.hist_out.data_ptr(), case.passes.data_ptr(), case.rows, WALK_N // 2 - 2,
+            mags.data_ptr(), h, offsets.data_ptr(), h, *self._tail(case, hist),
             torch.cuda.current_stream().cuda_stream,
         )
         _build.check(err, f"{name}: spectral_walk")
 
+    def launch_spectrum(self, name, case, hist=True, spec=None):
+        spec = case.spec if spec is None else spec
+        err = self.libs[name].sig_spectral_walk_spectrum(
+            spec.data_ptr(), WALK_N // 2 + 1, *self._tail(case, hist),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        _build.check(err, f"{name}: spectral_walk_spectrum")
+
+    def with_tail(self, name, case, rfft=False):
+        """``spectral_bins``' torch operations after the rfft (and the rfft
+        itself with ``rfft``), then the bins entry on what they formed."""
+        spec = torch.fft.rfft(case.x, dim=-1) if rfft else case.spec
+        self.launch(name, case, mags=spec.abs(), offsets=self.sw._quad_delta(spec))
+
+    def _equal(self, case) -> bool:
+        got = (case.index, case.value, case.offset, case.passes, case.hist_out)
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, case.want))
+
     def measure(self, name) -> dict:
-        line = {}
+        line, lib = {}, self.libs[name]
         for shape, case in self.cases.items():
+            if hasattr(lib, "sig_spectral_walk_spectrum"):
+                self.launch_spectrum(name, case)
+                torch.cuda.synchronize()
+                line[f"f_{shape}_spectrum_equal_plain"] = self._equal(case)
+                line[f"f_{shape}_passes"] = int(case.passes.max())
+                line[f"f_{shape}_spectrum_us"] = device_us(lambda: self.launch_spectrum(name, case), 20)
+                line[f"f_{shape}_spectrum_walk_us"] = device_us(lambda: self.launch_spectrum(name, case, False), 20)
+                line[f"f_{shape}_rfft_spectrum_us"] = device_us(
+                    lambda: self.launch_spectrum(name, case, spec=torch.fft.rfft(case.x, dim=-1)), 20)
             self.launch(name, case)
             torch.cuda.synchronize()
-            got = (case.index, case.value, case.offset, case.passes, case.hist_out)
-            line[f"f_{shape}_equal_repo"] = all(torch.equal(a, b) for a, b in zip(got, case.want))
+            line[f"f_{shape}_equal_plain"] = self._equal(case)
             line[f"f_{shape}_passes"] = int(case.passes.max())
             line[f"f_{shape}_us"] = device_us(lambda: self.launch(name, case), 20)
+            line[f"f_{shape}_walk_us"] = device_us(lambda: self.launch(name, case, False), 20)
+            line[f"f_{shape}_with_tail_us"] = device_us(lambda: self.with_tail(name, case), 20)
+            line[f"f_{shape}_rfft_with_tail_us"] = device_us(lambda: self.with_tail(name, case, True), 20)
+        return line
+
+    def tail_us(self) -> dict:
+        """``spectral_bins``' torch operations after the rfft alone: device
+        µs a call in a graph, and each kernel's device µs a call from
+        ``torch.profiler`` over 20 calls."""
+        line = {}
+        for shape, case in self.cases.items():
+            ops = lambda: (case.spec.abs(), self.sw._quad_delta(case.spec))  # noqa: E731
+            line[f"f_{shape}_tail_us"] = device_us(ops, 20)
+            for _ in range(3):
+                ops()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    ops()
+                torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.key_averages():
+                us = getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                if us > 0 and e.count > 0 and not e.key.startswith("aten::"):
+                    kernels[e.key[:80]] = {"us": us / 20, "launches": e.count / 20}
+            line[f"f_{shape}_tail_kernels"] = kernels
+            line[f"f_{shape}_tail_launches"] = sum(k["launches"] for k in kernels.values())
+            line[f"f_{shape}_tail_profiled_us"] = sum(k["us"] for k in kernels.values())
         return line
 
 
@@ -1110,7 +1191,7 @@ def main(argv=None) -> int:
         "decay_db": ("sig_display_decay_db", "sig_display_decay_db_v1"),
         "peak_hold": ("sig_peak_hold",),
         "colour_track": ("sig_colour_track",),
-        "spectral_walk": ("sig_spectral_walk",),
+        "spectral_walk": ("sig_spectral_walk", "sig_spectral_walk_spectrum"),
         "phase_decay": ("sig_phase_decay_db", "sig_phase_decay_db_v1"),
         "resonator_scan": ("sig_resonator_scan",),
     }
@@ -1139,6 +1220,9 @@ def main(argv=None) -> int:
             line["card"] = smi
             lines.append(line)
             print(json.dumps(line), flush=True)
+    if timers["spectral_walk"] is not None:
+        lines.append(dict(timers["spectral_walk"].tail_us(), card=smi))
+        print(json.dumps(lines[-1]), flush=True)
     for timer in (resample, timers["colour_track"]) if args.wrapper else ():
         if timer is not None:
             line = dict(timer.wrapper_host_us(versions), card=smi)

@@ -1,6 +1,6 @@
-"""Time the calls that carry kernels E, G and H (the colour track, the
-PHASE display tail and the resonator bank) in one or more checkouts, on
-one GPU.
+"""Time the calls that carry kernels E, F, G and H (the colour track, the
+spectral trigger's walk, the PHASE display tail and the resonator bank) in
+one or more checkouts, on one GPU.
 
     python -m signalizer_tpu_torch.tools.tail_calls [TREE ...]
 
@@ -32,6 +32,9 @@ The calls, each through the public entry a user calls, at full width:
   PEAK_DECAY) with the colour track on, 1600 new samples a call;
 * ``coloured_session_tick``: a tick of the same session as
   ``rsnt_session_tick`` at the factory preset ``coloured.oscilloscope``;
+* ``osc_cfg3b``: the same oscilloscope with the SPECTRAL trigger
+  (``bench.py:824-879``) and no colour track; ``cycles_session_tick``: a
+  tick of the session at the factory preset ``cycles.oscilloscope``;
 * ``colour_cfg3`` and ``colour_session``: kernel E's wrapper alone,
   ``colour_track`` on cfg3's 16 pairs x 2 rows x 16384 samples and on a
   coloured session's 1 pair x 2 rows, 96 kHz, the 10 ms smoother, carried
@@ -150,6 +153,16 @@ def _calls(torch, dev):
         if not eng.load_preset("coloured.oscilloscope"):
             raise SystemExit("tail_calls: no factory preset coloured.oscilloscope")
 
+    def cycles(eng):
+        if not eng.load_preset("cycles.oscilloscope"):
+            raise SystemExit("tail_calls: no factory preset cycles.oscilloscope")
+
+    spectral = OscilloscopeProcessor.create(
+        pairs=PAIRS, device=dev, sample_rate=OSC_FS, channel_mode=OscChannels.SEPARATE,
+        trigger_mode=TriggerMode.SPECTRAL, interpolation=SubSampleInterpolation.LANCZOS, pixels=OSC_PIXELS,
+        lookahead=8192, trigger_threshold=0.1, autogain=AutoGain.PEAK_DECAY, window_samples=1024.0,
+    )
+
     return [
         ("phase_t128", lambda: phase.process(x128)),
         ("phase_t1", lambda: phase.process(x1)),
@@ -162,6 +175,8 @@ def _calls(torch, dev):
         ("coloured_session_tick", _session(dev, coloured)),
         ("colour_cfg3", colour(PAIRS)),
         ("colour_session", colour(1)),
+        ("osc_cfg3b", lambda: spectral.process(history, new_samples=OSC_HOP)),
+        ("cycles_session_tick", _session(dev, cycles)),
     ]
 
 

@@ -48,7 +48,6 @@ from signalizer_tpu_torch.kernels.oscilloscope import (
     nearest_resample,
     sinc_resample,
     sinc_resample_with_nearest,
-    spectral_bins,
     trigger_phase_offset,
     zero_crossing_triggers,
 )
@@ -58,7 +57,7 @@ from signalizer_tpu_torch.kernels.peak_hold import (
     envelope_hold_trigger,
     window_start as _window_start,
 )
-from signalizer_tpu_torch.kernels.spectral_walk import spectral_walk_filtered
+from signalizer_tpu_torch.kernels.spectral_walk import spectral_walk_filtered_spectrum
 
 F32 = np.float32
 
@@ -438,11 +437,11 @@ def osc_step(
             fundamental = constant.custom_trigger_frequency.expand(pairs).to(torch.float32)
             cycles = sample_rate / fundamental
         else:
-            # the candidate walk and the median filter: kernel F in one
-            # launch (kernels/spectral_walk.py), no host sync
-            mags, offsets = spectral_bins(region)
-            new_median, record, _ = spectral_walk_filtered(
-                mags, offsets, la, state.median_history, threshold, constant.hysteresis
+            # the candidate walk and the median filter on the rfft: kernel F
+            # in one launch (kernels/spectral_walk.py), which forms the
+            # magnitudes and offsets itself; no host sync
+            new_median, record, _ = spectral_walk_filtered_spectrum(
+                torch.fft.rfft(region, dim=-1), la, state.median_history, threshold, constant.hysteresis
             )
             fundamental = sample_rate * torch.clamp(record.omega(), min=5.0 * la / sample_rate) / la
             cycles = sample_rate / fundamental

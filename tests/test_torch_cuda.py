@@ -1735,9 +1735,9 @@ def test_spectral_walk_kernel_batch_shapes_strides_and_sizes(cuda):
 
 def test_spectral_oscilloscope_step_launches_kernel_f(cuda):
     """The oscilloscope step under the SPECTRAL trigger launches kernel F's
-    filtered entry once a call and gives the frames of the same step with
-    the walk's plain version (fundamental, waves and the median history
-    equal)."""
+    filtered spectrum entry once a call, on the rfft itself, and gives the
+    frames of the same step with the walk's plain version (fundamental,
+    waves and the median history equal)."""
     from signalizer_tpu_torch.views.oscilloscope import OscilloscopeProcessor, TriggerMode
 
     kw = dict(pairs=4, device=cuda, sample_rate=96_000.0, pixels=1024, window_samples=1024.0,
@@ -1746,14 +1746,14 @@ def test_spectral_oscilloscope_step_launches_kernel_f(cuda):
     hist = torch.from_numpy(_osc_history(4, 16384 + 3 * 1600, seed=3)).to(cuda)
     for i in range(3):
         h = hist[..., i * 1600 : i * 1600 + 16384].contiguous()
-        n = sw.launches
+        n, ns = sw.launches, sw.spectrum_launches
         got = card.process(h, new_samples=1600)
-        assert sw.launches == n + 1
-        tv.spectral_walk_filtered = sw.spectral_walk_filtered_plain
+        assert sw.launches == n + 1 and sw.spectrum_launches == ns + 1
+        tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum_plain
         try:
             want = loop.process(h, new_samples=1600)
         finally:
-            tv.spectral_walk_filtered = sw.spectral_walk_filtered
+            tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum
         assert sw.launches == n + 1  # the plain path launches nothing
         for name in ("fundamental", "waveform", "envelope_min", "envelope_max", "trigger_found", "gain"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
@@ -1781,6 +1781,165 @@ def test_spectral_walk_refuses_what_it_cannot_take(cuda):
         sw.spectral_walk(mags, offsets, WALK_N, torch.tensor([0.1, 0.2], device=cuda))
     with pytest.raises(ValueError, match="hysteresis"):
         sw.spectral_walk(mags, offsets, WALK_N, 0.0, torch.tensor(0.1))
+    assert sw.launches == n
+
+
+def _walk_spectrum(rows, seed, device, n=WALK_N):
+    """The rfft [rows, n // 2 + 1] complex64 of ``_walk_bins``' lookaheads,
+    taken on the card."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 96_000.0
+    x = np.zeros((rows, n), np.float32)
+    for r in range(max(rows - 1, 1)):
+        f = 80.0 * (75.0 ** (r / max(rows - 1, 1)))
+        x[r] = 0.5 * np.sin(2 * np.pi * f * t + r) + 0.003 * rng.standard_normal(n)
+        if r % 3 == 1:
+            x[r] += sum(0.3 / k * np.sin(2 * np.pi * k * f * t) for k in (2, 3, 4))
+    return torch.fft.rfft(torch.from_numpy(x).to(device), dim=-1)
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (NaN payloads and the sign of zero included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _spectrum_both(spec, n, threshold, hysteresis, history=None):
+    """Kernel F's spectrum entry (one launch) and its plain version
+    (``spec.abs()``, ``_quad_delta`` and the plain loop) on the same
+    tensors: record, passes and history bit-equal."""
+    before, spectrum_before = sw.launches, sw.spectrum_launches
+    if history is None:
+        rec, passes = sw.spectral_walk_spectrum(spec, n, threshold, hysteresis)
+        want, want_passes = sw.spectral_walk_spectrum_plain(spec, n, threshold, hysteresis)
+        hist = want_hist = None
+    else:
+        hist, rec, passes = sw.spectral_walk_filtered_spectrum(spec, n, history, threshold, hysteresis)
+        want_hist, want, want_passes = sw.spectral_walk_filtered_spectrum_plain(spec, n, history, threshold,
+                                                                               hysteresis)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1 and sw.spectrum_launches == spectrum_before + 1
+    assert sw.last_passes is passes
+    for name, a, b in zip(rec._fields, rec, want):
+        assert _bits_equal(a, b), (name, a, b)
+    assert torch.equal(passes, want_passes.to(torch.int32)), (passes, want_passes)
+    if history is not None:
+        assert _bits_equal(hist, want_hist), (hist, want_hist)
+    return rec, passes, hist
+
+
+@pytest.mark.parametrize("scalars", ["host", "device"])
+@pytest.mark.parametrize("threshold,hysteresis", [(0.0, 0.0), (0.1, 0.4)])
+@pytest.mark.parametrize("rows", [1, 16, 33])
+def test_spectral_walk_spectrum_is_bit_equal_to_the_plain_version(cuda, rows, threshold, hysteresis, scalars):
+    """Kernel F's spectrum entries, which form each bin's magnitude and
+    quadratic offset from the rfft, against ``spec.abs()``, ``_quad_delta``
+    and the plain loop on the card, bit for bit: record, passes and
+    history, the filtered entry over three calls with the history carried;
+    odd rows start 8 bytes past a 16-byte boundary; the last row silent;
+    threshold and hysteresis as host numbers and as device scalars."""
+    spec = _walk_spectrum(rows, rows, cuda)
+    thr, hyst = threshold, hysteresis
+    if scalars == "device":
+        thr, hyst = torch.tensor(threshold, device=cuda), torch.tensor(hysteresis, device=cuda)
+    _, passes, _ = _spectrum_both(spec, WALK_N, thr, hyst)
+    assert int(passes.max()) > 1 and (rows == 1 or int(passes[-1]) == 1)
+    history = _walk_history(rows, 7, cuda)
+    for _ in range(3):
+        _, _, history = _spectrum_both(spec, WALK_N, thr, hyst, history)
+
+
+def _special_spectrum(device):
+    """Rows of a sine's rfft with bins set to what the per-bin arithmetic
+    must carry as torch does: a run of zeros (a zero denominator), NaN and
+    +-inf in either part (NaN spreads through the complex differences),
+    neighbours whose denominator is (1, -1) (the guard's sum is 0), on and
+    around the strongest bins, where the walk reads them; one row with NaN
+    at bin 1 (the first incumbent) and one with inf at bin 1's neighbour."""
+    spec = _walk_spectrum(9, 5, device)
+    peak = spec.abs()[:, 2:-1].argmax(-1) + 2
+    nan, inf = float("nan"), float("inf")
+    edits = [
+        [(0, 0.0), (1, 0.0), (2, 0.0)],                      # zeros over the peak
+        [(0, complex(nan, 0.0))],                             # NaN at the peak
+        [(1, complex(inf, 0.0))],                             # inf above it
+        [(-1, complex(0.0, -inf)), (1, complex(-inf, 1.0))],  # inf in either part
+        [(-1, 0.0), (0, complex(0.5, -0.5)), (1, 0.0)],       # denominator (1, -1) at the peak
+        [(-2, 0.0), (-1, complex(50.0, -50.0)), (0, 0.0)],    # a (1, -1)-style bin below it
+    ]
+    for r, row_edits in enumerate(edits):
+        for d, v in row_edits:
+            spec[r, int(peak[r]) + d] = v
+    spec[6, 1] = complex(nan, 1.0)
+    spec[7, 0] = complex(inf, 0.0)
+    spec[7, 2] = complex(1.0, nan)
+    return spec
+
+
+def test_spectral_walk_spectrum_special_values(cuda):
+    """Zeros, NaN, +-inf and (1, -1) denominators in the spectrum: both
+    spectrum entries bit-equal to the plain version (NaN where it has NaN,
+    bit for bit)."""
+    spec = _special_spectrum(cuda)
+    for threshold, hysteresis in ((0.0, 0.0), (0.1, 0.4)):
+        _spectrum_both(spec, WALK_N, threshold, hysteresis)
+        _spectrum_both(spec, WALK_N, threshold, hysteresis, _walk_history(9, 3, cuda))
+
+
+def test_spectral_walk_spectrum_strided_batch_views(cuda):
+    """Leading dimensions [2, 3], every other row of a batch (a row stride
+    of two rows), rows cut out of a wider tensor, entries past n // 2
+    (unread), the largest lookahead the kernel takes (n = 16389) and the
+    smallest (n = 4 and 5: no candidate bin)."""
+    spec = _walk_spectrum(12, 3, cuda)
+    _spectrum_both(spec[:6].reshape(2, 3, -1), WALK_N, 0.1, 0.2, _walk_history(6, 2, cuda).reshape(2, 3, 8))
+    _spectrum_both(spec[::2], WALK_N, 0.0, 0.0, _walk_history(6, 5, cuda))
+    wide = torch.zeros((12, 5000), dtype=torch.complex64, device=cuda)
+    wide[:, :4097] = spec
+    _spectrum_both(wide[:, :4097], WALK_N, 0.0, 0.0)
+    _spectrum_both(wide[1:, 1:4099], WALK_N, 0.1, 0.0, _walk_history(11, 4, cuda))
+    _spectrum_both(wide, WALK_N, 0.0, 0.0)
+    for n in (16389, 5, 4):
+        _spectrum_both(_walk_spectrum(3, n, cuda, n=n), n, 0.0, 0.3, _walk_history(3, 4, cuda))
+
+
+def test_spectral_walk_spectrum_reaches_the_pass_cap(cuda):
+    """A real spectrum (alternating signs, so that each bin's quadratic
+    offset is (r - 1) / (r + 1)) whose magnitudes rise 1.01 a bin over
+    300 bins: at hysteresis -1 (1 - hysteresis = 2) every bin of the run
+    is vastly better and the same partial as the last, so both entries stop
+    after their 280th pass, bit-equal to the plain version; the last row
+    silent."""
+    m = WALK_N // 2 + 1
+    spec = np.zeros((3, m), np.complex64)
+    for r, start in enumerate((2, 40)):
+        j = np.arange(start, start + 300)
+        spec[r, j] = ((-1.0) ** j) * np.float32(1.01) ** (j - start)
+    spec = torch.from_numpy(spec).to(cuda)
+    _, passes, _ = _spectrum_both(spec, WALK_N, 0.0, -1.0)
+    assert passes.tolist() == [sw.MAX_WALK_ITERATIONS, sw.MAX_WALK_ITERATIONS, 1]
+    _spectrum_both(spec, WALK_N, 0.0, -1.0, _walk_history(3, 1, cuda))
+
+
+def test_spectral_walk_spectrum_refuses_what_it_cannot_take(cuda):
+    """A float spectrum, too few entries for n, a lookahead under 4
+    samples, too many bins and a wrong history raise before any launch."""
+    spec = _walk_spectrum(2, 1, cuda)
+    hist = _walk_history(2, 1, cuda)
+    n = sw.launches
+    with pytest.raises(ValueError, match="complex64"):
+        sw.spectral_walk_spectrum(spec.abs(), WALK_N)
+    with pytest.raises(ValueError, match=r"\[\.\.\., >= 4097\]"):
+        sw.spectral_walk_spectrum(spec[:, :4096], WALK_N)
+    with pytest.raises(ValueError, match=r"\[\.\.\., >= 3\]"):
+        sw.spectral_walk_spectrum(torch.fft.rfft(torch.ones((2, 3), device=cuda)), 3)
+    with pytest.raises(ValueError, match="at most 8192"):
+        sw.spectral_walk_spectrum(torch.zeros((1, 9000), dtype=torch.complex64, device=cuda), 2 * 8195)
+    with pytest.raises(ValueError, match="history"):
+        sw.spectral_walk_filtered_spectrum(spec, WALK_N, hist[:, :4])
     assert sw.launches == n
 
 

@@ -973,3 +973,121 @@ def test_phase_plan_constants_are_the_kernels(python_name, kernel_name):
     source = (Path(pd.__file__).resolve().parent.parent / "csrc" / "phase_decay_db.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
     assert getattr(pd, python_name) == consts[kernel_name]
+
+
+# ---------------------------------------------------------------------------
+# kernel F's spectrum load stage (csrc/spectral_walk.cu)
+# ---------------------------------------------------------------------------
+
+
+def _walk_constants():
+    import re
+    from pathlib import Path
+
+    from signalizer_tpu_torch.kernels import spectral_walk as sw
+
+    source = (Path(sw.__file__).resolve().parent.parent / "csrc" / "spectral_walk.cu").read_text()
+    return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+
+
+def spectrum_load_model(n, rows, row_entries):
+    """The spectrum stage of kernel F as a numpy model, for rows of a
+    contiguous complex64 tensor [rows, row_entries] whose first row starts
+    on a 16-byte boundary. Per row: the block's threads and walkers, the
+    16-byte chunks each thread loads (as entry indices: the chunk's first
+    entry, -1 where an odd row starts 8 bytes past a boundary), the thread
+    that forms each bin's magnitude, the staged slots read for a bin's
+    offset (its neighbours) and the walker slot that holds each candidate.
+    Mirrors sig_spectral_walk_spectrum's plan and the kernel's index
+    arithmetic."""
+    k = _walk_constants()
+    pow2 = lambda v: 1 << max(int(v) - 1, 0).bit_length()  # noqa: E731
+    m = max(n // 2 - 2, 0)
+    entries = m + 3
+    chunks_max = (entries + 2) // 2
+    walkers = max(32, pow2(-(-m // k["kSlots"])))
+    threads = min(max(pow2((chunks_max + 1) // 2), walkers), k["kMaxThreads"])
+    assert walkers <= threads <= k["kMaxThreads"] and k["kLoadChunks"] * threads >= chunks_max
+    out = []
+    for r in range(rows):
+        start = r * row_entries  # the row's first entry, in complex entries from the base
+        s = start & 1  # 8 bytes past a 16-byte boundary
+        chunks = (entries + s + 1) >> 1
+        loads = {}  # thread -> [first entry of each chunk it loads]
+        formed = {}  # bin -> thread that forms |X|
+        staged = np.zeros(2 * chunks_max, bool)
+        for t in range(threads):
+            for b in range(0, k["kLoadChunks"], k["kLoadBatch"]):
+                if t + b * threads >= chunks:
+                    break
+                for i in range(k["kLoadBatch"]):
+                    c = t + (b + i) * threads
+                    if c >= chunks:
+                        continue
+                    assert (start - s + 2 * c) * 8 % 16 == 0  # a 16-byte aligned load
+                    loads.setdefault(t, []).append(2 * c - s)
+                    staged[2 * c : 2 * c + 2] = True
+                    for e in (2 * c - s, 2 * c + 1 - s):
+                        if 1 <= e <= m + 1:
+                            assert e not in formed
+                            formed[e] = t
+        neighbours = {j: [j - 1 + s, j + s, j + 1 + s] for j in range(1, m + 2)}
+        held = {}  # candidate bin -> (walker, slot)
+        for t in range(walkers):
+            for slot in range(k["kSlots"]):
+                j = 2 + t + slot * walkers
+                if j <= m + 1:
+                    assert j not in held
+                    held[j] = (t, slot)
+        out.append(dict(s=s, threads=threads, walkers=walkers, chunks=chunks, loads=loads, formed=formed,
+                        neighbours=neighbours, staged=staged, held=held))
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 16, 33])
+@pytest.mark.parametrize("n", [8192, 1024])
+def test_spectral_walk_spectrum_load_stage(n, rows):
+    """Kernel F's spectrum stage on an rfft [rows, n / 2 + 1] complex64:
+    every bin 1 .. n/2 - 1 has its magnitude formed exactly once, by the
+    thread that loaded the bin's chunk; each bin's offset reads the staged
+    slots of entries j - 1, j, j + 1, all loaded; an odd row (its start 8
+    bytes past a 16-byte boundary) loads from entry -1, an even one from
+    entry 0; no load starts past the 16-byte block that holds entry n / 2;
+    every candidate bin 2 .. n/2 - 1 is held by exactly one walker's slot,
+    bins rising along a walker's slots; the staged slots fit the shared
+    memory the entry asks for."""
+    half = n // 2
+    for r, row in enumerate(spectrum_load_model(n, rows, half + 1)):
+        assert row["s"] == (r * (half + 1)) % 2
+        assert sorted(row["formed"]) == list(range(1, half))
+        first = min(e for loads in row["loads"].values() for e in loads)
+        assert first == -row["s"]
+        last = max(e for loads in row["loads"].values() for e in loads)
+        assert last <= half <= last + 1  # the last chunk holds entry n / 2
+        for j, slots in row["neighbours"].items():
+            assert [sl - row["s"] for sl in slots] == [j - 1, j, j + 1]
+            assert all(row["staged"][sl] for sl in slots)
+        for j, t in row["formed"].items():
+            assert (j + row["s"]) // 2 % row["threads"] == t  # the thread that loaded the bin's chunk
+        assert sorted(row["held"]) == list(range(2, half))
+        for t in range(row["walkers"]):
+            bins = [j for j, (w, _) in sorted(row["held"].items(), key=lambda kv: kv[1][1]) if w == t]
+            assert bins == sorted(bins)
+        assert (row["threads"], row["walkers"]) == ((1024, 256) if n == 8192 else (256, 32))
+        assert 8 * len(row["staged"]) == 16 * ((half + 3) // 2)
+
+
+@pytest.mark.parametrize("n", [16389, 16384, 10000])
+def test_spectral_walk_spectrum_plan_stages_the_largest_rows(n):
+    """Up to the largest lookahead the kernel takes (n = 16389, MAX_BINS
+    candidates) the plan's 1024 threads stage an rfft row [n // 2 + 1] in
+    at most kLoadChunks chunks a thread, the largest taking all of them;
+    every bin is formed once and every candidate held by one of 512
+    walkers, odd rows included."""
+    k = _walk_constants()
+    half = n // 2
+    for row in spectrum_load_model(n, 2, half + 1):
+        assert (row["threads"], row["walkers"]) == (1024, 512)
+        assert sorted(row["formed"]) == list(range(1, half)) and sorted(row["held"]) == list(range(2, half))
+        most = max(len(v) for v in row["loads"].values())
+        assert most <= k["kLoadChunks"] and (n != 16389 or most == k["kLoadChunks"])

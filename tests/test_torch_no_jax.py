@@ -361,7 +361,7 @@ def test_build_names_the_library_by_its_sources():
         "sig_window_fft_mag", "sig_window_fft_mag_cluster", "sig_window_fft_mag_long", "sig_display_map",
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
         "sig_peak_hold", "sig_envelope_hold", "sig_colour_split", "sig_colour_track", "sig_spectral_walk",
-        "sig_phase_decay_db", "sig_resonator_scan",
+        "sig_spectral_walk_spectrum", "sig_phase_decay_db", "sig_resonator_scan",
     }
 
 

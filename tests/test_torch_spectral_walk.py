@@ -1,5 +1,7 @@
 """Kernel F's plain versions (the spectral trigger's candidate walk and the
-median filter, ``signalizer_tpu_torch/kernels/spectral_walk.py``) against
+median filter, ``signalizer_tpu_torch/kernels/spectral_walk.py``; the
+spectrum entries' also form the magnitudes and offsets from the rfft)
+against
 the JAX package's ``spectral_fundamental`` and ``median_record_filter`` on
 the CPU, and a ``cycles.oscilloscope`` session (the walk once a tick)
 against the JAX session. Inputs are made with numpy from a seed.
@@ -120,6 +122,70 @@ def test_plain_walk_matches_jax_spectral_fundamental(threshold, hysteresis):
     _, _, rec3 = tk.spectral_fundamental(_t(x), FS, threshold=threshold, hysteresis=hysteresis)
     assert torch.equal(rec3.index, rec.index)
     assert tk.walk_iterations == int(passes.max()) == int(accepted.max()) + 1
+
+
+SETTINGS = [(0.0, 0.0), (0.1, 0.0), (0.0, 0.4), (0.1, 0.4)]
+
+
+def _history(rows, seed):
+    """-1 sentinels in the first row, half of the second, far omegas after."""
+    rng = np.random.default_rng(seed)
+    hist = np.full((rows, sw.MEDIAN_FILTER_SIZE), -1.0, np.float32)
+    hist[1, 4:] = rng.uniform(10, 40, 4)
+    hist[2:] = rng.uniform(100, 400, (rows - 2, sw.MEDIAN_FILTER_SIZE))
+    return _t(hist)
+
+
+@pytest.mark.parametrize("threshold,hysteresis", SETTINGS)
+def test_spectrum_plain_matches_jax_spectral_fundamental_and_median_filter(threshold, hysteresis):
+    """The spectrum entries' plain versions (``spec.abs()``, ``_quad_delta``
+    and the plain loop on the rfft, then the median filter) on the five
+    signals against the JAX ``spectral_fundamental`` and
+    ``median_record_filter`` from the same numpy x, over three carried
+    calls: the index equal, value and offset rtol 1e-5 (two FFTs), the
+    history (omegas) rtol 1e-5; on CPU tensors the entries take them."""
+    x = _signals()
+    spec = torch.fft.rfft(_t(x), dim=-1)
+    rec, passes = sw.spectral_walk_spectrum_plain(spec, N, threshold, hysteresis)
+    _, _, jrec = jk.spectral_fundamental(jnp.asarray(x), FS, threshold=threshold, hysteresis=hysteresis)
+    np.testing.assert_array_equal(rec.index.numpy(), np.asarray(jrec.index))
+    np.testing.assert_allclose(rec.value.numpy(), np.asarray(jrec.value), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rec.offset.numpy(), np.asarray(jrec.offset), rtol=1e-5, atol=1e-5)
+    assert passes[-1] == 1  # silence accepts nothing
+    rec2, passes2 = sw.spectral_walk_spectrum(spec, N, threshold, hysteresis)
+    assert all(torch.equal(a, b) for a, b in zip(rec, rec2)) and torch.equal(passes, passes2)
+    hist, jhist = _history(5, 11), jnp.asarray(_history(5, 11).numpy())
+    for _ in range(3):
+        hist, filtered, _ = sw.spectral_walk_filtered_spectrum(spec, N, hist, threshold, hysteresis)
+        jhist, jfiltered, _ = jk.median_record_filter(jhist, jrec)
+        np.testing.assert_allclose(hist.numpy(), np.asarray(jhist), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(filtered.index.numpy(), np.asarray(jfiltered.index))
+        np.testing.assert_allclose(filtered.value.numpy(), np.asarray(jfiltered.value), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(filtered.offset.numpy(), np.asarray(jfiltered.offset), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("threshold,hysteresis", SETTINGS)
+def test_spectrum_plain_is_bit_equal_to_spectral_bins_and_the_plain_loop(threshold, hysteresis):
+    """The spectrum entries' plain versions on the rfft of the five signals
+    are ``spectral_bins`` followed by the bins entries' plain versions, bit
+    for bit: record and passes, and over three carried calls the filtered
+    record and history; ``spectral_fundamental`` on CPU tensors gives the
+    same record."""
+    x = _t(_signals())
+    spec = torch.fft.rfft(x, dim=-1)
+    mags, offsets = tk.spectral_bins(x)
+    rec, passes = sw.spectral_walk_spectrum_plain(spec, N, threshold, hysteresis)
+    want, want_passes = sw.spectral_walk_plain(mags, offsets, N, threshold, hysteresis)
+    assert all(torch.equal(a, b) for a, b in zip(rec, want)) and torch.equal(passes, want_passes)
+    _, _, rec3 = tk.spectral_fundamental(x, FS, threshold=threshold, hysteresis=hysteresis)
+    assert all(torch.equal(a, b) for a, b in zip(rec3, want))
+    hist = want_hist = _history(5, 13)
+    for _ in range(3):
+        hist, filtered, p = sw.spectral_walk_filtered_spectrum_plain(spec, N, hist, threshold, hysteresis)
+        want_hist, want_filtered, wp = sw.spectral_walk_filtered_plain(mags, offsets, N, want_hist, threshold,
+                                                                       hysteresis)
+        assert torch.equal(hist, want_hist) and torch.equal(p, wp)
+        assert all(torch.equal(a, b) for a, b in zip(filtered, want_filtered))
 
 
 def _chain_bins(rows_start, length, ratio, start_value, seed, m=N // 2 + 1):
@@ -293,6 +359,11 @@ def test_kernel_entries_refuse_other_devices():
         sw.spectral_walk(mags, mags, 64)
     with pytest.raises(ValueError, match="unsupported device"):
         sw.spectral_walk_filtered(mags, mags, 64, torch.zeros((2, 8), device="meta"))
+    spec = torch.zeros((2, 33), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw.spectral_walk_spectrum(spec, 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw.spectral_walk_filtered_spectrum(spec, 64, torch.zeros((2, 8), device="meta"))
 
 
 def test_cycles_preset_session_matches_the_jax_session():
