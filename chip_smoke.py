@@ -295,6 +295,8 @@ import numpy as np
 
 sys.modules["jax"] = None  # any jax import below fails loudly
 
+from signalizer_tpu_torch.utils.diagnostics import count, counter, reset_counters  # noqa: E402
+
 FS = 48_000.0
 WINDOW = 4096
 AXIS_POINTS = 1024
@@ -838,11 +840,13 @@ def phase_halves_slice(torch, dev, proc, x, tick, launches_out, calls_out):
     frames = [x, x.flip(1), tick[:, None]]
     state = ts.init_line_graph_state(c, (PAIRS,))
     fused_state = ts.init_line_graph_state(c, (PAIRS,))
-    wfm.launches = dm.launches = dm.remap_launches = dm.decay_db_launches = 0
+    reset_counters("window_fft_mag.launches", "display_map.launches", "display_map.remap_launches",
+                   "display_map.decay_db_launches")
     outs = [ts.post_process(c, state, ts.spectrum_values(c, f)).results for f in frames]
     torch.cuda.synchronize()
-    launches = {"window_fft_mag": wfm.launches, "display_map": dm.launches,
-                "display_remap": dm.remap_launches, "display_decay_db": dm.decay_db_launches}
+    launches = {"window_fft_mag": counter("window_fft_mag.launches"), "display_map": counter("display_map.launches"),
+                "display_remap": counter("display_map.remap_launches"),
+                "display_decay_db": counter("display_map.decay_db_launches")}
     require(launches == {"window_fft_mag": 3, "display_map": 0, "display_remap": 3, "display_decay_db": 3},
             f"halves launch counts {launches}")
     for f, out in zip(frames, outs):
@@ -962,11 +966,13 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     calls += [x[:, 3 * T + i : 3 * T + i + 1].contiguous() for i in range(3)]
     plain = ts.init_line_graph_state(c, (PAIRS,))
     worst, outs = 0.0, []
-    wfm.launches = dm.launches = dm.decay_db_launches = pd.launches = 0
+    reset_counters("window_fft_mag.launches", "display_map.launches", "display_map.decay_db_launches",
+                   "phase_decay_db.launches")
     for frames in calls:
         outs.append(proc.process(frames))
-    counted = {"window_fft_mag": wfm.launches, "display_map": dm.launches,
-               "display_decay_db": dm.decay_db_launches, "phase_decay_db": pd.launches}
+    counted = {"window_fft_mag": counter("window_fft_mag.launches"), "display_map": counter("display_map.launches"),
+               "display_decay_db": counter("display_map.decay_db_launches"),
+               "phase_decay_db": counter("phase_decay_db.launches")}
     require(counted == {"window_fft_mag": 6, "display_map": 0, "display_decay_db": 0, "phase_decay_db": 6},
             f"PHASE headline calls launched {counted}")
     for frames, out in zip(calls, outs):
@@ -999,9 +1005,9 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
     bounds = gradient_bounds(ratios)
     s4, p4 = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
-    pd.launches = 0
+    reset_counters("phase_decay_db.launches")
     cols, _ = tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
-    g4 = pd.launches
+    g4 = counter("phase_decay_db.launches")
     want4 = pd.phase_decay_db_plain(c4, p4, ts.spectrum_values(c4, frames4), valid4)
     want_cols = spectrogram_columns(want4[:, :, 0, 0, :], colours, ratios)
     torch.cuda.synchronize()
@@ -1132,9 +1138,9 @@ def phase_spectrogram(torch, dev):
     ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
     bounds = gradient_bounds(ratios)
     state, plain_state = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
-    wfm.launches = dm.launches = 0
+    reset_counters("window_fft_mag.launches", "display_map.launches")
     cols, _ = tv.spectrogram_step(c4, state, frames, colours, ratios, valid, bounds)
-    a_launches, b_launches = wfm.launches, dm.launches
+    a_launches, b_launches = counter("window_fft_mag.launches"), counter("display_map.launches")
     plain = dm.display_map_plain(c4, wfm.window_fft_mag_plain(c4, frames), plain_state.magnitude, valid)
     want = spectrogram_columns(plain[:, :, 0, 0, :], colours, ratios)
     torch.cuda.synchronize()
@@ -1170,7 +1176,7 @@ def phase_spectrogram(torch, dev):
     columns, per_route = {}, {}
     for route in ("device", "host"):
         sp = SpectrogramProcessor(device=dev, device_ingest=(route == "device"), **kw)
-        wfm.launches = dm.launches = 0
+        reset_counters("window_fft_mag.launches", "display_map.launches")
         cols_out, ms, lags = [], [], []
         for i in range(ticks):
             sp.push(audio[:, i * tick_n : (i + 1) * tick_n])
@@ -1182,14 +1188,18 @@ def phase_spectrogram(torch, dev):
                 lags.append(lag)
         pulls = sum(1 for c_ in cols_out if c_.shape[0])
         columns[route] = np.concatenate(cols_out)
-        require(wfm.launches == dm.launches == sp.readbacks, f"cfg4b {route}: launches {wfm.launches}, {dm.launches}, readbacks {sp.readbacks}")
-        require(wfm.launches >= pulls > 200, f"cfg4b {route}: {wfm.launches} launches in {pulls} pulls with frames")
+        a_pulled, b_pulled = counter("window_fft_mag.launches"), counter("display_map.launches")
+        require(a_pulled == b_pulled == sp.readbacks,
+                f"cfg4b {route}: launches {a_pulled}, {b_pulled}, readbacks {sp.readbacks}")
+        require(counter("window_fft_mag.launches") >= pulls > 200,
+                f"cfg4b {route}: {counter('window_fft_mag.launches')} launches in {pulls} pulls with frames")
         require(max(lags) < hop, f"cfg4b {route}: freshness lag {max(lags)} >= one hop")
         require(sp.batcher.dropped_frames == 0, f"cfg4b {route}: dropped {sp.batcher.dropped_frames} frames")
         steady = ms[20:]
         per_route[route] = {
             "pull_p50_ms": float(np.percentile(steady, 50)), "pull_p99_ms": float(np.percentile(steady, 99)),
-            "kernel_a_launches_per_pull": wfm.launches / pulls, "kernel_b_launches_per_pull": dm.launches / pulls,
+            "kernel_a_launches_per_pull": counter("window_fft_mag.launches") / pulls,
+            "kernel_b_launches_per_pull": counter("display_map.launches") / pulls,
             "syncs_per_pull": sp.readbacks / pulls, "columns": int(columns[route].shape[0]),
             "lag_max_samples": float(max(lags)),
         }
@@ -1283,14 +1293,14 @@ def phase_resonator(torch, dev, launches_out, calls_out, results):
     calls.append((x[..., 4800:].reshape(PAIRS, 2, 16, 512), backlog_valid))
 
     worst = 0.0
-    dm.decay_db_launches = rs.launches = 0
+    reset_counters("display_map.decay_db_launches", "resonator_scan.launches")
     scan_launches = 0
     for blocks, valid in calls:
         plain.load_state(proc.res_state, ts.LineGraphState(*(t.clone() for t in proc.graph_state)))
-        before = rs.launches
+        before = counter("resonator_scan.launches")
         out = proc.process_chunks(blocks, valid=valid)
-        scan_launches += rs.launches - before
-        counted = (dm.decay_db_launches, rs.launches)
+        scan_launches += counter("resonator_scan.launches") - before
+        counted = (counter("display_map.decay_db_launches"), counter("resonator_scan.launches"))
         # the plain tail and the plain scan, on the same CUDA tensors
         tail, scan = ts.display_decay_db, rz.resonator_scan
         ts.display_decay_db, rz.resonator_scan = dm.decay_db, rs.resonator_scan_plain
@@ -1299,14 +1309,15 @@ def phase_resonator(torch, dev, launches_out, calls_out, results):
         finally:
             ts.display_decay_db, rz.resonator_scan = tail, scan
         torch.cuda.synchronize()
-        require((dm.decay_db_launches, rs.launches) == counted, "the plain tail or scan launched a kernel")
+        require((counter("display_map.decay_db_launches"), counter("resonator_scan.launches")) == counted,
+                "the plain tail or scan launched a kernel")
         require(out.shape == (PAIRS, 1, 2, 2, AXIS_POINTS) and bool(torch.isfinite(out).all()), "resonator output")
         require(torch.equal(proc.res_state, plain.res_state), "resonator bank differs from the plain scan's")
         require(torch.equal(proc.graph_state.magnitude, plain.graph_state.magnitude),
                 "resonator graph state differs from the plain tail's")
         worst = max(worst, float((out - want).abs().max()))
         require(bool((out[-1] == float(c.clip_db)).all()), "silent pair reads clip_db")
-    launches = dm.decay_db_launches
+    launches = counter("display_map.decay_db_launches")
     require(launches == len(calls), f"decay_db launched {launches} times in {len(calls)} calls")
     require(scan_launches == len(calls), f"kernel H launched {scan_launches} times in {len(calls)} calls")
     require(worst <= 1e-5, f"resonator display vs the plain tail {worst} > 1e-5")
@@ -1430,9 +1441,9 @@ def phase_kernel_h(torch, dev, proc, calls, results):
     ref = ResonatorSpectrumProcessor.create(pairs=PAIRS, device=dev, **headline(configuration=SpectrumChannels.PHASE))
     for blocks, valid in (calls[0], calls[-1], calls[-1]):
         ref.load_state(ph.res_state.clone(), ts.LineGraphState(*(t.clone() for t in ph.graph_state)))
-        before = (rs.launches, pd.launches)
+        before = (counter("resonator_scan.launches"), counter("phase_decay_db.launches"))
         out = ph.process_chunks(blocks, valid=valid)
-        after = (rs.launches, pd.launches)
+        after = (counter("resonator_scan.launches"), counter("phase_decay_db.launches"))
         scan, tail = rz.resonator_scan, ts.phase_decay_db
         rz.resonator_scan, ts.phase_decay_db = rs.resonator_scan_plain, pd.phase_decay_db_plain
         try:
@@ -1441,7 +1452,8 @@ def phase_kernel_h(torch, dev, proc, calls, results):
             rz.resonator_scan, ts.phase_decay_db = scan, tail
         torch.cuda.synchronize()
         require(tuple(b - a for a, b in zip(before, after)) == (1, 1), "PHASE bank: kernels H and G not once each")
-        require((rs.launches, pd.launches) == after, "the plain scan or tail launched a kernel")
+        require((counter("resonator_scan.launches"), counter("phase_decay_db.launches")) == after,
+                "the plain scan or tail launched a kernel")
         require(torch.equal(ph.res_state, ref.res_state), "PHASE bank differs from the plain scan's")
         require(torch.equal(ph.graph_state.magnitude, ref.graph_state.magnitude)
                 and torch.equal(ph.graph_state.phase, ref.graph_state.phase), "PHASE bank's tail states differ")
@@ -1500,8 +1512,8 @@ def phase_slice(torch, dev, launches_out, calls_out):
     calls += [frames[:, 3 * T + i] for i in range(3)]  # per-tick [pairs, 2, W]
 
     worst = 0.0
-    wfm.launches = 0
-    dm.launches = 0
+    reset_counters("window_fft_mag.launches")
+    reset_counters("display_map.launches")
     for chunk in calls:
         out = proc.process(chunk)
         x = torch.from_numpy(chunk).to(dev)
@@ -1513,7 +1525,7 @@ def phase_slice(torch, dev, launches_out, calls_out):
         require(bool(torch.isfinite(out).all()), "slice output finite")
         worst = max(worst, float((out - want).abs().max()))
         require(bool((out[-1] == clip_db).all()), "silent pair reads clip_db everywhere")
-    launches = {"window_fft_mag": wfm.launches, "display_map": dm.launches}
+    launches = {"window_fft_mag": counter("window_fft_mag.launches"), "display_map": counter("display_map.launches")}
     launches_out.update(launches)
     calls_out.update({name: len(calls) for name in launches})
     require(worst <= 2e-4, f"slice vs plain display error {worst} > 2e-4")
@@ -1802,17 +1814,18 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
         wave_err = 0.0
         frames = []
         walks = []  # kernel F's passes a call (the most of any row), from its device counter
-        br.launches = 0
+        reset_counters("banded_resample.launches")
         colour_launches = 0  # kernel E on the main path (the plain-resample run also launches it)
         walk_launches = 0  # kernel F likewise (the plain run takes the plain walk)
         spectrum_launches = 0  # of which through its spectrum entry (the rfft in)
         for h in calls:
             plain.state = proc.state
-            before, walk_before, spectrum_before = ct.launches, sw.launches, sw.spectrum_launches
+            before = counter("colour_track.launches")
+            walk_before, spectrum_before = counter("spectral_walk.launches"), counter("spectral_walk.spectrum_launches")
             frame = proc.process(h, new_samples=OSC_HOP)
-            colour_launches += ct.launches - before
-            walk_launches += sw.launches - walk_before
-            spectrum_launches += sw.spectrum_launches - spectrum_before
+            colour_launches += counter("colour_track.launches") - before
+            walk_launches += counter("spectral_walk.launches") - walk_before
+            spectrum_launches += counter("spectral_walk.spectrum_launches") - spectrum_before
             passes = sw.last_passes if spectral else None
             with plain_resample(), plain_walk():
                 want = plain.process(h, new_samples=OSC_HOP)
@@ -1835,7 +1848,7 @@ def phase_osc_slice(torch, dev, launches_out, calls_out):
                 require(torch.equal(getattr(frame, key), getattr(want, key)), f"{name} {key} vs plain")
             require(bool((frame.waveform[-1] == 0).all()), f"{name} silent pair draws zero")
             frames.append(frame)
-        launches = br.launches
+        launches = counter("banded_resample.launches")
         require(launches == OSC_CALLS * (1 + int(colour)),
                 f"{name}: kernel C launched {launches} times in {OSC_CALLS} calls")
         require(colour_launches == OSC_CALLS * int(colour),
@@ -1958,10 +1971,10 @@ def phase_kernel_a_long(torch, dev, results, launches_out, calls_out):
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 
     report = {"phase": "kernel_a_long", "bound": "row-relative error <= 5e-6; a silent row exactly 0", "cases": {}}
-    counters = {"cluster": "cluster_launches", "two_pass": "long_launches"}
+    counters = {"cluster": "window_fft_mag.cluster_launches", "two_pass": "window_fft_mag.long_launches"}
 
     def counts():
-        return {route: getattr(wfm, name) for route, name in counters.items()}
+        return {route: counter(name) for route, name in counters.items()}
 
     cases = [  # name, constant keywords, frames shape, form
         ("n65536_w48000", headline(window_size=LONG_WINDOW), (PAIRS, 4, 2, LONG_WINDOW), "cluster"),
@@ -2083,13 +2096,14 @@ def phase_kernel_a_long(torch, dev, results, launches_out, calls_out):
     require(wfm.form(c2) == "two_pass", f"kernel A: the {TWO_PASS_WINDOW}-sample Spectrum is not two-pass")
     x = _frames(torch, (PAIRS, 1, 2, TWO_PASS_WINDOW), seed=231, dev=dev)
     plain_state = proc.state.magnitude.clone()
-    wfm.long_launches = 0
+    reset_counters("window_fft_mag.long_launches")
     for _ in range(TWO_PASS_CALLS):
         spectrum = proc.process(x)
     torch.cuda.synchronize()
-    launches_out["window_fft_mag_long"] = wfm.long_launches
+    launches_out["window_fft_mag_long"] = counter("window_fft_mag.long_launches")
     calls_out["window_fft_mag_long"] = TWO_PASS_CALLS
-    require(wfm.long_launches == TWO_PASS_CALLS, f"kernel A: {wfm.long_launches} two-pass launches in "
+    long_launches = counter("window_fft_mag.long_launches")
+    require(long_launches == TWO_PASS_CALLS, f"kernel A: {long_launches} two-pass launches in "
             f"{TWO_PASS_CALLS} Spectrum calls")
     for _ in range(TWO_PASS_CALLS):
         plain_spectrum = dm.display_map_plain(c2, wfm.window_fft_mag_plain(c2, x), plain_state)
@@ -2286,9 +2300,9 @@ def phase_live(torch, dev, launches_out, calls_out):
         views()
     torch.cuda.synchronize()
     held(-1)
-    counters = (wfm, "launches"), (wfm, "cluster_launches"), (dm, "launches"), (br, "launches")
-    for mod, name in counters:
-        setattr(mod, name, 0)
+    counters = ("window_fft_mag.launches", "window_fft_mag.cluster_launches", "display_map.launches",
+                "banded_resample.launches")
+    reset_counters(*counters)
     reprimes0 = history.reprimes
     tick_ms, sync_us, uploaded, arrived = [], [], [], []
     for tick in range(LIVE_TICKS):
@@ -2308,12 +2322,13 @@ def phase_live(torch, dev, launches_out, calls_out):
         held(tick)
         require(all(bool(torch.isfinite(x).all()) for x in (out[0], out[1], out[2].waveform, out[3].vertices)),
                 f"live tick {tick}: a view's output is not finite")
-    live_launches = {"window_fft_mag": wfm.launches, "window_fft_mag_cluster": wfm.cluster_launches,
-                     "display_map": dm.launches, "banded_resample": br.launches}
+    live_launches = {"window_fft_mag": counter("window_fft_mag.launches"),
+                     "window_fft_mag_cluster": counter("window_fft_mag.cluster_launches"),
+                     "display_map": counter("display_map.launches"), "banded_resample": counter("banded_resample.launches")}
     for name, count in live_launches.items():
         require(count > 0, f"live: {name} was not launched")
-    require(wfm.cluster_launches == LIVE_TICKS,
-            f"live: the cluster form ran {wfm.cluster_launches} times in {LIVE_TICKS} ticks")
+    require(counter("window_fft_mag.cluster_launches") == LIVE_TICKS,
+            f"live: the cluster form ran {counter('window_fft_mag.cluster_launches')} times in {LIVE_TICKS} ticks")
     require(history.reprimes == reprimes0, f"live: {history.reprimes - reprimes0} re-primes while fed every tick")
     require(all(u == LIVE_CHANNELS * 4 * a for u, a in zip(uploaded, arrived)),
             "live: a sync uploaded other than the samples that arrived")
@@ -2364,11 +2379,11 @@ def phase_live(torch, dev, launches_out, calls_out):
     syncs = []
     for _ in range(10):
         feed()
-        with SyncCounter(torch) as counter:
+        with SyncCounter(torch) as sync_counter:
             history.sync()
             views()
         torch.cuda.synchronize()
-        syncs.append(counter.count)
+        syncs.append(sync_counter.count)
 
     # a stall longer than the ring: the mirror re-primes and stays equal
     reprimes0 = history.reprimes
@@ -2568,20 +2583,20 @@ def phase_session(torch, dev, launches_out, calls_out):
     mapped = host_view(spec.constant, "mapped_frequencies")
     sine_px = int(np.argmin(np.abs(mapped - SESSION_HZ[0])))
 
-    counters = {"window_fft_mag": (wfm, "launches"), "window_fft_mag_cluster": (wfm, "cluster_launches"),
-                "window_fft_mag_long": (wfm, "long_launches"), "display_map": (dm, "launches"),
-                "display_remap": (dm, "remap_launches"), "display_decay_db": (dm, "decay_db_launches"),
-                "banded_resample": (br, "launches")}
+    counters = {"window_fft_mag": "window_fft_mag.launches",
+                "window_fft_mag_cluster": "window_fft_mag.cluster_launches",
+                "window_fft_mag_long": "window_fft_mag.long_launches", "display_map": "display_map.launches",
+                "display_remap": "display_map.remap_launches", "display_decay_db": "display_map.decay_db_launches",
+                "banded_resample": "banded_resample.launches"}
 
     def counts():
-        return {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+        return {k: counter(name) for k, name in counters.items()}
 
     # the fused session and a per-view session on the same blocks, a tick of
     # each in turn (the first of the two alternates); the fused session's
     # launches are counted from just before each of its ticks to just after
     pv = session_open(dev, fused=False)
-    for mod, name in counters.values():
-        setattr(mod, name, 0)
+    reset_counters(*counters.values())
     ticked = dict.fromkeys(counters, 0)
     main, columns, tracked = [], 0, []
     ms = {True: [], False: []}
@@ -2652,7 +2667,6 @@ def phase_session(torch, dev, launches_out, calls_out):
 
     # RSNT: the resonator bank on the continuous stream, kernel H and the
     # display kernel's decay-and-dB entry; against a CPU RSNT session
-    from signalizer_tpu_torch.kernels import resonator_scan as rscan
 
     def rsnt(eng):
         eng.spectrum.algorithm.set_normalized(1.0)
@@ -2666,7 +2680,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         return process_chunks(blocks, valid)
 
     bank_proc.process_chunks = counted
-    dm.decay_db_launches = rscan.launches = 0
+    reset_counters("display_map.decay_db_launches", "resonator_scan.launches")
     rsnt_err = {"display_db_map": 0.0, "display": 0.0, "bank": 0.0}
     lower, dyr = (float(v) for v in rs.processor("spectrum").constant.display_scalars[1:3])
     clip = float(rs.processor("spectrum").constant.clip_db)
@@ -2688,7 +2702,8 @@ def phase_session(torch, dev, launches_out, calls_out):
         if i >= SESSION_FULL:
             px = int(np.argmax(got.spectrum[0, 0]))
             require(abs(px - sine_px) <= 1, f"RSNT tick {i}: peak pixel {px}, the sine at {sine_px}")
-    rsnt_launches, rsnt_scans, rsnt_bank_calls = dm.decay_db_launches, rscan.launches, len(rsnt_calls)
+    rsnt_launches, rsnt_scans = counter("display_map.decay_db_launches"), counter("resonator_scan.launches")
+    rsnt_bank_calls = len(rsnt_calls)
     # one launch of each a call of the bank, made on each tick with a whole
     # 1024-sample chunk pending
     require(rsnt_launches == rsnt_bank_calls, f"RSNT: decay-and-dB launched {rsnt_launches} times "
@@ -2789,7 +2804,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     # the card session's ticks first, timed with nothing else in the loop;
     # then the CPU session's on the same blocks
     pk_ms, pk_frames, pk_worst, pk_found = [], [], {}, 0
-    ph.launches = 0
+    reset_counters("peak_hold.launches")
     for i in range(SESSION_SIDE_TICKS):
         session_feed(pk, blocks, i)
         t0 = time.perf_counter()
@@ -2798,7 +2813,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         pk_ms.append((time.perf_counter() - t0) * 1e3)
         pk_frames.append(session_host(got))
         pk_found += int(got.oscilloscope.trigger_found.any())
-    pk_launches = ph.launches
+    pk_launches = counter("peak_hold.launches")
     for i in range(SESSION_SIDE_TICKS):
         session_feed(pk_cpu, blocks, i)
         err = session_errors(pk_frames[i], session_host(pk_cpu.tick()))
@@ -2837,7 +2852,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     co_osc = co.processor("oscilloscope")
     require(co_osc.constant.colour_enabled, "coloured: the preset's oscilloscope has no colour track")
     co_ms, co_frames, co_worst = [], [], {}
-    ct.launches = 0
+    reset_counters("colour_track.launches")
     for i in range(SESSION_SIDE_TICKS):
         session_feed(co, blocks, i)
         t0 = time.perf_counter()
@@ -2845,7 +2860,7 @@ def phase_session(torch, dev, launches_out, calls_out):
         torch.cuda.synchronize()
         co_ms.append((time.perf_counter() - t0) * 1e3)
         co_frames.append(session_host(got))
-    co_launches = ct.launches
+    co_launches = counter("colour_track.launches")
     for i in range(SESSION_SIDE_TICKS):
         session_feed(co_cpu, blocks, i)
         err = session_errors(co_frames[i], session_host(co_cpu.tick()))
@@ -2886,7 +2901,7 @@ def phase_session(torch, dev, launches_out, calls_out):
     require(cy_osc.trigger_mode == TriggerMode.SPECTRAL and cy_osc.time_mode == TimeMode.CYCLES,
             "cycles: the preset's oscilloscope is not SPECTRAL in Cycles mode")
     cy_ms, cy_frames, cy_fund, cy_windows, cy_passes, cy_calls = [], [], [], [], [], []
-    sw.launches = sw.spectrum_launches = 0
+    reset_counters("spectral_walk.launches", "spectral_walk.spectrum_launches")
     for i in range(SESSION_SIDE_TICKS):
         session_feed(cy, blocks, i)
         cy_calls.append([])
@@ -2899,13 +2914,14 @@ def phase_session(torch, dev, launches_out, calls_out):
         cy_fund.append(float(got.oscilloscope.fundamental[0]))
         cy_windows.append(cy_osc._cycle_window)
         cy_passes.append(int(sw.last_passes.max()))
-    cy_launches = sw.launches
-    require(sw.spectrum_launches == cy_launches, "cycles: kernel F launched other than through its spectrum entry")
+    cy_launches = counter("spectral_walk.launches")
+    require(counter("spectral_walk.spectrum_launches") == cy_launches,
+            "cycles: kernel F launched other than through its spectrum entry")
     with plain_walk():
         for i in range(SESSION_SIDE_TICKS):
             session_feed(cy_plain, blocks, i)
             session_equal(session_host(cy_plain.tick()), cy_frames[i], f"cycles tick {i}: kernel F vs the plain walk")
-    require(sw.launches == cy_launches, "cycles: the plain walk's session launched kernel F")
+    require(counter("spectral_walk.launches") == cy_launches, "cycles: the plain walk's session launched kernel F")
     # against the CPU: every view within its card tolerance, the fundamental
     # and the Cycles window within rtol 1e-5, trigger_found equal; but the
     # card's trigger is not the CPU's (cuFFT and the CPU's transform round
@@ -3417,10 +3433,11 @@ def phase_kernel_e(torch, dev, results):
         for call in range(2):
             xc = x if call == 0 else torch.roll(x, 37, -1)
             what = f"{name} call {call}"
-            n = ct.launches
+            n = counter("colour_track.launches")
             bands, fs_state = ct.three_band_split(xc, OSC_FS, state=fs_state)
             colours, ps_new, s_new = ct.colour_track(xc, OSC_FS, ps, pole, bc, key, blend, smooth)
-            require(ct.launches == n + 2, f"kernel E {what}: {ct.launches - n} launches for two calls")
+            require(counter("colour_track.launches") == n + 2,
+                    f"kernel E {what}: {counter('colour_track.launches') - n} launches for two calls")
             pb, pfs_state = ct.three_band_split_plain(xc, OSC_FS, state=pfs_state)
             pc, pz_new, ps_s = ct.colour_track_plain(xc, OSC_FS, pz, pole, bc, key, blend, psmooth)
             torch.cuda.synchronize()
@@ -3450,9 +3467,9 @@ def phase_kernel_e(torch, dev, results):
     # the fused entry on bands it is given (spectral_colour_track)
     x, state, smooth, key, _ = colour_inputs(torch, 4, 2, 5000, True, 17, dev)
     bands, _ = ct.three_band_split_plain(x, OSC_FS, state=state)
-    n = ct.launches
+    n = counter("colour_track.launches")
     got, _ = tk.spectral_colour_track(bands, pole, bc, key, blend, smooth)
-    require(ct.launches == n + 1, "kernel E: spectral_colour_track did not launch it once")
+    require(counter("colour_track.launches") == n + 1, "kernel E: spectral_colour_track did not launch it once")
     want, _ = ct.spectral_colour_track_plain(bands, pole, bc, key, blend, smooth)
     d = float((got - want).abs().max())
     require(d <= 1e-3, f"kernel E: spectral_colour_track colours {d} from the plain version's")
@@ -3642,7 +3659,7 @@ def phase_kernel_f(torch, dev, results):
              "index_mismatches": 0, "passes_mismatches": 0, "bit_mismatches": 0}
 
     def both(what, src, thr, hyst, history=None, offsets=None):
-        n, ns = sw.launches, sw.spectrum_launches
+        n, ns = counter("spectral_walk.launches"), counter("spectral_walk.spectrum_launches")
         spectrum = offsets is None
         if spectrum and history is None:
             rec, passes = sw.spectral_walk_spectrum(src, WALK_N, thr, hyst)
@@ -3659,8 +3676,9 @@ def phase_kernel_f(torch, dev, results):
             hist, rec, passes = sw.spectral_walk_filtered(src, offsets, WALK_N, history, thr, hyst)
             want_hist, want, want_passes = sw.spectral_walk_filtered_plain(src, offsets, WALK_N, history, thr, hyst)
         torch.cuda.synchronize()
-        require(sw.launches == n + 1 and sw.spectrum_launches == ns + int(spectrum),
-                f"kernel F {what}: {sw.launches - n} launches")
+        require(counter("spectral_walk.launches") == n + 1
+                and counter("spectral_walk.spectrum_launches") == ns + int(spectrum),
+                f"kernel F {what}: {counter('spectral_walk.launches') - n} launches")
         err = {"value_max_abs_err": nan_err(torch, rec.value, want.value),
                "offset_max_abs_err": nan_err(torch, rec.offset, want.offset),
                "history_max_abs_err": 0.0 if hist is None else nan_err(torch, hist, want_hist),
@@ -3872,19 +3890,19 @@ def envelope_hold_calls(torch, dev, calls, launches_out, calls_out):
               **osc_kwargs(trigger_mode=TriggerMode.ENVELOPE_HOLD, trigger_hysteresis=0.3))
     hold, loop = OscilloscopeProcessor.create(**kw), OscilloscopeProcessor.create(**kw)
     found = []
-    ph.launches = 0
+    reset_counters("peak_hold.launches")
     for h in calls:
         frame = hold.process(h, new_samples=OSC_HOP)
-        launched = ph.launches
+        launched = counter("peak_hold.launches")
         with plain_peak_hold():
             want = loop.process(h, new_samples=OSC_HOP)
-        ph.launches = launched
+        count("peak_hold.launches", launched - counter("peak_hold.launches"))
         torch.cuda.synchronize()
         for key in ("waveform", "envelope_min", "envelope_max", "colours", "gain", "trigger_found"):
             require(torch.equal(getattr(frame, key), getattr(want, key)), f"ENVELOPE_HOLD {key} vs the loop")
         require(torch.equal(hold.state.peak_fire_ages, loop.state.peak_fire_ages), "ENVELOPE_HOLD fire queue")
         found.append(int(frame.trigger_found.sum()))
-    launches = ph.launches
+    launches = counter("peak_hold.launches")
     require(launches == OSC_CALLS, f"ENVELOPE_HOLD: kernel D launched {launches} times in {OSC_CALLS} calls")
     launches_out["peak_hold"] = launches_out.get("peak_hold", 0) + launches
     calls_out["peak_hold"] = calls_out.get("peak_hold", 0) + OSC_CALLS
@@ -3956,8 +3974,8 @@ def phase_pipeline(torch, dev, launches_out, calls_out):
     mesh = pm.make_analysis_mesh(1)
     require(mesh == [dev], f"pipeline: the one-GPU mesh is {mesh}")
     rng = np.random.default_rng(2031)
-    counters = {"window_fft_mag": (wfm, "launches"), "display_map": (dm, "launches"),
-                "banded_resample": (br, "launches")}
+    counters = {"window_fft_mag": "window_fft_mag.launches", "display_map": "display_map.launches",
+                "banded_resample": "banded_resample.launches"}
     report = {"phase": "pipeline", "mesh": [str(d) for d in mesh], "ticks": PIPE_TICKS, "views": {}}
 
     def drive(name, pipe, feed, check, expect):
@@ -3977,14 +3995,13 @@ def phase_pipeline(torch, dev, launches_out, calls_out):
         ms = []
         for i in range(PIPE_TICKS):
             feed(i)
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
+            reset_counters(*counters.values())
             t0 = time.perf_counter()
             out = pipe.tick()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            for k, (mod, attr) in counters.items():
-                launched[k] += getattr(mod, attr)
+            for k, name in counters.items():
+                launched[k] += counter(name)
             require(out is not None, f"pipeline {name}: tick {i} ran no step")
             check(i, out, captured["x"])
         for k, n in launched.items():
@@ -4196,12 +4213,12 @@ def phase_front_ends(torch, dev, launches_out, calls_out):
         report["analyze_batch"] = {"files": CLI_FILES, "seconds_each": CLI_SECONDS, "wall_s": batch_s,
                                    "balances": balances, "renders": len(renders)}
 
-        for mod, attr in (wfm, "launches"), (dm, "launches"), (br, "launches"):
-            setattr(mod, attr, 0)
+        reset_counters("window_fft_mag.launches", "display_map.launches", "banded_resample.launches")
         t0 = time.perf_counter()
         require(cli(["analyze", str(files[0]), "--out", str(work / "one"), "--npz"]) == 0, "analyze failed")
         analyze_s = time.perf_counter() - t0
-        counts = {"window_fft_mag": wfm.launches, "display_map": dm.launches, "banded_resample": br.launches}
+        counts = {"window_fft_mag": counter("window_fft_mag.launches"), "display_map": counter("display_map.launches"),
+                  "banded_resample": counter("banded_resample.launches")}
         require(all(v > 0 for v in counts.values()), f"analyze: kernel launches {counts}")
         arrays = np.load(work / "one" / "in0.arrays.npz")
         require(sorted(arrays.files) == ["spectrogram", "spectrum", "vertices", "waveform"], f"npz {arrays.files}")

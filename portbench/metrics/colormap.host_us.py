@@ -1,0 +1,12 @@
+"""colormap.host_us: the colour map's host time a call: the span ``colormap``
+(``kernels/colormap.py::spectrogram_columns``, some thirty torch operations)
+directly under the processor's span; mean over the traced window's calls, in
+microseconds (``portbench.program_spans``). Read in the traced run, so it
+includes the profiler's cost on each operation. None where the program
+records no span."""
+
+from portbench.program_spans import mean_us
+
+
+def read(record):
+    return mean_us(record, ("colormap",))

@@ -1,0 +1,12 @@
+"""display_map.host_us: kernel B's wrapper, host time a call: the span
+``kernel.display_map`` (any entry of ``kernels/display_map.py``) directly
+under the processor's span; mean over the traced window's calls, in
+microseconds (``portbench.program_spans``). Read in the traced run, so it
+includes the profiler's cost on each operation. None where the program
+records no span."""
+
+from portbench.program_spans import mean_us
+
+
+def read(record):
+    return mean_us(record, ("kernel.display_map",))

@@ -37,12 +37,12 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 KINDS = {"lanczos": 0, "linear": 1, "nearest": 2}
 MAX_A = 16  # kMaxA in the CUDA source
 
-# kernel launches since the last reset (chip_smoke.py and tests read it)
-launches = 0
+# kernel launches count in the diagnostics registry as banded_resample.launches
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -246,7 +246,6 @@ def _raw_stream(index: int) -> int:
 def _launch(entry: str, x: torch.Tensor, head: tuple, p: int, a: int, kind: str, with_nearest: bool):
     """Allocate the outputs (one buffer for both), launch ``entry`` on x's
     device and current stream, count the launch."""
-    global launches
     bsz, rows, w = x.shape
     buf = torch.empty((2 if with_nearest else 1, bsz, rows, p), dtype=torch.float32, device=x.device)
     if bsz * rows * p > 0:
@@ -266,7 +265,7 @@ def _launch(entry: str, x: torch.Tensor, head: tuple, p: int, a: int, kind: str,
             with torch.cuda.device(index):
                 err = fn(*args)
         _build.check(err, "banded_resample")
-        launches += 1
+        count("banded_resample.launches")
     return buf.unbind(0) if with_nearest else buf[0]
 
 
@@ -279,14 +278,15 @@ def banded_resample(
     CPU tensors take :func:`banded_resample_plain`; CUDA tensors launch
     ``csrc/banded_resample.cu`` (one thread per pair and pixel) or raise.
     """
-    if x.device.type == "cpu":
-        return banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=with_nearest)
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_resample: unsupported device {x.device}")
-    _check_x(x, a, kind)
-    _check_rows(x, pos, "pos", 2)
-    return _launch("sig_banded_resample", x, (x.data_ptr(), pos.data_ptr()),
-                   pos.shape[-1], a, kind, with_nearest)
+    with span("kernel.banded_resample"):
+        if x.device.type == "cpu":
+            return banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=with_nearest)
+        if x.device.type != "cuda":
+            raise ValueError(f"banded_resample: unsupported device {x.device}")
+        _check_x(x, a, kind)
+        _check_rows(x, pos, "pos", 2)
+        return _launch("sig_banded_resample", x, (x.data_ptr(), pos.data_ptr()),
+                       pos.shape[-1], a, kind, with_nearest)
 
 
 def banded_resample_affine(
@@ -304,19 +304,20 @@ def banded_resample_affine(
     which no view of the port passes) through :func:`affine_positions` and
     the ``pos`` entry; or the call raises.
     """
-    if x.device.type == "cpu":
-        return banded_resample_affine_plain(
-            x, start, step, num_out, lo, hi, a=a, kind=kind, with_nearest=with_nearest
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_resample: unsupported device {x.device}")
-    _check_x(x, a, kind)
-    _check_rows(x, start, "start", 1)
-    if num_out < 0:
-        raise ValueError(f"banded_resample: num_out={num_out}")
-    if isinstance(step, torch.Tensor):
-        _check_rows(x, step, "step", 1)
-        pos = affine_positions(x, start, step, num_out, lo, hi)
-        return _launch("sig_banded_resample", x, (x.data_ptr(), pos.data_ptr()), num_out, a, kind, with_nearest)
-    head = (x.data_ptr(), start.data_ptr(), float(np.float32(step)), float(lo), float(hi))
-    return _launch("sig_banded_resample_affine", x, head, num_out, a, kind, with_nearest)
+    with span("kernel.banded_resample"):
+        if x.device.type == "cpu":
+            return banded_resample_affine_plain(
+                x, start, step, num_out, lo, hi, a=a, kind=kind, with_nearest=with_nearest
+            )
+        if x.device.type != "cuda":
+            raise ValueError(f"banded_resample: unsupported device {x.device}")
+        _check_x(x, a, kind)
+        _check_rows(x, start, "start", 1)
+        if num_out < 0:
+            raise ValueError(f"banded_resample: num_out={num_out}")
+        if isinstance(step, torch.Tensor):
+            _check_rows(x, step, "step", 1)
+            pos = affine_positions(x, start, step, num_out, lo, hi)
+            return _launch("sig_banded_resample", x, (x.data_ptr(), pos.data_ptr()), num_out, a, kind, with_nearest)
+        head = (x.data_ptr(), start.data_ptr(), float(np.float32(step)), float(lo), float(hi))
+        return _launch("sig_banded_resample_affine", x, head, num_out, a, kind, with_nearest)

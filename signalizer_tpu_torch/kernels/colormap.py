@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from signalizer_tpu_torch.utils.diagnostics import span
+
 NUM_SPECTRUM_COLOURS = 5  # ref: SpectrumParameters.h:77
 
 
@@ -104,5 +106,6 @@ def spectrogram_columns(
 ) -> torch.Tensor:
     """Full column pipeline: intensities [pairs, T, P] + per-pair colour
     tables [pairs, 6, 3] -> RGBA8 columns [T, P, 4] (pairs blended)."""
-    rgb = gradient_map(intensity, colours, ratios, bounds)  # [pairs, T, P, 3]
-    return quantize_rgba8(blend_pairs(rgb, axis=0))
+    with span("colormap"):
+        rgb = gradient_map(intensity, colours, ratios, bounds)  # [pairs, T, P, 3]
+        return quantize_rgba8(blend_pairs(rgb, axis=0))

@@ -50,6 +50,7 @@ from signalizer_tpu_torch.kernels.filters import (
     init_crossover_state,
     onepole_smooth,
 )
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 # the kernel's geometry (csrc/colour_track.cu kChunk, kThreads,
 # kMaxCluster, kClusterWarps, kSteps): samples a thread holds, threads a
@@ -68,9 +69,8 @@ PLAN_CLUSTER = 8
 WARP = 32
 F32 = np.float32
 
-# kernel launches since the last reset, by either entry (chip_smoke.py and
-# tests read it)
-launches = 0
+# kernel launches by either entry count in the diagnostics registry as
+# colour_track.launches
 
 
 def crossover_coeffs(fs: float, f_low: float = 300.0, f_high: float = 3000.0):
@@ -313,7 +313,6 @@ def _launch_track(src: torch.Tensor, row_stride: int, lead, w: int, bands_in: bo
                   crossover, pole, band_colours, key_colour, blend, smooth_state, name: str):
     """sig_colour_track on rows ``src``: returns (colours [*lead, 3, W],
     z [*lead, 8, 2] or None, smooth [*lead, 3])."""
-    global launches
     dev = src.device
     n = math.prod(lead)
     z_in = None if bands_in else _state(None if crossover is None else crossover.z, (*lead, 8, 2), dev, name,
@@ -350,7 +349,7 @@ def _launch_track(src: torch.Tensor, row_stride: int, lead, w: int, bands_in: bo
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(err, name)
-        launches += 1
+        count("colour_track.launches")
     return colours, z_out, s_out
 
 
@@ -365,27 +364,27 @@ def three_band_split(
     and the new crossover state [..., 8, 2]. CPU tensors take
     :func:`three_band_split_plain`; CUDA tensors launch kernel E's split
     entry or raise."""
-    global launches
-    if x.device.type == "cpu":
-        return three_band_split_plain(x, fs, f_low, f_high, state)
-    _check_cuda(x, "three_band_split")
-    dev, lead, w = x.device, x.shape[:-1], x.shape[-1]
-    rows = _rows(x)
-    z_in = _state(None if state is None else state.z, (*lead, 8, 2), dev, "three_band_split", "the crossover state")
-    table = _device_table(float(fs), float(f_low), float(f_high), 0.0, dev)
-    bands = torch.empty((*lead, 3, w), dtype=torch.float32, device=dev)
-    z_out = torch.empty_like(z_in)
-    if rows.shape[0] > 0:
-        stride = rows.stride(0) if rows.shape[0] > 1 else w
-        with torch.cuda.device(dev):
-            err = _build.library().sig_colour_split(
-                rows.data_ptr(), stride, table.data_ptr(), z_in.data_ptr(), z_out.data_ptr(), bands.data_ptr(),
-                rows.shape[0], w, CHUNK, *_geometry(dev, rows.shape[0], w),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(err, "three_band_split")
-        launches += 1
-    return bands, CrossoverState(z=z_out)
+    with span("kernel.colour_track"):
+        if x.device.type == "cpu":
+            return three_band_split_plain(x, fs, f_low, f_high, state)
+        _check_cuda(x, "three_band_split")
+        dev, lead, w = x.device, x.shape[:-1], x.shape[-1]
+        rows = _rows(x)
+        z_in = _state(None if state is None else state.z, (*lead, 8, 2), dev, "three_band_split", "the crossover state")
+        table = _device_table(float(fs), float(f_low), float(f_high), 0.0, dev)
+        bands = torch.empty((*lead, 3, w), dtype=torch.float32, device=dev)
+        z_out = torch.empty_like(z_in)
+        if rows.shape[0] > 0:
+            stride = rows.stride(0) if rows.shape[0] > 1 else w
+            with torch.cuda.device(dev):
+                err = _build.library().sig_colour_split(
+                    rows.data_ptr(), stride, table.data_ptr(), z_in.data_ptr(), z_out.data_ptr(), bands.data_ptr(),
+                    rows.shape[0], w, CHUNK, *_geometry(dev, rows.shape[0], w),
+                    torch.cuda.current_stream(dev).cuda_stream,
+                )
+            _build.check(err, "three_band_split")
+            count("colour_track.launches")
+        return bands, CrossoverState(z=z_out)
 
 
 def colour_track(
@@ -412,16 +411,17 @@ def colour_track(
     back once); ``blend`` a host number or a float32 scalar on x's device.
     CPU tensors take :func:`colour_track_plain`; CUDA tensors launch kernel
     E once or raise."""
-    if x.device.type == "cpu":
-        return colour_track_plain(x, fs, crossover, pole, band_colours, key_colour, blend, smooth_state,
-                                  f_low, f_high)
-    _check_cuda(x, "colour_track")
-    rows = _rows(x)
-    stride = rows.stride(0) if rows.shape[0] > 1 else x.shape[-1]
-    colours, z_out, s_out = _launch_track(rows, stride, x.shape[:-1], x.shape[-1], False, fs, f_low, f_high,
-                                          crossover, pole, band_colours, key_colour, blend, smooth_state,
-                                          "colour_track")
-    return colours, CrossoverState(z=z_out), s_out
+    with span("kernel.colour_track"):
+        if x.device.type == "cpu":
+            return colour_track_plain(x, fs, crossover, pole, band_colours, key_colour, blend, smooth_state,
+                                      f_low, f_high)
+        _check_cuda(x, "colour_track")
+        rows = _rows(x)
+        stride = rows.stride(0) if rows.shape[0] > 1 else x.shape[-1]
+        colours, z_out, s_out = _launch_track(rows, stride, x.shape[:-1], x.shape[-1], False, fs, f_low, f_high,
+                                              crossover, pole, band_colours, key_colour, blend, smooth_state,
+                                              "colour_track")
+        return colours, CrossoverState(z=z_out), s_out
 
 
 def spectral_colour_track(
@@ -437,13 +437,14 @@ def spectral_colour_track(
     CPU tensors take :func:`spectral_colour_track_plain`; CUDA tensors
     launch kernel E's fused entry on the bands or raise, and get the
     channel-major colours back as a [..., W, 3] view."""
-    if bands.device.type == "cpu":
-        return spectral_colour_track_plain(bands, smooth_pole, band_colours, key_colour, blend, smooth_state)
-    _check_cuda(bands, "spectral_colour_track")
-    if bands.ndim < 2 or bands.shape[-2] != 3:
-        raise ValueError(f"spectral_colour_track: bands must be [..., 3, W], got {tuple(bands.shape)}")
-    lead, w = bands.shape[:-2], bands.shape[-1]
-    src = bands.contiguous()
-    colours, _, s_out = _launch_track(src, 3 * w, lead, w, True, None, 300.0, 3000.0, None, smooth_pole,
-                                      band_colours, key_colour, blend, smooth_state, "spectral_colour_track")
-    return torch.movedim(colours, -2, -1), s_out
+    with span("kernel.colour_track"):
+        if bands.device.type == "cpu":
+            return spectral_colour_track_plain(bands, smooth_pole, band_colours, key_colour, blend, smooth_state)
+        _check_cuda(bands, "spectral_colour_track")
+        if bands.ndim < 2 or bands.shape[-2] != 3:
+            raise ValueError(f"spectral_colour_track: bands must be [..., 3, W], got {tuple(bands.shape)}")
+        lead, w = bands.shape[:-2], bands.shape[-1]
+        src = bands.contiguous()
+        colours, _, s_out = _launch_track(src, 3 * w, lead, w, True, None, 300.0, 3000.0, None, smooth_pole,
+                                          band_colours, key_colour, blend, smooth_state, "spectral_colour_track")
+        return torch.movedim(colours, -2, -1), s_out

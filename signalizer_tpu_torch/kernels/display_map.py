@@ -32,6 +32,7 @@ import torch
 from signalizer_tpu_torch.core.constant import SpectrumConstant, db_constants
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 # the most taps and line graphs one launch takes: 10 taps is the most any
 # plan has (Lanczos, a = 5); more line graphs than 8 run as launches of up
@@ -49,11 +50,9 @@ DECAY_MAX_GROUPS = 16
 DECAY_MAX_GROUPS_K = 64
 DECAY_WARP_PIXELS = 128
 
-# kernel launches since the last reset, one count per entry (chip_smoke.py
-# and tests read them): the fused entry, the remap alone, decay and dB alone
-launches = 0
-remap_launches = 0
-decay_db_launches = 0
+# kernel launches count in the diagnostics registry, one counter an entry:
+# display_map.launches (the fused entry), .remap_launches (the remap
+# alone), .decay_db_launches (decay and dB alone)
 
 
 def _interp(values: torch.Tensor, constant: SpectrumConstant) -> torch.Tensor:
@@ -170,40 +169,40 @@ def display_remap(constant: SpectrumConstant, mags: torch.Tensor) -> torch.Tenso
     display values [..., rows, P], the values :func:`display_map` feeds its
     decay. CPU tensors take :func:`display_remap_plain`; CUDA tensors launch
     ``sig_display_remap`` of ``csrc/display_map.cu`` or raise."""
-    global remap_launches
-    if mags.device.type == "cpu":
-        return display_remap_plain(constant, mags)
-    c = constant
-    frames = _checked("display_remap", c, mags, c.n_spectrum_values, 1)
-    rows = mags.shape[-2]
-    if c.interp_taps > MAX_TAPS:
-        raise ValueError(f"display_remap: at most {MAX_TAPS} taps")
-    out = torch.empty(mags.shape[:-1] + (c.axis_points,), dtype=torch.float32, device=mags.device)
-    if frames == 0:
+    with span("kernel.display_map"):
+        if mags.device.type == "cpu":
+            return display_remap_plain(constant, mags)
+        c = constant
+        frames = _checked("display_remap", c, mags, c.n_spectrum_values, 1)
+        rows = mags.shape[-2]
+        if c.interp_taps > MAX_TAPS:
+            raise ValueError(f"display_remap: at most {MAX_TAPS} taps")
+        out = torch.empty(mags.shape[:-1] + (c.axis_points,), dtype=torch.float32, device=mags.device)
+        if frames == 0:
+            return out
+        lib = _build.library()
+        with torch.cuda.device(mags.device):
+            err = lib.sig_display_remap(
+                mags.data_ptr(),
+                c.interp_indices.data_ptr(),
+                c.interp_weights.data_ptr(),
+                c.interp_mask.data_ptr(),
+                c.single_mask.data_ptr(),
+                c.single_bin.data_ptr(),
+                c.chunk_lo.data_ptr(),
+                c.chunk_len.data_ptr(),
+                c.display_scalars.data_ptr(),
+                out.data_ptr(),
+                frames,
+                rows,
+                c.axis_points,
+                c.n_spectrum_values,
+                c.interp_taps,
+                torch.cuda.current_stream(mags.device).cuda_stream,
+            )
+        _build.check(err, "display_remap")
+        count("display_map.remap_launches")
         return out
-    lib = _build.library()
-    with torch.cuda.device(mags.device):
-        err = lib.sig_display_remap(
-            mags.data_ptr(),
-            c.interp_indices.data_ptr(),
-            c.interp_weights.data_ptr(),
-            c.interp_mask.data_ptr(),
-            c.single_mask.data_ptr(),
-            c.single_bin.data_ptr(),
-            c.chunk_lo.data_ptr(),
-            c.chunk_len.data_ptr(),
-            c.display_scalars.data_ptr(),
-            out.data_ptr(),
-            frames,
-            rows,
-            c.axis_points,
-            c.n_spectrum_values,
-            c.interp_taps,
-            torch.cuda.current_stream(mags.device).cuda_stream,
-        )
-    _build.check(err, "display_remap")
-    remap_launches += 1
-    return out
 
 
 def _decay_inputs(name: str, constant: SpectrumConstant, x: torch.Tensor, width: int, state, valid):
@@ -277,48 +276,48 @@ def display_decay_db(
     (the fused kernel's arithmetic and its exact split of the decay, so the
     state is the sequential loop's bit for bit; a fold pass, then the
     outputs, laid out by :func:`decay_db_plan`) or raise."""
-    global decay_db_launches
-    if vals.device.type == "cpu":
-        return decay_db(constant, state, vals, valid)
-    c = constant
-    vals, out, v, pairs = _decay_inputs("display_decay_db", c, vals, c.axis_points, state, valid)
-    if out.numel() == 0:
+    with span("kernel.display_map"):
+        if vals.device.type == "cpu":
+            return decay_db(constant, state, vals, valid)
+        c = constant
+        vals, out, v, pairs = _decay_inputs("display_decay_db", c, vals, c.axis_points, state, valid)
+        if out.numel() == 0:
+            return out
+        lib = _build.library()
+        t, rows = vals.shape[-3], vals.shape[-2]
+        sms = _multiprocessors(vals.device.index if vals.device.index is not None else torch.cuda.current_device())
+        with torch.cuda.device(vals.device):
+            for poles, st, o, k in _line_graph_groups(c, state, out):
+                frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
+                # each group's start state when T takes more than one group;
+                # each chunk's end values and the state's copy for more than one chunk
+                groups_in_t = -(-t // frames)
+                scratch = [
+                    torch.empty(shape, dtype=torch.float32, device=vals.device) if n > 1 else None
+                    for n, shape in ((groups_in_t, (pairs, groups_in_t, k, rows, c.axis_points)),
+                                     (chunks, (chunks, pairs, k, rows, c.axis_points)))
+                ]
+                err = lib.sig_display_decay_db(
+                    vals.data_ptr(),
+                    c.slope_map.data_ptr(),
+                    poles.data_ptr(),
+                    c.display_scalars.data_ptr(),
+                    None if v is None else v.data_ptr(),
+                    st.data_ptr(),
+                    o.data_ptr(),
+                    *(None if x is None else x.data_ptr() for x in scratch),
+                    pairs,
+                    t,
+                    k,
+                    rows,
+                    c.axis_points,
+                    frames,
+                    groups,
+                    torch.cuda.current_stream(vals.device).cuda_stream,
+                )
+                _build.check(err, "display_decay_db")
+                count("display_map.decay_db_launches")
         return out
-    lib = _build.library()
-    t, rows = vals.shape[-3], vals.shape[-2]
-    sms = _multiprocessors(vals.device.index if vals.device.index is not None else torch.cuda.current_device())
-    with torch.cuda.device(vals.device):
-        for poles, st, o, k in _line_graph_groups(c, state, out):
-            frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
-            # each group's start state when T takes more than one group;
-            # each chunk's end values and the state's copy for more than one chunk
-            groups_in_t = -(-t // frames)
-            scratch = [
-                torch.empty(shape, dtype=torch.float32, device=vals.device) if n > 1 else None
-                for n, shape in ((groups_in_t, (pairs, groups_in_t, k, rows, c.axis_points)),
-                                 (chunks, (chunks, pairs, k, rows, c.axis_points)))
-            ]
-            err = lib.sig_display_decay_db(
-                vals.data_ptr(),
-                c.slope_map.data_ptr(),
-                poles.data_ptr(),
-                c.display_scalars.data_ptr(),
-                None if v is None else v.data_ptr(),
-                st.data_ptr(),
-                o.data_ptr(),
-                *(None if x is None else x.data_ptr() for x in scratch),
-                pairs,
-                t,
-                k,
-                rows,
-                c.axis_points,
-                frames,
-                groups,
-                torch.cuda.current_stream(vals.device).cuda_stream,
-            )
-            _build.check(err, "display_decay_db")
-            decay_db_launches += 1
-    return out
 
 
 def display_map(
@@ -332,40 +331,40 @@ def display_map(
     CPU tensors take :func:`display_map_plain`; CUDA tensors launch
     ``sig_display_map`` of ``csrc/display_map.cu`` or raise.
     """
-    global launches
-    if mags.device.type == "cpu":
-        return display_map_plain(constant, mags, state, valid)
-    c = constant
-    mags, out, v, pairs = _decay_inputs("display_map", c, mags, c.n_spectrum_values, state, valid)
-    if out.numel() == 0:
+    with span("kernel.display_map"):
+        if mags.device.type == "cpu":
+            return display_map_plain(constant, mags, state, valid)
+        c = constant
+        mags, out, v, pairs = _decay_inputs("display_map", c, mags, c.n_spectrum_values, state, valid)
+        if out.numel() == 0:
+            return out
+        lib = _build.library()
+        with torch.cuda.device(mags.device):
+            for poles, st, o, k in _line_graph_groups(c, state, out):
+                err = lib.sig_display_map(
+                    mags.data_ptr(),
+                    c.interp_indices.data_ptr(),
+                    c.interp_weights.data_ptr(),
+                    c.interp_mask.data_ptr(),
+                    c.single_mask.data_ptr(),
+                    c.single_bin.data_ptr(),
+                    c.chunk_lo.data_ptr(),
+                    c.chunk_len.data_ptr(),
+                    c.slope_map.data_ptr(),
+                    poles.data_ptr(),
+                    c.display_scalars.data_ptr(),
+                    None if v is None else v.data_ptr(),
+                    st.data_ptr(),
+                    o.data_ptr(),
+                    pairs,
+                    mags.shape[-3],
+                    k,
+                    mags.shape[-2],
+                    c.axis_points,
+                    c.n_spectrum_values,
+                    c.interp_taps,
+                    torch.cuda.current_stream(mags.device).cuda_stream,
+                )
+                _build.check(err, "display_map")
+                count("display_map.launches")
         return out
-    lib = _build.library()
-    with torch.cuda.device(mags.device):
-        for poles, st, o, k in _line_graph_groups(c, state, out):
-            err = lib.sig_display_map(
-                mags.data_ptr(),
-                c.interp_indices.data_ptr(),
-                c.interp_weights.data_ptr(),
-                c.interp_mask.data_ptr(),
-                c.single_mask.data_ptr(),
-                c.single_bin.data_ptr(),
-                c.chunk_lo.data_ptr(),
-                c.chunk_len.data_ptr(),
-                c.slope_map.data_ptr(),
-                poles.data_ptr(),
-                c.display_scalars.data_ptr(),
-                None if v is None else v.data_ptr(),
-                st.data_ptr(),
-                o.data_ptr(),
-                pairs,
-                mags.shape[-3],
-                k,
-                mags.shape[-2],
-                c.axis_points,
-                c.n_spectrum_values,
-                c.interp_taps,
-                torch.cuda.current_stream(mags.device).cuda_stream,
-            )
-            _build.check(err, "display_map")
-            launches += 1
-    return out

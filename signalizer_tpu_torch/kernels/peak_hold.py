@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 PEAK_DECAY = 0.9999  # ref: StreamPreprocessing.h:291
 PEAK_QUEUE_SIZE = 8  # pending envelope-hold fires tracked across steps
@@ -38,9 +39,8 @@ PEAK_QUEUE_SIZE = 8  # pending envelope-hold fires tracked across steps
 FIRE_AGE_NONE = 1.0e9  # sentinel age for an empty queue slot
 F32 = np.float32
 
-# kernel launches since the last reset, by either entry (chip_smoke.py and
-# tests read it)
-launches = 0
+# kernel launches by either entry count in the diagnostics registry as
+# peak_hold.launches
 
 
 def _initial(x: torch.Tensor, threshold, state, holding):
@@ -131,52 +131,52 @@ def peak_hold_triggers(
     CPU tensors take :func:`peak_hold_triggers_plain`; CUDA tensors launch
     ``csrc/peak_hold.cu`` (one block a row) or raise.
     """
-    global launches
-    if x.device.type == "cpu":
-        return peak_hold_triggers_plain(x, threshold, hysteresis, state, holding, decay, valid, first)
-    if x.device.type != "cuda":
-        raise ValueError(f"peak_hold_triggers: unsupported device {x.device}")
-    if x.dtype != torch.float32 or x.ndim < 1 or x.shape[-1] < 1:
-        raise ValueError(f"peak_hold_triggers: x must be float32 [..., W>=1], got {x.dtype} {tuple(x.shape)}")
-    dev = x.device
-    w = x.shape[-1]
-    lead = x.shape[:-1]
-    state, holding = _initial(x, threshold, state, holding)
-    if state.shape != lead or holding.shape != lead:
-        raise ValueError(f"peak_hold_triggers: state {tuple(state.shape)} and holding "
-                         f"{tuple(holding.shape)} must be {tuple(lead)}")
-    if state.dtype != torch.float32 or holding.dtype != torch.bool:
-        raise ValueError("peak_hold_triggers: state must be float32 and holding bool")
-    if state.device != dev or holding.device != dev:
-        raise ValueError(f"peak_hold_triggers: state and holding must be on {dev}")
-    rows2d = x.reshape(-1, w) if x.ndim != 2 else x
-    if rows2d.stride(-1) != 1:
-        rows2d = rows2d.contiguous()
-    rows = rows2d.shape[0]
-    state_in, holding_in = state.contiguous(), holding.contiguous()
-    if valid is not None:
-        valid = torch.as_tensor(valid, dtype=torch.bool).to(dev).expand(w).contiguous()
-    thr_ptr = _scalar(threshold, "threshold", dev)
-    hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
-    # host numbers: the plain version's f32 values (thr^2 formed in float64
-    # and rounded once, as torch.as_tensor(threshold * threshold) forms it)
-    thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
-    hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
-    fires = torch.empty(x.shape, dtype=torch.bool, device=dev)
-    state_out = torch.empty_like(state_in)
-    holding_out = torch.empty_like(holding_in)
-    if rows > 0:
-        stride = rows2d.stride(0) if rows > 1 else w
-        with torch.cuda.device(dev):  # the launch goes to x's device
-            err = _build.library().sig_peak_hold(
-                rows2d.data_ptr(), stride, None if valid is None else valid.data_ptr(),
-                state_in.data_ptr(), holding_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst,
-                float(np.float32(decay)), state_out.data_ptr(), holding_out.data_ptr(), fires.data_ptr(),
-                rows, w, max(int(first), 0), torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(err, "peak_hold_triggers")
-        launches += 1
-    return fires, state_out, holding_out
+    with span("kernel.peak_hold"):
+        if x.device.type == "cpu":
+            return peak_hold_triggers_plain(x, threshold, hysteresis, state, holding, decay, valid, first)
+        if x.device.type != "cuda":
+            raise ValueError(f"peak_hold_triggers: unsupported device {x.device}")
+        if x.dtype != torch.float32 or x.ndim < 1 or x.shape[-1] < 1:
+            raise ValueError(f"peak_hold_triggers: x must be float32 [..., W>=1], got {x.dtype} {tuple(x.shape)}")
+        dev = x.device
+        w = x.shape[-1]
+        lead = x.shape[:-1]
+        state, holding = _initial(x, threshold, state, holding)
+        if state.shape != lead or holding.shape != lead:
+            raise ValueError(f"peak_hold_triggers: state {tuple(state.shape)} and holding "
+                             f"{tuple(holding.shape)} must be {tuple(lead)}")
+        if state.dtype != torch.float32 or holding.dtype != torch.bool:
+            raise ValueError("peak_hold_triggers: state must be float32 and holding bool")
+        if state.device != dev or holding.device != dev:
+            raise ValueError(f"peak_hold_triggers: state and holding must be on {dev}")
+        rows2d = x.reshape(-1, w) if x.ndim != 2 else x
+        if rows2d.stride(-1) != 1:
+            rows2d = rows2d.contiguous()
+        rows = rows2d.shape[0]
+        state_in, holding_in = state.contiguous(), holding.contiguous()
+        if valid is not None:
+            valid = torch.as_tensor(valid, dtype=torch.bool).to(dev).expand(w).contiguous()
+        thr_ptr = _scalar(threshold, "threshold", dev)
+        hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
+        # host numbers: the plain version's f32 values (thr^2 formed in float64
+        # and rounded once, as torch.as_tensor(threshold * threshold) forms it)
+        thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
+        hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
+        fires = torch.empty(x.shape, dtype=torch.bool, device=dev)
+        state_out = torch.empty_like(state_in)
+        holding_out = torch.empty_like(holding_in)
+        if rows > 0:
+            stride = rows2d.stride(0) if rows > 1 else w
+            with torch.cuda.device(dev):  # the launch goes to x's device
+                err = _build.library().sig_peak_hold(
+                    rows2d.data_ptr(), stride, None if valid is None else valid.data_ptr(),
+                    state_in.data_ptr(), holding_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst,
+                    float(np.float32(decay)), state_out.data_ptr(), holding_out.data_ptr(), fires.data_ptr(),
+                    rows, w, max(int(first), 0), torch.cuda.current_stream(dev).cuda_stream,
+                )
+            _build.check(err, "peak_hold_triggers")
+            count("peak_hold.launches")
+        return fires, state_out, holding_out
 
 
 def window_start(found, trigger_pos, hf, window):
@@ -258,52 +258,52 @@ def envelope_hold_trigger(
     tensors launch ``csrc/peak_hold.cu``'s fused entry (one launch, no
     host-device copy) or raise.
     """
-    global launches
-    if region.device.type == "cpu":
-        return envelope_hold_trigger_plain(
-            region, threshold, hysteresis, state, holding, fire_ages,
-            first=first, new_samples=new_samples, window=window, hf=hf,
-        )
-    if region.device.type != "cuda":
-        raise ValueError(f"envelope_hold_trigger: unsupported device {region.device}")
-    if region.dtype != torch.float32 or region.ndim != 2 or region.shape[-1] < 1:
-        raise ValueError(f"envelope_hold_trigger: region must be float32 [pairs, chunk>=1], got "
-                         f"{region.dtype} {tuple(region.shape)}")
-    dev = region.device
-    pairs, chunk = region.shape
-    if state.shape != (pairs,) or holding.shape != (pairs,) or fire_ages.shape != (pairs, PEAK_QUEUE_SIZE):
-        raise ValueError(f"envelope_hold_trigger: state {tuple(state.shape)}, holding {tuple(holding.shape)} "
-                         f"and fire_ages {tuple(fire_ages.shape)} must be ({pairs},), ({pairs},) and "
-                         f"({pairs}, {PEAK_QUEUE_SIZE})")
-    if state.dtype != torch.float32 or holding.dtype != torch.bool or fire_ages.dtype != torch.float32:
-        raise ValueError("envelope_hold_trigger: state and fire_ages must be float32 and holding bool")
-    if state.device != dev or holding.device != dev or fire_ages.device != dev:
-        raise ValueError(f"envelope_hold_trigger: state, holding and fire_ages must be on {dev}")
-    rows = region if region.stride(-1) == 1 else region.contiguous()
-    state_in, holding_in, ages_in = state.contiguous(), holding.contiguous(), fire_ages.contiguous()
-    thr_ptr = _scalar(threshold, "threshold", dev)
-    hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
-    thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
-    hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
-    # the host numbers as f32 values, each formed as the plain version forms it
-    new_samples, window, hf = F32(new_samples), F32(window), F32(hf)
-    state_out = torch.empty_like(state_in)
-    holding_out = torch.empty_like(holding_in)
-    ages_out = torch.empty_like(ages_in)
-    found = torch.empty((pairs,), dtype=torch.bool, device=dev)
-    start = torch.empty((pairs,), dtype=torch.float32, device=dev)
-    if pairs > 0:
-        stride = rows.stride(0) if pairs > 1 else chunk
-        with torch.cuda.device(dev):  # the launch goes to the region's device
-            err = _build.library().sig_envelope_hold(
-                rows.data_ptr(), stride, state_in.data_ptr(), holding_in.data_ptr(), ages_in.data_ptr(),
-                thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(PEAK_DECAY)), float(new_samples),
-                float(window * F32(0.5) - F32(1.0)), float(hf), float(hf - F32(1.0)),
-                float((window - F32(1.0)) * F32(0.5)), float(hf - window),
-                state_out.data_ptr(), holding_out.data_ptr(), ages_out.data_ptr(), found.data_ptr(),
-                start.data_ptr(), pairs, chunk, min(max(int(first), 0), chunk),
-                torch.cuda.current_stream(dev).cuda_stream,
+    with span("kernel.peak_hold"):
+        if region.device.type == "cpu":
+            return envelope_hold_trigger_plain(
+                region, threshold, hysteresis, state, holding, fire_ages,
+                first=first, new_samples=new_samples, window=window, hf=hf,
             )
-        _build.check(err, "envelope_hold_trigger")
-        launches += 1
-    return state_out, holding_out, ages_out, found, start
+        if region.device.type != "cuda":
+            raise ValueError(f"envelope_hold_trigger: unsupported device {region.device}")
+        if region.dtype != torch.float32 or region.ndim != 2 or region.shape[-1] < 1:
+            raise ValueError(f"envelope_hold_trigger: region must be float32 [pairs, chunk>=1], got "
+                             f"{region.dtype} {tuple(region.shape)}")
+        dev = region.device
+        pairs, chunk = region.shape
+        if state.shape != (pairs,) or holding.shape != (pairs,) or fire_ages.shape != (pairs, PEAK_QUEUE_SIZE):
+            raise ValueError(f"envelope_hold_trigger: state {tuple(state.shape)}, holding {tuple(holding.shape)} "
+                             f"and fire_ages {tuple(fire_ages.shape)} must be ({pairs},), ({pairs},) and "
+                             f"({pairs}, {PEAK_QUEUE_SIZE})")
+        if state.dtype != torch.float32 or holding.dtype != torch.bool or fire_ages.dtype != torch.float32:
+            raise ValueError("envelope_hold_trigger: state and fire_ages must be float32 and holding bool")
+        if state.device != dev or holding.device != dev or fire_ages.device != dev:
+            raise ValueError(f"envelope_hold_trigger: state, holding and fire_ages must be on {dev}")
+        rows = region if region.stride(-1) == 1 else region.contiguous()
+        state_in, holding_in, ages_in = state.contiguous(), holding.contiguous(), fire_ages.contiguous()
+        thr_ptr = _scalar(threshold, "threshold", dev)
+        hyst_ptr = _scalar(hysteresis, "hysteresis", dev)
+        thr2 = 0.0 if thr_ptr is not None else float(np.float32(threshold * threshold))
+        hyst = 0.0 if hyst_ptr is not None else float(np.float32(hysteresis))
+        # the host numbers as f32 values, each formed as the plain version forms it
+        new_samples, window, hf = F32(new_samples), F32(window), F32(hf)
+        state_out = torch.empty_like(state_in)
+        holding_out = torch.empty_like(holding_in)
+        ages_out = torch.empty_like(ages_in)
+        found = torch.empty((pairs,), dtype=torch.bool, device=dev)
+        start = torch.empty((pairs,), dtype=torch.float32, device=dev)
+        if pairs > 0:
+            stride = rows.stride(0) if pairs > 1 else chunk
+            with torch.cuda.device(dev):  # the launch goes to the region's device
+                err = _build.library().sig_envelope_hold(
+                    rows.data_ptr(), stride, state_in.data_ptr(), holding_in.data_ptr(), ages_in.data_ptr(),
+                    thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(PEAK_DECAY)), float(new_samples),
+                    float(window * F32(0.5) - F32(1.0)), float(hf), float(hf - F32(1.0)),
+                    float((window - F32(1.0)) * F32(0.5)), float(hf - window),
+                    state_out.data_ptr(), holding_out.data_ptr(), ages_out.data_ptr(), found.data_ptr(),
+                    start.data_ptr(), pairs, chunk, min(max(int(first), 0), chunk),
+                    torch.cuda.current_stream(dev).cuda_stream,
+                )
+            _build.check(err, "envelope_hold_trigger")
+            count("peak_hold.launches")
+        return state_out, holding_out, ages_out, found, start

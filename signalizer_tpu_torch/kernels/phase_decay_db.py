@@ -23,10 +23,10 @@ from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.kernels.display_map import _db_map, _multiprocessors
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 from signalizer_tpu_torch.stream.pinned import device_mask
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
-# kernel launches since the last reset (chip_smoke.py and tests read it):
+# kernel launches count in the diagnostics registry as phase_decay_db.launches:
 # one a wrapper call, of one or two kernels
-launches = 0
 # the kernel's layout (csrc/phase_decay_db.cu kTile, kGroup, kWalkFrames): a
 # block is TILE pixels of a pair and up to GROUP line graphs over a chunk of
 # T; T in more than one chunk takes a walk pass first, WALK_FRAMES frames a
@@ -113,59 +113,61 @@ def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=
     (a host mask goes up through a pinned buffer: no sync), T in the
     chunks of :func:`phase_plan` (one kernel for one chunk; a walk pass
     first for more), or raise."""
-    global launches
-    if vals.device.type == "cpu":
-        return phase_decay_db_plain(constant, state, vals, valid)
-    c = constant
-    k, p = c.num_line_graphs, c.axis_points
-    if vals.device.type != "cuda" or c.device != vals.device:
-        raise ValueError(f"phase_decay_db: values on {vals.device}, constant on {c.device}")
-    if vals.dtype != torch.float32 or vals.ndim < 3 or vals.shape[-2:] != (2, p):
-        raise ValueError(f"phase_decay_db: values must be float32 [..., T, 2, {p}], got {vals.dtype} {tuple(vals.shape)}")
-    vals = vals.contiguous()
-    lead, t = tuple(vals.shape[:-3]), vals.shape[-3]
-    mag, ph = state.magnitude, state.phase
-    rows = mag.shape[-2] if mag.ndim >= 2 else 0
-    for name, x, shape in (("magnitude", mag, lead + (k, rows, p)), ("phase", ph, lead + (k, p))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() or x.device != vals.device:
-            raise ValueError(f"phase_decay_db: state.{name} must be contiguous float32 {shape} on {vals.device}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if rows < 1:
-        raise ValueError("phase_decay_db: state.magnitude has no row")
-    out = torch.empty(lead + (t, k, 2, p), dtype=torch.float32, device=vals.device)
-    if out.numel() == 0:
+    with span("kernel.phase_decay_db"):
+        if vals.device.type == "cpu":
+            return phase_decay_db_plain(constant, state, vals, valid)
+        c = constant
+        k, p = c.num_line_graphs, c.axis_points
+        if vals.device.type != "cuda" or c.device != vals.device:
+            raise ValueError(f"phase_decay_db: values on {vals.device}, constant on {c.device}")
+        if vals.dtype != torch.float32 or vals.ndim < 3 or vals.shape[-2:] != (2, p):
+            raise ValueError(
+                f"phase_decay_db: values must be float32 [..., T, 2, {p}], got {vals.dtype} {tuple(vals.shape)}"
+            )
+        vals = vals.contiguous()
+        lead, t = tuple(vals.shape[:-3]), vals.shape[-3]
+        mag, ph = state.magnitude, state.phase
+        rows = mag.shape[-2] if mag.ndim >= 2 else 0
+        for name, x, shape in (("magnitude", mag, lead + (k, rows, p)), ("phase", ph, lead + (k, p))):
+            if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() or x.device != vals.device:
+                raise ValueError(f"phase_decay_db: state.{name} must be contiguous float32 {shape} on {vals.device}, "
+                                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if rows < 1:
+            raise ValueError("phase_decay_db: state.magnitude has no row")
+        out = torch.empty(lead + (t, k, 2, p), dtype=torch.float32, device=vals.device)
+        if out.numel() == 0:
+            return out
+        pairs = 1
+        for d in lead:
+            pairs *= d
+        dev = vals.device.index if vals.device.index is not None else torch.cuda.current_device()
+        frames, chunks = phase_plan(pairs, t, k, p, _multiprocessors(dev))
+        starts = None
+        if chunks > 1:
+            starts = torch.empty((pairs, chunks, k, 2, p), dtype=torch.float32, device=vals.device)
+        v = None if valid is None else device_mask(valid, t, vals.device)
+        pp = phase_poles(c)
+        lib = _build.library()
+        with torch.cuda.device(vals.device):
+            err = lib.sig_phase_decay_db(
+                vals.data_ptr(),
+                c.slope_map.data_ptr(),
+                c.decay_poles.data_ptr(),
+                pp.data_ptr(),
+                c.display_scalars.data_ptr(),
+                None if v is None else v.data_ptr(),
+                mag.data_ptr(),
+                ph.data_ptr(),
+                out.data_ptr(),
+                None if starts is None else starts.data_ptr(),
+                pairs,
+                t,
+                k,
+                rows,
+                p,
+                frames,
+                torch.cuda.current_stream(vals.device).cuda_stream,
+            )
+        _build.check(err, "phase_decay_db")
+        count("phase_decay_db.launches")
         return out
-    pairs = 1
-    for d in lead:
-        pairs *= d
-    dev = vals.device.index if vals.device.index is not None else torch.cuda.current_device()
-    frames, chunks = phase_plan(pairs, t, k, p, _multiprocessors(dev))
-    starts = None
-    if chunks > 1:
-        starts = torch.empty((pairs, chunks, k, 2, p), dtype=torch.float32, device=vals.device)
-    v = None if valid is None else device_mask(valid, t, vals.device)
-    pp = phase_poles(c)
-    lib = _build.library()
-    with torch.cuda.device(vals.device):
-        err = lib.sig_phase_decay_db(
-            vals.data_ptr(),
-            c.slope_map.data_ptr(),
-            c.decay_poles.data_ptr(),
-            pp.data_ptr(),
-            c.display_scalars.data_ptr(),
-            None if v is None else v.data_ptr(),
-            mag.data_ptr(),
-            ph.data_ptr(),
-            out.data_ptr(),
-            None if starts is None else starts.data_ptr(),
-            pairs,
-            t,
-            k,
-            rows,
-            p,
-            frames,
-            torch.cuda.current_stream(vals.device).cuda_stream,
-        )
-    _build.check(err, "phase_decay_db")
-    launches += 1
-    return out

@@ -22,12 +22,12 @@ import torch
 
 from signalizer_tpu_torch.kernels import _build
 from signalizer_tpu_torch.stream.pinned import device_mask
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 # the vector counts the kernel takes: 2K + 1 for a cosine-sum window of order
 # K <= 4 (csrc/resonator_scan.cu's instantiations)
 VECTORS = (1, 3, 5, 7, 9)
-# kernel launches since the last reset (chip_smoke.py and tests read it)
-launches = 0
+# kernel launches count in the diagnostics registry as resonator_scan.launches
 
 
 class ScanResult(NamedTuple):
@@ -117,60 +117,62 @@ def resonator_scan(
     not modified. CPU tensors take :func:`resonator_scan_plain`; CUDA
     tensors launch ``sig_resonator_scan`` of ``csrc/resonator_scan.cu`` once
     (a host mask goes up through a pinned buffer: no sync) or raise."""
-    global launches
-    if drives.device.type == "cpu":
-        return resonator_scan_plain(state, drives, decay_re, decay_im, combine, gain, valid, emit_readouts)
-    dev = drives.device
-    if drives.device.type != "cuda" or drives.ndim < 4 or drives.shape[-1] != 2:
-        raise ValueError(f"resonator_scan: drives must be [..., T, P, V, 2] on a GPU, got {tuple(drives.shape)} on {dev}")
-    t, p, v = drives.shape[-4], drives.shape[-3], drives.shape[-2]
-    lead = tuple(drives.shape[:-4])
-    if v not in VECTORS:
-        raise ValueError(f"resonator_scan: {v} vectors, the kernel takes {VECTORS}")
-    for name, x, shape in (("state", state, lead + (p, v, 2)), ("decay_re", decay_re, (p, v)),
-                           ("decay_im", decay_im, (p, v)), ("combine", combine, (v,)), ("gain", gain, (p,))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev:
-            raise ValueError(f"resonator_scan: {name} must be float32 {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if drives.dtype != torch.float32:
-        raise TypeError("resonator_scan: drives must be float32")
-    drives, state = drives.contiguous(), state.contiguous()
-    # the plan's c^W is one [P, V, 2] tensor: its re and im views are read
-    # in place, 2 floats apart
-    stride = decay_re.stride(-1)
-    if not (stride in (1, 2) and decay_re.stride() == decay_im.stride() == (v * stride, stride)):
-        decay_re, decay_im, stride = decay_re.contiguous(), decay_im.contiguous(), 1
-    b = 1
-    for d in lead:
-        b *= d
-    state_out = torch.empty_like(state)
-    re, im, mag = (torch.empty(lead + (p,), dtype=torch.float32, device=dev) for _ in range(3))
-    readouts = torch.empty((t,) + lead + (p,), dtype=torch.float32, device=dev) if emit_readouts else None
-    if b == 0 or p == 0:
+    with span("kernel.resonator_scan"):
+        if drives.device.type == "cpu":
+            return resonator_scan_plain(state, drives, decay_re, decay_im, combine, gain, valid, emit_readouts)
+        dev = drives.device
+        if drives.device.type != "cuda" or drives.ndim < 4 or drives.shape[-1] != 2:
+            raise ValueError(
+                f"resonator_scan: drives must be [..., T, P, V, 2] on a GPU, got {tuple(drives.shape)} on {dev}"
+            )
+        t, p, v = drives.shape[-4], drives.shape[-3], drives.shape[-2]
+        lead = tuple(drives.shape[:-4])
+        if v not in VECTORS:
+            raise ValueError(f"resonator_scan: {v} vectors, the kernel takes {VECTORS}")
+        for name, x, shape in (("state", state, lead + (p, v, 2)), ("decay_re", decay_re, (p, v)),
+                               ("decay_im", decay_im, (p, v)), ("combine", combine, (v,)), ("gain", gain, (p,))):
+            if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != dev:
+                raise ValueError(f"resonator_scan: {name} must be float32 {shape} on {dev}, "
+                                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if drives.dtype != torch.float32:
+            raise TypeError("resonator_scan: drives must be float32")
+        drives, state = drives.contiguous(), state.contiguous()
+        # the plan's c^W is one [P, V, 2] tensor: its re and im views are read
+        # in place, 2 floats apart
+        stride = decay_re.stride(-1)
+        if not (stride in (1, 2) and decay_re.stride() == decay_im.stride() == (v * stride, stride)):
+            decay_re, decay_im, stride = decay_re.contiguous(), decay_im.contiguous(), 1
+        b = 1
+        for d in lead:
+            b *= d
+        state_out = torch.empty_like(state)
+        re, im, mag = (torch.empty(lead + (p,), dtype=torch.float32, device=dev) for _ in range(3))
+        readouts = torch.empty((t,) + lead + (p,), dtype=torch.float32, device=dev) if emit_readouts else None
+        if b == 0 or p == 0:
+            return ScanResult(state_out, re, im, mag, readouts)
+        mask = None if valid is None else device_mask(valid, t, dev)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.sig_resonator_scan(
+                state.data_ptr(),
+                drives.data_ptr(),
+                decay_re.data_ptr(),
+                decay_im.data_ptr(),
+                None if mask is None else mask.data_ptr(),
+                combine.contiguous().data_ptr(),
+                gain.contiguous().data_ptr(),
+                state_out.data_ptr(),
+                re.data_ptr(),
+                im.data_ptr(),
+                mag.data_ptr(),
+                None if readouts is None else readouts.data_ptr(),
+                b,
+                t,
+                p,
+                v,
+                stride,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(err, "resonator_scan")
+        count("resonator_scan.launches")
         return ScanResult(state_out, re, im, mag, readouts)
-    mask = None if valid is None else device_mask(valid, t, dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.sig_resonator_scan(
-            state.data_ptr(),
-            drives.data_ptr(),
-            decay_re.data_ptr(),
-            decay_im.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            combine.contiguous().data_ptr(),
-            gain.contiguous().data_ptr(),
-            state_out.data_ptr(),
-            re.data_ptr(),
-            im.data_ptr(),
-            mag.data_ptr(),
-            None if readouts is None else readouts.data_ptr(),
-            b,
-            t,
-            p,
-            v,
-            stride,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "resonator_scan")
-    launches += 1
-    return ScanResult(state_out, re, im, mag, readouts)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 MAX_WALK_ITERATIONS = 280  # > the 277 doublings f32's range allows
 MEDIAN_FILTER_SIZE = 8  # ref: OscilloscopeDSP.inl MedianData::FilterSize
@@ -50,11 +51,10 @@ QUARTER_SEMITONE = 2.0 ** (0.25 / 12.0) - 1.0
 MAX_BINS = 8192
 F32 = np.float32
 
-# kernel launches since the last reset, by any entry, and by the two
-# spectrum entries alone (chip_smoke.py and tests read them), and the passes
-# [...] int32 of the last launch, on the device
-launches = 0
-spectrum_launches = 0
+# kernel launches by any entry, and by the two spectrum entries alone,
+# count in the diagnostics registry as spectral_walk.launches and
+# .spectrum_launches; the passes [...] int32 of the last launch, on the
+# device (chip_smoke.py and tests read them)
 last_passes = None
 
 
@@ -206,7 +206,7 @@ def _launch(what, src, n, threshold, hysteresis, history, offsets=None):
     """One launch of an entry: the spectrum stage on ``src`` [..., >= n // 2
     + 1] complex64 (``offsets`` None), or the bins stage on ``src`` (the
     magnitudes) and ``offsets`` [..., >= n // 2] f32."""
-    global launches, spectrum_launches, last_passes
+    global last_passes
     if src.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {src.device}")
     dev = src.device
@@ -267,8 +267,8 @@ def _launch(what, src, n, threshold, hysteresis, history, offsets=None):
                 err = lib.sig_spectral_walk(rows2.data_ptr(), stride(rows2), o2.data_ptr(), stride(o2), *tail,
                                             stream)
         _build.check(err, what)
-        launches += 1
-        spectrum_launches += spectrum
+        count("spectral_walk.launches")
+        count("spectral_walk.spectrum_launches", int(spectrum))
     last_passes = passes
     return BinRecord(index, value, offset), hist_out, passes
 
@@ -290,10 +290,11 @@ def spectral_walk(
     ``csrc/spectral_walk.cu`` (one block a row, at most ``MAX_BINS``
     candidates) or raise.
     """
-    if mags.device.type == "cpu":
-        return spectral_walk_plain(mags, offsets, n, threshold, hysteresis)
-    record, _, passes = _launch("spectral_walk", mags, n, threshold, hysteresis, None, offsets)
-    return record, passes
+    with span("kernel.spectral_walk"):
+        if mags.device.type == "cpu":
+            return spectral_walk_plain(mags, offsets, n, threshold, hysteresis)
+        record, _, passes = _launch("spectral_walk", mags, n, threshold, hysteresis, None, offsets)
+        return record, passes
 
 
 def spectral_walk_filtered(
@@ -306,10 +307,11 @@ def spectral_walk_filtered(
     :func:`spectral_walk_filtered_plain`; CUDA tensors launch
     ``csrc/spectral_walk.cu``'s filtered entry (one launch, no host-device
     copy) or raise."""
-    if mags.device.type == "cpu":
-        return spectral_walk_filtered_plain(mags, offsets, n, history, threshold, hysteresis)
-    record, hist, passes = _launch("spectral_walk_filtered", mags, n, threshold, hysteresis, history, offsets)
-    return hist, record, passes
+    with span("kernel.spectral_walk"):
+        if mags.device.type == "cpu":
+            return spectral_walk_filtered_plain(mags, offsets, n, history, threshold, hysteresis)
+        record, hist, passes = _launch("spectral_walk_filtered", mags, n, threshold, hysteresis, history, offsets)
+        return hist, record, passes
 
 
 def spectral_walk_spectrum(
@@ -323,10 +325,11 @@ def spectral_walk_spectrum(
     :func:`spectral_walk_spectrum_plain`; CUDA tensors launch
     ``csrc/spectral_walk.cu``'s spectrum stage (one launch, no host-device
     copy) or raise."""
-    if spec.device.type == "cpu":
-        return spectral_walk_spectrum_plain(spec, n, threshold, hysteresis)
-    record, _, passes = _launch("spectral_walk_spectrum", spec, n, threshold, hysteresis, None)
-    return record, passes
+    with span("kernel.spectral_walk"):
+        if spec.device.type == "cpu":
+            return spectral_walk_spectrum_plain(spec, n, threshold, hysteresis)
+        record, _, passes = _launch("spectral_walk_spectrum", spec, n, threshold, hysteresis, None)
+        return record, passes
 
 
 def spectral_walk_filtered_spectrum(
@@ -339,7 +342,8 @@ def spectral_walk_filtered_spectrum(
     tensors take :func:`spectral_walk_filtered_spectrum_plain`; CUDA tensors
     launch ``csrc/spectral_walk.cu``'s filtered spectrum entry (one launch,
     no host-device copy) or raise."""
-    if spec.device.type == "cpu":
-        return spectral_walk_filtered_spectrum_plain(spec, n, history, threshold, hysteresis)
-    record, hist, passes = _launch("spectral_walk_filtered_spectrum", spec, n, threshold, hysteresis, history)
-    return hist, record, passes
+    with span("kernel.spectral_walk"):
+        if spec.device.type == "cpu":
+            return spectral_walk_filtered_spectrum_plain(spec, n, history, threshold, hysteresis)
+        record, hist, passes = _launch("spectral_walk_filtered_spectrum", spec, n, threshold, hysteresis, history)
+        return hist, record, passes

@@ -33,6 +33,7 @@ import torch
 from signalizer_tpu_torch.core.config import SpectrumChannels
 from signalizer_tpu_torch.core.constant import SpectrumConstant
 from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 # the largest transforms the one-block form holds in one block's shared
 # memory: a real row runs as an N/2-point complex transform (4*N bytes),
@@ -53,12 +54,9 @@ CLUSTER_SHARE_BYTES = 64 * 1024
 MAX_LONG_TRANSFORM_SIZE = 1 << 21
 MAX_LONG_COMPLEX_TRANSFORM_SIZE = 1 << 20
 
-# calls that launched each form since the last reset (chip_smoke.py and
-# tests read them): the one-block kernel, the cluster kernel, and the
-# two-pass form's two kernels
-launches = 0
-cluster_launches = 0
-long_launches = 0
+# calls that launched each form count in the diagnostics registry:
+# window_fft_mag.launches (the one-block kernel), .cluster_launches (the
+# cluster kernel) and .long_launches (the two-pass form's two kernels)
 
 
 def _pack_channels(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
@@ -165,76 +163,76 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
     ``csrc/window_fft_mag_long.cu`` (two passes through a scratch tensor)
     above, or raise.
     """
-    global launches, cluster_launches, long_launches
-    if frames.device.type == "cpu":
-        return window_fft_mag_plain(constant, frames)
-    if frames.device.type != "cuda":
-        raise ValueError(f"window_fft_mag: unsupported device {frames.device}")
-    n = constant.transform_size
-    complex_mode = constant.configuration == SpectrumChannels.COMPLEX
-    route = form(constant)
-    longest = MAX_LONG_COMPLEX_TRANSFORM_SIZE if complex_mode else MAX_LONG_TRANSFORM_SIZE
-    if n > longest:
-        raise ValueError(f"window_fft_mag: transform_size {n} > {longest}, the longest row the kernel takes")
-    w = constant.window_size
-    if frames.dtype != torch.float32:
-        raise TypeError(f"window_fft_mag: frames must be float32, got {frames.dtype}")
-    if frames.ndim < 2 or frames.shape[-1] != w or frames.shape[-2] < 2:
-        raise ValueError(f"window_fft_mag: frames must be [..., C>=2, {w}], got {tuple(frames.shape)}")
-    if not frames.is_contiguous():
-        raise ValueError("window_fft_mag: frames must be contiguous")
-    for name in ("window_kernel", "fft_twiddles"):
-        if getattr(constant, name).device != frames.device:
-            raise ValueError(f"window_fft_mag: constant.{name} is not on {frames.device}")
-    if tuple(constant.fft_twiddles.shape) != (n, 2) or not constant.fft_twiddles.is_contiguous():
-        raise ValueError(f"window_fft_mag: constant.fft_twiddles must be a contiguous [{n}, 2] table")
-    lead = frames.shape[:-2]
-    batch = 1
-    for d in lead:
-        batch *= d
-    phase = constant.configuration == SpectrumChannels.PHASE
-    shape = out_shape(constant, lead) + ((2,) if phase else ())
-    out = torch.empty(shape, dtype=torch.float32, device=frames.device)
-    if batch == 0:
-        return torch.view_as_complex(out) if phase else out
-    lib = _build.library()
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
+    with span("kernel.window_fft_mag"):
+        if frames.device.type == "cpu":
+            return window_fft_mag_plain(constant, frames)
+        if frames.device.type != "cuda":
+            raise ValueError(f"window_fft_mag: unsupported device {frames.device}")
+        n = constant.transform_size
+        complex_mode = constant.configuration == SpectrumChannels.COMPLEX
+        route = form(constant)
+        longest = MAX_LONG_COMPLEX_TRANSFORM_SIZE if complex_mode else MAX_LONG_TRANSFORM_SIZE
+        if n > longest:
+            raise ValueError(f"window_fft_mag: transform_size {n} > {longest}, the longest row the kernel takes")
+        w = constant.window_size
+        if frames.dtype != torch.float32:
+            raise TypeError(f"window_fft_mag: frames must be float32, got {frames.dtype}")
+        if frames.ndim < 2 or frames.shape[-1] != w or frames.shape[-2] < 2:
+            raise ValueError(f"window_fft_mag: frames must be [..., C>=2, {w}], got {tuple(frames.shape)}")
+        if not frames.is_contiguous():
+            raise ValueError("window_fft_mag: frames must be contiguous")
+        for name in ("window_kernel", "fft_twiddles"):
+            if getattr(constant, name).device != frames.device:
+                raise ValueError(f"window_fft_mag: constant.{name} is not on {frames.device}")
+        if tuple(constant.fft_twiddles.shape) != (n, 2) or not constant.fft_twiddles.is_contiguous():
+            raise ValueError(f"window_fft_mag: constant.fft_twiddles must be a contiguous [{n}, 2] table")
+        lead = frames.shape[:-2]
+        batch = 1
+        for d in lead:
+            batch *= d
+        phase = constant.configuration == SpectrumChannels.PHASE
+        shape = out_shape(constant, lead) + ((2,) if phase else ())
+        out = torch.empty(shape, dtype=torch.float32, device=frames.device)
+        if batch == 0:
+            return torch.view_as_complex(out) if phase else out
+        lib = _build.library()
+        with torch.cuda.device(frames.device):
+            stream = torch.cuda.current_stream(frames.device).cuda_stream
+            if route == "cluster":
+                err = lib.sig_window_fft_mag_cluster(
+                    frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
+                    out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1, int(constant.configuration),
+                    cluster_size(constant).bit_length() - 1, stream,
+                )
+            elif route == "two_pass":
+                # the columns' transforms, twiddled: [rows, L] complex points
+                core = n if complex_mode else n // 2
+                scratch = torch.empty(
+                    (batch * constant.state_channels, core, 2), dtype=torch.float32, device=frames.device
+                )
+                err = lib.sig_window_fft_mag_long(
+                    frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1,
+                    int(constant.configuration), stream,
+                )
+            else:
+                err = lib.sig_window_fft_mag(
+                    frames.data_ptr(),
+                    constant.window_kernel.data_ptr(),
+                    constant.fft_twiddles.data_ptr(),
+                    out.data_ptr(),
+                    batch,
+                    frames.shape[-2],
+                    w,
+                    n.bit_length() - 1,
+                    int(constant.configuration),
+                    stream,
+                )
+        _build.check(err, "window_fft_mag")
         if route == "cluster":
-            err = lib.sig_window_fft_mag_cluster(
-                frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
-                out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1, int(constant.configuration),
-                cluster_size(constant).bit_length() - 1, stream,
-            )
+            count("window_fft_mag.cluster_launches")
         elif route == "two_pass":
-            # the columns' transforms, twiddled: [rows, L] complex points
-            core = n if complex_mode else n // 2
-            scratch = torch.empty(
-                (batch * constant.state_channels, core, 2), dtype=torch.float32, device=frames.device
-            )
-            err = lib.sig_window_fft_mag_long(
-                frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
-                scratch.data_ptr(), out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1,
-                int(constant.configuration), stream,
-            )
+            count("window_fft_mag.long_launches")
         else:
-            err = lib.sig_window_fft_mag(
-                frames.data_ptr(),
-                constant.window_kernel.data_ptr(),
-                constant.fft_twiddles.data_ptr(),
-                out.data_ptr(),
-                batch,
-                frames.shape[-2],
-                w,
-                n.bit_length() - 1,
-                int(constant.configuration),
-                stream,
-            )
-    _build.check(err, "window_fft_mag")
-    if route == "cluster":
-        cluster_launches += 1
-    elif route == "two_pass":
-        long_launches += 1
-    else:
-        launches += 1
-    return torch.view_as_complex(out) if phase else out
+            count("window_fft_mag.launches")
+        return torch.view_as_complex(out) if phase else out

@@ -40,6 +40,7 @@ device. What differs from the JAX session:
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 
 from signalizer_tpu_torch.engine import SignalizerEngine
 from signalizer_tpu_torch.stream.audio_stream import Playhead
+from signalizer_tpu_torch.utils.diagnostics import span
 from signalizer_tpu_torch.utils.exception_log import protected_call
 
 # the protected calls' fallback: a failure, told apart from a None result
@@ -316,7 +318,13 @@ class AnalysisSession:
         While :attr:`freeze` is set the last frame is returned unchanged
         and the history cursor does not advance — the editor's freeze mode
         (ref: MainEditor kfreeze; a frozen view holds its display and
-        resumes from live audio when unfrozen)."""
+        resumes from live audio when unfrozen). A live tick records its
+        latency, from its start to its read-back data on the host, in the
+        engine's diagnostics (the HUD's ``p50_ms`` and ``p99_ms``)."""
+        with span("session.tick"):
+            return self._tick(time.perf_counter())
+
+    def _tick(self, t_start: float) -> SessionFrame:
         eng = self.engine
         if self.freeze and self._frozen_frame is not None:
             # hold the display, but do NOT re-deliver the incremental
@@ -487,6 +495,7 @@ class AnalysisSession:
         if sg is not None:
             cols = self._protected(lambda: sg.pull(), "spectrogram")
 
+        eng.diagnostics.record_latency(time.perf_counter() - t_start)
         frame = SessionFrame(
             spectrum=spectrum,
             line_graph=line_graph,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from signalizer_tpu_torch.core.constant import resolve_device
+from signalizer_tpu_torch.utils.diagnostics import span
 
 
 def ring_update(ring: torch.Tensor, new: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -48,12 +49,13 @@ def ring_update(ring: torch.Tensor, new: torch.Tensor, n_valid: int) -> torch.Te
     are valid (the rest is bucket padding); ``n_valid`` a host int. Returns
     the last H samples of ``ring ++ new[..., :n_valid]`` as a new tensor.
     """
-    n_valid = int(n_valid)
-    h = ring.shape[-1]
-    if not 0 <= n_valid <= new.shape[-1]:
-        raise ValueError(f"n_valid {n_valid} outside 0..{new.shape[-1]}")
-    cat = torch.cat([ring, new[..., :n_valid].to(ring.dtype)], dim=-1)
-    return cat[..., n_valid : n_valid + h]
+    with span("ring.update"):
+        n_valid = int(n_valid)
+        h = ring.shape[-1]
+        if not 0 <= n_valid <= new.shape[-1]:
+            raise ValueError(f"n_valid {n_valid} outside 0..{new.shape[-1]}")
+        cat = torch.cat([ring, new[..., :n_valid].to(ring.dtype)], dim=-1)
+        return cat[..., n_valid : n_valid + h]
 
 
 def extract_frames(

@@ -48,6 +48,7 @@ from signalizer_tpu_torch.stream.device_ring import (
     ring_update,
 )
 from signalizer_tpu_torch.stream.pinned import PinnedUpload
+from signalizer_tpu_torch.utils.diagnostics import span
 
 # default 5-stop gradient + background (ref: SpectrumParameters.h
 # specColours defaults; exact defaults are preset-defined, these are the
@@ -111,10 +112,12 @@ def spectrogram_ring_step(
     SpectrumRendering.cpp:620-635). Returns (columns [t_valid, P, 4], ring,
     state). The windows are copied once into contiguous frames, which the
     FFT kernel's wrapper takes."""
-    ring = ring_update(ring, new, n_valid)
-    frames = extract_frames(ring, constant.window_size, hop, t_valid, frame_axis=-3).contiguous()
-    cols, state = spectrogram_step(constant, state, frames, colours, ratios, bounds=bounds)
-    return cols, ring, state
+    with span("spectrogram.step"):
+        ring = ring_update(ring, new, n_valid)
+        with span("ring.frames"):
+            frames = extract_frames(ring, constant.window_size, hop, t_valid, frame_axis=-3).contiguous()
+        cols, state = spectrogram_step(constant, state, frames, colours, ratios, bounds=bounds)
+        return cols, ring, state
 
 
 class SpectrogramProcessor:

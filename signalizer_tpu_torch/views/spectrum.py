@@ -42,6 +42,7 @@ from signalizer_tpu_torch.kernels.spectrum import (
     post_process,
     stitch_preliminary,
 )
+from signalizer_tpu_torch.utils.diagnostics import span
 
 
 class SpectrumProcessor:
@@ -90,18 +91,20 @@ class SpectrumProcessor:
             self.reset()
 
     def _frames(self, frames) -> torch.Tensor:
-        if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
-        return torch.as_tensor(frames, dtype=torch.float32).to(self.device).contiguous()
+        with span("ring.frames"):
+            if isinstance(frames, np.ndarray):
+                frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
+            return torch.as_tensor(frames, dtype=torch.float32).to(self.device).contiguous()
 
     def process(self, frames) -> torch.Tensor:
         """frames [pairs, T, 2, window] (or [pairs, 2, window] for one step),
         numpy or tensor -> display results [pairs, T, K, rows, P] on the
         processor's device; decay state carries across calls."""
-        frames = self._frames(frames)
-        if frames.ndim == 3:  # [pairs, C, W] -> single time step
-            frames = frames[:, None]
-        return analyze_frames(self.constant, self._state, frames).results
+        with span("spectrum.process"):
+            frames = self._frames(frames)
+            if frames.ndim == 3:  # [pairs, C, W] -> single time step
+                frames = frames[:, None]
+            return analyze_frames(self.constant, self._state, frames).results
 
     def process_to_host(self, frames) -> np.ndarray:
         return self.process(frames).cpu().numpy()

@@ -25,6 +25,7 @@ from signalizer_tpu_torch.kernels.spectrum import (
     post_process,
     spectrum_values,
 )
+from signalizer_tpu_torch.utils.diagnostics import counter
 from signalizer_tpu_torch.views import oscilloscope as tv
 
 MODES = [
@@ -57,7 +58,8 @@ def _frames(shape, seed, device):
 
 def _form_counts():
     """Calls that launched each form of kernel A so far."""
-    return {"block": wfm.launches, "cluster": wfm.cluster_launches, "two_pass": wfm.long_launches}
+    return {"block": counter("window_fft_mag.launches"), "cluster": counter("window_fft_mag.cluster_launches"),
+            "two_pass": counter("window_fft_mag.long_launches")}
 
 
 def _one_more(before, route):
@@ -368,11 +370,11 @@ def test_display_map_kernel_matches_plain(cuda, mode, interp, t, valid):
     )
     mags, state = _mags_state(c, seed=int(mode) * 7 + int(interp) + t, t=t, pairs=3, device=cuda)
     s_kernel, s_plain = state.clone(), state.clone()
-    before = dm.launches
+    before = counter("display_map.launches")
     got = dm.display_map(c, mags, s_kernel, valid)
     want = dm.display_map_plain(c, mags, s_plain, valid)
     torch.cuda.synchronize()
-    assert dm.launches == before + 1
+    assert counter("display_map.launches") == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     atol = 1e-6 * float(s_plain.abs().max()) if interp == BinInterpolation.LANCZOS else 0.0
     torch.testing.assert_close(s_kernel, s_plain, rtol=1e-6, atol=atol)
@@ -440,11 +442,11 @@ def test_display_remap_entry_matches_plain(cuda, mode, interp, frames_shape):
     rng = np.random.default_rng(len(frames_shape) + int(interp))
     shape = frames_shape + (c.state_channels, c.n_spectrum_values)
     mags = torch.from_numpy((np.abs(rng.standard_normal(shape)) * 40.0).astype(np.float32)).to(cuda)
-    before = dm.remap_launches
+    before = counter("display_map.remap_launches")
     got = dm.display_remap(c, mags)
     want = dm.display_remap_plain(c, mags)
     torch.cuda.synchronize()
-    assert dm.remap_launches == before + 1 and got.shape == want.shape
+    assert counter("display_map.remap_launches") == before + 1 and got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
     exact = ~c.interp_mask
     assert bool(exact.any()) and torch.equal(got[..., exact], want[..., exact])
@@ -473,11 +475,11 @@ def test_display_decay_db_entry_matches_plain(cuda, graphs, t, valid):
     state = torch.from_numpy((rng.random((3, graphs, 2, 300)) * 0.5).astype(np.float32)).to(cuda)
     state[:, :, :, ::17] = 0.0
     s_kernel, s_plain = state.clone(), state.clone()
-    before = dm.decay_db_launches
+    before = counter("display_map.decay_db_launches")
     got = dm.display_decay_db(c, s_kernel, vals, valid)
     want = dm.decay_db(c, s_plain, vals, valid)
     torch.cuda.synchronize()
-    assert dm.decay_db_launches == before + 1 and got.shape == (3, t, graphs, 2, 300)
+    assert counter("display_map.decay_db_launches") == before + 1 and got.shape == (3, t, graphs, 2, 300)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(s_kernel, s_plain)
     if valid is not None and not any(valid):
@@ -509,11 +511,11 @@ def test_display_decay_db_kernel_across_chunks(cuda, graphs, pairs, t, rows, val
     vals[..., ::7] = 0.0
     state = torch.from_numpy((rng.random((pairs, graphs, rows, p)) * 0.5).astype(np.float32)).to(cuda)
     s_kernel, s_plain = state.clone(), state.clone()
-    before = dm.decay_db_launches
+    before = counter("display_map.decay_db_launches")
     got = dm.display_decay_db(c, s_kernel, vals, valid)
     want = dm.decay_db(c, s_plain, vals, valid)
     torch.cuda.synchronize()
-    assert dm.decay_db_launches == before + 1
+    assert counter("display_map.decay_db_launches") == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(s_kernel, s_plain)
     if valid is not None and not any(valid):
@@ -583,7 +585,8 @@ def test_spectrum_values_and_post_process_on_cuda(cuda, mode):
         axis_points=128, window_size=1024, configuration=mode, view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
     )
     frames = _frames((2, 5, 2, 1024), seed=int(mode), device=cuda)
-    a0, r0, d0, f0 = wfm.launches, dm.remap_launches, dm.decay_db_launches, dm.launches
+    a0, r0 = counter("window_fft_mag.launches"), counter("display_map.remap_launches")
+    d0, f0 = counter("display_map.decay_db_launches"), counter("display_map.launches")
     vals = spectrum_values(c, frames)
     state = init_line_graph_state(c, (2,))
     valid = [True, True, False, True, True]
@@ -592,7 +595,8 @@ def test_spectrum_values_and_post_process_on_cuda(cuda, mode):
     plain_state = torch.zeros_like(state.magnitude)
     want = dm.decay_db(c, plain_state, plain_vals, valid)
     torch.cuda.synchronize()
-    assert (wfm.launches - a0, dm.remap_launches - r0, dm.decay_db_launches - d0, dm.launches - f0) == (1, 1, 1, 0)
+    assert (counter("window_fft_mag.launches") - a0, counter("display_map.remap_launches") - r0,
+            counter("display_map.decay_db_launches") - d0, counter("display_map.launches") - f0) == (1, 1, 1, 0)
     assert got.state is state
     torch.testing.assert_close(vals, plain_vals, rtol=1e-5, atol=1e-6 * float(plain_vals.abs().max()))
     torch.testing.assert_close(got.results, want, rtol=0, atol=2e-4)
@@ -610,11 +614,11 @@ def test_analyze_frames_on_cuda_goes_through_both_kernels(cuda):
     frames = _frames((2, 6, 2, 4096), seed=5, device=cuda)
     state = init_line_graph_state(c, (2,))
     plain_state = state.magnitude.clone()
-    a0, b0 = wfm.launches, dm.launches
+    a0, b0 = counter("window_fft_mag.launches"), counter("display_map.launches")
     got = analyze_frames(c, state, frames).results
     want = dm.display_map_plain(c, wfm.window_fft_mag_plain(c, frames), plain_state)
     torch.cuda.synchronize()
-    assert (wfm.launches - a0, dm.launches - b0) == (1, 1)
+    assert (counter("window_fft_mag.launches") - a0, counter("display_map.launches") - b0) == (1, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
     torch.testing.assert_close(state.magnitude, plain_state, rtol=1e-5, atol=1e-9)
 
@@ -638,9 +642,9 @@ def test_complex_mode_on_cuda_feeds_one_row_to_both_state_rows(cuda):
 def test_phase_on_cuda_feeds_kernel_a_complex_output(cuda):
     c = make_spectrum_constant(axis_points=128, window_size=1024, configuration=SpectrumChannels.PHASE, device=cuda)
     frames = _frames((2, 3, 2, 1024), seed=6, device=cuda)
-    a0, b0 = wfm.launches, dm.launches
+    a0, b0 = counter("window_fft_mag.launches"), counter("display_map.launches")
     out = analyze_frames(c, init_line_graph_state(c, (2,)), frames).results
-    assert (wfm.launches - a0, dm.launches - b0) == (1, 0)
+    assert (counter("window_fft_mag.launches") - a0, counter("display_map.launches") - b0) == (1, 0)
     cpu = c.to("cpu")
     want = analyze_frames(cpu, init_line_graph_state(cpu, (2,)), frames.cpu()).results
     torch.testing.assert_close(out[..., 0, :].cpu(), want[..., 0, :], rtol=1e-4, atol=1e-4)
@@ -681,11 +685,11 @@ def test_banded_resample_kernel_matches_plain(cuda, kind, a, with_nearest, p):
     order); nearest and the dual output's pick exactly equal."""
     for i, step in enumerate([0.125, 0.8, 1.0, 16.0, 128.0]):
         x, pos = _resample_inputs(kind, a, p, step, rows=2, seed=i + 10 * a + p, device=cuda)
-        before = br.launches
+        before = counter("banded_resample.launches")
         got = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=with_nearest)
         want = br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=with_nearest)
         torch.cuda.synchronize()
-        assert br.launches == before + 1
+        assert counter("banded_resample.launches") == before + 1
         if with_nearest:
             assert torch.equal(got[1], want[1]), step
             got, want = got[0], want[0]
@@ -780,9 +784,9 @@ def test_banded_resample_affine_entry_matches_the_pos_entry(cuda, kind, a, p, st
     x, start, lo, hi = _affine_inputs(kind, a, p, step, where, seed=p + a, device=cuda)
     step32 = float(np.float32(step))
     step_arg = step32 if step_form == "host" else torch.full((x.shape[0],), step32, device=cuda)
-    before = br.launches
+    before = counter("banded_resample.launches")
     got = br.banded_resample_affine(x, start, step_arg, p, lo, hi, a=a, kind=kind, with_nearest=True)
-    assert br.launches == before + 1
+    assert counter("banded_resample.launches") == before + 1
     pos = br.affine_positions(x, start, step_arg, p, lo, hi)
     same = br.banded_resample(x, pos, a=a, kind=kind, with_nearest=True)
     want = br.banded_resample_plain(x, pos, a=a, kind=kind, with_nearest=True)
@@ -804,10 +808,10 @@ def test_resample_functions_on_cuda_form_positions_in_the_kernel(cuda):
     x, start, _, _ = _affine_inputs("lanczos", 10, 2048, 0.5, "inside", seed=8, device=cuda)
     own = start[:, None].expand(-1, 2).contiguous()
     for fn, extra in ((tk.sinc_resample, (10,)), (tk.linear_resample, ()), (tk.nearest_resample, ())):
-        before = br.launches
+        before = counter("banded_resample.launches")
         shared = fn(x, start[:, None], 0.5, 2048, *extra)
         unshared = fn(x, own, 0.5, 2048, *extra)
-        assert br.launches == before + 2
+        assert counter("banded_resample.launches") == before + 2
         assert shared.shape == unshared.shape == (4, 2, 2048)
         torch.testing.assert_close(shared, unshared, rtol=0, atol=1e-6 * float(x.abs().max()))
 
@@ -841,9 +845,9 @@ def test_banded_resample_refuses_what_it_cannot_take(cuda):
         br.banded_resample_affine(x, start, start.double(), 256, -11.0, 16393.0, a=10, kind="lanczos")
     with pytest.raises(ValueError, match="on"):
         br.banded_resample_affine(x, start.cpu(), 1.0, 256, -11.0, 16393.0, a=10, kind="lanczos")
-    before = br.launches
+    before = counter("banded_resample.launches")
     empty = br.banded_resample_affine(x, start, 1.0, 0, -11.0, 16393.0, a=10, kind="lanczos")
-    assert empty.shape == (3, 2, 0) and br.launches == before
+    assert empty.shape == (3, 2, 0) and counter("banded_resample.launches") == before
 
 
 @contextlib.contextmanager
@@ -906,10 +910,11 @@ def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, in
         h = hist[..., i * 800 : i * 800 + 8192].contiguous()
         plain.state = proc.state
         plain_track.state = proc.state
-        before, colour_before = br.launches, ct.launches
+        before, colour_before = counter("banded_resample.launches"), counter("colour_track.launches")
         got = proc.process(h, new_samples=800)
-        assert br.launches - before == per_call
-        assert ct.launches - colour_before == int(colour)  # kernel E once a call, then kernel C's pick
+        assert counter("banded_resample.launches") - before == per_call
+        # kernel E once a call, then kernel C's pick
+        assert counter("colour_track.launches") - colour_before == int(colour)
         if colour:
             tv.colour_track = ct.colour_track_plain
             try:
@@ -917,7 +922,7 @@ def test_oscilloscope_processor_on_cuda_matches_the_plain_path(cuda, trigger, in
                     want_track = plain_track.process(h, new_samples=800)
             finally:
                 tv.colour_track = ct.colour_track
-            assert ct.launches - colour_before == 1
+            assert counter("colour_track.launches") - colour_before == 1
             torch.testing.assert_close(got.colours, want_track.colours, rtol=0, atol=1e-3)
         with _plain_resample():
             want = plain.process(h, new_samples=800)
@@ -980,12 +985,12 @@ def test_spectrogram_processor_on_cuda(cuda):
         "cpu": SpectrogramProcessor(device="cpu", device_ingest=True, **kw),
     }
     for at in range(0, 9600, 800):
-        a0, b0 = wfm.launches, dm.launches
+        a0, b0 = counter("window_fft_mag.launches"), counter("display_map.launches")
         cols = {}
         for name, proc in procs.items():
             proc.push(stream[:, at : at + 800])
             cols[name] = proc.pull()
-        assert (wfm.launches - a0) == (dm.launches - b0)
+        assert (counter("window_fft_mag.launches") - a0) == (counter("display_map.launches") - b0)
         assert np.array_equal(cols["device"], cols["host"])
         if cols["cpu"].size:
             diff = np.abs(cols["device"].astype(np.int16) - cols["cpu"].astype(np.int16))
@@ -1016,10 +1021,10 @@ def test_resonator_processor_on_cuda(cuda):
         (x[..., 2848:3872].reshape(2, 2, 2, 512), None),
     ]
     for blocks, valid in calls:
-        before = dm.decay_db_launches
+        before = counter("display_map.decay_db_launches")
         got = on_card.process_chunks(blocks, valid=valid)
         want = on_cpu.process_chunks(blocks, valid=valid)
-        assert dm.decay_db_launches == before + 1
+        assert counter("display_map.decay_db_launches") == before + 1
         peak = float(on_cpu.res_state.abs().max())
         torch.testing.assert_close(on_card.res_state.cpu(), on_cpu.res_state, rtol=0, atol=2e-6 * peak)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
@@ -1118,9 +1123,11 @@ def test_session_tick_on_cuda_matches_the_cpu_session(cuda):
     spectrogram bytes within 1 LSB on at most 0.1%, tracker frequency rtol
     1e-5; kernels A, B and C launched, every tick fused, nothing failed or
     fell back."""
-    a0, b0, c0 = wfm.launches, dm.launches, br.launches
+    a0, b0 = counter("window_fft_mag.launches"), counter("display_map.launches")
+    c0 = counter("banded_resample.launches")
     card, cc = _session_frames(cuda, True)
-    assert wfm.launches > a0 and dm.launches > b0 and br.launches > c0
+    assert counter("window_fft_mag.launches") > a0 and counter("display_map.launches") > b0
+    assert counter("banded_resample.launches") > c0
     cpu, _ = _session_frames("cpu", True)
     assert cc["session.fused_ticks"] == cc["session.ticks"] == 12
     assert cc["session.failures"] == cc["session.fallbacks"] == 0
@@ -1177,10 +1184,10 @@ def _same(a, b):
 def _hold_both(x, thr, hyst, state, holding, **kw):
     from signalizer_tpu_torch.kernels import peak_hold as ph
 
-    n = ph.launches
+    n = counter("peak_hold.launches")
     got = ph.peak_hold_triggers(x, thr, hyst, state, holding, **kw)
     torch.cuda.synchronize()
-    assert ph.launches == n + 1
+    assert counter("peak_hold.launches") == n + 1
     want = ph.peak_hold_triggers_plain(x, thr, hyst, state, holding, **kw)
     assert torch.equal(got[0], want[0]), "fires"
     assert _same(got[1], want[1]), "state"
@@ -1251,10 +1258,10 @@ def test_peak_hold_kernel_nan_sample_and_fall_at_sample_zero(cuda):
 def _fused_both(x, thr, hyst, state, holding, ages, **kw):
     from signalizer_tpu_torch.kernels import peak_hold as ph
 
-    n = ph.launches
+    n = counter("peak_hold.launches")
     got = ph.envelope_hold_trigger(x, thr, hyst, state, holding, ages, **kw)
     torch.cuda.synchronize()
-    assert ph.launches == n + 1
+    assert counter("peak_hold.launches") == n + 1
     want = ph.envelope_hold_trigger_plain(x, thr, hyst, state, holding, ages, **kw)
     for name, a, b in zip(("state", "holding", "fire_ages", "found", "start"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
@@ -1361,15 +1368,15 @@ def test_envelope_hold_oscilloscope_step_launches_kernel_d(cuda):
     hist = _hold_rows(8, 8192 + 3 * 800, 5, cuda).reshape(4, 2, -1)
     for i in range(3):
         h = hist[..., i * 800 : i * 800 + 8192].contiguous()
-        n = ph.launches
+        n = counter("peak_hold.launches")
         got = card.process(h, new_samples=800)
-        assert ph.launches == n + 1
+        assert counter("peak_hold.launches") == n + 1
         tv.envelope_hold_trigger = ph.envelope_hold_trigger_plain
         try:
             want = loop.process(h, new_samples=800)
         finally:
             tv.envelope_hold_trigger = ph.envelope_hold_trigger
-        assert ph.launches == n + 1  # the plain path launches nothing
+        assert counter("peak_hold.launches") == n + 1  # the plain path launches nothing
         for name in ("waveform", "envelope_min", "envelope_max", "trigger_found"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
         assert torch.equal(card.state.peak_fire_ages, loop.state.peak_fire_ages)
@@ -1443,9 +1450,9 @@ def test_colour_split_kernel_matches_plain_and_the_oracle(cuda, pairs, rows, w, 
     pstate = state
     for call in range(2):
         xc = x if call == 0 else torch.roll(x, 37, -1)
-        n = ct.launches
+        n = counter("colour_track.launches")
         bands, new = ct.three_band_split(xc, COLOUR_FS, state=state)
-        assert ct.launches == n + 1
+        assert counter("colour_track.launches") == n + 1
         pb, pnew = ct.three_band_split_plain(xc, COLOUR_FS, state=pstate)
         torch.cuda.synchronize()
         ref, z64, _, _ = ct.float64_reference(xc.cpu().numpy().reshape(-1, w), COLOUR_FS, z64, 0.0,
@@ -1472,9 +1479,9 @@ def test_colour_track_kernel_matches_plain_and_the_oracle(cuda, pairs, rows, w, 
     pstate, psmooth = state, smooth
     for call in range(2):
         xc = x if call == 0 else torch.roll(x, 37, -1)
-        n = ct.launches
+        n = counter("colour_track.launches")
         colours, new, new_s = ct.colour_track(xc, COLOUR_FS, state, COLOUR_POLE, bc, key, blend, smooth)
-        assert ct.launches == n + 1
+        assert counter("colour_track.launches") == n + 1
         pc, pnew, pnew_s = ct.colour_track_plain(xc, COLOUR_FS, pstate, COLOUR_POLE, bc, key, blend, psmooth)
         torch.cuda.synchronize()
         _, z64, sm64, _ = ct.float64_reference(xc.cpu().numpy().reshape(-1, w), COLOUR_FS, z64, COLOUR_POLE, s64,
@@ -1497,9 +1504,9 @@ def test_spectral_colour_track_on_cuda_takes_bands(cuda):
     x, state, smooth, key, _ = _colour_inputs(4, 2, 5000, True, 17, cuda)
     bands, _ = ct.three_band_split_plain(x, COLOUR_FS, state=state)
     bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
-    n = ct.launches
+    n = counter("colour_track.launches")
     got, gs = tk.spectral_colour_track(bands, COLOUR_POLE, bc, key[0], 0.7, smooth)
-    assert ct.launches == n + 1
+    assert counter("colour_track.launches") == n + 1
     want, ws = ct.spectral_colour_track_plain(bands, COLOUR_POLE, bc, key[0], 0.7, smooth)
     assert got.shape == want.shape == (4, 2, 5000, 3)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
@@ -1516,7 +1523,7 @@ def test_colour_track_refuses_what_it_cannot_take(cuda):
     """Wrong states, band colours or blend raise before any launch."""
     x, state, smooth, key, _ = _colour_inputs(2, 2, 256, True, 3, cuda)
     bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
-    n = ct.launches
+    n = counter("colour_track.launches")
     with pytest.raises(ValueError, match="crossover state"):
         ct.three_band_split(x, COLOUR_FS, state=ct.CrossoverState(state.z[:1]))
     with pytest.raises(ValueError, match="smoothing state"):
@@ -1527,7 +1534,7 @@ def test_colour_track_refuses_what_it_cannot_take(cuda):
         ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc, key, torch.tensor(0.8), smooth)
     with pytest.raises(ValueError, match="float32"):
         ct.colour_track(x.double(), COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth)
-    assert ct.launches == n
+    assert counter("colour_track.launches") == n
 
 
 # kernel E's forced geometries: (blocks a row, W): every cluster size of
@@ -1552,10 +1559,10 @@ def test_colour_track_kernel_every_cluster_size(cuda, monkeypatch, cluster, w):
     fs_state, pfs_state, pstate, psmooth = state, state, state, smooth
     for call in range(2):
         xc = x if call == 0 else torch.roll(x, 37, -1)
-        n = ct.launches
+        n = counter("colour_track.launches")
         bands, fs_state = ct.three_band_split(xc, COLOUR_FS, state=fs_state)
         colours, new, new_s = ct.colour_track(xc, COLOUR_FS, state, COLOUR_POLE, bc, key, blend, smooth)
-        assert ct.launches == n + 2
+        assert counter("colour_track.launches") == n + 2
         pb, pfs_state = ct.three_band_split_plain(xc, COLOUR_FS, state=pfs_state)
         pc, pnew, pnew_s = ct.colour_track_plain(xc, COLOUR_FS, pstate, COLOUR_POLE, bc, key, blend, psmooth)
         torch.cuda.synchronize()
@@ -1583,12 +1590,12 @@ def test_colour_track_refuses_a_cluster_it_cannot_launch(cuda, monkeypatch, thre
     monkeypatch.setattr(ct, "colour_plan", lambda rows, w, sms: (threads, cluster))
     x, state, smooth, key, _ = _colour_inputs(1, 2, 4096, True, 5, cuda)
     bc = torch.from_numpy(COLOUR_BANDS).to(cuda)
-    n = ct.launches
+    n = counter("colour_track.launches")
     with pytest.raises(RuntimeError, match="colour_track"):
         ct.colour_track(x, COLOUR_FS, state, COLOUR_POLE, bc, key, 0.8, smooth)
     with pytest.raises(RuntimeError, match="three_band_split"):
         ct.three_band_split(x, COLOUR_FS, state=state)
-    assert ct.launches == n
+    assert counter("colour_track.launches") == n
 
 
 # ---------------------------------------------------------------------------
@@ -1655,7 +1662,7 @@ def _chain(rows, starts, length, ratio, first, device, m=WALK_N // 2 + 1):
 def _walk_both(mags, offsets, n, threshold, hysteresis, history=None):
     """Kernel F (one launch) and its plain version on the same tensors:
     every output bit-equal."""
-    before = sw.launches
+    before = counter("spectral_walk.launches")
     if history is None:
         rec, passes = sw.spectral_walk(mags, offsets, n, threshold, hysteresis)
         want, want_passes = sw.spectral_walk_plain(mags, offsets, n, threshold, hysteresis)
@@ -1665,7 +1672,7 @@ def _walk_both(mags, offsets, n, threshold, hysteresis, history=None):
         want_hist, want, want_passes = sw.spectral_walk_filtered_plain(mags, offsets, n, history, threshold,
                                                                      hysteresis)
     torch.cuda.synchronize()
-    assert sw.launches == before + 1 and sw.last_passes is passes
+    assert counter("spectral_walk.launches") == before + 1 and sw.last_passes is passes
     for name, a, b in zip(rec._fields, rec, want):
         assert a.dtype == b.dtype and torch.equal(a, b), (name, a, b)
     assert torch.equal(passes, want_passes.to(torch.int32)), (passes, want_passes)
@@ -1746,15 +1753,15 @@ def test_spectral_oscilloscope_step_launches_kernel_f(cuda):
     hist = torch.from_numpy(_osc_history(4, 16384 + 3 * 1600, seed=3)).to(cuda)
     for i in range(3):
         h = hist[..., i * 1600 : i * 1600 + 16384].contiguous()
-        n, ns = sw.launches, sw.spectrum_launches
+        n, ns = counter("spectral_walk.launches"), counter("spectral_walk.spectrum_launches")
         got = card.process(h, new_samples=1600)
-        assert sw.launches == n + 1 and sw.spectrum_launches == ns + 1
+        assert counter("spectral_walk.launches") == n + 1 and counter("spectral_walk.spectrum_launches") == ns + 1
         tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum_plain
         try:
             want = loop.process(h, new_samples=1600)
         finally:
             tv.spectral_walk_filtered_spectrum = sw.spectral_walk_filtered_spectrum
-        assert sw.launches == n + 1  # the plain path launches nothing
+        assert counter("spectral_walk.launches") == n + 1  # the plain path launches nothing
         for name in ("fundamental", "waveform", "envelope_min", "envelope_max", "trigger_found", "gain"):
             assert torch.equal(getattr(got, name), getattr(want, name)), name
         assert torch.equal(card.state.median_history, loop.state.median_history)
@@ -1765,7 +1772,7 @@ def test_spectral_walk_refuses_what_it_cannot_take(cuda):
     raise before any launch."""
     mags, offsets = _walk_bins(2, 1, cuda)
     hist = _walk_history(2, 1, cuda)
-    n = sw.launches
+    n = counter("spectral_walk.launches")
     with pytest.raises(ValueError, match="float32"):
         sw.spectral_walk(mags.double(), offsets.double(), WALK_N)
     with pytest.raises(ValueError, match="one shape"):
@@ -1781,7 +1788,7 @@ def test_spectral_walk_refuses_what_it_cannot_take(cuda):
         sw.spectral_walk(mags, offsets, WALK_N, torch.tensor([0.1, 0.2], device=cuda))
     with pytest.raises(ValueError, match="hysteresis"):
         sw.spectral_walk(mags, offsets, WALK_N, 0.0, torch.tensor(0.1))
-    assert sw.launches == n
+    assert counter("spectral_walk.launches") == n
 
 
 def _walk_spectrum(rows, seed, device, n=WALK_N):
@@ -1811,7 +1818,7 @@ def _spectrum_both(spec, n, threshold, hysteresis, history=None):
     """Kernel F's spectrum entry (one launch) and its plain version
     (``spec.abs()``, ``_quad_delta`` and the plain loop) on the same
     tensors: record, passes and history bit-equal."""
-    before, spectrum_before = sw.launches, sw.spectrum_launches
+    before, spectrum_before = counter("spectral_walk.launches"), counter("spectral_walk.spectrum_launches")
     if history is None:
         rec, passes = sw.spectral_walk_spectrum(spec, n, threshold, hysteresis)
         want, want_passes = sw.spectral_walk_spectrum_plain(spec, n, threshold, hysteresis)
@@ -1821,7 +1828,8 @@ def _spectrum_both(spec, n, threshold, hysteresis, history=None):
         want_hist, want, want_passes = sw.spectral_walk_filtered_spectrum_plain(spec, n, history, threshold,
                                                                                hysteresis)
     torch.cuda.synchronize()
-    assert sw.launches == before + 1 and sw.spectrum_launches == spectrum_before + 1
+    assert counter("spectral_walk.launches") == before + 1
+    assert counter("spectral_walk.spectrum_launches") == spectrum_before + 1
     assert sw.last_passes is passes
     for name, a, b in zip(rec._fields, rec, want):
         assert _bits_equal(a, b), (name, a, b)
@@ -1929,7 +1937,7 @@ def test_spectral_walk_spectrum_refuses_what_it_cannot_take(cuda):
     samples, too many bins and a wrong history raise before any launch."""
     spec = _walk_spectrum(2, 1, cuda)
     hist = _walk_history(2, 1, cuda)
-    n = sw.launches
+    n = counter("spectral_walk.launches")
     with pytest.raises(ValueError, match="complex64"):
         sw.spectral_walk_spectrum(spec.abs(), WALK_N)
     with pytest.raises(ValueError, match=r"\[\.\.\., >= 4097\]"):
@@ -1940,7 +1948,7 @@ def test_spectral_walk_spectrum_refuses_what_it_cannot_take(cuda):
         sw.spectral_walk_spectrum(torch.zeros((1, 9000), dtype=torch.complex64, device=cuda), 2 * 8195)
     with pytest.raises(ValueError, match="history"):
         sw.spectral_walk_filtered_spectrum(spec, WALK_N, hist[:, :4])
-    assert sw.launches == n
+    assert counter("spectral_walk.launches") == n
 
 
 # ---------------------------------------------------------------------------
@@ -2051,11 +2059,11 @@ def test_phase_decay_kernel_is_bit_equal_to_the_plain_loop(cuda, case):
     c, vals, mag, phase, valid = _phase_inputs(case, cuda, seed=len(case))
     k_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
     p_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
-    before = pd.launches
+    before = counter("phase_decay_db.launches")
     got = pd.phase_decay_db(c, k_state, vals, valid)
     want = pd.phase_decay_db_plain(c, p_state, vals, valid)
     torch.cuda.synchronize()
-    assert pd.launches == before + 1
+    assert counter("phase_decay_db.launches") == before + 1
     assert got.shape == want.shape == vals.shape[:2] + (c.num_line_graphs, 2, c.axis_points)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(k_state.magnitude, p_state.magnitude) and torch.equal(k_state.phase, p_state.phase)
@@ -2082,11 +2090,11 @@ def test_phase_decay_kernel_one_and_two_pass_plans(cuda, monkeypatch, case, fram
     c, vals, mag, phase, valid = _phase_inputs(case, cuda, seed=7 + len(case))
     k_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
     p_state = init_line_graph_state(c, (vals.shape[0],))._replace(magnitude=mag.clone(), phase=phase.clone())
-    before = pd.launches
+    before = counter("phase_decay_db.launches")
     got = pd.phase_decay_db(c, k_state, vals, valid)
     want = pd.phase_decay_db_plain(c, p_state, vals, valid)
     torch.cuda.synchronize()
-    assert pd.launches == before + 1
+    assert counter("phase_decay_db.launches") == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(k_state.magnitude, p_state.magnitude) and torch.equal(k_state.phase, p_state.phase)
 
@@ -2134,18 +2142,21 @@ def test_phase_post_process_and_processor_launch_kernel_g(cuda):
     plain = init_line_graph_state(proc.constant, (2,))
     frames = _frames((2, 5, 2, 1024), seed=12, device=cuda)
     for x in (frames, frames[:, :1].contiguous()):
-        counts = (wfm.launches, dm.launches, dm.decay_db_launches, pd.launches)
+        counts = (counter("window_fft_mag.launches"), counter("display_map.launches"),
+                  counter("display_map.decay_db_launches"), counter("phase_decay_db.launches"))
         got = proc.process(x)
-        after = (wfm.launches, dm.launches, dm.decay_db_launches, pd.launches)
+        after = (counter("window_fft_mag.launches"), counter("display_map.launches"),
+                 counter("display_map.decay_db_launches"), counter("phase_decay_db.launches"))
         want = pd.phase_decay_db_plain(proc.constant, plain, spectrum_values(proc.constant, x))
         torch.cuda.synchronize()
         assert tuple(b - a for a, b in zip(counts, after)) == (1, 0, 0, 1)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
         assert torch.equal(proc._state.magnitude, plain.magnitude) and torch.equal(proc._state.phase, plain.phase)
     bank = ResonatorSpectrumProcessor.create(pairs=2, device=cuda, **kw)
-    before = pd.launches
+    before = counter("phase_decay_db.launches")
     out = bank.process(_frames((2, 2, 800), seed=13, device=cuda))
-    assert pd.launches == before + 1 and out.shape == (2, 1, 2, 2, 256) and bool(torch.isfinite(out).all())
+    assert counter("phase_decay_db.launches") == before + 1
+    assert out.shape == (2, 1, 2, 2, 256) and bool(torch.isfinite(out).all())
 
 
 def test_phase_decay_refuses_what_it_cannot_take(cuda):
@@ -2212,11 +2223,11 @@ def test_resonator_scan_kernel_is_bit_equal_to_the_plain_loop(cuda, case):
     state0 = state.clone()
     drives = rz._drive(plan.drive_matrix, chunks, bank.num_pixels, bank.vectors)
     args = (state, drives, plan.decay[..., 0], plan.decay[..., 1], bank.combine, bank.gain, valid, emit)
-    before = rs.launches
+    before = counter("resonator_scan.launches")
     got = rs.resonator_scan(*args)
     want = rs.resonator_scan_plain(*args)
     torch.cuda.synchronize()
-    assert rs.launches == before + 1 and torch.equal(state, state0)
+    assert counter("resonator_scan.launches") == before + 1 and torch.equal(state, state0)
     assert torch.equal(got.state, want.state)
     for name in ("re", "im", "magnitude") + (("readouts",) if emit else ()):
         g, w = getattr(got, name), getattr(want, name)
@@ -2247,7 +2258,7 @@ def test_resonator_scan_runs_once_per_bank_call_without_a_sync(cuda):
             blocks_on_card = torch.from_numpy(np.ascontiguousarray(blocks)).to(cuda)
             bank0 = card.res_state.clone()
             args = _scan_args(card, bank0, blocks_on_card, v)
-            before = rs.launches
+            before = counter("resonator_scan.launches")
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2258,7 +2269,7 @@ def test_resonator_scan_runs_once_per_bank_call_without_a_sync(cuda):
             got = card.process_chunks(blocks_on_card, valid=v)
             want = cpu.process_chunks(blocks, valid=v)
             torch.cuda.synchronize()
-            assert rs.launches == before + 2
+            assert counter("resonator_scan.launches") == before + 2
             assert torch.equal(scan.state, plain.state) and torch.equal(card.res_state, scan.state)
             peak = float(cpu.res_state.abs().max())
             torch.testing.assert_close(card.res_state.cpu(), cpu.res_state, rtol=0, atol=2e-6 * peak)

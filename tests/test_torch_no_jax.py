@@ -124,7 +124,7 @@ def test_phase_tail_and_resonator_scan_run_with_jax_blocked():
         sys.modules["jax"] = None
         import numpy as np
         import signalizer_tpu_torch as st
-        from signalizer_tpu_torch.kernels import phase_decay_db as g, resonator_scan as h
+        from signalizer_tpu_torch.utils.diagnostics import counter
         from signalizer_tpu_torch.kernels.resonator import init_resonator_state, resonate_chunks
         from signalizer_tpu_torch.stream import pinned
         rng = np.random.default_rng(0)
@@ -142,7 +142,8 @@ def test_phase_tail_and_resonator_scan_run_with_jax_blocked():
                                     rs._blocks(x[:, 0]).reshape(2, 4, 128), valid=[True] * 3 + [False],
                                     plan=rs.block_plan(128), emit_readouts=True)
         assert tuple(ys.shape) == (4, 2, 64) and bool((ys[3] == ys[2]).all())
-        assert (g.launches, h.launches) == (0, 0) and pinned._mask_uploads == {}
+        assert (counter("phase_decay_db.launches"), counter("resonator_scan.launches")) == (0, 0)
+        assert pinned._mask_uploads == {}
         loaded = sorted(m for m in sys.modules if m.startswith("signalizer_tpu.") or m == "signalizer_tpu")
         print(" ".join(loaded))
         """
@@ -285,9 +286,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         subprocess.Popen = trap("subprocess.Popen")
         shutil.which = trap("shutil.which")
         ctypes.CDLL = trap("ctypes.CDLL")
-        import signalizer_tpu_torch.kernels.window_fft_mag as a
-        import signalizer_tpu_torch.kernels.display_map as b
-        import signalizer_tpu_torch.kernels.banded_resample as c
+        import signalizer_tpu_torch.kernels.window_fft_mag
+        import signalizer_tpu_torch.kernels.display_map
+        import signalizer_tpu_torch.kernels.banded_resample
         import signalizer_tpu_torch.kernels.spectrum
         import signalizer_tpu_torch.kernels.oscilloscope
         import signalizer_tpu_torch.views.oscilloscope
@@ -305,11 +306,11 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         import signalizer_tpu_torch.views.content
         import signalizer_tpu_torch.state.factory_presets
         import signalizer_tpu_torch.state.sgn_import
-        import signalizer_tpu_torch.kernels.peak_hold as d
+        import signalizer_tpu_torch.kernels.peak_hold
         import signalizer_tpu_torch.kernels.colour_track as e
         import signalizer_tpu_torch.kernels.spectral_walk as f
-        import signalizer_tpu_torch.kernels.phase_decay_db as g
-        import signalizer_tpu_torch.kernels.resonator_scan as h
+        import signalizer_tpu_torch.kernels.phase_decay_db
+        import signalizer_tpu_torch.kernels.resonator_scan
         import signalizer_tpu_torch.stream.pinned
         import signalizer_tpu_torch.parallel.pipeline
         import signalizer_tpu_torch.views.render
@@ -321,9 +322,12 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         assert "triton" not in sys.modules
         assert _build.library.cache_info().currsize == 0
         assert nb._lib is None and nb._build_error is None
-        assert (a.launches, a.cluster_launches, a.long_launches, b.launches, b.remap_launches,
-                b.decay_db_launches, c.launches, d.launches, e.launches, f.launches, g.launches,
-                h.launches) == (0,) * 12
+        from signalizer_tpu_torch.utils.diagnostics import counter
+        launches = ("window_fft_mag.launches", "window_fft_mag.cluster_launches", "window_fft_mag.long_launches",
+                    "display_map.launches", "display_map.remap_launches", "display_map.decay_db_launches",
+                    "banded_resample.launches", "peak_hold.launches", "colour_track.launches",
+                    "spectral_walk.launches", "phase_decay_db.launches", "resonator_scan.launches")
+        assert [counter(name) for name in launches] == [0] * 12
         assert signalizer_tpu_torch.stream.pinned._mask_uploads == {}
         assert f.last_passes is None
         assert e._device_table.cache_info().currsize == 0

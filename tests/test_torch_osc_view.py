@@ -36,7 +36,7 @@ import torch
 from signalizer_tpu.core.config import OscChannels
 from signalizer_tpu.params.transformatters import TimeMode
 from signalizer_tpu.views import oscilloscope as jv
-from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.utils.diagnostics import counter
 from signalizer_tpu_torch.views import oscilloscope as tv
 
 from test_golden import GOLDEN_DIR
@@ -103,9 +103,9 @@ def _run(jp, tp, stream, wave_atol=2e-6, transport=None):
 def test_processor_matches_jax_per_trigger_and_interpolation(trigger, interp):
     """SEPARATE rows, every trigger mode x every interpolation."""
     jp, tp = _pair(channel_mode=OscChannels.SEPARATE, trigger_mode=trigger, interpolation=interp)
-    before = br.launches
+    before = counter("banded_resample.launches")
     frames = _run(jp, tp, _stream(), transport=1000.0)
-    assert br.launches == before  # CPU tensors take the plain version
+    assert counter("banded_resample.launches") == before  # CPU tensors take the plain version
     for f in frames:
         assert f.waveform.shape == (PAIRS, 2, PIXELS)
         assert torch.isfinite(f.waveform).all()

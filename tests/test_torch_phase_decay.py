@@ -24,6 +24,7 @@ from signalizer_tpu_torch import SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import phase_decay_db as pd
 from signalizer_tpu_torch.kernels import spectrum as ts
+from signalizer_tpu_torch.utils.diagnostics import counter
 
 FS = 48_000.0
 P = 64
@@ -192,7 +193,7 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     got = pd.phase_decay_db(tc, a, torch.from_numpy(vals), valid)
     want = pd.phase_decay_db_plain(tc, b, torch.from_numpy(vals), valid)
     assert torch.equal(got, want) and torch.equal(a.magnitude, b.magnitude) and torch.equal(a.phase, b.phase)
-    assert pd.launches == 0
+    assert counter("phase_decay_db.launches") == 0
 
 
 def test_post_process_dispatches_phase_to_kernel_g(monkeypatch):
@@ -217,7 +218,7 @@ def test_post_process_dispatches_phase_to_kernel_g(monkeypatch):
     monkeypatch.undo()
     with pytest.raises(ValueError, match="phase_decay_db"):
         pd.phase_decay_db(tc, state, vals)
-    assert pd.launches == 0
+    assert counter("phase_decay_db.launches") == 0
 
 
 @pytest.mark.parametrize("sms", [2, 132])

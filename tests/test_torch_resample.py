@@ -15,6 +15,7 @@ from signalizer_tpu.kernels import oscilloscope as jk
 from signalizer_tpu.kernels.pallas_resample import fused_banded_resample
 from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import oscilloscope as tk
+from signalizer_tpu_torch.utils.diagnostics import counter
 
 from test_pallas_resample import _mk, _oracle
 
@@ -117,12 +118,12 @@ def test_with_nearest_matches_the_pallas_dual_output():
 
 def test_wrapper_takes_the_plain_path_for_cpu_tensors():
     x, pos = _mk(step=0.3)
-    before = br.launches
+    before = counter("banded_resample.launches")
     for kind in br.KINDS:
         got = br.banded_resample(_t(x), _t(pos), a=3, kind=kind, with_nearest=True)
         want = br.banded_resample_plain(_t(x), _t(pos), a=3, kind=kind, with_nearest=True)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert br.launches == before
+    assert counter("banded_resample.launches") == before
     with pytest.raises(ValueError, match="unknown kind"):
         br.banded_resample(_t(x), _t(pos), a=3, kind="cubic")
 
@@ -163,11 +164,11 @@ def test_affine_entry_is_the_plain_version_at_the_positions_tensor(kind, a, step
     positions are ``start + p * step`` rounded once and clipped."""
     x, start, steps, lo, hi = _affine_case(kind, a, where)
     step = float(steps[1]) if step_form == "host" else _t(steps)
-    before = br.launches
+    before = counter("banded_resample.launches")
     got = br.banded_resample_affine(_t(x), _t(start), step, 160, lo, hi, a=a, kind=kind, with_nearest=True)
     pos = br.affine_positions(_t(x), _t(start), step, 160, lo, hi)
     want = br.banded_resample_plain(_t(x), pos, a=a, kind=kind, with_nearest=True)
-    assert br.launches == before
+    assert counter("banded_resample.launches") == before
     assert pos.shape == (3, 160) and pos.dtype == torch.float32
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     exact = start.astype(np.float64)[:, None] + np.arange(160.0) * (

@@ -17,6 +17,7 @@ from signalizer_tpu.kernels import resonator as jr
 from signalizer_tpu_torch.core.windows import WindowType as TWindow
 from signalizer_tpu_torch.kernels import resonator as tr
 from signalizer_tpu_torch.kernels import resonator_scan as rs
+from signalizer_tpu_torch.utils.diagnostics import counter
 
 FS = 48_000.0
 P = 64
@@ -153,4 +154,4 @@ def test_resonate_chunks_dispatches_to_kernel_h(monkeypatch):
     with pytest.raises(ValueError, match="resonator_scan"):
         rs.resonator_scan(state, torch.empty((2, 2, 5, P, 3, 2), device="meta"), plan.decay[..., 0],
                           plan.decay[..., 1], meta.combine, meta.gain)
-    assert rs.launches == 0
+    assert counter("resonator_scan.launches") == 0

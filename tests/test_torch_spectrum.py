@@ -23,6 +23,7 @@ from signalizer_tpu_torch.kernels.spectrum import (
     spectrum_values,
     stitch_preliminary,
 )
+from signalizer_tpu_torch.utils.diagnostics import counter
 
 from test_golden import CASES as GOLDEN_CASES
 from test_golden import GOLDEN_DIR
@@ -178,7 +179,7 @@ def test_post_process_dispatches_a_device_tensor_to_the_decay_db_entry(monkeypat
         dm.display_decay_db(tc, state.magnitude, vals)
     with pytest.raises(ValueError, match="unsupported device"):
         dm.display_remap(tc, torch.empty((1, 1, 129), device="meta"))
-    assert (dm.remap_launches, dm.decay_db_launches) == (0, 0)
+    assert (counter("display_map.remap_launches"), counter("display_map.decay_db_launches")) == (0, 0)
 
 
 @pytest.mark.parametrize("name", list(GOLDEN_CASES))
