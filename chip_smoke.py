@@ -385,6 +385,14 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/resonator_scan.cu",
         replaces="signalizer_tpu/kernels/resonator.py:313",
     ),
+    # the spectrogram's colour map: the gradient walk, the pair blend and the
+    # RGBA8 quantize in one launch (the JAX package maps with plain jnp,
+    # signalizer_tpu/kernels/colormap.py: no TPU kernel is replaced)
+    "colormap": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/colormap.cu",
+        replaces=None,
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -400,6 +408,7 @@ DEVICE_FUNCTIONS = {
     "spectral_walk": ("spectral_walk_kernel",),
     "phase_decay_db": ("phase_decay_db_kernel", "phase_walk_kernel", "phase_tick_kernel"),
     "resonator_scan": ("resonator_scan_kernel",),
+    "colormap": ("colormap_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -895,7 +904,7 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     from signalizer_tpu_torch.kernels import phase_decay_db as pd
     from signalizer_tpu_torch.kernels import spectrum as ts
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
-    from signalizer_tpu_torch.kernels.colormap import gradient_bounds, normalize_ratios, spectrogram_columns
+    from signalizer_tpu_torch.kernels.colormap import gradient_bounds, normalize_ratios, spectrogram_columns_plain
     from signalizer_tpu_torch.views import spectrogram as tv
 
     report = {"phase": "kernel_g", "bound": "states bit-equal to the plain loop, display <= 1e-5", "cases": {}}
@@ -1009,7 +1018,7 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     cols, _ = tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
     g4 = counter("phase_decay_db.launches")
     want4 = pd.phase_decay_db_plain(c4, p4, ts.spectrum_values(c4, frames4), valid4)
-    want_cols = spectrogram_columns(want4[:, :, 0, 0, :], colours, ratios)
+    want_cols = spectrogram_columns_plain(want4[:, :, 0, 0, :], colours, ratios)
     torch.cuda.synchronize()
     require(g4 == 1, f"cfg4 PHASE step: kernel G launched {g4} times")
     diff = (cols.to(torch.int16) - want_cols.to(torch.int16)).abs()
@@ -1111,18 +1120,21 @@ def phase_vectorscope(torch, dev):
     return keep
 
 
-def phase_spectrogram(torch, dev):
+def phase_spectrogram(torch, dev, results, launches_out, calls_out):
     """The Spectrogram at full width: (a) the bench's batched step
     (bench.py:881-924, cfg4): LEFT, 16384-point window, 1024 px,
     LOGARITHMIC, 1 pair x T = 512 with the validity mask; (b) the
     production tick (bench.py:940-992, cfg4b): 240 pushes of 800 samples,
-    a pull each, by both ingest routes, and a 16-pair run."""
+    a pull each, by both ingest routes, and a 16-pair run; (c) the colour
+    map's kernel alone at the redraw's 512 x 1024 pixels, read from kernel
+    B's strided output row, against its plain version."""
     from signalizer_tpu_torch import DisplayMode, SpectrogramProcessor, SpectrumChannels
     from signalizer_tpu_torch.core.constant import make_spectrum_constant
     from signalizer_tpu_torch.kernels import display_map as dm
     from signalizer_tpu_torch.kernels import spectrum as ts
     from signalizer_tpu_torch.kernels import window_fft_mag as wfm
-    from signalizer_tpu_torch.kernels.colormap import gradient_bounds, normalize_ratios, spectrogram_columns
+    from signalizer_tpu_torch.kernels.colormap import (
+        gradient_bounds, normalize_ratios, spectrogram_columns, spectrogram_columns_plain)
     from signalizer_tpu_torch.stream.device_ring import extract_frames
     from signalizer_tpu_torch.views import spectrogram as tv
 
@@ -1138,13 +1150,15 @@ def phase_spectrogram(torch, dev):
     ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
     bounds = gradient_bounds(ratios)
     state, plain_state = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
-    reset_counters("window_fft_mag.launches", "display_map.launches")
+    reset_counters("window_fft_mag.launches", "display_map.launches", "colormap.launches")
     cols, _ = tv.spectrogram_step(c4, state, frames, colours, ratios, valid, bounds)
     a_launches, b_launches = counter("window_fft_mag.launches"), counter("display_map.launches")
+    map_launches = counter("colormap.launches")
     plain = dm.display_map_plain(c4, wfm.window_fft_mag_plain(c4, frames), plain_state.magnitude, valid)
-    want = spectrogram_columns(plain[:, :, 0, 0, :], colours, ratios)
+    want = spectrogram_columns_plain(plain[:, :, 0, 0, :], colours, ratios)
     torch.cuda.synchronize()
-    require((a_launches, b_launches) == (1, 1), f"cfg4: kernels A and B launched {a_launches}, {b_launches} times")
+    require((a_launches, b_launches, map_launches) == (1, 1, 1),
+            f"cfg4: kernels A, B and the colour map launched {a_launches}, {b_launches}, {map_launches} times")
     require(cols.shape == (t4, AXIS_POINTS, 4) and cols.dtype == torch.uint8, f"cfg4 columns {tuple(cols.shape)}")
     diff = (cols.to(torch.int16) - want.to(torch.int16)).abs()
     require(int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3 and bool((cols[..., 3] == 255).all()),
@@ -1176,7 +1190,7 @@ def phase_spectrogram(torch, dev):
     columns, per_route = {}, {}
     for route in ("device", "host"):
         sp = SpectrogramProcessor(device=dev, device_ingest=(route == "device"), **kw)
-        reset_counters("window_fft_mag.launches", "display_map.launches")
+        reset_counters("window_fft_mag.launches", "display_map.launches", "colormap.launches")
         cols_out, ms, lags = [], [], []
         for i in range(ticks):
             sp.push(audio[:, i * tick_n : (i + 1) * tick_n])
@@ -1189,8 +1203,12 @@ def phase_spectrogram(torch, dev):
         pulls = sum(1 for c_ in cols_out if c_.shape[0])
         columns[route] = np.concatenate(cols_out)
         a_pulled, b_pulled = counter("window_fft_mag.launches"), counter("display_map.launches")
-        require(a_pulled == b_pulled == sp.readbacks,
-                f"cfg4b {route}: launches {a_pulled}, {b_pulled}, readbacks {sp.readbacks}")
+        map_pulled = counter("colormap.launches")
+        require(a_pulled == b_pulled == map_pulled == sp.readbacks,
+                f"cfg4b {route}: launches {a_pulled}, {b_pulled}, {map_pulled}, readbacks {sp.readbacks}")
+        # the colour map's main-path launches: the cfg4 step's one, then each route's pulls
+        launches_out["colormap"] = launches_out.get("colormap", 1) + map_pulled
+        calls_out["colormap"] = calls_out.get("colormap", 1) + sp.readbacks
         require(counter("window_fft_mag.launches") >= pulls > 200,
                 f"cfg4b {route}: {counter('window_fft_mag.launches')} launches in {pulls} pulls with frames")
         require(max(lags) < hop, f"cfg4b {route}: freshness lag {max(lags)} >= one hop")
@@ -1257,7 +1275,28 @@ def phase_spectrogram(torch, dev):
         # ring into the contiguous frames kernel A's wrapper takes
         return extract_frames(keep.ring, 4096, hop, 2, frame_axis=-3).contiguous()
 
-    return cfg4_call, tick, windows_copy
+    # (c) the colour map alone at the redraw's geometry: 1 pair, 512 x 1024
+    # pixels, the [:, :, 0, 0, :] view of a [1, 512, 2, 2, 1024] tensor as
+    # kernel B leaves it; the kernel's bytes are the plain version's
+    rows = np.random.default_rng(47).uniform(-0.2, 1.2, (1, t4, 2, 2, AXIS_POINTS)).astype(np.float32)
+    shades = torch.from_numpy(rows).to(dev)[:, :, 0, 0, :]
+    reset_counters("colormap.launches")
+    got = spectrogram_columns(shades, colours, ratios, bounds)
+    want = spectrogram_columns_plain(shades, colours, ratios, bounds)
+    torch.cuda.synchronize()
+    require(counter("colormap.launches") == 1, "the colour map did not launch its kernel once")
+    require(torch.equal(got, want), f"the colour map: {int((got != want).sum())} bytes differ from the plain version")
+    # least time: each intensity read once, each pixel's 4 bytes written once
+    bound = roofline(4.0 * t4 * AXIS_POINTS + 4.0 * t4 * AXIS_POINTS, 0.0)
+    map_call = lambda: spectrogram_columns(shades, colours, ratios, bounds)  # noqa: E731
+    results["colormap"] = dict(
+        pixels=[t4, AXIS_POINTS], intensity_strides=list(shades.stride()), byte_equal_to_plain=True,
+        ms=median_ms(torch, map_call),
+        plain_ms=median_ms(torch, lambda: spectrogram_columns_plain(shades, colours, ratios, bounds)),
+        **bound, library_ms=None,
+    )
+    info({"phase": "colormap", **results["colormap"]})
+    return cfg4_call, tick, windows_copy, map_call
 
 
 def phase_resonator(torch, dev, launches_out, calls_out, results):
@@ -4440,7 +4479,7 @@ def main() -> int:
     walk_workloads = phase_kernel_f(torch, dev, results)
     osc, history, hold_call, colour_call, spectral_call = phase_osc_slice(torch, dev, launches, calls)
     scope, scope_x = phase_vectorscope(torch, dev)
-    cfg4_step, spectrogram_tick, windows_copy = phase_spectrogram(torch, dev)
+    cfg4_step, spectrogram_tick, windows_copy, colormap_redraw = phase_spectrogram(torch, dev, results, launches, calls)
     resonator_workloads = phase_resonator(torch, dev, launches, calls, results)
     phase_workloads = phase_kernel_g(torch, dev, results, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
@@ -4463,6 +4502,7 @@ def main() -> int:
         *resample_routes(torch, history),
         ("vectorscope_cfg2", lambda: scope.process(scope_x)),
         ("spectrogram_cfg4", cfg4_step),
+        ("colormap_redraw", colormap_redraw),
         ("spectrogram_pull", spectrogram_tick),
         ("ring_windows_copy", windows_copy),
         *resonator_workloads,
@@ -4493,8 +4533,9 @@ def main() -> int:
                        ("window_fft_mag_cluster", "window_fft_mag_cluster_t16"),
                        ("window_fft_mag_long", "spectrum_n262144"), ("peak_hold", "osc_envelope_hold"),
                        ("colour_track", "osc_cfg3_colour"), ("spectral_walk", "osc_cfg3b"),
-                       ("resonator_scan", "resonator_backlog_t16")):
+                       ("resonator_scan", "resonator_backlog_t16"), ("colormap", "colormap_redraw")):
         results[name]["profile_us"] = own_us(path, name)
+    results["colormap"]["profile_us_cfg4"] = own_us("spectrogram_cfg4", "colormap")
     # kernel G's device functions by the call's T: the mapping pass at T =
     # 128, the tick kernel at T = 1, the walk pass and the mapping pass at cfg4
     g_map, g_walk, g_tick = DEVICE_FUNCTIONS["phase_decay_db"]

@@ -115,6 +115,9 @@ SIGNATURES = {
     # state_out, re, im, mag, readouts (or null), B, T, P, V, decay_stride,
     # stream
     "sig_resonator_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, x's pair, row and pixel strides, colours, tables, bounds, out,
+    # pairs, T, P, S, stream
+    "sig_colormap": (_P, _L, _L, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 
 # what the last build in this process printed and how long it took

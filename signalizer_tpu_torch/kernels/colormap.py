@@ -11,6 +11,12 @@ PyTorch on the tensors' device:
   (GL_ONE_MINUS_SRC_COLOR accumulation) telescopes to the closed form
   ``1 - prod_i(1 - src_i)`` — one product over the pair axis instead of an
   ordered loop (the recurrence is symmetric in its inputs).
+
+:func:`spectrogram_columns`, the whole column pipeline, launches one kernel
+on a GPU, ``csrc/colormap.cu`` (no TPU kernel's port: the JAX package maps
+with plain ``jnp``); :func:`spectrogram_columns_plain` is its plain version,
+the three functions above in turn, which the CPU runs and the kernel is held
+to.
 """
 
 from __future__ import annotations
@@ -18,9 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from signalizer_tpu_torch.utils.diagnostics import span
+from signalizer_tpu_torch.kernels import _build
+from signalizer_tpu_torch.utils.diagnostics import count, span
 
 NUM_SPECTRUM_COLOURS = 5  # ref: SpectrumParameters.h:77
+# the gradient stops the kernel holds (csrc/colormap.cu kMaxStops); the
+# program's gradients have NUM_SPECTRUM_COLOURS + 1
+MAX_STOPS = 16
+# kernel launches count in the diagnostics registry as colormap.launches
 
 
 def normalize_ratios(ratios) -> np.ndarray:
@@ -101,11 +112,68 @@ def quantize_rgba8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.cat([q, alpha], dim=-1)
 
 
+def spectrogram_columns_plain(
+    intensity: torch.Tensor, colours: torch.Tensor, ratios: torch.Tensor, bounds: torch.Tensor = None
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrogram_columns`: the gradient
+    map, the pair blend and the quantize, one torch operation at a time."""
+    rgb = gradient_map(intensity, colours, ratios, bounds)  # [pairs, T, P, 3]
+    return quantize_rgba8(blend_pairs(rgb, axis=0))
+
+
 def spectrogram_columns(
     intensity: torch.Tensor, colours: torch.Tensor, ratios: torch.Tensor, bounds: torch.Tensor = None
 ) -> torch.Tensor:
     """Full column pipeline: intensities [pairs, T, P] + per-pair colour
-    tables [pairs, 6, 3] -> RGBA8 columns [T, P, 4] (pairs blended)."""
+    tables [pairs, S, 3] (or one [S, 3] table) -> RGBA8 columns [T, P, 4]
+    (pairs blended). CPU tensors take :func:`spectrogram_columns_plain`;
+    CUDA tensors launch ``sig_colormap`` of ``csrc/colormap.cu`` once,
+    reading the intensities at their strides in place, or raise: float32
+    only, 2 to :data:`MAX_STOPS` stops."""
     with span("colormap"):
-        rgb = gradient_map(intensity, colours, ratios, bounds)  # [pairs, T, P, 3]
-        return quantize_rgba8(blend_pairs(rgb, axis=0))
+        if intensity.device.type == "cpu":
+            return spectrogram_columns_plain(intensity, colours, ratios, bounds)
+        dev = intensity.device
+        if dev.type != "cuda":
+            raise ValueError(f"spectrogram_columns: intensities on {dev}")
+        stops = ratios.shape[0] if ratios.ndim == 1 else -1
+        if not 2 <= stops <= MAX_STOPS:
+            raise ValueError(f"spectrogram_columns: the kernel takes 2 to {MAX_STOPS} stops, got ratios "
+                             f"{tuple(ratios.shape)}")
+        if intensity.dtype != torch.float32 or intensity.ndim != 3:
+            raise ValueError(f"spectrogram_columns: intensities must be float32 [pairs, T, P], got "
+                             f"{intensity.dtype} {tuple(intensity.shape)}")
+        pairs, t, p = intensity.shape
+        if colours.shape not in ((stops, 3), (pairs, stops, 3)) or colours.dtype != torch.float32:
+            raise ValueError(f"spectrogram_columns: colours must be float32 [{stops}, 3] or [{pairs}, {stops}, 3], "
+                             f"got {colours.dtype} {tuple(colours.shape)}")
+        if bounds is None:
+            bounds = gradient_bounds(ratios)
+        if bounds.dtype != torch.float32 or tuple(bounds.shape) != (stops,):
+            raise ValueError(f"spectrogram_columns: bounds must be float32 [{stops}], got "
+                             f"{bounds.dtype} {tuple(bounds.shape)}")
+        if colours.device != dev or bounds.device != dev:
+            raise ValueError(f"spectrogram_columns: intensities on {dev}, colours on {colours.device}, "
+                             f"bounds on {bounds.device}")
+        out = torch.empty((t, p, 4), dtype=torch.uint8, device=dev)
+        if out.numel() == 0:
+            return out
+        colours, bounds = colours.contiguous(), bounds.contiguous()
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.sig_colormap(
+                intensity.data_ptr(),
+                *intensity.stride(),
+                colours.data_ptr(),
+                pairs if colours.ndim == 3 else 1,
+                bounds.data_ptr(),
+                out.data_ptr(),
+                pairs,
+                t,
+                p,
+                stops,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(err, "colormap")
+        count("colormap.launches")
+        return out

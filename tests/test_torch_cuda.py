@@ -11,9 +11,11 @@ import pytest
 import scipy.signal
 import torch
 
+from colormap_cases import RATIO_SETS, branch_values, intensities
 from signalizer_tpu_torch.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
+from signalizer_tpu_torch.kernels import colormap as cm
 from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import oscilloscope as tk
@@ -2319,3 +2321,184 @@ def test_resonator_scan_refuses_what_it_cannot_take(cuda):
     got = rs.resonator_scan(state, drives, d_re.contiguous(), d_im.contiguous(), bank.combine, bank.gain)
     want = rs.resonator_scan(state, drives, d_re, d_im, bank.combine, bank.gain)
     assert torch.equal(got.state, want.state) and torch.equal(got.magnitude, want.magnitude)
+
+
+# ---------------------------------------------------------------------------
+# the spectrogram's colour map (csrc/colormap.cu): byte-equal to the plain
+# path at one pair; at more pairs the byte rule (the kernel's product runs in
+# pair order, torch's reduction in its own): every byte within 1 LSB, at
+# most 0.1% of bytes different, alpha 255
+# ---------------------------------------------------------------------------
+
+
+def _colormap_inputs(name, pairs, tables, dev):
+    """(ratios, bounds, colours) on ``dev``: ``tables`` "one" is the default
+    gradient as one [S, 3] table, "per_pair" the processor's hue-rotated
+    tables [pairs, S, 3]."""
+    from signalizer_tpu_torch.views.spectrogram import DEFAULT_GRADIENT, SpectrogramProcessor
+
+    r = torch.from_numpy(cm.normalize_ratios(RATIO_SETS[name]).astype(np.float32)).to(dev)
+    if tables == "one":
+        colours = DEFAULT_GRADIENT
+    else:
+        colours = np.stack([SpectrogramProcessor._rotate(DEFAULT_GRADIENT, p, pairs) for p in range(pairs)])
+    return r, cm.gradient_bounds(r), torch.from_numpy(np.ascontiguousarray(colours)).to(dev)
+
+
+def _assert_columns(got, want, pairs):
+    assert got.dtype == want.dtype == torch.uint8 and got.shape == want.shape
+    assert bool((got[..., 3] == 255).all())
+    if pairs == 1:
+        assert torch.equal(got, want), f"{int((got != want).sum())} bytes differ at one pair"
+        return
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1, f"a byte differs by {int(diff.max())}"
+    assert float((diff != 0).float().mean()) <= 1e-3, f"{float((diff != 0).float().mean()):.2%} of bytes differ"
+
+
+def _columns_once(x, colours, r, bounds):
+    """The wrapper's columns, checking that the call launched the kernel once."""
+    before = counter("colormap.launches")
+    got = cm.spectrogram_columns(x, colours, r, bounds)
+    torch.cuda.synchronize()
+    assert counter("colormap.launches") == before + 1
+    return got
+
+
+@pytest.mark.parametrize("tables", ["one", "per_pair"])
+def test_colormap_kernel_at_the_cells_geometry(cuda, tables):
+    """1 pair, T = 512, P = 1024, the intensities the strided [:, :, 0, 0,
+    :] view of a [1, 512, 2, 2, 1024] tensor as kernel B leaves them: the
+    kernel's bytes are the plain path's."""
+    r, bounds, colours = _colormap_inputs("default", 1, tables, cuda)
+    base = torch.from_numpy(intensities(np.random.default_rng(60), (1, 512, 2, 2, 1024), bounds.cpu().numpy()))
+    x = base.to(cuda)[:, :, 0, 0, :]
+    assert not x.is_contiguous() and x.stride() == (512 * 4096, 4096, 1)
+    got = _columns_once(x, colours, r, bounds)
+    _assert_columns(got, cm.spectrogram_columns_plain(x, colours, r, bounds), 1)
+
+
+@pytest.mark.parametrize("tables", ["one", "per_pair"])
+@pytest.mark.parametrize("pairs", [2, 3, 16])
+def test_colormap_kernel_blends_pairs(cuda, pairs, tables):
+    """Several pairs through one table or hue-rotated tables, at the
+    spectrogram's strided view, by the byte rule."""
+    r, bounds, colours = _colormap_inputs("default", pairs, tables, cuda)
+    base = intensities(np.random.default_rng(61 + pairs), (pairs, 64, 2, 2, 1024), bounds.cpu().numpy())
+    x = torch.from_numpy(base).to(cuda)[:, :, 0, 0, :]
+    got = _columns_once(x, colours, r, bounds)
+    _assert_columns(got, cm.spectrogram_columns_plain(x, colours, r, bounds), pairs)
+
+
+@pytest.mark.parametrize("pairs", [1, 3])
+@pytest.mark.parametrize("name", list(RATIO_SETS))
+def test_colormap_kernel_every_ratio_set(cuda, name, pairs):
+    """Every ratio set, the zero-width segment included, on seeded
+    intensities with each branch's values in the first row."""
+    r, bounds, colours = _colormap_inputs(name, pairs, "per_pair", cuda)
+    x = intensities(np.random.default_rng(70 + pairs), (pairs, 48, 256), bounds.cpu().numpy())
+    branch = branch_values(bounds.cpu().numpy())
+    x[:, 0, : len(branch)] = branch
+    x = torch.from_numpy(x).to(cuda)
+    got = _columns_once(x, colours, r, bounds)
+    _assert_columns(got, cm.spectrogram_columns_plain(x, colours, r, bounds), pairs)
+
+
+@pytest.mark.parametrize("name", list(RATIO_SETS))
+def test_colormap_kernel_branches(cuda, name):
+    """Each branch at one pair, byte for byte: below 0 and -inf black,
+    exactly 0, on and beside every bound, just under and at 0.999, above 1
+    and +inf the last stop; a NaN as the plain path maps it."""
+    r, bounds, colours = _colormap_inputs(name, 1, "one", cuda)
+    branch = branch_values(bounds.cpu().numpy())
+    values = np.concatenate([branch, np.float32([np.nan])])
+    x = torch.from_numpy(np.tile(values, (3, 1))[None]).to(cuda)  # [1, 3, n]: odd n, a ragged last run
+    got = _columns_once(x, colours, r, bounds)
+    _assert_columns(got, cm.spectrogram_columns_plain(x, colours, r, bounds), 1)
+    row = got[0].cpu().numpy()
+    v = values
+    last = (np.asarray(colours[-1].cpu()) * 255.0).astype(np.uint8)
+    assert (row[v < 0, :3] == 0).all()
+    assert (row[(v >= np.float32(0.999)), :3] == last).all()
+
+
+@pytest.mark.parametrize(
+    "view", ["ragged_p1023", "offset_by_one", "pixels_strided", "p5", "p1_t7", "pairs_strided"],
+)
+@pytest.mark.parametrize("pairs", [1, 3])
+def test_colormap_kernel_any_strides(cuda, view, pairs):
+    """The element-by-element load path: rows not a multiple of 4 pixels
+    (runs crossing rows, a ragged last run), a misaligned base, a pixel
+    stride, a pair stride not a multiple of 4."""
+    r, bounds, colours = _colormap_inputs("uneven", pairs, "per_pair", cuda)
+    rng = np.random.default_rng(80 + pairs)
+    b = bounds.cpu().numpy()
+    if view == "ragged_p1023":
+        x = torch.from_numpy(intensities(rng, (pairs, 9, 1023), b)).to(cuda)
+    elif view == "offset_by_one":
+        x = torch.from_numpy(intensities(rng, (pairs, 9, 1025), b)).to(cuda)[..., 1:]
+    elif view == "pixels_strided":
+        x = torch.from_numpy(intensities(rng, (pairs, 256, 9), b)).to(cuda).transpose(1, 2)
+    elif view == "p5":
+        x = torch.from_numpy(intensities(rng, (pairs, 11, 5), b)).to(cuda)
+    elif view == "p1_t7":
+        x = torch.from_numpy(rng.uniform(-0.2, 1.2, (pairs, 7, 1)).astype(np.float32)).to(cuda)
+    else:
+        x = torch.from_numpy(intensities(rng, (pairs, 9, 67), b)).to(cuda)[..., :64]
+    got = _columns_once(x, colours, r, bounds)
+    _assert_columns(got, cm.spectrogram_columns_plain(x, colours, r, bounds), pairs)
+
+
+def test_colormap_kernel_refuses_what_it_cannot_take(cuda):
+    r, bounds, colours = _colormap_inputs("default", 2, "per_pair", cuda)
+    x = torch.rand(2, 4, 8, device=cuda)
+    for bad, match in (
+        ((x.double(), colours, r, bounds), "float32"),
+        ((x, colours.double(), r, bounds), "float32"),
+        ((x, colours, r.double(), None), "bounds"),
+        ((x[0], colours, r, bounds), r"\[pairs, T, P\]"),
+        ((x, colours[:1], r, bounds), "colours"),
+        ((x, colours[:, :5], r, bounds), "colours"),
+        ((x, colours, r[:1], bounds[:1]), "stops"),
+        ((x, colours, r, bounds[:5]), "bounds"),
+        ((x, colours.cpu(), r, bounds), "colours on cpu"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            cm.spectrogram_columns(*bad)
+    many = cm.MAX_STOPS + 1
+    r_many = torch.from_numpy(cm.normalize_ratios(np.ones(many)).astype(np.float32)).to(cuda)
+    with pytest.raises(ValueError, match="stops"):
+        cm.spectrogram_columns(x, torch.rand(many, 3, device=cuda), r_many)
+    # the kernel's most stops are taken
+    r_most = torch.from_numpy(cm.normalize_ratios(np.ones(cm.MAX_STOPS)).astype(np.float32)).to(cuda)
+    c_most = torch.rand(cm.MAX_STOPS, 3, device=cuda)
+    got = _columns_once(x[:1], c_most, r_most, None)
+    _assert_columns(got, cm.spectrogram_columns_plain(x[:1], c_most, r_most), 1)
+
+
+def test_spectrogram_ring_step_launches_the_colour_map_once(cuda):
+    """One ``spectrogram_ring_step`` on the card counts ``colormap.launches``
+    once, and its columns are the plain colour map's of the same step's
+    intensities."""
+    from signalizer_tpu_torch.core.config import DisplayMode
+    from signalizer_tpu_torch.kernels.spectrum import LineGraphState
+    from signalizer_tpu_torch.stream.device_ring import extract_frames
+    from signalizer_tpu_torch.views.spectrogram import spectrogram_ring_step
+
+    c = make_spectrum_constant(axis_points=256, window_size=4096, configuration=SpectrumChannels.LEFT,
+                               display_mode=DisplayMode.COLOUR_SPECTRUM, device=cuda)
+    hop, t_valid = 480, 12
+    ring = _frames((1, 2, 4096 + 15 * hop), seed=90, device=cuda)
+    new = _frames((1, 2, hop), seed=91, device=cuda)
+    r, bounds, colours = _colormap_inputs("default", 1, "per_pair", cuda)
+    state = init_line_graph_state(c, (1,))
+    state.magnitude.copy_(_frames(tuple(state.magnitude.shape), seed=92, device=cuda).abs())
+    before = LineGraphState(*(t.clone() for t in state))
+    launches = counter("colormap.launches")
+    cols, ring_after, _ = spectrogram_ring_step(c, ring, state, new, hop, t_valid, colours, r, hop=hop,
+                                                bounds=bounds)
+    torch.cuda.synchronize()
+    assert counter("colormap.launches") == launches + 1
+    frames = extract_frames(ring_after, c.window_size, hop, t_valid, frame_axis=-3).contiguous()
+    intensity = analyze_frames(c, before, frames).results[:, :, 0, 0, :]
+    _assert_columns(cols, cm.spectrogram_columns_plain(intensity, colours, r, bounds), 1)
