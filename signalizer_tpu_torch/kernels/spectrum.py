@@ -55,6 +55,7 @@ from signalizer_tpu_torch.kernels.window_fft_mag import (  # noqa: F401 — re-e
     _pack_channels,
     window_fft_mag,
 )
+from signalizer_tpu_torch.utils.diagnostics import span
 
 
 class LineGraphState(NamedTuple):
@@ -142,31 +143,32 @@ def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.T
         # before its loops (ref: TransformDSP.inl:557-560/866-869/999-1002)
         return display_remap(constant, stage1)
 
-    spec = stage1  # [..., 2, nb+1] complex
-    mags = spec.abs()
-    l, r = spec[..., 0, :], spec[..., 1, :]
-    # interpolation region: complex interp for cancellation, magnitude
-    # interp for mid (ref: TransformDSP.inl:671-803)
-    il = _interp(l, constant)
-    ir = _interp(r, constant)
-    mid_i = inv * (_interp(mags[..., 0, :], constant) + _interp(mags[..., 1, :], constant))
-    cancel_num = inv * (il + ir).abs()
-    mid_for_cancel = inv * (il.abs() + ir.abs())
-    cancel_i = 1.0 - torch.where(
-        mid_for_cancel > 0, cancel_num / torch.clamp(mid_for_cancel, min=1e-30), 0.0
-    )
-    # bin-max region: argmax of max(|L|^2, |R|^2) per chunk
-    # (ref: TransformDSP.inl:813-850)
-    power = torch.maximum(mags[..., 0, :], mags[..., 1, :])
-    maxbin = _binmax_argbin(power, constant)  # [..., P]
-    lm = torch.gather(l, -1, maxbin)
-    rm = torch.gather(r, -1, maxbin)
-    mid_b = inv * (lm.abs() + rm.abs())
-    interference = inv * (lm + rm).abs()
-    cancel_b = 1.0 - torch.where(mid_b > 0, interference / torch.clamp(mid_b, min=1e-30), 0.0)
-    mid = torch.where(constant.interp_mask, mid_i, mid_b)
-    cancel = torch.where(constant.interp_mask, cancel_i, cancel_b)
-    return torch.stack([mid, cancel], dim=-2)
+    with span("phase.values"):
+        spec = stage1  # [..., 2, nb+1] complex
+        mags = spec.abs()
+        l, r = spec[..., 0, :], spec[..., 1, :]
+        # interpolation region: complex interp for cancellation, magnitude
+        # interp for mid (ref: TransformDSP.inl:671-803)
+        il = _interp(l, constant)
+        ir = _interp(r, constant)
+        mid_i = inv * (_interp(mags[..., 0, :], constant) + _interp(mags[..., 1, :], constant))
+        cancel_num = inv * (il + ir).abs()
+        mid_for_cancel = inv * (il.abs() + ir.abs())
+        cancel_i = 1.0 - torch.where(
+            mid_for_cancel > 0, cancel_num / torch.clamp(mid_for_cancel, min=1e-30), 0.0
+        )
+        # bin-max region: argmax of max(|L|^2, |R|^2) per chunk
+        # (ref: TransformDSP.inl:813-850)
+        power = torch.maximum(mags[..., 0, :], mags[..., 1, :])
+        maxbin = _binmax_argbin(power, constant)  # [..., P]
+        lm = torch.gather(l, -1, maxbin)
+        rm = torch.gather(r, -1, maxbin)
+        mid_b = inv * (lm.abs() + rm.abs())
+        interference = inv * (lm + rm).abs()
+        cancel_b = 1.0 - torch.where(mid_b > 0, interference / torch.clamp(mid_b, min=1e-30), 0.0)
+        mid = torch.where(constant.interp_mask, mid_i, mid_b)
+        cancel = torch.where(constant.interp_mask, cancel_i, cancel_b)
+        return torch.stack([mid, cancel], dim=-2)
 
 
 class SpectrumResult(NamedTuple):

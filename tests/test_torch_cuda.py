@@ -2502,3 +2502,29 @@ def test_spectrogram_ring_step_launches_the_colour_map_once(cuda):
     frames = extract_frames(ring_after, c.window_size, hop, t_valid, frame_axis=-3).contiguous()
     intensity = analyze_frames(c, before, frames).results[:, :, 0, 0, :]
     _assert_columns(cols, cm.spectrogram_columns_plain(intensity, colours, r, bounds), 1)
+
+
+def test_phase_processor_at_the_phase_cell_against_the_float64_reference(cuda):
+    """``SpectrumProcessor`` in PHASE at the benchmark's PHASE cell (16 pairs
+    x 128 frames at hop 800 of its seeded audio, 4096 points to 1024 px, two
+    calls, both states carried) against the benchmark's float64 reference
+    on the card, by the cell's own check and under its limits file's
+    numbers (``portbench/limits/spectrum_phase16.batch128.json``, each
+    number's reason in ``portbench/phase_views.py``)."""
+    import json
+    from pathlib import Path
+
+    from portbench.harness import Bench, load_module
+
+    bench = Bench()
+    paths = bench.files(bench.cell("spectrum_phase16.batch128"))
+    cfg, traffic, limits = (json.loads(Path(paths[k]).read_text()) for k in ("config", "traffic", "limits"))
+    mod = load_module(paths["session"])
+    s = mod.SESSION(cfg, traffic, cuda, 2**31 + 77, build=mod.build)
+    kept, host = {}, {}
+    for k in range(2):
+        out = s.step(s.inputs(k))
+        kept[k] = out.clone()
+        host[k] = s.readback_source(out).cpu().numpy()
+    numbers = s.check(kept, host, s.final_state(), 2)
+    assert all(numbers[k] <= limits[k] for k in numbers), (numbers, limits)
