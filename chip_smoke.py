@@ -240,10 +240,11 @@ Phases, each printing one informational line:
    behind a walk pass, T = 1 by the tick kernel) reported; timed at the
    headline, T = 1 and cfg4 beside the plain loops and the bound; then
    the PHASE Spectrum at the headline through ``SpectrumProcessor`` (three
-   T = 128 and three T = 1 calls: kernels A and G once a call, B never,
-   against stage 1 and the plain tail, states bit-equal) and the
-   spectrogram's cfg4 step in PHASE with its host mask (kernel G once, the
-   columns within a byte of the plain tail's), each with 0 syncs, timed;
+   T = 128 and three T = 1 calls: kernel A, the PHASE values and kernel G
+   once a call, B never, against kernel A's output through the plain values
+   and the plain tail, states bit-equal) and the spectrogram's cfg4 step in
+   PHASE with its host mask (the values and kernel G once, the columns
+   within a byte of the plain tail's), each with 0 syncs, timed;
 22. kernel H (the resonator bank's chunk recurrence and readouts) against
    its plain loop on the same drives: the cfg6 tick and backlog (the last 3
    chunks invalid) from the bank's state, with and without a readout after
@@ -255,8 +256,16 @@ Phases, each printing one informational line:
    alone (G by the device functions each call runs), the PHASE backlog and
    the RSNT session tick, and a
    ``tail_profile`` line sets their launches (the PHASE T = 128 call at
-   most 70, the cfg6 backlog 25, the tick 12), device µs and wall µs beside
-   the default session tick's.
+   most 5, the cfg6 backlog 25, the tick 12), device µs and wall µs beside
+   the default session tick's;
+23. the PHASE values kernel (before phase 21) against ``phase_values_plain``
+   on the same CUDA spectra, bit for bit: kernel A's PHASE output of the
+   headline's 16 pairs x 128 frames, then seeded spectra at the sizes of
+   kernel A's cluster and two-pass forms (65536 and 2^21 points, where the
+   chunks reach 249 and 7948 bins and the kernel walks each with 8 and 32
+   lanes) at T = 1 and 128; each timed beside the plain path and the
+   bound; the profile phase adds its device time in the PHASE T = 128,
+   T = 1 and cfg4 calls.
 
 The Spectrum headline geometry is the repo's bench cell (bench.py:240-266):
 a 4096-sample window at 48 kHz, SEPARATE stereo, LINEAR bin interpolation, a
@@ -393,6 +402,14 @@ KERNELS = {
         source="signalizer_tpu_torch/csrc/colormap.cu",
         replaces=None,
     ),
+    # the PHASE values: each pixel's mid and cancellation from kernel A's
+    # complex half spectra (the JAX package runs spectrum_values' PHASE
+    # branch as XLA operations: no TPU kernel is replaced)
+    "phase_values": dict(
+        route="cuda",
+        source="signalizer_tpu_torch/csrc/phase_values.cu",
+        replaces=None,
+    ),
 }
 # each kernel's device functions, as the profiler names them
 DEVICE_FUNCTIONS = {
@@ -409,6 +426,7 @@ DEVICE_FUNCTIONS = {
     "phase_decay_db": ("phase_decay_db_kernel", "phase_walk_kernel", "phase_tick_kernel"),
     "resonator_scan": ("resonator_scan_kernel",),
     "colormap": ("colormap_kernel",),
+    "phase_values": ("phase_values_kernel",),
 }
 OWN_DEVICE_FUNCTIONS = sorted({fn for fns in DEVICE_FUNCTIONS.values() for fn in fns})
 # the oscilloscope's cfg3 (bench.py:769-822)
@@ -889,6 +907,71 @@ PHASE_CASES = {
 }
 
 
+# the PHASE values' cases beside the headline's: (window, pairs, T), at the
+# sizes of kernel A's cluster and two-pass forms
+PHASE_VALUE_CASES = ((WINDOW, PAIRS, 1), (65536, PAIRS, T), (65536, PAIRS, 1), (65536, 1, 1),
+                     (1 << 21, 1, T), (1 << 21, PAIRS, 1), (1 << 21, 1, 1))
+
+
+def phase_kernel_values(torch, dev, results):
+    """The PHASE values kernel against ``phase_values_plain`` on the same
+    CUDA spectra, bit for bit: at the headline, kernel A's PHASE output of
+    16 pairs x 128 frames ([16, 128, 2, 2049] complex64); then seeded
+    spectra at each case of ``PHASE_VALUE_CASES``. Each timed by CUDA events
+    beside the plain path, with the bound: the spectra read once and the
+    values written once (the plan's tables besides), about eleven flops a
+    complex value (a hypotf and a compare a bin and channel)."""
+    from signalizer_tpu_torch import SpectrumChannels
+    from signalizer_tpu_torch.core.constant import make_spectrum_constant
+    from signalizer_tpu_torch.kernels import phase_values as pv
+    from signalizer_tpu_torch.kernels import spectrum as ts
+    from signalizer_tpu_torch.kernels import window_fft_mag as wfm
+
+    report = {"phase": "phase_values", "bound": "bit-equal to phase_values_plain", "cases": {}}
+    gen = torch.Generator(device=dev)
+
+    def case(name, c, spec):
+        got = pv.phase_values(c, spec)
+        want = ts.phase_values_plain(c, spec)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"PHASE values {name}: differ from the plain path by {float((got - want).abs().max())}")
+        long_case = c.window_size > WINDOW
+        ms = median_ms(torch, lambda: pv.phase_values(c, spec), reps=10 if long_case else REPS)
+        plain_ms = median_ms(torch, lambda: ts.phase_values_plain(c, spec), reps=5 if long_case else REPS,
+                             inner=1 if long_case else 4)
+        tables = nbytes(c.interp_indices, c.interp_weights, c.interp_mask, c.single_mask, c.single_bin,
+                        c.chunk_lo, c.chunk_len)
+        bound = roofline(nbytes(spec, got) + tables, 11.0 * spec.numel())
+        row = {"shape": list(spec.shape), "longest_chunk": int(c.band_idx.shape[-1]), "bit_equal": True,
+               "ms": ms, "plain_ms": plain_ms, **bound}
+        report["cases"][name] = row
+        return row
+
+    c = make_spectrum_constant(device=dev, **headline(configuration=SpectrumChannels.PHASE))
+    spec = wfm.window_fft_mag(c, _frames(torch, (PAIRS, T, 2, WINDOW), seed=47, dev=dev))
+    require(spec.dtype == torch.complex64 and tuple(spec.shape) == (PAIRS, T, 2, c.n_spectrum_values),
+            f"kernel A's PHASE output: {spec.dtype} {tuple(spec.shape)}")
+    row = case("headline_t128", c, spec)
+    results["phase_values"] = dict(max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                                   bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
+    del spec
+    for window, pairs, t in PHASE_VALUE_CASES:
+        cw = c if window == WINDOW else make_spectrum_constant(
+            device=dev, **headline(window_size=window, configuration=SpectrumChannels.PHASE))
+        gen.manual_seed(window + 7 * pairs + t)
+        shape = (pairs, t, 2, cw.n_spectrum_values)
+        spec = torch.complex(torch.randn(shape, generator=gen, device=dev),
+                             torch.randn(shape, generator=gen, device=dev))
+        name = f"n{window}_{pairs}x{t}"
+        row = case(name, cw, spec)
+        for key in ("ms", "plain_ms", "bound_ms"):
+            results["phase_values"][f"{name}_{key}"] = row[key]
+        del spec
+    torch.cuda.empty_cache()
+    info(report)
+
+
 def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     """Kernel G (the PHASE display tail) against its plain version on the
     same CUDA tensors in every case of ``PHASE_CASES`` (states bit-equal,
@@ -897,7 +980,9 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     kernel A and kernel G once a call, against stage 1 and the plain tail
     from the same state) and the spectrogram's cfg4 step in PHASE (1 pair x
     T = 512, a host mask), each with its synchronizing calls counted and
-    timed. Returns the calls the profile phase profiles."""
+    timed, and the PHASE values kernel launched once a call on both; the
+    yardstick takes kernel A's output through the plain values and the
+    plain tail. Returns the calls the profile phase profiles."""
     from signalizer_tpu_torch import DisplayMode, SpectrumChannels, SpectrumProcessor
     from signalizer_tpu_torch.core.constant import make_spectrum_constant
     from signalizer_tpu_torch.kernels import display_map as dm
@@ -976,16 +1061,18 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     plain = ts.init_line_graph_state(c, (PAIRS,))
     worst, outs = 0.0, []
     reset_counters("window_fft_mag.launches", "display_map.launches", "display_map.decay_db_launches",
-                   "phase_decay_db.launches")
+                   "phase_decay_db.launches", "phase_values.launches")
     for frames in calls:
         outs.append(proc.process(frames))
     counted = {"window_fft_mag": counter("window_fft_mag.launches"), "display_map": counter("display_map.launches"),
                "display_decay_db": counter("display_map.decay_db_launches"),
-               "phase_decay_db": counter("phase_decay_db.launches")}
-    require(counted == {"window_fft_mag": 6, "display_map": 0, "display_decay_db": 0, "phase_decay_db": 6},
-            f"PHASE headline calls launched {counted}")
+               "phase_decay_db": counter("phase_decay_db.launches"), "phase_values": counter("phase_values.launches")}
+    require(counted == {"window_fft_mag": 6, "display_map": 0, "display_decay_db": 0, "phase_decay_db": 6,
+                        "phase_values": 6}, f"PHASE headline calls launched {counted}")
     for frames, out in zip(calls, outs):
-        want = pd.phase_decay_db_plain(c, plain, ts.spectrum_values(c, frames))
+        # the yardstick: kernel A's output through the plain values and the
+        # plain tail (no PHASE values kernel in it)
+        want = pd.phase_decay_db_plain(c, plain, ts.phase_values_plain(c, wfm.window_fft_mag(c, frames)))
         torch.cuda.synchronize()
         require(out.shape == (PAIRS, frames.shape[1], 2, 2, AXIS_POINTS) and bool(torch.isfinite(out).all()),
                 "PHASE headline output")
@@ -995,6 +1082,8 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
             "PHASE headline states differ from the plain tail's")
     launches_out["phase_decay_db"] = counted["phase_decay_db"]
     calls_out["phase_decay_db"] = len(calls)
+    launches_out["phase_values"] = counted["phase_values"]
+    calls_out["phase_values"] = len(calls)
     x128, x1 = calls[0], calls[3]
     syncs = {}
     for name, frames in (("t128", x128), ("t1", x1)):
@@ -1014,13 +1103,13 @@ def phase_kernel_g(torch, dev, results, launches_out, calls_out):
     ratios = torch.from_numpy(normalize_ratios(tv.DEFAULT_RATIOS).astype(np.float32)).to(dev)
     bounds = gradient_bounds(ratios)
     s4, p4 = ts.init_line_graph_state(c4, (1,)), ts.init_line_graph_state(c4, (1,))
-    reset_counters("phase_decay_db.launches")
+    reset_counters("phase_decay_db.launches", "phase_values.launches")
     cols, _ = tv.spectrogram_step(c4, s4, frames4, colours, ratios, valid4, bounds)
-    g4 = counter("phase_decay_db.launches")
-    want4 = pd.phase_decay_db_plain(c4, p4, ts.spectrum_values(c4, frames4), valid4)
+    g4, v4 = counter("phase_decay_db.launches"), counter("phase_values.launches")
+    want4 = pd.phase_decay_db_plain(c4, p4, ts.phase_values_plain(c4, wfm.window_fft_mag(c4, frames4)), valid4)
     want_cols = spectrogram_columns_plain(want4[:, :, 0, 0, :], colours, ratios)
     torch.cuda.synchronize()
-    require(g4 == 1, f"cfg4 PHASE step: kernel G launched {g4} times")
+    require((g4, v4) == (1, 1), f"cfg4 PHASE step: kernel G launched {g4} times, the PHASE values {v4}")
     diff = (cols.to(torch.int16) - want_cols.to(torch.int16)).abs()
     require(int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3,
             f"cfg4 PHASE columns vs the plain tail: max byte difference {int(diff.max())}")
@@ -4481,6 +4570,7 @@ def main() -> int:
     scope, scope_x = phase_vectorscope(torch, dev)
     cfg4_step, spectrogram_tick, windows_copy, colormap_redraw = phase_spectrogram(torch, dev, results, launches, calls)
     resonator_workloads = phase_resonator(torch, dev, launches, calls, results)
+    phase_kernel_values(torch, dev, results)
     phase_workloads = phase_kernel_g(torch, dev, results, launches, calls)
     long_rows = phase_kernel_a_long(torch, dev, results, launches, calls)
     live_tick, live_close = phase_live(torch, dev, launches, calls)
@@ -4595,6 +4685,9 @@ def main() -> int:
     results["phase_decay_db"]["profile_us_alone"] = own_us("phase_decay_db_t128", "phase_decay_db", (g_map,))
     results["phase_decay_db"]["profile_us_t1"] = own_us("phase_t1", "phase_decay_db", (g_tick,))
     results["phase_decay_db"]["profile_us_cfg4"] = own_us("phase_cfg4", "phase_decay_db", (g_walk, g_map))
+    results["phase_values"]["profile_us"] = own_us("phase_t128", "phase_values")
+    results["phase_values"]["profile_us_t1"] = own_us("phase_t1", "phase_values")
+    results["phase_values"]["profile_us_cfg4"] = own_us("phase_cfg4", "phase_values")
     results["resonator_scan"]["profile_us_alone"] = own_us("resonator_scan_backlog", "resonator_scan")
     results["resonator_scan"]["profile_us_tick"] = own_us("resonator_tick", "resonator_scan")
     results["resonator_scan"]["session_tick_profile_us"] = own_us("session_tick_rsnt", "resonator_scan")
@@ -4606,9 +4699,10 @@ def main() -> int:
                        "wall_us_per_call": row["wall_us_per_call"], "busy_share": row["busy_share"],
                        "phase_decay_db_us": sum(row["own_kernels_us_per_call"].get(fn, 0.0)
                                                 for fn in DEVICE_FUNCTIONS["phase_decay_db"]),
+                       "phase_values_us": row["own_kernels_us_per_call"].get("phase_values_kernel", 0.0),
                        "resonator_scan_us": row["own_kernels_us_per_call"].get("resonator_scan_kernel", 0.0),
                        "top_kernels_us_per_call": row["top_kernels_us_per_call"]}
-    require(tails["phase_t128"]["launches_per_call"] <= 70, f"PHASE T=128 call: {tails['phase_t128']['launches_per_call']} launches")
+    require(tails["phase_t128"]["launches_per_call"] <= 5, f"PHASE T=128 call: {tails['phase_t128']['launches_per_call']} launches")
     require(tails["resonator_backlog_t16"]["launches_per_call"] <= 25,
             f"cfg6 backlog: {tails['resonator_backlog_t16']['launches_per_call']} launches")
     require(tails["resonator_tick"]["launches_per_call"] <= 12,

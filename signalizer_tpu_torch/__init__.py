@@ -26,6 +26,7 @@ Layout mirrors :mod:`signalizer_tpu`:
 * :mod:`signalizer_tpu_torch.kernels.window_fft_mag` — kernel A wrapper (both forms)
 * :mod:`signalizer_tpu_torch.kernels.display_map`    — kernel B wrapper
 * :mod:`signalizer_tpu_torch.kernels.peak_decay`     — the decay loop
+* :mod:`signalizer_tpu_torch.kernels.phase_values`   — the PHASE values kernel's wrapper (mid, cancellation)
 * :mod:`signalizer_tpu_torch.views.spectrum`   — SpectrumProcessor, ResonatorSpectrumProcessor
 * :mod:`signalizer_tpu_torch.kernels.resonator` — the resonator bank (RSNT)
 * :mod:`signalizer_tpu_torch.kernels.filters`  — biquads, crossover, one-pole smoothers

@@ -118,6 +118,10 @@ SIGNATURES = {
     # x, x's pair, row and pixel strides, colours, tables, bounds, out,
     # pairs, T, P, S, stream
     "sig_colormap": (_P, _L, _L, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # spec, interp_indices, interp_weights, interp_mask, single_mask,
+    # single_bin, chunk_lo, chunk_len, display_scalars, out, frames, P,
+    # n_values, taps, longest chunk, stream
+    "sig_phase_values": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # what the last build in this process printed and how long it took

@@ -12,11 +12,12 @@ beside it:
 * the magnitude tail, :func:`~signalizer_tpu_torch.kernels.display_map.display_map`
   — ``_remap_mag``, peak decay over T and K, dB map.
 
-A CPU tensor runs the plain versions, a CUDA tensor the kernels. PHASE
-needs complex interpolation and a first-maximum argbin, which no kernel
-carries (the JAX package ran them as XLA ops too): on either device its
-values are the plain code below, fed by stage 1's complex output; its
-decay, phase smoothing and dB map are kernel G on a GPU
+A CPU tensor runs the plain versions, a CUDA tensor the kernels. PHASE's
+values (complex interpolation, a first-maximum argbin over each pixel's
+chunk, the cancellation), fed by stage 1's complex output, are
+:func:`phase_values_plain` on the CPU and one kernel on a GPU
+(:mod:`~signalizer_tpu_torch.kernels.phase_values`; the JAX package ran
+them as XLA ops); their decay, phase smoothing and dB map are kernel G on a GPU
 (:mod:`~signalizer_tpu_torch.kernels.phase_decay_db`). For the magnitude modes, :func:`spectrum_values` and
 :func:`post_process` are the two halves of the tail, each its own entry of
 the display kernel on a CUDA tensor
@@ -50,6 +51,7 @@ from signalizer_tpu_torch.kernels.display_map import (  # noqa: F401 — re-expo
     display_remap,
 )
 from signalizer_tpu_torch.kernels.phase_decay_db import phase_decay_db
+from signalizer_tpu_torch.kernels.phase_values import phase_values
 from signalizer_tpu_torch.kernels.window_fft_mag import (  # noqa: F401 — re-exported
     _half_spectrum,
     _pack_channels,
@@ -129,6 +131,39 @@ def _binmax_argbin(values: torch.Tensor, constant: SpectrumConstant) -> torch.Te
     return torch.where(constant.single_mask, constant.single_bin.long(), first)
 
 
+def phase_values_plain(constant: SpectrumConstant, spec: torch.Tensor) -> torch.Tensor:
+    """PHASE's display values from the complex half spectra ``spec`` [..., 2,
+    nv] (stage 1's PHASE output) in plain PyTorch, one torch operation at a
+    time: [..., 2, P], row 0 the mid magnitude, row 1 the cancellation.
+    :func:`~signalizer_tpu_torch.kernels.phase_values.phase_values` runs it
+    on a CPU tensor and launches one kernel, held to it, on a CUDA tensor."""
+    inv = constant.inv_size
+    mags = spec.abs()
+    l, r = spec[..., 0, :], spec[..., 1, :]
+    # interpolation region: complex interp for cancellation, magnitude
+    # interp for mid (ref: TransformDSP.inl:671-803)
+    il = _interp(l, constant)
+    ir = _interp(r, constant)
+    mid_i = inv * (_interp(mags[..., 0, :], constant) + _interp(mags[..., 1, :], constant))
+    cancel_num = inv * (il + ir).abs()
+    mid_for_cancel = inv * (il.abs() + ir.abs())
+    cancel_i = 1.0 - torch.where(
+        mid_for_cancel > 0, cancel_num / torch.clamp(mid_for_cancel, min=1e-30), 0.0
+    )
+    # bin-max region: argmax of max(|L|^2, |R|^2) per chunk
+    # (ref: TransformDSP.inl:813-850)
+    power = torch.maximum(mags[..., 0, :], mags[..., 1, :])
+    maxbin = _binmax_argbin(power, constant)  # [..., P]
+    lm = torch.gather(l, -1, maxbin)
+    rm = torch.gather(r, -1, maxbin)
+    mid_b = inv * (lm.abs() + rm.abs())
+    interference = inv * (lm + rm).abs()
+    cancel_b = 1.0 - torch.where(mid_b > 0, interference / torch.clamp(mid_b, min=1e-30), 0.0)
+    mid = torch.where(constant.interp_mask, mid_i, mid_b)
+    cancel = torch.where(constant.interp_mask, cancel_i, cancel_b)
+    return torch.stack([mid, cancel], dim=-2)
+
+
 def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Tensor:
     """Frames [..., C, W] -> display-space linear values [..., rows, P].
 
@@ -136,7 +171,6 @@ def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.T
     * Separate / MidSide: rows=2, (first, second) magnitudes.
     * Phase: rows=2, (mid magnitude, phase-cancellation in [0, 1]).
     """
-    inv = constant.inv_size
     stage1 = window_fft_mag(constant, frames)
     if constant.configuration != SpectrumChannels.PHASE:
         # magnitudes for every other mode: the reference abs()'s csf
@@ -144,31 +178,7 @@ def spectrum_values(constant: SpectrumConstant, frames: torch.Tensor) -> torch.T
         return display_remap(constant, stage1)
 
     with span("phase.values"):
-        spec = stage1  # [..., 2, nb+1] complex
-        mags = spec.abs()
-        l, r = spec[..., 0, :], spec[..., 1, :]
-        # interpolation region: complex interp for cancellation, magnitude
-        # interp for mid (ref: TransformDSP.inl:671-803)
-        il = _interp(l, constant)
-        ir = _interp(r, constant)
-        mid_i = inv * (_interp(mags[..., 0, :], constant) + _interp(mags[..., 1, :], constant))
-        cancel_num = inv * (il + ir).abs()
-        mid_for_cancel = inv * (il.abs() + ir.abs())
-        cancel_i = 1.0 - torch.where(
-            mid_for_cancel > 0, cancel_num / torch.clamp(mid_for_cancel, min=1e-30), 0.0
-        )
-        # bin-max region: argmax of max(|L|^2, |R|^2) per chunk
-        # (ref: TransformDSP.inl:813-850)
-        power = torch.maximum(mags[..., 0, :], mags[..., 1, :])
-        maxbin = _binmax_argbin(power, constant)  # [..., P]
-        lm = torch.gather(l, -1, maxbin)
-        rm = torch.gather(r, -1, maxbin)
-        mid_b = inv * (lm.abs() + rm.abs())
-        interference = inv * (lm + rm).abs()
-        cancel_b = 1.0 - torch.where(mid_b > 0, interference / torch.clamp(mid_b, min=1e-30), 0.0)
-        mid = torch.where(constant.interp_mask, mid_i, mid_b)
-        cancel = torch.where(constant.interp_mask, cancel_i, cancel_b)
-        return torch.stack([mid, cancel], dim=-2)
+        return phase_values(constant, stage1)
 
 
 class SpectrumResult(NamedTuple):

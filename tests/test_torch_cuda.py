@@ -12,6 +12,7 @@ import scipy.signal
 import torch
 
 from colormap_cases import RATIO_SETS, branch_values, intensities
+from phase_cases import phase_spectra
 from signalizer_tpu_torch.core.config import BinInterpolation, OscChannels, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
@@ -19,11 +20,13 @@ from signalizer_tpu_torch.kernels import colormap as cm
 from signalizer_tpu_torch.kernels import colour_track as ct
 from signalizer_tpu_torch.kernels import display_map as dm
 from signalizer_tpu_torch.kernels import oscilloscope as tk
+from signalizer_tpu_torch.kernels import phase_values as pv
 from signalizer_tpu_torch.kernels import spectral_walk as sw
 from signalizer_tpu_torch.kernels import window_fft_mag as wfm
 from signalizer_tpu_torch.kernels.spectrum import (
     analyze_frames,
     init_line_graph_state,
+    phase_values_plain,
     post_process,
     spectrum_values,
 )
@@ -642,14 +645,119 @@ def test_complex_mode_on_cuda_feeds_one_row_to_both_state_rows(cuda):
 
 
 def test_phase_on_cuda_feeds_kernel_a_complex_output(cuda):
+    """PHASE on the card: kernel A's complex output feeds the PHASE values
+    kernel (one launch, no display kernel) and kernel G; against the CPU's
+    plain path the mid row's dB within 1e-4, the values' mid within 1e-4 and
+    their cancellation row in linear units at atol 2e-3 (ROADMAP's caveat:
+    another FFT moves it by ~1e-6 and its dB can swing to clip_db)."""
     c = make_spectrum_constant(axis_points=128, window_size=1024, configuration=SpectrumChannels.PHASE, device=cuda)
     frames = _frames((2, 3, 2, 1024), seed=6, device=cuda)
     a0, b0 = counter("window_fft_mag.launches"), counter("display_map.launches")
+    v0 = counter("phase_values.launches")
     out = analyze_frames(c, init_line_graph_state(c, (2,)), frames).results
     assert (counter("window_fft_mag.launches") - a0, counter("display_map.launches") - b0) == (1, 0)
+    assert counter("phase_values.launches") == v0 + 1
     cpu = c.to("cpu")
     want = analyze_frames(cpu, init_line_graph_state(cpu, (2,)), frames.cpu()).results
     torch.testing.assert_close(out[..., 0, :].cpu(), want[..., 0, :], rtol=1e-4, atol=1e-4)
+    vals = spectrum_values(c, frames).cpu()
+    want_vals = spectrum_values(cpu, frames.cpu())
+    assert vals.shape == want_vals.shape == (2, 3, 2, 128)
+    torch.testing.assert_close(vals[..., 0, :], want_vals[..., 0, :], rtol=1e-4, atol=1e-4 * float(want_vals.abs().max()))
+    torch.testing.assert_close(vals[..., 1, :], want_vals[..., 1, :], rtol=0, atol=2e-3)
+
+
+# the PHASE values kernel's cases: (window, pairs, T), the sizes of kernel
+# A's three forms (4096 one block a row, 65536 a cluster, 2^21 two passes)
+# and the spectrogram's 16384; on the LOGARITHMIC axis of 1024 px the
+# kernel walks a chunk with 1, 2, 8 and 32 lanes at these sizes
+PHASE_VALUE_SHAPES = [(4096, 16, 128), (4096, 1, 1), (4096, 16, 1), (4096, 1, 128), (16384, 1, 512),
+                      (65536, 16, 1), (65536, 1, 128), (1 << 21, 1, 1), (1 << 21, 2, 3)]
+
+
+def _assert_phase_values_match(c, got, want):
+    """The kernel against the plain path on the card: bit for bit where the
+    plain path sums its taps in tap order (1 and 2 taps) and on every
+    bin-max pixel (no sum); a 10-tap Lanczos sum, which torch takes in its
+    own order, within 1e-6 of the row's largest (mid) and 1e-5 (the
+    cancellation, a ratio of two such sums)."""
+    assert got.shape == want.shape
+    exact = ~c.interp_mask if c.interp_taps > 2 else torch.ones_like(c.interp_mask)
+    torch.testing.assert_close(got[..., exact], want[..., exact], rtol=0, atol=0, equal_nan=True)
+    if c.interp_taps > 2:
+        lanczos = c.interp_mask
+        torch.testing.assert_close(got[..., 0, lanczos], want[..., 0, lanczos], rtol=1e-6,
+                                   atol=1e-6 * float(want[..., 0, :].abs().max()))
+        torch.testing.assert_close(got[..., 1, lanczos], want[..., 1, lanczos], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,pairs,t", PHASE_VALUE_SHAPES, ids=lambda v: str(v))
+@pytest.mark.parametrize("interp", INTERPS, ids=lambda i: i.name)
+def test_phase_values_kernel_matches_plain(cuda, interp, window, pairs, t):
+    """The PHASE values kernel (1, 2 and 10 taps; T = 1 and 128; 1 and 16
+    pairs; kernel A's three forms' sizes, so 1, 2, 8 and 32 lanes a pixel)
+    against ``phase_values_plain`` on the same CUDA spectra, with exact ties
+    planted in every chunk, a silent frame and a silent right channel; one
+    launch a call."""
+    c = make_spectrum_constant(axis_points=1024, window_size=window, configuration=SpectrumChannels.PHASE,
+                               bin_interpolation=interp, view_scaling=ViewScaling.LOGARITHMIC, device=cuda)
+    spec = phase_spectra(c, pairs * t, seed=window % 89 + pairs + t, plant=True)
+    spec = spec.reshape(pairs, t, 2, c.n_spectrum_values).to(cuda)
+    before = counter("phase_values.launches")
+    got = pv.phase_values(c, spec)
+    want = phase_values_plain(c, spec)
+    torch.cuda.synchronize()
+    assert counter("phase_values.launches") == before + 1 and got.shape == (pairs, t, 2, 1024)
+    _assert_phase_values_match(c, got, want)
+    if pairs * t > 2:
+        flat = got.reshape(-1, 2, 1024)
+        assert bool((flat[1, 0] == 0).all() and (flat[1, 1] == 1).all() and (flat[2, 1] == 0).all())
+
+
+@pytest.mark.parametrize("window", [4096, 65536, 1 << 21])
+def test_phase_values_kernel_ties_single_bins_nan_and_silence(cuda, window):
+    """Planted single-bin pixels, a frame whose bins all tie (each pixel
+    takes its chunk's first bin), a NaN in a chunk (the first NaN wins, as
+    torch's argmax has it: mid NaN, cancellation 1), a silent frame (mid 0,
+    cancellation 1): the kernel against the plain path bit for bit, LINEAR
+    axis and taps; at 4096 points (chunks to 9 bins: a lane walks a
+    pixel's), 65536 (to 129: 8 lanes) and 2^21 (to 4113: a warp's 32)."""
+    import dataclasses
+
+    c = make_spectrum_constant(axis_points=256, window_size=window, configuration=SpectrumChannels.PHASE,
+                               view_scaling=ViewScaling.LINEAR, device=cuda)
+    single, single_bin = c.single_mask.clone(), c.single_bin.clone()
+    single[5::7] = True
+    single_bin[5::7] = torch.arange(5, 256, 7, dtype=torch.int32, device=cuda) * 3 + 1
+    c = dataclasses.replace(c, single_mask=single, single_bin=single_bin)
+    spec = phase_spectra(c, 6, seed=12, plant=True)
+    spec[3] = torch.complex(torch.tensor(0.75), torch.tensor(-0.5))
+    lo, ln = c.chunk_lo.cpu(), c.chunk_len.cpu()
+    x = int(torch.nonzero(~single.cpu() & (ln >= 3))[4])
+    spec[4, 0, int(lo[x]) + 1] = complex(float("nan"), 0.0)
+    spec[4, 1, int(lo[x]) + 2] = complex(float("nan"), 1.0)
+    spec = spec.to(cuda)
+    got = pv.phase_values(c, spec)
+    want = phase_values_plain(c, spec)
+    torch.cuda.synchronize()
+    _assert_phase_values_match(c, got, want)
+    assert bool(torch.isnan(got[4, 0, x])) and float(got[4, 1, x]) == 1.0  # mid NaN, not > 0: cancellation 1
+    assert bool((got[1, 0] == 0).all() and (got[1, 1] == 1).all())
+
+
+def test_phase_values_refuses_what_it_cannot_take(cuda):
+    c = make_spectrum_constant(axis_points=64, window_size=256, configuration=SpectrumChannels.PHASE, device=cuda)
+    nv = c.n_spectrum_values
+    spec = torch.zeros((3, 2, nv), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="complex64"):
+        pv.phase_values(c, spec.real.contiguous())
+    with pytest.raises(ValueError, match="complex64"):
+        pv.phase_values(c, torch.zeros((3, 2, nv + 1), dtype=torch.complex64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        pv.phase_values(c, torch.zeros((2, 3, nv), dtype=torch.complex64, device=cuda).transpose(0, 1))
+    with pytest.raises(ValueError, match="constant"):
+        pv.phase_values(c.to("cpu"), spec)
+    assert pv.phase_values(c, spec[:0]).shape == (0, 2, 64)
 
 
 # the clip range of each resample kind (kernels/oscilloscope.py), by a

@@ -9,7 +9,9 @@ weights from three trigonometric values a pixel and a rotation table, and
 the colour track kernel's chunked scans split across a thread-block
 cluster (a numpy model, held to a float64 oracle within twice the plain
 doubling scans' own error), and the PHASE tail kernel's walk-then-map plan
-(bit-equal to its plain loops). The
+(bit-equal to its plain loops), and the PHASE values kernel's walk (a
+numpy model, bit-equal to ``_binmax_argbin`` and the plain path's
+gathers). The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -19,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from signalizer_tpu_torch.core.config import SpectrumChannels, ViewScaling
+from phase_cases import phase_spectra
+from signalizer_tpu_torch.core.config import BinInterpolation, SpectrumChannels, ViewScaling
 from signalizer_tpu_torch.core.constant import fft_twiddles, make_spectrum_constant
 from signalizer_tpu_torch.kernels import banded_resample as br
 from signalizer_tpu_torch.kernels import colour_track as ct
@@ -1091,3 +1094,246 @@ def test_spectral_walk_spectrum_plan_stages_the_largest_rows(n):
         assert sorted(row["formed"]) == list(range(1, half)) and sorted(row["held"]) == list(range(2, half))
         most = max(len(v) for v in row["loads"].values())
         assert most <= k["kLoadChunks"] and (n != 16389 or most == k["kLoadChunks"])
+
+
+# ---------------------------------------------------------------------------
+# the PHASE values kernel (csrc/phase_values.cu): a pixel's taps or its walk
+# ---------------------------------------------------------------------------
+
+
+def _cabs(re, im):
+    """|z| of float32 parts, as torch's complex abs takes it."""
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).abs().numpy()
+
+
+# csrc/phase_values.cu's kWarp
+PV_WARP = 32
+
+
+def pv_lanes(longest):
+    """csrc/phase_values.cu ``lanes_for``: the lanes that walk a pixel's
+    chunk, the fewest (a power of two, at most a warp) that leave a lane at
+    most a warp's width of the plan's longest chunk."""
+    lanes = 1
+    while lanes < PV_WARP and longest > PV_WARP * lanes:
+        lanes *= 2
+    return lanes
+
+
+def _first_max(v, best):
+    """Where the walk's ``v`` takes over from ``best``: greater, or a NaN
+    over a number (csrc/phase_values.cu ``beats``)."""
+    return (v > best) | (np.isnan(v) & ~np.isnan(best))
+
+
+def lane_walk(power, lo, length, lanes):
+    """The kernel's walk of each bin-max pixel's chunk: lane ``k`` of the
+    pixel's ``lanes`` keeps the first maximum of bins k, k + lanes, ... of
+    its chunk (its batched loads compare in bin order), then a butterfly of
+    shuffles (partners lanes / 2, ..., 1 apart) keeps the larger, or the
+    lower bin where neither beats the other. ``power`` [F, nv], ``lo`` and
+    ``length`` (at least 1) [n] -> the bins [F, n], as every lane ends."""
+    f, n = power.shape[0], len(lo)
+    best = np.full((f, n, lanes), -np.inf, np.float32)
+    at = np.broadcast_to(length[None, :, None], (f, n, lanes)).copy()  # no bin: past the chunk
+    ks = np.arange(lanes)
+    for step in range(-(-int(length.max(initial=1)) // lanes)):
+        j = ks[None, :] + step * lanes  # [1, lanes]
+        k = np.minimum(lo[:, None] + j, power.shape[1] - 1)  # [n, lanes]
+        v = power[:, k]
+        take = (j < length[:, None])[None] & _first_max(v, best)
+        best, at = np.where(take, v, best), np.where(take, j, at)
+    o = lanes // 2
+    while o:
+        vb, bb = best[..., ks ^ o], at[..., ks ^ o]
+        take = _first_max(vb, best) | (~_first_max(best, vb) & (bb < at))
+        best, at = np.where(take, vb, best), np.where(take, bb, at)
+        o //= 2
+    assert (at == at[..., :1]).all()  # every lane holds the pixel's winner
+    return lo[None, :] + at[..., 0]
+
+
+def phase_values_model(constant, spec, lanes=None):
+    """csrc/phase_values.cu's per-pixel arithmetic in numpy float32, on
+    ``spec`` [F, 2, nv] complex64, every frame of a pixel at once. An
+    interpolation pixel sums its taps in tap order from 0, each product
+    rounded before its sum. A bin-max pixel finds its chunk's first maximum
+    of max(|L|, |R|) (a single-bin pixel its one bin) by :func:`lane_walk`
+    with the kernel's lanes for the plan (``lanes`` None) or the lanes
+    given, and takes that bin's L and R. The magnitudes the walk compares
+    are torch's abs of the whole spectrum, as the plain path takes them.
+    Returns (values [F, 2, P], the walk's bins [F, P] (-1 on interpolation
+    pixels), the winners' L and R [F, P] complex64)."""
+    c = constant
+    f32 = np.float32
+    if lanes is None:
+        lanes = pv_lanes(c.band_idx.shape[-1])
+    spec = spec.numpy()
+    f, nv, p = spec.shape[0], spec.shape[-1], c.axis_points
+    re, im = spec.real.astype(f32), spec.imag.astype(f32)
+    mags = torch.from_numpy(spec).abs().numpy()
+    a, b = mags[:, 0], mags[:, 1]
+    power = np.where(np.isnan(a) | (a > b), a, b)
+    inv = f32(c.inv_size)
+    interp, single = c.interp_mask.numpy(), c.single_mask.numpy()
+    mid, cancel = np.zeros((f, p), f32), np.zeros((f, p), f32)
+
+    def cancellation(sre, sim, m):
+        num = inv * _cabs(sre, sim)
+        return f32(1) - np.where(m > 0, num / np.maximum(m, f32(1e-30)), f32(0))
+
+    ip = np.nonzero(interp)[0]
+    ilr, ili, irr, iri, ml, mr = (np.zeros((f, len(ip)), f32) for _ in range(6))
+    for j in range(c.interp_taps):  # tap order
+        at, w = c.interp_indices.numpy()[ip, j], c.interp_weights.numpy()[ip, j]
+        ilr, ili = ilr + re[:, 0, at] * w, ili + im[:, 0, at] * w
+        irr, iri = irr + re[:, 1, at] * w, iri + im[:, 1, at] * w
+        ml, mr = ml + mags[:, 0, at] * w, mr + mags[:, 1, at] * w
+    mid[:, ip] = inv * (ml + mr)
+    cancel[:, ip] = cancellation(ilr + irr, ili + iri, inv * (_cabs(ilr, ili) + _cabs(irr, iri)))
+
+    bp = np.nonzero(~interp)[0]
+    lo = np.where(single[bp], c.single_bin.numpy()[bp], c.chunk_lo.numpy()[bp]).astype(np.int64)
+    length = np.maximum(np.where(single[bp], 1, c.chunk_len.numpy()[bp]), 1)
+    at = lane_walk(power, lo, length, lanes)
+    lr, li, rr, ri = (np.take_along_axis(x, at, axis=1) for x in (re[:, 0], im[:, 0], re[:, 1], im[:, 1]))
+    m = inv * (_cabs(lr, li) + _cabs(rr, ri))
+    mid[:, bp] = m
+    cancel[:, bp] = cancellation(lr + rr, li + ri, m)
+    bins = np.full((f, p), -1, np.int64)
+    bins[:, bp] = at
+    left, right = np.zeros((f, p), np.complex64), np.zeros((f, p), np.complex64)
+    left[:, bp], right[:, bp] = lr + 1j * li, rr + 1j * ri
+    return np.stack([mid, cancel], axis=1), bins, left, right
+
+
+PHASE_VALUE_PLANS = [
+    (window, scaling, interp)
+    for window in (4096, 65536, 1 << 21)
+    for scaling in (ViewScaling.LOGARITHMIC, ViewScaling.LINEAR)
+    for interp in (BinInterpolation.NONE, BinInterpolation.LINEAR, BinInterpolation.LANCZOS)
+]
+
+
+def _assert_model_is_the_plain_path(c, spec, lanes=None):
+    got, bins, left, right = phase_values_model(c, spec, lanes)
+    want = ts.phase_values_plain(c, spec).numpy()
+    mags = spec.abs()
+    argbin = ts._binmax_argbin(torch.maximum(mags[..., 0, :], mags[..., 1, :]), c).numpy()
+    bp = ~c.interp_mask.numpy()
+    assert bool(bp.any())
+    np.testing.assert_array_equal(bins[:, bp], argbin[:, bp])
+    idx = torch.from_numpy(argbin)
+    np.testing.assert_array_equal(left[:, bp], torch.gather(spec[..., 0, :], -1, idx).numpy()[:, bp])
+    np.testing.assert_array_equal(right[:, bp], torch.gather(spec[..., 1, :], -1, idx).numpy()[:, bp])
+    # the sums and quotients round alike; torch's CPU abs may take the
+    # other of two roundings of |z| by where z sits in its vector, so the
+    # values are held within a few ulps (a Lanczos tap sum in torch's own
+    # order: 1e-6 of the row's largest)
+    scale = 1e-6 * float(np.abs(want[:, 0]).max()) if c.interp_taps > 2 else 0.0
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=4e-7, atol=scale)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-6)
+    return got, bins, argbin
+
+
+@pytest.mark.parametrize("window,scaling,interp", PHASE_VALUE_PLANS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_phase_values_model_is_the_plain_path(window, scaling, interp):
+    """The kernel's walk picks the plain path's argbin and carries the
+    plain path's gathered L and R bit for bit, on every plan kind (NONE,
+    LINEAR and Lanczos taps; LOGARITHMIC and LINEAR axes) and on chunks up
+    to a 2^21-point plan's 7948 bins, with exact ties planted in every chunk
+    (the first maximum wins), a silent frame (mid 0, cancellation 1) and a
+    frame with a silent right channel (cancellation 0)."""
+    c = make_spectrum_constant(axis_points=1024, window_size=window, configuration=SpectrumChannels.PHASE,
+                               bin_interpolation=interp, view_scaling=scaling, device="cpu")
+    frames = 4 if window < (1 << 21) else 3
+    spec = phase_spectra(c, frames, seed=window % 97 + int(scaling) + 3 * int(interp), plant=True)
+    got, bins, argbin = _assert_model_is_the_plain_path(c, spec)
+    assert np.all(got[1, 0] == 0) and np.all(got[1, 1] == 1)
+    assert np.all(got[2, 1] == 0)
+    longest = int(c.chunk_len.max())
+    assert longest == {4096: (16, 3), 65536: (249, 33), 1 << 21: (7948, 1026)}[window][scaling == ViewScaling.LINEAR]
+    assert c.band_idx.shape[-1] == longest  # what picks the kernel's lanes a pixel
+    assert pv_lanes(longest) == {16: 1, 3: 1, 249: 8, 33: 2, 7948: 32, 1026: 32}[longest]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_phase_values_every_lane_count_is_the_plain_path(lanes):
+    """Every lane count the kernel can take a pixel with finds the plain
+    path's bins on a 65536-point plan (chunks of 1 to 249 bins, ties
+    planted in each), whichever the plan picks."""
+    c = make_spectrum_constant(axis_points=1024, window_size=65536, configuration=SpectrumChannels.PHASE,
+                               view_scaling=ViewScaling.LOGARITHMIC, device="cpu")
+    spec = phase_spectra(c, 3, seed=40 + lanes, plant=True)
+    got, _, _ = _assert_model_is_the_plain_path(c, spec, lanes)
+    assert np.all(got[1, 0] == 0) and np.all(got[1, 1] == 1)
+
+
+def test_phase_values_lanes_rule_is_the_kernels():
+    """``pv_lanes`` is csrc/phase_values.cu's ``lanes_for``, read from the
+    source: the same loop on the same bound."""
+    from pathlib import Path
+
+    from signalizer_tpu_torch.kernels import phase_values as pv
+
+    source = (Path(pv.__file__).resolve().parent.parent / "csrc" / "phase_values.cu").read_text()
+    assert "while (lanes < kWarp && longest > kWarp * lanes) lanes *= 2;" in source
+    assert "constexpr int kWarp = 32;" in source
+    assert [pv_lanes(n) for n in (1, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 10**6)] == \
+        [1, 1, 2, 2, 4, 4, 8, 8, 16, 16, 32, 32]
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("lanes", [2, 8, 32])
+def test_phase_values_lane_walk_keeps_the_lowest_bin_on_ties(lanes, seed):
+    """The lane split's combine on values drawn from a handful of levels (so
+    most chunks tie for their maximum, often in lanes below the first
+    maximum's), with NaNs in some chunks: the first maximum, the first NaN
+    where there is one, as torch's argmax picks it, on chunks of 1 to 300
+    bins."""
+    rng = np.random.default_rng(10 * lanes + seed)
+    n, nv = 64, 12000
+    power = rng.integers(0, 4, (2, nv)).astype(np.float32)
+    power[0, rng.integers(0, nv, 40)] = np.nan
+    length = rng.integers(1, 301, n)
+    lo = rng.integers(0, nv - 300, n)
+    got = lane_walk(power, lo, length, lanes)
+    for f in range(2):
+        for x in range(n):
+            chunk = torch.from_numpy(power[f, lo[x] : lo[x] + length[x]])
+            assert got[f, x] == lo[x] + int(torch.argmax(chunk))
+
+
+def test_phase_values_model_first_maximum_and_single_bins():
+    """Planted single-bin pixels (any bin, tied or not with their
+    neighbours) and chunks whose bins all tie: the walk keeps the chunk's
+    first bin, as ``_binmax_argbin`` does, and a single-bin pixel reads its
+    bin."""
+    c = make_spectrum_constant(axis_points=256, window_size=4096, configuration=SpectrumChannels.PHASE,
+                               view_scaling=ViewScaling.LINEAR, device="cpu")
+    single = c.single_mask.clone()
+    single_bin = c.single_bin.clone()
+    single[5::7] = True
+    single_bin[5::7] = torch.arange(5, 256, 7, dtype=torch.int32) * 3 + 1
+    c = dataclasses.replace(c, single_mask=single, single_bin=single_bin)
+    spec = phase_spectra(c, 4, seed=11, plant=False)
+    spec[0] = torch.complex(torch.tensor(0.75), torch.tensor(-0.5))  # every bin ties
+    _, bins, argbin = _assert_model_is_the_plain_path(c, spec)
+    bp = ~c.interp_mask.numpy()
+    first = np.where(single.numpy(), single_bin.numpy(), c.chunk_lo.numpy())
+    np.testing.assert_array_equal(bins[0, bp], first[bp])
+    np.testing.assert_array_equal(bins[:, single.numpy()], np.broadcast_to(single_bin.numpy()[single.numpy()],
+                                                                           (4, int(single.sum()))))
+
+
+def test_phase_values_max_taps_is_the_kernels():
+    """The wrapper's refusal uses a copy of csrc/phase_values.cu's kMaxTaps."""
+    import re
+    from pathlib import Path
+
+    from signalizer_tpu_torch.kernels import phase_values as pv
+
+    source = (Path(pv.__file__).resolve().parent.parent / "csrc" / "phase_values.cu").read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+    assert pv.MAX_TAPS == consts["kMaxTaps"] == dm.MAX_TAPS

@@ -358,7 +358,7 @@ def test_build_names_the_library_by_its_sources():
     names = {p.name for p in _build._sources()}
     assert {"window_fft_mag.cu", "window_fft_mag_cluster.cu", "window_fft_mag_long.cu", "window_fft_common.cuh",
             "display_map.cu", "display_decay_db.cu", "banded_resample.cu", "peak_hold.cu", "colour_track.cu",
-            "spectral_walk.cu", "phase_decay_db.cu", "resonator_scan.cu", "colormap.cu"} <= names
+            "spectral_walk.cu", "phase_decay_db.cu", "resonator_scan.cu", "colormap.cu", "phase_values.cu"} <= names
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
@@ -366,6 +366,7 @@ def test_build_names_the_library_by_its_sources():
         "sig_display_remap", "sig_display_decay_db", "sig_banded_resample", "sig_banded_resample_affine",
         "sig_peak_hold", "sig_envelope_hold", "sig_colour_split", "sig_colour_track", "sig_spectral_walk",
         "sig_spectral_walk_spectrum", "sig_phase_decay_db", "sig_resonator_scan", "sig_colormap",
+        "sig_phase_values",
     }
 
 
