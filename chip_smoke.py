@@ -227,9 +227,7 @@ Phases, each printing one informational line:
    4x apart, and the 280-pass cap; the spectrum entry timed at cfg3b (16
    x 4094 bins) and on one row beside the plain version, the bound, the
    chain's estimate (its passes times a pass's device cost, profiled at
-   the 280-pass cap in phase 15) and the first design
-   (``tools/variants/spectral_walk_v1.cu``) after the torch operations
-   that formed its bins, in turns, and profiled alone there (phase 15);
+   the 280-pass cap in phase 15), and profiled alone there (phase 15);
 21. kernel G (the PHASE display tail: the mid row's decay, the phase
    smoothing, the dB map; after phase 11) against its plain version (the
    loops over T) on the same CUDA tensors: the headline in PHASE at T = 128
@@ -2071,16 +2069,15 @@ def kernel_a_entry(torch, c, frames, out, log2s=None, scratch=None):
     the port: it counts no launch."""
     from signalizer_tpu_torch.kernels import _build
 
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
     batch = frames.numel() // (frames.shape[-1] * frames.shape[-2])
     head = (frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr())
     tail = (batch, frames.shape[-2], c.window_size, c.transform_size.bit_length() - 1, int(c.configuration))
     if scratch is None:
-        err = lib.sig_window_fft_mag_cluster(*head, out.data_ptr(), *tail, log2s, stream)
+        _build.launch("sig_window_fft_mag_cluster", frames.device, *head, out.data_ptr(), *tail, log2s,
+                      name="kernel A entry")
     else:
-        err = lib.sig_window_fft_mag_long(*head, scratch.data_ptr(), out.data_ptr(), *tail, stream)
-    _build.check(err, "kernel A entry")
+        _build.launch("sig_window_fft_mag_long", frames.device, *head, scratch.data_ptr(), out.data_ptr(), *tail,
+                      name="kernel A entry")
 
 
 def phase_kernel_a_long(torch, dev, results, launches_out, calls_out):
@@ -3641,12 +3638,6 @@ def phase_kernel_e(torch, dev, results):
 # filtered entry three calls with its history carried
 WALK_N = 8192
 WALK_ROWS = (1, PAIRS, 33)
-# before the spectrum stage (PERF.md §5, §6, NVIDIA H100 80GB HBM3, 700.00
-# W): the cfg3b call's launches, F's device µs in it and in a
-# cycles.oscilloscope tick, and spectral_bins' torch launches after the rfft
-# and their device µs at cfg3b (kernel_variants --kernels f)
-SPECTRAL_PARENT = {"osc_cfg3b_launches_per_call": 89.95, "spectral_walk_us_osc_cfg3b": 7.85,
-                   "spectral_walk_us_session_tick_cycles": 9.66, "tail_launches": 13, "tail_us_cfg3b": 20.51}
 WALK_SETTINGS = ((0.0, 0.0), (0.1, 0.4))
 # bins fed directly: (name, chain starts, length, ratio (None: each bin the
 # next float32 above twice the last, until float32 overflows, then inf),
@@ -3757,16 +3748,6 @@ def bits_equal(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
-def walk_v1(torch):
-    """Kernel F's first design (``tools/variants/spectral_walk_v1.cu``,
-    the bins entry alone), built with the package's flags: the yardstick the
-    spectrum entry is timed beside, not a route of the port."""
-    from signalizer_tpu_torch.tools import kernel_variants as kv
-
-    source, defines = kv.NAMED_VARIANTS["spectral_walk_v1"]
-    return kv.build("spectral_walk_v1", kv.VARIANTS_DIR, "f", sources=[kv.VARIANTS_DIR / source], defines=defines)
-
-
 def phase_kernel_f(torch, dev, results):
     """Kernel F's four entries against their plain versions on the same
     CUDA tensors, bit for bit: record, passes and history. The spectrum
@@ -3778,10 +3759,8 @@ def phase_kernel_f(torch, dev, results):
     entries at WALK_CHAINS (the longest chain float32 allows, the 280-pass
     cap). The filtered spectrum entry timed at cfg3b (16 rows x 4094 bins
     of the oscilloscope stream's lookaheads) and one row beside its plain
-    version, the bound and, in turns, the first design after the torch
-    operations that formed its bins. Returns the profile's workloads."""
+    version and the bound. Returns the profile's workloads."""
     from signalizer_tpu_torch.kernels import spectral_walk as sw
-    from signalizer_tpu_torch.kernels import _build
 
     worst = {"value_max_abs_err": 0.0, "offset_max_abs_err": 0.0, "history_max_abs_err": 0.0,
              "index_mismatches": 0, "passes_mismatches": 0, "bit_mismatches": 0}
@@ -3859,58 +3838,35 @@ def phase_kernel_f(torch, dev, results):
         report["cases"][name] = {"passes": passes.tolist()}
 
     # timed: cfg3b's 16 lookaheads (the oscilloscope stream's left channels)
-    # and one of them, the view's device scalars; beside the first design
-    # after spectral_bins' torch operations (what the step ran before the
-    # spectrum stage), in turns (ms: the median of the walk's two turns'
-    # timings); bound: the half spectrum read once, the history in and out,
+    # and one of them, the view's device scalars; bound: the half spectrum
+    # read once, the history in and out,
     # the record and the passes written; per bin |X| and the offset (~40 f32
     # operations). The chain's estimate (phase 15): the passes times a
     # pass's device cost, profiled on one row of the rising spectrum (280
     # passes) against its silent row (one pass)
     cap_row, one_row = rising[0:1].contiguous(), rising[2:3].contiguous()
     stream, _ = make_osc_stream()
-    v1 = walk_v1(torch)
     timed = {}
     workloads = [("spectral_walk_pass_cap", lambda: sw.spectral_walk_spectrum(cap_row, WALK_N, 0.0, -1.0)),
                  ("spectral_walk_one_pass", lambda: sw.spectral_walk_spectrum(one_row, WALK_N, 0.0, -1.0))]
     thr_t, hyst_t = torch.tensor(0.1, device=dev), torch.tensor(0.0, device=dev)
-    qs = float(np.float32(sw.QUARTER_SEMITONE))
     for name, rows in (("cfg3b", PAIRS), ("1x4094", 1)):
         spec = walk_spectrum(torch, rows, 0, dev, x=stream[:rows, 0, OSC_HISTORY - WALK_N : OSC_HISTORY])
         history = walk_history(torch, rows, 3, dev)
-        out = [torch.empty(rows, dtype=dt, device=dev) for dt in (torch.int32, torch.float32, torch.float32,
-                                                                   torch.int32)]
-        hist_out = torch.empty_like(history)
 
         def walk(spec=spec, history=history):
             return sw.spectral_walk_filtered_spectrum(spec, WALK_N, history, thr_t, hyst_t)
 
-        def v1_after_tail(spec=spec, history=history, out=out, hist_out=hist_out, rows=rows):
-            mags, offsets = spec.abs(), sw._quad_delta(spec)
-            h = WALK_N // 2 + 1
-            err = v1.sig_spectral_walk(
-                mags.data_ptr(), h, offsets.data_ptr(), h, thr_t.data_ptr(), hyst_t.data_ptr(), 0.0, 0.0, 0.0, qs,
-                float(WALK_N), history.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                hist_out.data_ptr(), out[3].data_ptr(), rows, WALK_N // 2 - 2, torch.cuda.current_stream().cuda_stream)
-            _build.check(err, "spectral_walk_v1")
-
-        want_hist, want, want_passes = walk()
-        v1_after_tail()
-        torch.cuda.synchronize()
-        require(all(bits_equal(torch, a, b) for a, b in zip(out, (*want, want_passes)))
-                and bits_equal(torch, hist_out, want_hist), f"kernel F {name}: the first design differs")
-        passes = int(want_passes.max())
+        passes = int(walk()[2].max())
         m = WALK_N // 2 - 2
         moved = rows * ((m + 3) * 8 + 2 * 8 * 4 + 3 * 4 + 4)
-        samples = [event_ms(torch, fn) for fn in (walk, v1_after_tail, v1_after_tail, walk)]
         timed[name] = dict(
-            ms=statistics.median(samples[0] + samples[3]), passes=passes,
-            turns_ms=[statistics.median(t) for t in samples],
+            ms=median_ms(torch, walk), passes=passes,
             plain_ms=call_ms(torch, lambda: sw.spectral_walk_filtered_spectrum_plain(spec, WALK_N, history, thr_t,
                                                                                       hyst_t), reps=3),
             **roofline(moved, rows * (m + 3) * 40.0),
         )
-        workloads += [(f"spectral_walk_{name}", walk), (f"spectral_walk_v1_tail_{name}", v1_after_tail)]
+        workloads.append((f"spectral_walk_{name}", walk))
     report["timed"] = timed
     report["measured_err"] = worst
     info(report)
@@ -3921,9 +3877,9 @@ def phase_kernel_f(torch, dev, results):
         max_abs_err=max(worst["value_max_abs_err"], worst["offset_max_abs_err"], worst["history_max_abs_err"]),
         mismatches=worst["index_mismatches"] + worst["passes_mismatches"] + worst["bit_mismatches"],
         measured_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=None, passes_cfg3b=t["passes"], turns_ms_cfg3b=t["turns_ms"],
+        library_ms=None, passes_cfg3b=t["passes"],
         one_row_ms=timed["1x4094"]["ms"], one_row_plain_ms=timed["1x4094"]["plain_ms"],
-        one_row_turns_ms=timed["1x4094"]["turns_ms"], one_row_passes=timed["1x4094"]["passes"],
+        one_row_passes=timed["1x4094"]["passes"],
         pass_cap_passes=sw.MAX_WALK_ITERATIONS,
     )
     return workloads
@@ -4673,12 +4629,6 @@ def main() -> int:
                       "spectral_walk_us": row["own_kernels_us_per_call"].get("spectral_walk_kernel", 0.0)}
     for name, base in (("osc_cfg3b", "osc_cfg3"), ("session_tick_cycles", "session_tick")):
         walk[f"{name}_minus_{base}"] = {k: walk[name][k] - walk[base][k] for k in walk[name]}
-    # the same before kernel F formed its bins itself (PERF.md §5 and §6,
-    # on NVIDIA H100 80GB HBM3, 700.00 W): the cfg3b call's launches and F's
-    # device µs in it and in a cycles tick, spectral_bins' 13 launches
-    walk["parent"] = SPECTRAL_PARENT
-    walk["launches_per_call_vs_parent"] = {
-        "osc_cfg3b": walk["osc_cfg3b"]["launches_per_call"] - SPECTRAL_PARENT["osc_cfg3b_launches_per_call"]}
     info({"phase": "spectral_profile", **walk})
     # the two tails' calls: launches, device and host time a call, kernels
     # G and H in them and alone

@@ -233,38 +233,21 @@ def _rotation_address(a: int) -> int:
     return rotation_table(a).ctypes.data
 
 
-def _raw_stream(index: int) -> int:
-    """The handle of device ``index``'s current stream. torch's private
-    accessor answers without building a Stream object (~2.6 us less a
-    launch); where a torch version lacks it, the public one does."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
 def _launch(entry: str, x: torch.Tensor, head: tuple, p: int, a: int, kind: str, with_nearest: bool):
     """Allocate the outputs (one buffer for both), launch ``entry`` on x's
     device and current stream, count the launch."""
     bsz, rows, w = x.shape
     buf = torch.empty((2 if with_nearest else 1, bsz, rows, p), dtype=torch.float32, device=x.device)
     if bsz * rows * p > 0:
-        fn = getattr(_build.library(), entry)
         out = buf.data_ptr()
-        index = x.device.index
-        args = head + (
+        _build.launch(
+            entry, x.device, *head,
             out,
             out + 4 * bsz * rows * p if with_nearest else None,
             bsz, rows, w, p, a, KINDS[kind],
             _rotation_address(a) if kind == "lanczos" else None,
-            _raw_stream(index),
+            name="banded_resample",
         )
-        if index == torch.cuda.current_device():
-            err = fn(*args)
-        else:
-            with torch.cuda.device(index):
-                err = fn(*args)
-        _build.check(err, "banded_resample")
         count("banded_resample.launches")
     return buf.unbind(0) if with_nearest else buf[0]
 

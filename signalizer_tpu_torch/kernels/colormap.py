@@ -159,21 +159,9 @@ def spectrogram_columns(
         if out.numel() == 0:
             return out
         colours, bounds = colours.contiguous(), bounds.contiguous()
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            err = lib.sig_colormap(
-                intensity.data_ptr(),
-                *intensity.stride(),
-                colours.data_ptr(),
-                pairs if colours.ndim == 3 else 1,
-                bounds.data_ptr(),
-                out.data_ptr(),
-                pairs,
-                t,
-                p,
-                stops,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(err, "colormap")
+        _build.launch(
+            "sig_colormap", dev, intensity.data_ptr(), *intensity.stride(), colours.data_ptr(),
+            pairs if colours.ndim == 3 else 1, bounds.data_ptr(), out.data_ptr(), pairs, t, p, stops, name="colormap",
+        )
         count("colormap.launches")
         return out

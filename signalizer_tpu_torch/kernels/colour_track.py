@@ -88,8 +88,8 @@ def exponents(chunk: int = CHUNK, steps: int = STEPS) -> list:
     """The powers of a recurrence's matrix the table holds, in order: m^1..
     m^chunk (a sample's fix-up), m^(chunk l) for l = 0..31 (the lanes'
     scan) and m^(32 chunk 2^k) for k < ``steps`` (the scan over warps: the
-    kernel's STEPS cover a cluster's 32 warps; the earlier designs kept for
-    ``tools/kernel_variants.py``, a row in one block of 512 threads, took 4)."""
+    kernel's STEPS cover a cluster's 32 warps; the earlier designs, a row in
+    one block of 512 threads, took 4: PERF.md §6)."""
     return (list(range(1, chunk + 1)) + [chunk * k for k in range(WARP)]
             + [WARP * chunk * 2**k for k in range(steps)])
 
@@ -340,15 +340,12 @@ def _launch_track(src: torch.Tensor, row_stride: int, lead, w: int, bands_in: bo
     z_out = None if bands_in else torch.empty_like(z_in)
     s_out = torch.empty_like(s_in)
     if n > 0:
-        with torch.cuda.device(dev):  # the launch goes to the tensor's device
-            err = _build.library().sig_colour_track(
-                src.data_ptr(), row_stride, int(bands_in), table.data_ptr(),
-                None if bands_in else z_in.data_ptr(), None if bands_in else z_out.data_ptr(),
-                s_in.data_ptr(), s_out.data_ptr(), bc.data_ptr(), key.data_ptr(), key.stride(0), key.stride(1),
-                rows_pp, blend_ptr, blend_value, colours.data_ptr(), n, w, CHUNK, *_geometry(dev, n, w),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(err, name)
+        _build.launch(
+            "sig_colour_track", dev, src.data_ptr(), row_stride, int(bands_in), table.data_ptr(),
+            None if bands_in else z_in.data_ptr(), None if bands_in else z_out.data_ptr(),
+            s_in.data_ptr(), s_out.data_ptr(), bc.data_ptr(), key.data_ptr(), key.stride(0), key.stride(1),
+            rows_pp, blend_ptr, blend_value, colours.data_ptr(), n, w, CHUNK, *_geometry(dev, n, w), name=name,
+        )
         count("colour_track.launches")
     return colours, z_out, s_out
 
@@ -376,13 +373,10 @@ def three_band_split(
         z_out = torch.empty_like(z_in)
         if rows.shape[0] > 0:
             stride = rows.stride(0) if rows.shape[0] > 1 else w
-            with torch.cuda.device(dev):
-                err = _build.library().sig_colour_split(
-                    rows.data_ptr(), stride, table.data_ptr(), z_in.data_ptr(), z_out.data_ptr(), bands.data_ptr(),
-                    rows.shape[0], w, CHUNK, *_geometry(dev, rows.shape[0], w),
-                    torch.cuda.current_stream(dev).cuda_stream,
-                )
-            _build.check(err, "three_band_split")
+            _build.launch(
+                "sig_colour_split", dev, rows.data_ptr(), stride, table.data_ptr(), z_in.data_ptr(), z_out.data_ptr(),
+                bands.data_ptr(), rows.shape[0], w, CHUNK, *_geometry(dev, rows.shape[0], w), name="three_band_split",
+            )
             count("colour_track.launches")
         return bands, CrossoverState(z=z_out)
 

@@ -180,27 +180,12 @@ def display_remap(constant: SpectrumConstant, mags: torch.Tensor) -> torch.Tenso
         out = torch.empty(mags.shape[:-1] + (c.axis_points,), dtype=torch.float32, device=mags.device)
         if frames == 0:
             return out
-        lib = _build.library()
-        with torch.cuda.device(mags.device):
-            err = lib.sig_display_remap(
-                mags.data_ptr(),
-                c.interp_indices.data_ptr(),
-                c.interp_weights.data_ptr(),
-                c.interp_mask.data_ptr(),
-                c.single_mask.data_ptr(),
-                c.single_bin.data_ptr(),
-                c.chunk_lo.data_ptr(),
-                c.chunk_len.data_ptr(),
-                c.display_scalars.data_ptr(),
-                out.data_ptr(),
-                frames,
-                rows,
-                c.axis_points,
-                c.n_spectrum_values,
-                c.interp_taps,
-                torch.cuda.current_stream(mags.device).cuda_stream,
-            )
-        _build.check(err, "display_remap")
+        _build.launch(
+            "sig_display_remap", mags.device, mags.data_ptr(), c.interp_indices.data_ptr(), c.interp_weights.data_ptr(),
+            c.interp_mask.data_ptr(), c.single_mask.data_ptr(), c.single_bin.data_ptr(), c.chunk_lo.data_ptr(),
+            c.chunk_len.data_ptr(), c.display_scalars.data_ptr(), out.data_ptr(), frames, rows, c.axis_points,
+            c.n_spectrum_values, c.interp_taps, name="display_remap",
+        )
         count("display_map.remap_launches")
         return out
 
@@ -283,40 +268,25 @@ def display_decay_db(
         vals, out, v, pairs = _decay_inputs("display_decay_db", c, vals, c.axis_points, state, valid)
         if out.numel() == 0:
             return out
-        lib = _build.library()
         t, rows = vals.shape[-3], vals.shape[-2]
         sms = _multiprocessors(vals.device.index if vals.device.index is not None else torch.cuda.current_device())
-        with torch.cuda.device(vals.device):
-            for poles, st, o, k in _line_graph_groups(c, state, out):
-                frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
-                # each group's start state when T takes more than one group;
-                # each chunk's end values and the state's copy for more than one chunk
-                groups_in_t = -(-t // frames)
-                scratch = [
-                    torch.empty(shape, dtype=torch.float32, device=vals.device) if n > 1 else None
-                    for n, shape in ((groups_in_t, (pairs, groups_in_t, k, rows, c.axis_points)),
-                                     (chunks, (chunks, pairs, k, rows, c.axis_points)))
-                ]
-                err = lib.sig_display_decay_db(
-                    vals.data_ptr(),
-                    c.slope_map.data_ptr(),
-                    poles.data_ptr(),
-                    c.display_scalars.data_ptr(),
-                    None if v is None else v.data_ptr(),
-                    st.data_ptr(),
-                    o.data_ptr(),
-                    *(None if x is None else x.data_ptr() for x in scratch),
-                    pairs,
-                    t,
-                    k,
-                    rows,
-                    c.axis_points,
-                    frames,
-                    groups,
-                    torch.cuda.current_stream(vals.device).cuda_stream,
-                )
-                _build.check(err, "display_decay_db")
-                count("display_map.decay_db_launches")
+        for poles, st, o, k in _line_graph_groups(c, state, out):
+            frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
+            # each group's start state when T takes more than one group;
+            # each chunk's end values and the state's copy for more than one chunk
+            groups_in_t = -(-t // frames)
+            scratch = [
+                torch.empty(shape, dtype=torch.float32, device=vals.device) if n > 1 else None
+                for n, shape in ((groups_in_t, (pairs, groups_in_t, k, rows, c.axis_points)),
+                                 (chunks, (chunks, pairs, k, rows, c.axis_points)))
+            ]
+            _build.launch(
+                "sig_display_decay_db", vals.device, vals.data_ptr(), c.slope_map.data_ptr(), poles.data_ptr(),
+                c.display_scalars.data_ptr(), None if v is None else v.data_ptr(), st.data_ptr(), o.data_ptr(),
+                *(None if x is None else x.data_ptr() for x in scratch), pairs, t, k, rows, c.axis_points, frames,
+                groups, name="display_decay_db",
+            )
+            count("display_map.decay_db_launches")
         return out
 
 
@@ -338,33 +308,14 @@ def display_map(
         mags, out, v, pairs = _decay_inputs("display_map", c, mags, c.n_spectrum_values, state, valid)
         if out.numel() == 0:
             return out
-        lib = _build.library()
-        with torch.cuda.device(mags.device):
-            for poles, st, o, k in _line_graph_groups(c, state, out):
-                err = lib.sig_display_map(
-                    mags.data_ptr(),
-                    c.interp_indices.data_ptr(),
-                    c.interp_weights.data_ptr(),
-                    c.interp_mask.data_ptr(),
-                    c.single_mask.data_ptr(),
-                    c.single_bin.data_ptr(),
-                    c.chunk_lo.data_ptr(),
-                    c.chunk_len.data_ptr(),
-                    c.slope_map.data_ptr(),
-                    poles.data_ptr(),
-                    c.display_scalars.data_ptr(),
-                    None if v is None else v.data_ptr(),
-                    st.data_ptr(),
-                    o.data_ptr(),
-                    pairs,
-                    mags.shape[-3],
-                    k,
-                    mags.shape[-2],
-                    c.axis_points,
-                    c.n_spectrum_values,
-                    c.interp_taps,
-                    torch.cuda.current_stream(mags.device).cuda_stream,
-                )
-                _build.check(err, "display_map")
-                count("display_map.launches")
+        for poles, st, o, k in _line_graph_groups(c, state, out):
+            _build.launch(
+                "sig_display_map", mags.device, mags.data_ptr(), c.interp_indices.data_ptr(),
+                c.interp_weights.data_ptr(), c.interp_mask.data_ptr(), c.single_mask.data_ptr(),
+                c.single_bin.data_ptr(), c.chunk_lo.data_ptr(), c.chunk_len.data_ptr(), c.slope_map.data_ptr(),
+                poles.data_ptr(), c.display_scalars.data_ptr(), None if v is None else v.data_ptr(), st.data_ptr(),
+                o.data_ptr(), pairs, mags.shape[-3], k, mags.shape[-2], c.axis_points, c.n_spectrum_values,
+                c.interp_taps, name="display_map",
+            )
+            count("display_map.launches")
         return out

@@ -167,14 +167,12 @@ def peak_hold_triggers(
         holding_out = torch.empty_like(holding_in)
         if rows > 0:
             stride = rows2d.stride(0) if rows > 1 else w
-            with torch.cuda.device(dev):  # the launch goes to x's device
-                err = _build.library().sig_peak_hold(
-                    rows2d.data_ptr(), stride, None if valid is None else valid.data_ptr(),
-                    state_in.data_ptr(), holding_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst,
-                    float(np.float32(decay)), state_out.data_ptr(), holding_out.data_ptr(), fires.data_ptr(),
-                    rows, w, max(int(first), 0), torch.cuda.current_stream(dev).cuda_stream,
-                )
-            _build.check(err, "peak_hold_triggers")
+            _build.launch(
+                "sig_peak_hold", dev, rows2d.data_ptr(), stride, None if valid is None else valid.data_ptr(),
+                state_in.data_ptr(), holding_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(decay)),
+                state_out.data_ptr(), holding_out.data_ptr(), fires.data_ptr(), rows, w, max(int(first), 0),
+                name="peak_hold_triggers",
+            )
             count("peak_hold.launches")
         return fires, state_out, holding_out
 
@@ -294,16 +292,13 @@ def envelope_hold_trigger(
         start = torch.empty((pairs,), dtype=torch.float32, device=dev)
         if pairs > 0:
             stride = rows.stride(0) if pairs > 1 else chunk
-            with torch.cuda.device(dev):  # the launch goes to the region's device
-                err = _build.library().sig_envelope_hold(
-                    rows.data_ptr(), stride, state_in.data_ptr(), holding_in.data_ptr(), ages_in.data_ptr(),
-                    thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(PEAK_DECAY)), float(new_samples),
-                    float(window * F32(0.5) - F32(1.0)), float(hf), float(hf - F32(1.0)),
-                    float((window - F32(1.0)) * F32(0.5)), float(hf - window),
-                    state_out.data_ptr(), holding_out.data_ptr(), ages_out.data_ptr(), found.data_ptr(),
-                    start.data_ptr(), pairs, chunk, min(max(int(first), 0), chunk),
-                    torch.cuda.current_stream(dev).cuda_stream,
-                )
-            _build.check(err, "envelope_hold_trigger")
+            _build.launch(
+                "sig_envelope_hold", dev, rows.data_ptr(), stride, state_in.data_ptr(), holding_in.data_ptr(),
+                ages_in.data_ptr(), thr_ptr, hyst_ptr, thr2, hyst, float(np.float32(PEAK_DECAY)), float(new_samples),
+                float(window * F32(0.5) - F32(1.0)), float(hf), float(hf - F32(1.0)),
+                float((window - F32(1.0)) * F32(0.5)), float(hf - window), state_out.data_ptr(),
+                holding_out.data_ptr(), ages_out.data_ptr(), found.data_ptr(), start.data_ptr(), pairs, chunk,
+                min(max(int(first), 0), chunk), name="envelope_hold_trigger",
+            )
             count("peak_hold.launches")
         return state_out, holding_out, ages_out, found, start

@@ -147,27 +147,11 @@ def phase_decay_db(constant: SpectrumConstant, state, vals: torch.Tensor, valid=
             starts = torch.empty((pairs, chunks, k, 2, p), dtype=torch.float32, device=vals.device)
         v = None if valid is None else device_mask(valid, t, vals.device)
         pp = phase_poles(c)
-        lib = _build.library()
-        with torch.cuda.device(vals.device):
-            err = lib.sig_phase_decay_db(
-                vals.data_ptr(),
-                c.slope_map.data_ptr(),
-                c.decay_poles.data_ptr(),
-                pp.data_ptr(),
-                c.display_scalars.data_ptr(),
-                None if v is None else v.data_ptr(),
-                mag.data_ptr(),
-                ph.data_ptr(),
-                out.data_ptr(),
-                None if starts is None else starts.data_ptr(),
-                pairs,
-                t,
-                k,
-                rows,
-                p,
-                frames,
-                torch.cuda.current_stream(vals.device).cuda_stream,
-            )
-        _build.check(err, "phase_decay_db")
+        _build.launch(
+            "sig_phase_decay_db", vals.device, vals.data_ptr(), c.slope_map.data_ptr(), c.decay_poles.data_ptr(),
+            pp.data_ptr(), c.display_scalars.data_ptr(), None if v is None else v.data_ptr(), mag.data_ptr(),
+            ph.data_ptr(), out.data_ptr(), None if starts is None else starts.data_ptr(), pairs, t, k, rows, p,
+            frames, name="phase_decay_db",
+        )
         count("phase_decay_db.launches")
         return out

@@ -52,26 +52,12 @@ def phase_values(constant: SpectrumConstant, spec: torch.Tensor) -> torch.Tensor
     frames = out.numel() // (2 * p)
     if frames == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(spec.device):
-        err = lib.sig_phase_values(
-            spec.data_ptr(),
-            c.interp_indices.data_ptr(),
-            c.interp_weights.data_ptr(),
-            c.interp_mask.data_ptr(),
-            c.single_mask.data_ptr(),
-            c.single_bin.data_ptr(),
-            c.chunk_lo.data_ptr(),
-            c.chunk_len.data_ptr(),
-            c.display_scalars.data_ptr(),
-            out.data_ptr(),
-            frames,
-            p,
-            nv,
-            c.interp_taps,
-            c.band_idx.shape[-1],  # the plan's longest chunk: it picks the kernel's mapping
-            torch.cuda.current_stream(spec.device).cuda_stream,
-        )
-    _build.check(err, "phase_values")
+    # the last count is the plan's longest chunk: it picks the kernel's mapping
+    _build.launch(
+        "sig_phase_values", spec.device, spec.data_ptr(), c.interp_indices.data_ptr(), c.interp_weights.data_ptr(),
+        c.interp_mask.data_ptr(), c.single_mask.data_ptr(), c.single_bin.data_ptr(), c.chunk_lo.data_ptr(),
+        c.chunk_len.data_ptr(), c.display_scalars.data_ptr(), out.data_ptr(), frames, p, nv, c.interp_taps,
+        c.band_idx.shape[-1], name="phase_values",
+    )
     count("phase_values.launches")
     return out

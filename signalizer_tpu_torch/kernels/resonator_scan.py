@@ -151,28 +151,11 @@ def resonator_scan(
         if b == 0 or p == 0:
             return ScanResult(state_out, re, im, mag, readouts)
         mask = None if valid is None else device_mask(valid, t, dev)
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            err = lib.sig_resonator_scan(
-                state.data_ptr(),
-                drives.data_ptr(),
-                decay_re.data_ptr(),
-                decay_im.data_ptr(),
-                None if mask is None else mask.data_ptr(),
-                combine.contiguous().data_ptr(),
-                gain.contiguous().data_ptr(),
-                state_out.data_ptr(),
-                re.data_ptr(),
-                im.data_ptr(),
-                mag.data_ptr(),
-                None if readouts is None else readouts.data_ptr(),
-                b,
-                t,
-                p,
-                v,
-                stride,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _build.check(err, "resonator_scan")
+        _build.launch(
+            "sig_resonator_scan", dev, state.data_ptr(), drives.data_ptr(), decay_re.data_ptr(), decay_im.data_ptr(),
+            None if mask is None else mask.data_ptr(), combine.contiguous().data_ptr(), gain.contiguous().data_ptr(),
+            state_out.data_ptr(), re.data_ptr(), im.data_ptr(), mag.data_ptr(),
+            None if readouts is None else readouts.data_ptr(), b, t, p, v, stride, name="resonator_scan",
+        )
         count("resonator_scan.launches")
         return ScanResult(state_out, re, im, mag, readouts)

@@ -252,21 +252,17 @@ def _launch(what, src, n, threshold, hysteresis, history, offsets=None):
     rows2 = _rows(src)
     rows = rows2.shape[0]
     if rows > 0:
-        lib = _build.library()
         stride = lambda t: t.stride(0) if rows > 1 else t.shape[-1]  # noqa: E731
         tail = (thr_ptr, hyst_ptr, thr, inv_h, iq, float(F32(QUARTER_SEMITONE)), float(F32(n)),
                 None if hist_in is None else hist_in.data_ptr(),
                 index.data_ptr(), value.data_ptr(), offset.data_ptr(),
                 None if hist_out is None else hist_out.data_ptr(), passes.data_ptr(), rows, m)
-        with torch.cuda.device(dev):  # the launch goes to the input's device
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if spectrum:
-                err = lib.sig_spectral_walk_spectrum(rows2.data_ptr(), stride(rows2), *tail, stream)
-            else:
-                o2 = _rows(offsets)
-                err = lib.sig_spectral_walk(rows2.data_ptr(), stride(rows2), o2.data_ptr(), stride(o2), *tail,
-                                            stream)
-        _build.check(err, what)
+        if spectrum:
+            _build.launch("sig_spectral_walk_spectrum", dev, rows2.data_ptr(), stride(rows2), *tail, name=what)
+        else:
+            o2 = _rows(offsets)
+            _build.launch("sig_spectral_walk", dev, rows2.data_ptr(), stride(rows2), o2.data_ptr(), stride(o2), *tail,
+                          name=what)
         count("spectral_walk.launches")
         count("spectral_walk.spectrum_launches", int(spectrum))
     last_passes = passes

@@ -195,44 +195,22 @@ def window_fft_mag(constant: SpectrumConstant, frames: torch.Tensor) -> torch.Te
         out = torch.empty(shape, dtype=torch.float32, device=frames.device)
         if batch == 0:
             return torch.view_as_complex(out) if phase else out
-        lib = _build.library()
-        with torch.cuda.device(frames.device):
-            stream = torch.cuda.current_stream(frames.device).cuda_stream
-            if route == "cluster":
-                err = lib.sig_window_fft_mag_cluster(
-                    frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
-                    out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1, int(constant.configuration),
-                    cluster_size(constant).bit_length() - 1, stream,
-                )
-            elif route == "two_pass":
-                # the columns' transforms, twiddled: [rows, L] complex points
-                core = n if complex_mode else n // 2
-                scratch = torch.empty(
-                    (batch * constant.state_channels, core, 2), dtype=torch.float32, device=frames.device
-                )
-                err = lib.sig_window_fft_mag_long(
-                    frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr(), batch, frames.shape[-2], w, n.bit_length() - 1,
-                    int(constant.configuration), stream,
-                )
-            else:
-                err = lib.sig_window_fft_mag(
-                    frames.data_ptr(),
-                    constant.window_kernel.data_ptr(),
-                    constant.fft_twiddles.data_ptr(),
-                    out.data_ptr(),
-                    batch,
-                    frames.shape[-2],
-                    w,
-                    n.bit_length() - 1,
-                    int(constant.configuration),
-                    stream,
-                )
-        _build.check(err, "window_fft_mag")
+        head = (frames.data_ptr(), constant.window_kernel.data_ptr(), constant.fft_twiddles.data_ptr())
+        tail = (batch, frames.shape[-2], w, n.bit_length() - 1, int(constant.configuration))
         if route == "cluster":
+            _build.launch("sig_window_fft_mag_cluster", frames.device, *head, out.data_ptr(), *tail,
+                          cluster_size(constant).bit_length() - 1, name="window_fft_mag")
             count("window_fft_mag.cluster_launches")
         elif route == "two_pass":
+            # the columns' transforms, twiddled: [rows, L] complex points
+            core = n if complex_mode else n // 2
+            scratch = torch.empty(
+                (batch * constant.state_channels, core, 2), dtype=torch.float32, device=frames.device
+            )
+            _build.launch("sig_window_fft_mag_long", frames.device, *head, scratch.data_ptr(), out.data_ptr(),
+                          *tail, name="window_fft_mag")
             count("window_fft_mag.long_launches")
         else:
+            _build.launch("sig_window_fft_mag", frames.device, *head, out.data_ptr(), *tail, name="window_fft_mag")
             count("window_fft_mag.launches")
         return torch.view_as_complex(out) if phase else out

@@ -209,8 +209,8 @@ def test_host_table_holds_the_plain_coefficients_and_float64_powers(fs):
     assert pole[0] == p and pole[1] == np.float32(1.0) - p
     for n, e in enumerate(exps):
         assert pole[4 + n] == np.float32(float(p) ** e), e
-    # one block of 512 threads a row (the designs kept for
-    # tools/kernel_variants.py): the warp scan's 4 steps
+    # one block of 512 threads a row (the earlier designs, PERF.md §6): the
+    # warp scan's 4 steps
     old = ct.host_table(fs, pole=0.99896, steps=4)
     assert len(old) == 4 * (8 + 4 * (chunk + 32 + 4)) + 4 + chunk + 32 + 4
     assert np.array_equal(old[:8 + 4 * (chunk + 36)], table[:8 + 4 * (chunk + 36)])

@@ -215,21 +215,20 @@ def test_window_fft_mag_cluster_kernel_every_cluster_size(cuda, mode, log2s):
     frames = _frames((3, 2, c.window_size), seed=log2s, device=cuda)
     want = wfm.window_fft_mag_plain(c, frames)
     out = torch.empty(wfm.out_shape(c, (3,)) + ((2,) if mode == SpectrumChannels.PHASE else ()), device=cuda)
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.sig_window_fft_mag_cluster(
-        frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(), out.data_ptr(), 3, 2,
-        c.window_size, n.bit_length() - 1, int(mode), log2s, stream)
-    _build.check(err, "sig_window_fft_mag_cluster")
+    _build.launch(
+        "sig_window_fft_mag_cluster", frames.device, frames.data_ptr(), c.window_kernel.data_ptr(),
+        c.fft_twiddles.data_ptr(), out.data_ptr(), 3, 2, c.window_size, n.bit_length() - 1, int(mode), log2s,
+        name="sig_window_fft_mag_cluster")
     torch.cuda.synchronize()
     got = torch.view_as_complex(out) if mode == SpectrumChannels.PHASE else out
     assert _row_rel_err(got, want) <= 5e-6
     if log2s == 1:
         big = make_spectrum_constant(axis_points=64, window_size=2 * n, configuration=mode, device=cuda)
-        err = lib.sig_window_fft_mag_cluster(
-            frames.data_ptr(), big.window_kernel.data_ptr(), big.fft_twiddles.data_ptr(), out.data_ptr(), 1, 2,
-            c.window_size, (2 * n).bit_length() - 1, int(mode), log2s, stream)
-        assert err != 0
+        with pytest.raises(RuntimeError, match="sig_window_fft_mag_cluster failed"):
+            _build.launch(
+                "sig_window_fft_mag_cluster", frames.device, frames.data_ptr(), big.window_kernel.data_ptr(),
+                big.fft_twiddles.data_ptr(), out.data_ptr(), 1, 2, c.window_size, (2 * n).bit_length() - 1,
+                int(mode), log2s, name="sig_window_fft_mag_cluster")
 
 
 @pytest.mark.parametrize("mode", [SpectrumChannels.SEPARATE, SpectrumChannels.PHASE, SpectrumChannels.COMPLEX],
@@ -275,12 +274,11 @@ def _long_entry(c, frames, out, scratch):
     from signalizer_tpu_torch.kernels import _build
 
     batch = frames.numel() // (frames.shape[-1] * frames.shape[-2])
-    err = _build.library().sig_window_fft_mag_long(
-        frames.data_ptr(), c.window_kernel.data_ptr(), c.fft_twiddles.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), batch, frames.shape[-2], c.window_size, c.transform_size.bit_length() - 1,
-        int(c.configuration), torch.cuda.current_stream().cuda_stream,
+    _build.launch(
+        "sig_window_fft_mag_long", frames.device, frames.data_ptr(), c.window_kernel.data_ptr(),
+        c.fft_twiddles.data_ptr(), scratch.data_ptr(), out.data_ptr(), batch, frames.shape[-2], c.window_size,
+        c.transform_size.bit_length() - 1, int(c.configuration), name="window_fft_mag_long",
     )
-    _build.check(err, "window_fft_mag_long")
 
 
 @pytest.mark.parametrize(

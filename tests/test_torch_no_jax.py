@@ -2,11 +2,13 @@
 package, refuses a missing GPU (asked for or by default), and builds nothing
 when its kernel modules are imported."""
 
+import contextlib
 import os
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -368,6 +370,53 @@ def test_build_names_the_library_by_its_sources():
         "sig_spectral_walk_spectrum", "sig_phase_decay_db", "sig_resonator_scan", "sig_colormap",
         "sig_phase_values",
     }
+
+
+@pytest.mark.parametrize("accessor", ["raw", "public"])
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_appends_the_stream_and_switches_device_only_when_needed(monkeypatch, current, accessor):
+    """``_build.launch`` calls the entry with the device's current stream
+    last (torch's raw accessor, or the public Stream where torch lacks it),
+    makes the device current only when it is not, and raises through
+    ``check`` naming the caller."""
+    from signalizer_tpu_torch.kernels import _build
+
+    calls, switched, err = [], [], [0]
+    lib = SimpleNamespace(sig_fake=lambda *a: calls.append(a) or err[0], sig_error_string=lambda e: b"fake error")
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: switched.append(index) or contextlib.nullcontext())
+    if accessor == "raw":
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    else:
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream", raising=False)
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda index: SimpleNamespace(cuda_stream=1000 + index))
+    _build.launch("sig_fake", torch.device("cuda", 1), 7, None, 2.5, name="fake_kernel")
+    assert calls == [(7, None, 2.5, 1001)]
+    assert switched == ([] if current == 1 else [1])
+    err[0] = 700
+    with pytest.raises(RuntimeError, match=r"^fake_kernel failed: cudaError_t 700 \(fake error\)$"):
+        _build.launch("sig_fake", torch.device("cuda", 1), name="fake_kernel")
+    assert calls[-1] == (1001,)
+
+
+def test_only_build_calls_the_c_entries():
+    """Every kernel launches through ``_build.launch``: no other file of the
+    port calls ``library()``, and none of them, chip_smoke.py or the card
+    tests reads a stream handle or names a ``sig_*`` entry."""
+    import ast
+
+    build = REPO / "signalizer_tpu_torch" / "kernels" / "_build.py"
+    port = [p for p in sorted((REPO / "signalizer_tpu_torch").rglob("*.py")) if p != build]
+    assert len(port) > 15
+    for path in port + [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("cuda_stream", "_cuda_getCurrentRawStream"), f"{path}: {node.attr}"
+                assert not node.attr.startswith("sig_"), f"{path}: calls {node.attr} outside _build.launch"
+            if path in port and isinstance(node, ast.Call):
+                f = node.func
+                assert getattr(f, "attr", getattr(f, "id", None)) != "library", f"{path}: calls library()"
 
 
 def test_cuda_processor_raises_without_gpu():
