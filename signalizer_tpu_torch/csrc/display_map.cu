@@ -60,6 +60,25 @@
 // * Short calls (T <= 8, the per-tick call's T = 1 among them) run the
 //   kernel's one-frame-a-group instantiation: a warp per frame, nothing
 //   unrolled over frames that are not there, and for T = 1 an empty fold.
+// * The same split one level up, across the blocks of a thread-block
+//   cluster, where the pixel tiles alone leave the card empty (the
+//   spectrogram: 1 pair x 1 row x 32 tiles of T = 512 frames, 32 blocks on
+//   132 SMs, each walking 8 chunks in turn; the wrapper's display_map_plan
+//   picks the cluster's size). Block b of a tile's cluster takes its share
+//   [b T / n, (b + 1) T / n) of the frames and walks it twice. The first
+//   walk keeps only the span's end values from an empty state and its count
+//   of valid frames, in shared memory. After one cluster barrier, the block
+//   folds the carried state, in rank order, through the spans of the blocks
+//   before it, read through distributed shared memory, with the groups'
+//   rule: the same fold, so the state is still the sequential loop's bit
+//   for bit. The second walk is the plain one from that start; a span of
+//   one chunk keeps its display values in registers between the walks, so
+//   nothing is remapped twice. One launch, no scratch in device memory.
+//   What a tile costs is its frames' walk (the log axis's top tiles take
+//   the max of ~55 bins a pixel a frame), so the split pays past one block
+//   an SM. Measured on an H100 at the spectrogram, us a launch: 342 unsplit,
+//   356, 189, 64.5 and 52.2 with 2, 4, 8 and 16 blocks a tile (2 and 4 walk
+//   spans of several chunks, so remap all but the last chunk twice).
 //
 // Two C entries share this device code. sig_display_map is the fused
 // function above. sig_display_remap is its first half alone
@@ -71,16 +90,23 @@
 // the same arithmetic and the same exact split of the decay, laid out for
 // a pass that reads one value for each value it writes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarp = 32;
 constexpr int kGroup = 8;      // frames a warp handles per chunk (1 for T <= 8)
 constexpr int kMaxGroups = 8;  // warps a block
 constexpr int kMaxTaps = 10;
 constexpr int kMaxK = 8;
+constexpr int kMinBlocks = 4;    // blocks an SM holds at the launch bounds
+constexpr int kMaxCluster = 16;  // blocks a tile when T is split (above 8: a non-portable cluster)
 
 // One pixel's remap plan: tap interpolation, or the max of a contiguous
 // chunk of bins (a single bin is a chunk of one).
@@ -183,10 +209,29 @@ __device__ __forceinline__ void remap_frames(
   }
 }
 
+// One link of the split decay's fold: `n` valid frames decay the state
+// `s`, then the max with `l`, the end value those frames reach from an
+// empty state.
+__device__ __forceinline__ float fold(float s, float pole, int n, float l) {
+  for (int i = 0; i < n; ++i) s = pole * s;
+  return fmaxf(s, l);
+}
+
+// A cluster barrier in two halves: a block arrives once it is done reading
+// its peers' shared memory and waits before it exits, so that no block
+// leaves while a peer may still read its own.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // kFrames: frames a warp handles per chunk. `mags` holds magnitudes
-// [pairs, T, rows, nv] to remap.
-template <int kTaps, int kFrames>
-__global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
+// [pairs, T, rows, nv] to remap. kSplit: a tile's frames are split across
+// the blocks of a cluster along x (grid.x = tiles x cluster size).
+template <int kTaps, int kFrames, bool kSplit>
+__global__ void __launch_bounds__(kWarp * kMaxGroups, kMinBlocks) display_map_kernel(
     const float* __restrict__ mags, const int* __restrict__ interp_indices,
     const float* __restrict__ interp_weights,
     const bool* __restrict__ interp_mask, const bool* __restrict__ single_mask,
@@ -196,15 +241,27 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
     const bool* __restrict__ valid, float* __restrict__ state,
     float* __restrict__ out, int T, int K, int rows, int P, int nv, int taps) {
   // per chunk parity: [groups + 1][K][32] floats (the groups' end values,
-  // then the chunk's start state), and [groups] counts of valid frames
+  // then the chunk's start state), and [groups] counts of valid frames;
+  // kSplit: then the block's span's [K][32] end values and its count
   extern __shared__ float ends[];
   const int lane = threadIdx.x & (kWarp - 1);
   const int g = threadIdx.x / kWarp;
   const int groups = blockDim.x / kWarp;
   const int ends_stride = (groups + 1) * K * kWarp;  // one parity
   int* counts = reinterpret_cast<int*>(ends + 2 * ends_stride);
+  float* span_ends = reinterpret_cast<float*>(counts + 2 * kMaxGroups);
+  int* span_count = reinterpret_cast<int*>(span_ends + K * kWarp);
 
-  const int p = blockIdx.x * kWarp + lane;
+  // this block's frames [f0, f1): all of T, or its rank's share in the cluster
+  int rank = 0, blocks = 1;
+  if constexpr (kSplit) {
+    rank = (int)cg::this_cluster().block_rank();
+    blocks = (int)cg::this_cluster().num_blocks();
+  }
+  const int f0 = (int)((long long)T * rank / blocks);
+  const int f1 = (int)((long long)T * (rank + 1) / blocks);
+
+  const int p = blockIdx.x / blocks * kWarp + lane;
   const int r = blockIdx.y;
   const int pair = blockIdx.z;
   const bool active = p < P;
@@ -223,7 +280,8 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
   const size_t plane = (size_t)rows * P;  // one line graph's [rows, P]
   float* st = state + (size_t)pair * K * plane + (size_t)r * P + p;
   if (g == 0) {
-    // the first chunk's start state (parity 0, slot groups)
+    // the carried state (parity 0, slot groups): the first chunk's start
+    // state; split, read by every block before the last one writes it
     for (int k = 0; k < K; ++k) {
       ends[(groups * K + k) * kWarp + lane] = active ? st[k * plane] : 0.f;
     }
@@ -232,78 +290,127 @@ __global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_map_kernel(
   const float* src = mags + ((size_t)pair * T * rows + r) * nv;
   const size_t frame_stride = (size_t)rows * nv;
   const int chunk_frames = groups * kFrames;
+  float v[kFrames];  // this group's display values
 
-  for (int c0 = 0, parity = 0; c0 < T; c0 += chunk_frames, parity ^= 1) {
-    const int t0 = c0 + g * kFrames;  // this group's frames [t0, t0 + count)
-    int count = T - t0;
-    count = count < 0 ? 0 : (count > kFrames ? kFrames : count);
-    unsigned steps = 0;  // bit i: frame t0 + i updates the state
-    if (valid == nullptr) {
-      steps = (1u << count) - 1u;
-    } else {
-      for (int i = 0; i < count; ++i) steps |= valid[t0 + i] ? 1u << i : 0u;
-    }
-
-    // 1. this group's display values
-    float v[kFrames];
-    const float* row0 = src + (size_t)t0 * frame_stride;
-    const int live = active ? count : 0;  // frames this lane reads
-    remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, live, taps, inv_size);
-
-    // 2. this group's end values from an empty state, published to the block
-    float* mine = ends + parity * ends_stride;
-    for (int k = 0; k < K; ++k) {
-      const float pole = decay_poles[k];
-      float l = -CUDART_INF_F;
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i) {
-        if (steps & (1u << i)) l = fmaxf(pole * l, v[i]);
+  // A walk over [f0, f1), chunk by chunk. Each group remaps its frames and
+  // publishes its end value from an empty state and its count of valid
+  // frames. The split's first walk (outputs false) then folds the span's end
+  // values from them; a walk with outputs folds each group's start state,
+  // runs the recurrence and stores the dB values.
+  auto walk = [&](auto outputs) {
+    constexpr bool kOutputs = decltype(outputs)::value;
+    for (int c0 = f0, parity = 0; c0 < f1; c0 += chunk_frames, parity ^= 1) {
+      const int t0 = c0 + g * kFrames;  // this group's frames [t0, t0 + count)
+      int count = f1 - t0;
+      count = count < 0 ? 0 : (count > kFrames ? kFrames : count);
+      unsigned steps = 0;  // bit i: frame t0 + i updates the state
+      if (valid == nullptr) {
+        steps = (1u << count) - 1u;
+      } else {
+        for (int i = 0; i < count; ++i) steps |= valid[t0 + i] ? 1u << i : 0u;
       }
-      mine[(g * K + k) * kWarp + lane] = l;
-    }
-    if (lane == 0) counts[parity * kMaxGroups + g] = __popc(steps);
-    __syncthreads();
 
-    const bool last_chunk = c0 + chunk_frames >= T;
-    for (int k = 0; k < K; ++k) {
-      const float pole = decay_poles[k];
-      // 3. the state this group starts from: the chunk's start state
-      //    folded, in order, through the groups before this one
-      float s = mine[(groups * K + k) * kWarp + lane];
-      for (int h = 0; h < g; ++h) {
-        const int n = counts[parity * kMaxGroups + h];
-        for (int i = 0; i < n; ++i) s = pole * s;
-        s = fmaxf(s, mine[(h * K + k) * kWarp + lane]);
+      // 1. this group's display values (a split span of one chunk has them
+      //    from its first walk)
+      if (!(kSplit && kOutputs && f0 + chunk_frames >= f1)) {
+        const float* row0 = src + (size_t)t0 * frame_stride;
+        const int live = active ? count : 0;  // frames this lane reads
+        remap_frames<kTaps, kFrames>(v, pl, row0, frame_stride, live, taps, inv_size);
       }
-      // 4. the recurrence over this group's frames, and the dB map
-      float* o = out + (((size_t)pair * T + t0) * K + k) * plane + (size_t)r * P + p;
+
+      // 2. this group's end values from an empty state, published to the block
+      float* mine = ends + parity * ends_stride;
+      for (int k = 0; k < K; ++k) {
+        const float pole = decay_poles[k];
+        float l = -CUDART_INF_F;
 #pragma unroll
-      for (int i = 0; i < kFrames; ++i) {
-        if (i < count && active) {
-          if (steps & (1u << i)) s = fmaxf(pole * s, v[i]);
-          const float x = slope * s / lower;
-          o[(size_t)i * K * plane] = x > 0.f ? logf(fmaxf(x, 1e-38f)) * dyr : clip_db;
+        for (int i = 0; i < kFrames; ++i) {
+          if (steps & (1u << i)) l = fmaxf(pole * l, v[i]);
+        }
+        mine[(g * K + k) * kWarp + lane] = l;
+      }
+      if (lane == 0) counts[parity * kMaxGroups + g] = __popc(steps);
+      __syncthreads();
+
+      if constexpr (!kOutputs) {
+        // the span's end values so far, folded through this chunk's groups
+        // (warp g folds line graphs g, g + groups, ...)
+        for (int k = g; k < K; k += groups) {
+          const float pole = decay_poles[k];
+          float l = c0 == f0 ? -CUDART_INF_F : span_ends[k * kWarp + lane];
+          for (int h = 0; h < groups; ++h) {
+            l = fold(l, pole, counts[parity * kMaxGroups + h], mine[(h * K + k) * kWarp + lane]);
+          }
+          span_ends[k * kWarp + lane] = l;
+        }
+        if (threadIdx.x == 0) {
+          int n = c0 == f0 ? 0 : *span_count;
+          for (int h = 0; h < groups; ++h) n += counts[parity * kMaxGroups + h];
+          *span_count = n;
+        }
+        continue;
+      }
+
+      const bool last_chunk = c0 + chunk_frames >= f1;
+      for (int k = 0; k < K; ++k) {
+        const float pole = decay_poles[k];
+        // 3. the state this group starts from: the chunk's start state
+        //    folded, in order, through the groups before this one
+        float s = mine[(groups * K + k) * kWarp + lane];
+        for (int h = 0; h < g; ++h) {
+          s = fold(s, pole, counts[parity * kMaxGroups + h], mine[(h * K + k) * kWarp + lane]);
+        }
+        // 4. the recurrence over this group's frames, and the dB map
+        float* o = out + (((size_t)pair * T + t0) * K + k) * plane + (size_t)r * P + p;
+#pragma unroll
+        for (int i = 0; i < kFrames; ++i) {
+          if (i < count && active) {
+            if (steps & (1u << i)) s = fmaxf(pole * s, v[i]);
+            const float x = slope * s / lower;
+            o[(size_t)i * K * plane] = x > 0.f ? logf(fmaxf(x, 1e-38f)) * dyr : clip_db;
+          }
+        }
+        // the last group ends on the chunk's end state: the next chunk's
+        // start state, in the other parity (read there after that chunk's
+        // barrier), and after the last chunk (of the last block) the
+        // carried state
+        if (g == groups - 1) {
+          if (!last_chunk) {
+            ends[(parity ^ 1) * ends_stride + (groups * K + k) * kWarp + lane] = s;
+          } else if (active && rank == blocks - 1) {
+            st[k * plane] = s;
+          }
         }
       }
-      // the last group ends on the chunk's end state: the next chunk's
-      // start state, in the other parity (read there after that chunk's
-      // barrier), and after the last chunk the carried state
-      if (g == groups - 1) {
-        if (!last_chunk) {
-          ends[(parity ^ 1) * ends_stride + (groups * K + k) * kWarp + lane] = s;
-        } else if (active) {
-          st[k * plane] = s;
-        }
-      }
     }
+  };
+
+  if constexpr (kSplit) {
+    walk(std::false_type{});
+    cg::this_cluster().sync();  // every span's end values are in its block's shared memory
+    // this block's start state: the carried state folded, in rank order,
+    // through the spans of the blocks before this one
+    for (int k = g; k < K; k += groups) {
+      const float pole = decay_poles[k];
+      float s = ends[(groups * K + k) * kWarp + lane];
+      for (int h = 0; h < rank; ++h) {
+        const float* e = cg::this_cluster().map_shared_rank(span_ends, h);
+        const int n = *cg::this_cluster().map_shared_rank(span_count, h);
+        s = fold(s, pole, n, e[k * kWarp + lane]);
+      }
+      ends[(groups * K + k) * kWarp + lane] = s;  // published by the walk's first barrier
+    }
+    cluster_arrive();
   }
+  walk(std::true_type{});
+  if constexpr (kSplit) cluster_wait();
 }
 
 // The remap alone: mags [frames, rows, nv] -> out [frames, rows, P]. Warp g
 // of block z maps the block's 32 pixels for its own kFrames consecutive
 // frames; no state, no barrier.
 template <int kTaps, int kFrames>
-__global__ void __launch_bounds__(kWarp * kMaxGroups, 4) display_remap_kernel(
+__global__ void __launch_bounds__(kWarp * kMaxGroups, kMinBlocks) display_remap_kernel(
     const float* __restrict__ mags, const int* __restrict__ interp_indices,
     const float* __restrict__ interp_weights,
     const bool* __restrict__ interp_mask, const bool* __restrict__ single_mask,
@@ -343,36 +450,72 @@ typedef void (*RemapFn)(const float*, const int*, const float*, const bool*,
 
 }  // namespace
 
-// Short calls a warp per frame, otherwise kGroup frames a warp.
+// Short calls a warp per frame, otherwise kGroup frames a warp; a tile's T
+// split across a cluster of `cluster` blocks (1: no split; at most
+// kMaxCluster and T).
 extern "C" int sig_display_map(
     const float* mags, const int* interp_indices, const float* interp_weights,
     const bool* interp_mask, const bool* single_mask, const int* single_bin,
     const int* chunk_lo, const int* chunk_len, const float* slope_map,
     const float* decay_poles, const float* scalars, const bool* valid,
     float* state, float* out, int pairs, int T, int K, int rows, int P, int nv,
-    int taps, void* stream) {
+    int taps, int cluster, void* stream) {
   if (taps < 1 || taps > kMaxTaps || K < 1 || K > kMaxK || rows < 1 || P < 1 ||
-      nv < 1 || T < 1 || pairs < 1 || pairs > 65535 || rows > 65535) {
+      nv < 1 || T < 1 || pairs < 1 || pairs > 65535 || rows > 65535 ||
+      cluster < 1 || cluster > kMaxCluster || cluster > T) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool single = T <= kMaxGroups;
+  const bool split = cluster > 1;
+  const bool single = !split && T <= kMaxGroups;
   const int frames = single ? 1 : kGroup;
-  int groups = (T + frames - 1) / frames;
+  const int span = (T + cluster - 1) / cluster;  // the most frames a block takes
+  int groups = (span + frames - 1) / frames;
   if (groups > kMaxGroups) groups = kMaxGroups;
-  // at most 2 * 9 * 8 * 32 floats and 16 counts: under the 48 KB default
-  const size_t smem = sizeof(float) * (size_t)2 * (groups + 1) * K * kWarp +
-                      sizeof(int) * 2 * kMaxGroups;
-  static const KernelFn kernels[2][3] = {
-      {display_map_kernel<0, kGroup>, display_map_kernel<1, kGroup>,
-       display_map_kernel<2, kGroup>},
-      {display_map_kernel<0, 1>, display_map_kernel<1, 1>, display_map_kernel<2, 1>},
+  // at most 2 * 9 * 8 * 32 + 8 * 32 floats and 17 counts: under the 48 KB default
+  const size_t smem = sizeof(float) * ((size_t)2 * (groups + 1) * K * kWarp + (split ? K * kWarp : 0)) +
+                      sizeof(int) * (2 * kMaxGroups + (split ? 1 : 0));
+  static const KernelFn kernels[3][3] = {
+      {display_map_kernel<0, kGroup, false>, display_map_kernel<1, kGroup, false>,
+       display_map_kernel<2, kGroup, false>},
+      {display_map_kernel<0, 1, false>, display_map_kernel<1, 1, false>,
+       display_map_kernel<2, 1, false>},
+      {display_map_kernel<0, kGroup, true>, display_map_kernel<1, kGroup, true>,
+       display_map_kernel<2, kGroup, true>},
   };
-  const KernelFn kernel = kernels[single ? 1 : 0][taps <= 2 ? taps : 0];
-  const dim3 grid((P + kWarp - 1) / kWarp, rows, pairs);
-  kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
-      mags, interp_indices, interp_weights, interp_mask, single_mask,
+  const int tap_kind = taps <= 2 ? taps : 0;
+  const KernelFn kernel = kernels[split ? 2 : (single ? 1 : 0)][tap_kind];
+  const dim3 grid((P + kWarp - 1) / kWarp * cluster, rows, pairs);
+  if (!split) {
+    kernel<<<grid, groups * kWarp, smem, (cudaStream_t)stream>>>(
+        mags, interp_indices, interp_weights, interp_mask, single_mask,
+        single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
+        state, out, T, K, rows, P, nv, taps);
+    return (int)cudaGetLastError();
+  }
+  // above 8 blocks a cluster the non-portable opt-in, once per kernel
+  static bool non_portable[3] = {};
+  if (cluster > 8 && !non_portable[tap_kind]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    non_portable[tap_kind] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(groups * kWarp, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, mags, interp_indices, interp_weights, interp_mask, single_mask,
       single_bin, chunk_lo, chunk_len, slope_map, decay_poles, scalars, valid,
       state, out, T, K, rows, P, nv, taps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

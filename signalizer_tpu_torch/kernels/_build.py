@@ -51,10 +51,10 @@ SIGNATURES = {
     # mags, interp_indices, interp_weights, interp_mask, single_mask,
     # single_bin, chunk_lo, chunk_len, slope_map, decay_poles,
     # display_scalars, valid, state, out, pairs, T, K, rows, P, n_values,
-    # taps, stream
+    # taps, cluster, stream
     "sig_display_map": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # vals, slope_map, decay_poles, display_scalars, valid, state, out,
     # starts (or null), ends (or null), pairs, T, K, rows, P, frames_a_group,

@@ -1,8 +1,9 @@
 """Kernel B: pixel remap -> peak decay -> normalized dB over all frames and
 line graphs, one CUDA warp per (pair, row, 32 pixels, 8 frames) with the
-decay recurrence split exactly across the groups of frames; decay and dB
-alone in a kernel of their own: a fold pass, then a thread per 4 pixels x 8
-frames.
+decay recurrence split exactly across the groups of frames, and across the
+blocks of a thread-block cluster where the pixel tiles leave the card empty
+(:func:`display_map_plan`); decay and dB alone in a kernel of their own: a
+fold pass, then a thread per 4 pixels x 8 frames.
 
 Replaces the Pallas kernel ``tools/pallas_display_map.py::fused_display_map``
 and computes the magnitude tail of the Spectrum step: the JAX production
@@ -49,10 +50,22 @@ DECAY_FRAMES = 8
 DECAY_MAX_GROUPS = 16
 DECAY_MAX_GROUPS_K = 64
 DECAY_WARP_PIXELS = 128
+# the fused entry's layout, copies of csrc/display_map.cu's constants: a
+# block takes a tile of MAP_TILE_PIXELS pixels (kWarp), a warp
+# MAP_GROUP_FRAMES frames (kGroup), a block a chunk of MAP_CHUNK_FRAMES
+# (kGroup * kMaxGroups) at a time; an SM holds MAP_BLOCKS_AN_SM blocks
+# (kMinBlocks, the launch bounds); a tile's frames split across a cluster
+# of at most MAP_MAX_CLUSTER blocks (kMaxCluster)
+MAP_TILE_PIXELS = 32
+MAP_GROUP_FRAMES = 8
+MAP_CHUNK_FRAMES = 64
+MAP_BLOCKS_AN_SM = 4
+MAP_MAX_CLUSTER = 16
 
 # kernel launches count in the diagnostics registry, one counter an entry:
-# display_map.launches (the fused entry), .remap_launches (the remap
-# alone), .decay_db_launches (decay and dB alone)
+# display_map.launches (the fused entry; .split_launches those of them that
+# split T across a cluster), .remap_launches (the remap alone),
+# .decay_db_launches (decay and dB alone)
 
 
 def _interp(values: torch.Tensor, constant: SpectrumConstant) -> torch.Tensor:
@@ -245,9 +258,34 @@ def decay_db_plan(pairs: int, t: int, k: int, rows: int, p: int, sms: int) -> tu
     return frames, groups, -(-t // (groups * frames))
 
 
+def display_map_plan(pairs: int, t: int, k: int, rows: int, p: int, sms: int) -> int:
+    """Blocks a pixel tile for the fused entry on magnitudes [pairs, t,
+    rows, ...] to ``p`` pixels with ``k`` line graphs on a card of ``sms``
+    multiprocessors: 1 (a block walks all of T) where the tiles cover the
+    card or T fits one chunk; else a cluster splitting T, the largest power
+    of two, at least 2 and at most ``MAP_MAX_CLUSTER`` and one group of
+    frames a block, whose blocks fit the card's block slots
+    (``MAP_BLOCKS_AN_SM`` an SM) in one wave. A tile's time is its frames'
+    walk, so the split goes on past one block an SM: on an H100 at the
+    spectrogram's 32 tiles x 512 frames, 8 blocks a tile (256 blocks) take
+    64.5 us and 16 (512) 52.2 us. ``k`` leaves the rule alone."""
+    tiles = -(-p // MAP_TILE_PIXELS) * rows * pairs
+    if tiles >= sms or t <= MAP_CHUNK_FRAMES:
+        return 1
+    most = min(MAP_MAX_CLUSTER, -(-t // MAP_GROUP_FRAMES))
+    cluster = 2
+    while cluster * 2 <= most and tiles * cluster * 2 <= MAP_BLOCKS_AN_SM * sms:
+        cluster *= 2
+    return cluster
+
+
 @functools.lru_cache(maxsize=None)
 def _multiprocessors(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_multiprocessors(device: torch.device) -> int:
+    return _multiprocessors(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def display_decay_db(
@@ -269,7 +307,7 @@ def display_decay_db(
         if out.numel() == 0:
             return out
         t, rows = vals.shape[-3], vals.shape[-2]
-        sms = _multiprocessors(vals.device.index if vals.device.index is not None else torch.cuda.current_device())
+        sms = _device_multiprocessors(vals.device)
         for poles, st, o, k in _line_graph_groups(c, state, out):
             frames, groups, chunks = decay_db_plan(pairs, t, k, rows, c.axis_points, sms)
             # each group's start state when T takes more than one group;
@@ -299,7 +337,8 @@ def display_map(
     donated it); ``valid`` (optional [T] bool) marks padded frames that
     leave the state untouched. Returns display values [..., T, K, rows, P].
     CPU tensors take :func:`display_map_plain`; CUDA tensors launch
-    ``sig_display_map`` of ``csrc/display_map.cu`` or raise.
+    ``sig_display_map`` of ``csrc/display_map.cu`` (each tile's frames split
+    across a cluster of :func:`display_map_plan`'s blocks) or raise.
     """
     with span("kernel.display_map"):
         if mags.device.type == "cpu":
@@ -308,14 +347,19 @@ def display_map(
         mags, out, v, pairs = _decay_inputs("display_map", c, mags, c.n_spectrum_values, state, valid)
         if out.numel() == 0:
             return out
+        t, rows = mags.shape[-3], mags.shape[-2]
+        sms = _device_multiprocessors(mags.device)
         for poles, st, o, k in _line_graph_groups(c, state, out):
+            cluster = display_map_plan(pairs, t, k, rows, c.axis_points, sms)
             _build.launch(
                 "sig_display_map", mags.device, mags.data_ptr(), c.interp_indices.data_ptr(),
                 c.interp_weights.data_ptr(), c.interp_mask.data_ptr(), c.single_mask.data_ptr(),
                 c.single_bin.data_ptr(), c.chunk_lo.data_ptr(), c.chunk_len.data_ptr(), c.slope_map.data_ptr(),
                 poles.data_ptr(), c.display_scalars.data_ptr(), None if v is None else v.data_ptr(), st.data_ptr(),
-                o.data_ptr(), pairs, mags.shape[-3], k, mags.shape[-2], c.axis_points, c.n_spectrum_values,
-                c.interp_taps, name="display_map",
+                o.data_ptr(), pairs, t, k, rows, c.axis_points, c.n_spectrum_values, c.interp_taps, cluster,
+                name="display_map",
             )
             count("display_map.launches")
+            if cluster > 1:
+                count("display_map.split_launches")
         return out

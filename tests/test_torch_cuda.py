@@ -429,6 +429,92 @@ def test_display_map_kernel_wide_chunks(cuda):
         assert torch.equal(s_kernel[..., exact], s_plain[..., exact])
 
 
+def _spectrogram_map_constant(device):
+    """The spectrogram's kernel B geometry: 16384 points, LEFT, LINEAR bins
+    to a LOGARITHMIC 1024-px axis, 2 line graphs (0.1 s and 1 s)."""
+    return make_spectrum_constant(
+        axis_points=1024, window_size=16384, configuration=SpectrumChannels.LEFT,
+        bin_interpolation=BinInterpolation.LINEAR, view_scaling=ViewScaling.LOGARITHMIC, device=device,
+    )
+
+
+def _assert_map_matches_plain(c, got, s_kernel, want, s_plain):
+    """``test_display_map_kernel_matches_plain``'s bounds for LINEAR taps:
+    display atol 1e-5, state rtol 1e-6, bit-equal on chunk-max and
+    single-bin pixels."""
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(s_kernel, s_plain, rtol=1e-6, atol=0)
+    exact = ~c.interp_mask
+    assert bool(exact.any()) and torch.equal(s_kernel[..., exact], s_plain[..., exact])
+
+
+@pytest.mark.parametrize("t,valid", [(512, None), (512, "random"), (509, "random"), (65, "random")],
+                         ids=["t512", "t512_mask", "t509_mask", "t65_mask"])
+def test_display_map_splits_t_across_a_cluster(cuda, monkeypatch, t, valid):
+    """At the spectrogram's geometry (1 pair: 32 tiles of pixels on a card
+    of 132 multiprocessors) the plan splits each tile's T across a cluster:
+    one launch, counted by ``display_map.split_launches``. Against the
+    plain path within the fused entry's bounds, and bit for bit, outputs
+    and state, against the same call with the plan held to one block a
+    tile (the unsplit kernel, which the split does not count)."""
+    c = _spectrogram_map_constant(cuda)
+    valid = _valid_mask(t, valid)
+    mags, state = _mags_state(c, seed=t + (valid is None), t=t, pairs=1, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert dm.display_map_plan(1, t, c.num_line_graphs, 1, c.axis_points, sms) > 1
+    s_split, s_one, s_plain = state.clone(), state.clone(), state.clone()
+    launches, splits = counter("display_map.launches"), counter("display_map.split_launches")
+    got = dm.display_map(c, mags, s_split, valid)
+    assert (counter("display_map.launches") - launches, counter("display_map.split_launches") - splits) == (1, 1)
+    with monkeypatch.context() as m:
+        m.setattr(dm, "display_map_plan", lambda *args: 1)
+        one = dm.display_map(c, mags, s_one, valid)
+    assert (counter("display_map.launches") - launches, counter("display_map.split_launches") - splits) == (2, 1)
+    want = dm.display_map_plain(c, mags, s_plain, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one) and torch.equal(s_split, s_one)
+    _assert_map_matches_plain(c, got, s_split, want, s_plain)
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("t", [20, 130, 512])
+def test_display_map_every_cluster_size_is_the_unsplit_kernel(cuda, monkeypatch, cluster, t):
+    """Every cluster size the entry takes (above 8 a non-portable cluster),
+    at spans of one or two frames a block (T = 20 over 16 blocks), of
+    several chunks (T = 130 over 2) and of one chunk (T = 512 over 8), with
+    a ragged mask, on 2 pairs of the spectrogram's geometry: bit for bit
+    the unsplit kernel's outputs and state."""
+    c = _spectrogram_map_constant(cuda)
+    valid = _valid_mask(t, "random")
+    mags, state = _mags_state(c, seed=100 * cluster + t, t=t, pairs=2, device=cuda)
+    s_split, s_one = state.clone(), state.clone()
+    with monkeypatch.context() as m:
+        m.setattr(dm, "display_map_plan", lambda *args: cluster)
+        got = dm.display_map(c, mags, s_split, valid)
+        m.setattr(dm, "display_map_plan", lambda *args: 1)
+        one = dm.display_map(c, mags, s_one, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one) and torch.equal(s_split, s_one)
+    if t == 512:
+        s_plain = state.clone()
+        _assert_map_matches_plain(c, got, s_split, dm.display_map_plain(c, mags, s_plain, valid), s_plain)
+
+
+def test_display_map_headline_takes_one_block_a_tile(cuda):
+    """At the headline geometry (16 pairs x 2 rows x 1024 px, T = 256) the
+    tiles cover the card: one launch, no split."""
+    c = make_spectrum_constant(
+        axis_points=1024, window_size=4096, configuration=SpectrumChannels.SEPARATE,
+        view_scaling=ViewScaling.LOGARITHMIC, device=cuda,
+    )
+    mags, state = _mags_state(c, seed=256, t=256, pairs=16, device=cuda)
+    launches, splits = counter("display_map.launches"), counter("display_map.split_launches")
+    got = dm.display_map(c, mags, state)
+    torch.cuda.synchronize()
+    assert (counter("display_map.launches") - launches, counter("display_map.split_launches") - splits) == (1, 0)
+    assert got.shape == (16, 256, 2, 2, 1024) and bool(torch.isfinite(got).all())
+
+
 @pytest.mark.parametrize("frames_shape", [(1,), (7,), (3, 40), (2, 65), ()], ids=["b1", "b7", "b120", "b130", "no_lead"])
 @pytest.mark.parametrize("interp", INTERPS, ids=lambda i: i.name)
 @pytest.mark.parametrize("mode", [SpectrumChannels.LEFT, SpectrumChannels.SEPARATE, SpectrumChannels.COMPLEX], ids=lambda m: m.name)

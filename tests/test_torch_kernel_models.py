@@ -34,58 +34,97 @@ from signalizer_tpu_torch.kernels.display_map import _db_map
 from signalizer_tpu_torch.kernels.peak_decay import peak_decay_scan
 
 
-def split_decay(state0, v, pole, valid, group, groups_per_chunk=8):
+def _fold(s, pole, n, end):
+    """One link of the fold: ``n`` valid frames decay ``s``, then the max
+    with ``end``, the end value those frames reach from an empty state."""
+    for _ in range(n):
+        s = pole * s
+    # fmaxf drops the NaN of 0 * -inf; torch.fmax does too
+    return torch.fmax(s, end)
+
+
+def split_decay(state0, v, pole, valid, group, groups_per_chunk=8, blocks=1):
     """``s_t = max(pole * s_{t-1}, v_t)`` at valid frames, evaluated as the
     display kernel does: T is cut into chunks of ``groups_per_chunk`` groups
-    of ``group`` frames. Each group scans its frames from an empty state
-    (-inf) to its end value; the state a group starts from is the chunk's
-    start state folded in order through the groups before it (one multiply
-    by the pole per valid frame of that group, then the max with its end
-    value); each group then runs the recurrence from that state. v [T, ...],
+    of ``group`` frames (fewer groups where a block's frames fill fewer).
+    Each group scans its frames from an empty state (-inf) to its end value;
+    the state a group starts from is the chunk's start state folded in order
+    through the groups before it (one multiply by the pole per valid frame
+    of that group, then the max with its end value); each group then runs
+    the recurrence from that state. With ``blocks`` > 1, as the kernel
+    splits a tile's frames across a cluster: block b takes frames [b T /
+    blocks, (b + 1) T / blocks) and first folds its groups' end values from
+    an empty state into its span's end value (with its count of valid
+    frames); its start state is ``state0`` folded, in rank order, through
+    the spans before it, and it walks its frames from there. v [T, ...],
     state0 [...], pole broadcastable, valid [T] bool. Returns (s [T, ...],
     final state)."""
     t_total = v.shape[0]
     out = torch.empty_like(v)
-    chunk_start = state0.clone()
     neg_inf = torch.full_like(state0, -torch.inf)
-    for c0 in range(0, t_total, group * groups_per_chunk):
-        bounds = [
-            (min(c0 + g * group, t_total), min(c0 + (g + 1) * group, t_total))
-            for g in range(groups_per_chunk)
-        ]
-        ends = []
-        for lo, hi in bounds:  # every group at once on the card
-            l = neg_inf
-            for t in range(lo, hi):
-                if valid[t]:
-                    # fmaxf drops the NaN of 0 * -inf; torch.fmax does too
-                    l = torch.fmax(pole * l, v[t])
-            ends.append(l)
-        for g, (lo, hi) in enumerate(bounds):
-            s = chunk_start
-            for h in range(g):
-                for t in range(*bounds[h]):
+    groups = min(groups_per_chunk, -(-(-(-t_total // blocks)) // group))
+    spans = [(t_total * b // blocks, t_total * (b + 1) // blocks) for b in range(blocks)]
+
+    def chunks(lo, hi):
+        """Each chunk of [lo, hi): its groups' (frames, end value, count)."""
+        for c0 in range(lo, hi, group * groups):
+            bounds = [(min(c0 + g * group, hi), min(c0 + (g + 1) * group, hi)) for g in range(groups)]
+            ends = []
+            for a, b in bounds:  # every group at once on the card
+                l = neg_inf
+                for t in range(a, b):
                     if valid[t]:
-                        s = pole * s
-                s = torch.fmax(s, ends[h])
-            for t in range(lo, hi):
-                if valid[t]:
-                    s = torch.fmax(pole * s, v[t])
-                out[t] = s
-        chunk_start = s  # the last group ends on the chunk's end state
-    return out, chunk_start
+                        l = torch.fmax(pole * l, v[t])
+                ends.append(l)
+            yield [(range(a, b), e, int(sum(valid[a:b]))) for (a, b), e in zip(bounds, ends)]
+
+    def walk(lo, hi, chunk_start):
+        for chunk in chunks(lo, hi):
+            for g, (frames, _, _) in enumerate(chunk):
+                s = chunk_start
+                for _, end, n in chunk[:g]:
+                    s = _fold(s, pole, n, end)
+                for t in frames:
+                    if valid[t]:
+                        s = torch.fmax(pole * s, v[t])
+                    out[t] = s
+            chunk_start = s  # the last group ends on the chunk's end state
+        return chunk_start
+
+    if blocks == 1:
+        return out, walk(0, t_total, state0)
+    span_ends = []  # every block's first walk at once on the card
+    for lo, hi in spans:
+        l = neg_inf
+        for chunk in chunks(lo, hi):
+            for _, end, n in chunk:
+                l = _fold(l, pole, n, end)
+        span_ends.append((l, int(sum(valid[lo:hi]))))
+    for b, (lo, hi) in enumerate(spans):
+        s = state0
+        for end, n in span_ends[:b]:
+            s = _fold(s, pole, n, end)
+        final = walk(lo, hi, s)
+    return out, final
+
+
+def _decay_case(t_total, seed):
+    """Display values [T, 3, 37] over eight decades with zeros among them, a
+    state, and poles: one in (0, 1), one nearly 1, and the 0 a zero decay
+    time gives."""
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy((np.abs(rng.standard_normal((t_total, 3, 37))) * 10.0 ** rng.uniform(-6, 2)).astype(np.float32))
+    v[rng.random(v.shape) < 0.1] = 0.0
+    state0 = torch.from_numpy((rng.random((3, 37)) * 5.0).astype(np.float32))
+    pole = torch.tensor([[0.9261187], [0.99998], [0.0]], dtype=torch.float32)
+    return rng, v, state0, pole
 
 
 @pytest.mark.parametrize("group", [1, 16, 128])
 @pytest.mark.parametrize("t_total", [1, 7, 127, 128, 300])
 @pytest.mark.parametrize("mask", ["all", "random", "none"])
 def test_split_decay_is_bit_equal_to_the_sequential_scan(t_total, group, mask):
-    rng = np.random.default_rng(1000 * t_total + group)
-    v = torch.from_numpy((np.abs(rng.standard_normal((t_total, 3, 37))) * 10.0 ** rng.uniform(-6, 2)).astype(np.float32))
-    v[rng.random(v.shape) < 0.1] = 0.0
-    state0 = torch.from_numpy((rng.random((3, 37)) * 5.0).astype(np.float32))
-    # poles in (0, 1), one nearly 1, one tiny, and the 0 a zero decay time gives
-    pole = torch.tensor([[0.9261187], [0.99998], [0.0]], dtype=torch.float32)
+    rng, v, state0, pole = _decay_case(t_total, 1000 * t_total + group)
     if group == 1:
         pole[1] = 1e-3
     valid = {
@@ -99,6 +138,27 @@ def test_split_decay_is_bit_equal_to_the_sequential_scan(t_total, group, mask):
     assert torch.equal(got_state, want_state)
     if mask == "none":
         assert torch.equal(got_state, state0)
+
+
+@pytest.mark.parametrize("blocks", [2, 8, 16])
+@pytest.mark.parametrize("t_total", [65, 509, 512, 513])
+@pytest.mark.parametrize("mask", ["random", "block_invalid", "all"])
+def test_cluster_split_decay_is_bit_equal_to_the_sequential_scan(t_total, blocks, mask):
+    """The fused entry's split of T across a cluster's blocks (8 frames a
+    group, up to 8 groups a chunk, spans of about T / blocks frames: one
+    chunk at T = 512 and 8 blocks, several at 2) against the sequential
+    scan, state and every frame bit for bit: random masks, one block's whole
+    span invalid (an empty span end, no decay: the next block starts from
+    the state before it), every frame valid; a zero pole among the poles."""
+    rng, v, state0, pole = _decay_case(t_total, 7 * t_total + blocks)
+    valid = rng.random(t_total) > 0.35 if mask != "all" else np.ones(t_total, bool)
+    if mask == "block_invalid":
+        b = blocks // 2
+        valid[t_total * b // blocks : t_total * (b + 1) // blocks] = False
+    want, want_state = peak_decay_scan(state0, v, pole, time_axis=0, valid=torch.from_numpy(valid))
+    got, got_state = split_decay(state0, v, pole, valid, 8, blocks=blocks)
+    assert torch.equal(got, want)
+    assert torch.equal(got_state, want_state)
 
 
 def decay_db_grid(constant, state, vals, valid, plan):
@@ -227,6 +287,28 @@ def test_decay_db_plan_covers_the_card():
 
 
 
+def test_display_map_plan_covers_the_card():
+    """The fused entry's blocks a tile: one at the headline (16 pairs x 2
+    rows x 1024 px, T = 256: 1024 tiles cover 132 multiprocessors) and
+    wherever T fits one chunk (T <= 64); the spectrogram's 1 pair x 1 row x
+    1024 px at T = 512 or 509 (32 tiles) splits T across a power-of-two
+    cluster of at most 16 blocks that gives 132 blocks or more (16: 512 of
+    the card's 528 block slots, one wave); a block keeps a group of 8
+    frames (T = 65: 8 blocks, not 16); more tiles take fewer blocks."""
+    assert dm.display_map_plan(16, 256, 2, 2, 1024, 132) == 1
+    for t in (1, 8, 9, 33, 64):
+        assert dm.display_map_plan(1, t, 2, 1, 1024, 132) == 1
+    for t in (509, 512):
+        cluster = dm.display_map_plan(1, t, 2, 1, 1024, 132)
+        assert 32 * cluster >= 132 and cluster & (cluster - 1) == 0 and cluster <= 16
+        assert cluster == 16
+    assert dm.display_map_plan(1, 65, 2, 1, 1024, 132) == 8
+    assert dm.display_map_plan(1, 9000, 8, 1, 1024, 132) == 16
+    assert dm.display_map_plan(2, 512, 2, 2, 1024, 132) == 4  # 128 tiles: 512 blocks
+    assert dm.display_map_plan(1, 512, 2, 1, 4000, 132) == 4  # 125 tiles: 500 blocks
+    assert dm.display_map_plan(1, 512, 2, 1, 4224, 132) == 1  # 132 tiles cover the card
+
+
 @pytest.mark.parametrize(
     "python_name,kernel_value",
     [("DECAY_FRAMES", "kFrames"), ("DECAY_WARP_PIXELS", "4 * kWarp"), ("DECAY_MAX_GROUPS", "kMaxGroups"),
@@ -242,6 +324,24 @@ def test_decay_db_plan_constants_are_the_kernels(python_name, kernel_value):
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
     factor, _, name = kernel_value.rpartition(" * ")
     assert getattr(dm, python_name) == int(factor or 1) * consts[name]
+
+
+@pytest.mark.parametrize(
+    "python_name,kernel_value",
+    [("MAP_TILE_PIXELS", "kWarp"), ("MAP_GROUP_FRAMES", "kGroup"), ("MAP_CHUNK_FRAMES", "kGroup * kMaxGroups"),
+     ("MAP_BLOCKS_AN_SM", "kMinBlocks"), ("MAP_MAX_CLUSTER", "kMaxCluster"), ("MAX_TAPS", "kMaxTaps"),
+     ("MAX_LINE_GRAPHS", "kMaxK")],
+)
+def test_display_map_plan_constants_are_the_kernels(python_name, kernel_value):
+    """The wrapper plans the fused entry's cluster from copies of the
+    kernel's constants: each copy equals its constants' product in
+    csrc/display_map.cu."""
+    import re
+    from pathlib import Path
+
+    source = (Path(dm.__file__).resolve().parent.parent / "csrc" / "display_map.cu").read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+    assert getattr(dm, python_name) == int(np.prod([consts[name] for name in kernel_value.split(" * ")]))
 
 
 def packed_real_spectrum(x: torch.Tensor, n: int) -> torch.Tensor:
